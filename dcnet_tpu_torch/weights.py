@@ -1,0 +1,199 @@
+"""Weights for the port: the JAX-checkpoint bridge, strict loading, seeded
+random init and Darknet backbone splicing.
+
+`state_dict_from_jax` is the port's own numpy-only copy of the key map and
+layout transposes of `dcnet_tpu/train/checkpoint.py` (export direction):
+it turns the JAX package's numpy `params` / `batch_stats` trees into the
+reference state_dict the port's modules are named after.
+
+    flax -> torch layouts: Dense kernel (I, O) -> Linear weight (O, I);
+    Conv kernel HWIO -> (O, I, kH, kW); Conv1d kernel (k, I, O) -> (O, I, k);
+    LSTM w_{ih,hh} (D, 4H) -> weight_{ih,hh}_l0 (4H, D).
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from dcnet_tpu_torch.models.darknet import load_darknet_weights
+
+
+def _lin(v: np.ndarray) -> np.ndarray:
+    return v.transpose(1, 0)
+
+
+def _conv2d(v: np.ndarray) -> np.ndarray:
+    return v.transpose(3, 2, 0, 1)
+
+
+def _conv1d(v: np.ndarray) -> np.ndarray:
+    return v.transpose(2, 1, 0)
+
+
+Spec = Tuple[str, Tuple[str, ...], Optional[Callable[[np.ndarray], np.ndarray]]]
+
+
+def _key_map(params: Mapping[str, Any], light: bool) -> Dict[str, Spec]:
+    """reference key -> ('params' | 'stats', path in the JAX tree, layout fn)."""
+    table: Dict[str, Spec] = {}
+
+    def bn(torch_prefix, path):
+        for attr, (kind, leaf) in (("weight", ("params", "scale")),
+                                   ("bias", ("params", "bias")),
+                                   ("running_mean", ("stats", "mean")),
+                                   ("running_var", ("stats", "var"))):
+            table[f"{torch_prefix}.{attr}"] = (kind, path + (leaf,), None)
+
+    def cbr(torch_prefix, path):  # ConvBNReLU: <prefix>.conv + <prefix>.bn
+        table[f"{torch_prefix}.conv.weight"] = (
+            "params", path + ("conv", "kernel"), _conv2d)
+        bn(f"{torch_prefix}.bn", path + ("bn",))
+
+    def dense_bn(torch_lin, torch_bn, path):
+        table[f"{torch_lin}.weight"] = ("params", path + ("fc", "kernel"), _lin)
+        table[f"{torch_lin}.bias"] = ("params", path + ("fc", "bias"), None)
+        bn(torch_bn, path + ("bn",))
+
+    # backbone: visumodel.module_list.{i}.{conv,batch_norm}_{i}.*
+    for name, leaves in params.get("visumodel", {}).items():
+        kind, i = name.split("_")
+        if kind == "conv":
+            prefix = f"visumodel.module_list.{i}.conv_{i}"
+            table[f"{prefix}.weight"] = (
+                "params", ("visumodel", name, "kernel"), _conv2d)
+            if "bias" in leaves:
+                table[f"{prefix}.bias"] = (
+                    "params", ("visumodel", name, "bias"), None)
+        elif kind == "bn":
+            bn(f"visumodel.module_list.{i}.batch_norm_{i}", ("visumodel", name))
+
+    # BiLSTM language encoder
+    table["textmodel.embedding.weight"] = (
+        "params", ("textmodel", "embedding", "embedding"), None)
+    table["textmodel.mlp.0.weight"] = ("params", ("textmodel", "mlp", "kernel"), _lin)
+    table["textmodel.mlp.0.bias"] = ("params", ("textmodel", "mlp", "bias"), None)
+    for tdir, ours in (("", "fwd"), ("_reverse", "bwd")):
+        for gate in ("ih", "hh"):
+            table[f"textmodel.rnn.weight_{gate}_l0{tdir}"] = (
+                "params", ("textmodel", f"{ours}_w_{gate}"), _lin)
+            table[f"textmodel.rnn.bias_{gate}_l0{tdir}"] = (
+                "params", ("textmodel", f"{ours}_b_{gate}"), None)
+
+    # attention and location heads
+    for name in ("sub_attn", "loc_attn"):
+        table[f"{name}.fc.weight"] = ("params", (name, "fc", "kernel"), _lin)
+        table[f"{name}.fc.bias"] = ("params", (name, "fc", "bias"), None)
+    dense_bn("loc_embedding.0", "loc_embedding.1", ("loc_embedding",))
+    dense_bn("loc_text_embedding.0", "loc_text_embedding.1",
+             ("loc_text_embedding",))
+
+    # mapping modules
+    for s in range(3):
+        cbr(f"mapping_visu.{s}", (f"mapping_visu_{s}",))
+        cbr(f"corr_conv.{s}.0", (f"corr_conv_{s}",))
+    dense_bn("mapping_lang.0", "mapping_lang.1", ("mapping_lang", "l0"))
+    dense_bn("mapping_lang.4", "mapping_lang.5", ("mapping_lang", "l1"))
+
+    # cross-modal Conv1d smoothing (training path)
+    table["feature_map.0.weight"] = ("params", ("feature_map", "kernel"), _conv1d)
+    table["feature_map.0.bias"] = ("params", ("feature_map", "bias"), None)
+
+    # fusion FCN + box head
+    for s in range(3):
+        fcn = f"fcn_{s}"
+        if light:
+            cbr(f"fcn_emb.{s}.0", (fcn, "emb0"))
+            plain_out = f"fcn_out.{s}.0"
+        else:
+            for j in range(3):
+                cbr(f"fcn_emb.{s}.{j}", (fcn, f"emb{j}"))
+            cbr(f"fcn_out.{s}.0", (fcn, "out0"))
+            plain_out = f"fcn_out.{s}.1"
+        table[f"{plain_out}.weight"] = ("params", (fcn, "out1", "kernel"), _conv2d)
+        table[f"{plain_out}.bias"] = ("params", (fcn, "out1", "bias"), None)
+    return table
+
+
+def state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any],
+                        light: bool = False) -> Dict[str, np.ndarray]:
+    """The JAX package's (numpy) `params` and `batch_stats` trees -> the
+    port's state_dict as float arrays in the reference namespace. Modules
+    absent from the trees are left out; num_batches_tracked is not part of
+    it (`load_into` fills it)."""
+    out: Dict[str, np.ndarray] = {}
+    for key, (kind, path, fn) in _key_map(params, light).items():
+        node: Any = params if kind == "params" else batch_stats
+        try:
+            for p in path:
+                node = node[p]
+        except KeyError:
+            continue
+        v = np.asarray(node)
+        out[key] = np.ascontiguousarray(fn(v) if fn else v)
+    return out
+
+
+def load_into(model: nn.Module, state_dict: Mapping[str, Any]):
+    """Load a reference-namespace state_dict (numpy arrays or tensors; an
+    optional DDP `module.` prefix is dropped) into a port module, strictly.
+    BatchNorm `num_batches_tracked` counters the dict lacks keep the
+    module's own value."""
+    sd: Dict[str, torch.Tensor] = {}
+    for k, v in state_dict.items():
+        k = re.sub(r"^module\.", "", k)
+        sd[k] = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.array(v))  # a writable copy
+    for k, v in model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd.setdefault(k, v)
+    return model.load_state_dict(sd, strict=True)
+
+
+@torch.no_grad()
+def seeded_init_(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Random weights from one seeded CPU torch.Generator (the same numbers
+    on any device): fan-in-scaled normal kernels, small biases, BN affine
+    near identity with running statistics near (0, 1), the LSTM's uniform
+    +-1/sqrt(H)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def put(t: torch.Tensor, v: torch.Tensor) -> None:
+        t.copy_(v.to(t.dtype))
+
+    for m in model.modules():
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            put(m.weight, torch.randn(m.weight.shape, generator=g) / math.sqrt(fan_in))
+            if m.bias is not None:
+                put(m.bias, 0.01 * torch.randn(m.bias.shape, generator=g))
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            n = m.num_features
+            put(m.weight, 1 + 0.1 * torch.randn(n, generator=g))
+            put(m.bias, 0.1 * torch.randn(n, generator=g))
+            put(m.running_mean, 0.1 * torch.randn(n, generator=g))
+            put(m.running_var, 0.5 + torch.rand(n, generator=g))
+        elif isinstance(m, nn.Embedding):
+            put(m.weight, torch.randn(m.weight.shape, generator=g))
+        elif isinstance(m, nn.LSTM):
+            bound = 1.0 / math.sqrt(m.hidden_size)
+            for p in m.parameters():
+                put(p, (2 * torch.rand(p.shape, generator=g) - 1) * bound)
+    return model
+
+
+def splice_darknet_weights(model: nn.Module, path: str) -> None:
+    """Load a Darknet `.weights` file into `model.visumodel` (the rest of
+    the model keeps its weights)."""
+    sd, _ = load_darknet_weights(model.visumodel.layer_defs, path)
+    full = dict(model.state_dict())
+    for k, v in sd.items():
+        if k not in full:
+            raise KeyError(f"{k} from {path} is not a parameter of the model")
+        full[k] = v
+    load_into(model, full)

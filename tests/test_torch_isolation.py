@@ -1,0 +1,86 @@
+"""The port stands alone: it imports nothing of JAX or of the JAX package,
+and it never drops to the CPU unasked."""
+
+import os
+import pkgutil
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import dcnet_tpu_torch
+from dcnet_tpu_torch.config import DCNetConfig
+from dcnet_tpu_torch.models.darknet import mini_backbone_defs
+from dcnet_tpu_torch.models.dcnet import DCNet
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "dcnet_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dcnet_tpu")
+
+
+def _port_modules():
+    return ["dcnet_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages([PKG], "dcnet_tpu_torch.")]
+
+
+def _run(code, cwd=REPO):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=240)
+
+
+def test_importing_the_port_loads_no_jax():
+    mods = _port_modules() + ["chip_smoke"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_sources_import_no_jax():
+    pattern = re.compile(
+        r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|orbax|dcnet_tpu)(?:[.\s]|$)",
+        re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, names in os.walk(PKG):
+        dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not source
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 10
+    for path in files:
+        with open(path) as f:
+            hits = pattern.findall(f.read())
+        assert not hits, f"{path} imports {hits}"
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dcnet_tpu_torch.default_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DCNet(DCNetConfig(image_size=64, corpus_size=10),
+              backbone_defs=mini_backbone_defs())
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = _run("import runpy, sys; sys.argv = ['chip_smoke.py']; "
+               "runpy.run_path('chip_smoke.py', run_name='__main__')")
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_outside_the_repository(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=240,
+                         env={k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
