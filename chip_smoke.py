@@ -1,15 +1,18 @@
 """Drives the PyTorch/CUDA port (`dcnet_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # every phase (needs one CUDA card)
-    python3 chip_smoke.py --profile DIR   # and torch.profiler tables of eval_clip
+    python3 chip_smoke.py --profile DIR   # and torch.profiler tables of
+                                          # eval_clip and train_step
 
-Phases, each printing one JSON line, any failure exiting non-zero:
+Phases, each printing JSON lines, any failure exiting non-zero:
   1. device  -- the card (nvidia-smi name and power limit), torch/CUDA
      versions; TF32 is switched off for matmuls and cuDNN convolutions.
-  2. build   -- compiles every kernel from `dcnet_tpu_torch/csrc/` with nvcc.
+  2. build   -- compiles every kernel from `dcnet_tpu_torch/csrc/` with nvcc,
+     one process per source, all started together.
   3. kernel  -- each kernel against its plain PyTorch version on the card at
-     the main path's shapes (plus a ragged P), timed beside the plain
-     version, one PyTorch library call and the card's bound.
+     the main paths' shapes (plus a ragged P and batch-strided inputs),
+     timed beside the plain version, one PyTorch library call and the
+     card's bound: K1 (co-attention), K2 (the pair) and K3 (the backward).
   4. slice   -- the full-width 256 px model (YOLOv3 backbone from a seeded
      Darknet `.weights` file, the rest from a seeded torch.Generator)
      answers batches of 5-frame clips through eval_clip -> decode_best; the
@@ -17,6 +20,17 @@ Phases, each printing one JSON line, any failure exiting non-zero:
      outputs are held against the same model run on the CPU, K1 is held
      against its plain version on the model's own mapped features in each
      compute dtype, and eval_clip is timed in float32 and bfloat16.
+  5. train   -- the same full-width model trains with the RMSprop recipe on
+     synthetic k=2 clips (a colored box moving over noise) through
+     train_epoch (launches checked: per step K2 3, K3 6, K1 0; losses
+     finite; parameters and BN running statistics move) and validate; one
+     fp32 train step on 4 clips is held against the same step on the CPU
+     (losses) and against a float64 step on the CPU (BN running
+     statistics; each module's gradient, within twice the CPU fp32 step's
+     distance, a limit shown to reject a K3 that drops T from dq); K2 and
+     K3 are held against their
+     plain versions on the model's own inputs and upstream gradients in
+     each compute dtype; train_step is timed in float32 and bfloat16.
 Then the `kernels` line, the nvidia-smi line, and as the last line
 `{"ok": true, "device": {...}}`.
 """
@@ -24,6 +38,7 @@ Then the `kernels` line, the nvidia-smi line, and as the last line
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -42,12 +57,14 @@ except ImportError as e:  # run outside a checkout of the repository
 from dcnet_tpu_torch import kernels
 from dcnet_tpu_torch.kernels import build
 from dcnet_tpu_torch.kernels import coattn as k_coattn
+from dcnet_tpu_torch.ops import correspondence
 
 # H100 SXM data-sheet peaks (dense), the card's memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 TEMPERATURE = 10.0
 KERNEL_B, KERNEL_C = 8, 512
+TRAIN_B = 16                      # clips per train step (the JAX bench's)
 TIMING_CLIPS = 64                 # the JAX bench's offline batch
 MAIN_P = (64, 256, 1024)          # the three scales at 256 px
 RAGGED_P = 169                    # the /32 scale at 416 px
@@ -61,6 +78,15 @@ RAGGED_P = 169                    # the /32 scale at 416 px
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
        torch.bfloat16: dict(rtol=1e-2, atol=2e-4)}
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # ||got-want||/||want||
+# K3 against its plain version. Both compute in fp32 from the same inputs
+# and round once to the input dtype; in bf16 they may differ by one bf16
+# step of the output (2^-7 relative) where the fp32 summation order tips the
+# rounding, plus fp32 noise near zero. K2's backward adds two K3 outputs in
+# the input dtype: each term and the sum may each be one step off, so its
+# bf16 limit adds 2^-7 (|term 1| + |term 2|). Zeros and T=1 fail these
+# limits (checked per case).
+BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+           torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
 _BUILD_SUBDIR = os.path.join(build.BUILD_DIR, "smoke")
 
 
@@ -77,12 +103,25 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def agreement(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype):
-    """(ok, max |got - want|, ||got - want|| / ||want||) at dtype's limits."""
+def agreement(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype,
+              tol=None, terms=()):
+    """(ok, max |got - want|, ||got - want|| / ||want||) at dtype's limits
+    (`tol`, K1's by default); `terms` are the bf16 summands of `want`."""
     g, w = got.float(), want.float()
+    tol = (tol or TOL)[dtype]
+    limit = tol["atol"] + tol["rtol"] * w.abs()
+    if dtype == torch.bfloat16:
+        for t in terms:
+            limit = limit + 2 ** -7 * t.float().abs()
     rel = ((g - w).norm() / w.norm()).item()
-    ok = bool(torch.allclose(g, w, **TOL[dtype])) and rel <= REL_TOL[dtype]
+    ok = bool(((g - w).abs() <= limit).all()) and rel <= REL_TOL[dtype]
     return ok, (g - w).abs().max().item(), rel
+
+
+def rejects(want, wrong_t, dtype, tol=None, terms=()) -> bool:
+    """The limits reject zeros and the result at T=1."""
+    return not (agreement(torch.zeros_like(want), want, dtype, tol, terms)[0]
+                or agreement(wrong_t, want, dtype, tol, terms)[0])
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -100,13 +139,31 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def attend_bound(b: int, p: int, c: int, dtype: torch.dtype):
-    """Least time (ms) for one attend launch and what bounds it."""
-    itemsize = torch.tensor([], dtype=dtype).element_size()
-    t_ops = 4.0 * b * p * p * c / PEAK_FLOPS[dtype]
-    t_bytes = 3.0 * b * p * c * itemsize / PEAK_BYTES
+def bound(ops: float, nbytes: float, peak_flops: float):
+    """Least time (ms) for `ops` operations and `nbytes` bytes, and which
+    of the two bounds it."""
+    t_ops, t_bytes = ops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def itemsize(dtype: torch.dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def attend_bound(b: int, p: int, c: int, dtype: torch.dtype, directions: int = 1):
+    """K1 (one direction) or K2 (two): 4 B P^2 C operations at the dtype's
+    peak and 3 B P C elements moved, per direction."""
+    return bound(directions * 4.0 * b * p * p * c,
+                 directions * 3.0 * b * p * c * itemsize(dtype), PEAK_FLOPS[dtype])
+
+
+def attend_bwd_bound(b: int, p: int, c: int, dtype: torch.dtype):
+    """K3: 10 B P^2 C operations (the JAX cost estimate) at the fp32 peak,
+    the precision K3 computes in for either input dtype, and 5 B P C
+    elements moved (q, kv, g read; dq, dkv written)."""
+    return bound(10.0 * b * p * p * c, 5.0 * b * p * c * itemsize(dtype),
+                 PEAK_FLOPS[torch.float32])
 
 
 def phase_device(dev) -> dict:
@@ -125,9 +182,10 @@ def phase_device(dev) -> dict:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build.build(["coattn"])
+    build.build(["coattn", "coattn_bwd"])
     k_coattn._lib()
-    emit({"phase": "build", "kernels": ["coattn"],
+    k_coattn._bwd_lib()
+    emit({"phase": "build", "kernels": ["coattn", "coattn_bwd"],
           "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": {k: round(v, 3)
                            for k, v in build.BUILD_SECONDS.items()}})
@@ -157,34 +215,49 @@ def _sdpa_backends(q, kv):
     return ok
 
 
-def phase_kernel(dev) -> list:
-    """K1 against its plain version on the card; returns the case records."""
-    gen = torch.Generator(device="cpu").manual_seed(0)
+def _rows(gen, *shape):
+    """l2-normalized rows, like the mapped features on the main paths."""
+    return torch.nn.functional.normalize(torch.randn(*shape, generator=gen), dim=-1)
+
+
+def _record(name, dtype, b, p, c, err, rel, serr, tol, rej, ok, k_ms, p_ms,
+            l_ms, library_call, backends, bound_ms, bound_by) -> dict:
+    rec = {"phase": "kernel", "name": name,
+           "dtype": str(dtype).replace("torch.", ""),
+           "B": b, "P": p, "C": c, "T": TEMPERATURE,
+           "max_abs_err": err, "rel_err": rel, "max_abs_err_strided": serr,
+           "tol": {**tol[dtype], "rel": REL_TOL[dtype]},
+           "limits_reject_zeros_and_T1": rej, "ok": ok,
+           "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+           "library_call": library_call, "library_backends": backends,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{dtype} P={p} max err {err} / {serr}, rel "
+                             f"{rel}, limits reject {rej}")
+    return rec
+
+
+def kernel_cases_k1(dev, gen) -> list:
+    """K1 against its plain version at the eval path's request (B=8)."""
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for p in MAIN_P + (RAGGED_P,):
             b, c = KERNEL_B, KERNEL_C
-            # l2-normalized rows, like the mapped features on the main path
-            q = torch.nn.functional.normalize(
-                torch.randn(b, p, c, generator=gen), dim=-1).to(dev, dtype)
-            kv = torch.nn.functional.normalize(
-                torch.randn(b, p, c, generator=gen), dim=-1).to(dev, dtype)
+            q = _rows(gen, b, p, c).to(dev, dtype)
+            kv = _rows(gen, b, p, c).to(dev, dtype)
             got = k_coattn.coattention_one(q, kv, TEMPERATURE)
             want = k_coattn.attend_plain(q, kv, TEMPERATURE)
             torch.cuda.synchronize()
             ok, err, rel = agreement(got, want, dtype)
-            # the limits must reject a kernel that writes zeros or drops T
-            rejects = not (agreement(torch.zeros_like(want), want, dtype)[0]
-                           or agreement(k_coattn.attend_plain(q, kv, 1.0),
-                                        want, dtype)[0])
+            rej = rejects(want, k_coattn.attend_plain(q, kv, 1.0), dtype)
             # a frame sliced out of a (B, 5, P, C) clip: batch-strided input
-            clip = torch.nn.functional.normalize(
-                torch.randn(b, 5, p, c, generator=gen), dim=-1).to(dev, dtype)
+            clip = _rows(gen, b, 5, p, c).to(dev, dtype)
             sgot = k_coattn.coattention_one(clip[:, 2], clip[:, 0], TEMPERATURE)
             swant = k_coattn.attend_plain(clip[:, 2], clip[:, 0], TEMPERATURE)
             torch.cuda.synchronize()
             sok, serr, _ = agreement(sgot, swant, dtype)
-            ok = ok and sok and rejects
             iters = 20 if p >= 1024 else 50
             k_ms = cuda_ms(lambda: k_coattn.coattention_one(q, kv, TEMPERATURE), iters)
             p_ms = cuda_ms(lambda: k_coattn.attend_plain(q, kv, TEMPERATURE), iters)
@@ -192,25 +265,115 @@ def phase_kernel(dev) -> list:
             backends = _sdpa_backends(q4, kv4)
             l_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q4, kv4, kv4, scale=TEMPERATURE), iters)
-            bound_ms, bound_by = attend_bound(b, p, c, dtype)
-            rec = {"phase": "kernel", "name": "coattn_attend",
-                   "dtype": str(dtype).replace("torch.", ""),
-                   "B": b, "P": p, "C": c, "T": TEMPERATURE,
-                   "max_abs_err": err, "rel_err": rel,
-                   "max_abs_err_strided": serr,
-                   "tol": {**TOL[dtype], "rel": REL_TOL[dtype]},
-                   "limits_reject_zeros_and_T1": rejects, "ok": ok,
-                   "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                   "library_call": "F.scaled_dot_product_attention(q, kv, kv, "
-                                   "scale=T), (B, 1, P, C)",
-                   "library_backends": backends,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
-            emit(rec)
-            cases.append(rec)
-            if not ok:
-                raise AssertionError(f"K1 disagrees with its plain version: "
-                                     f"{dtype} P={p} max err {err} / {serr}, "
-                                     f"rel {rel}, limits reject {rejects}")
+            cases.append(_record(
+                "coattn_attend", dtype, b, p, c, err, rel, serr, TOL, rej,
+                ok and sok and rej, k_ms, p_ms, l_ms,
+                "F.scaled_dot_product_attention(q, kv, kv, scale=T), (B, 1, P, C)",
+                backends, *attend_bound(b, p, c, dtype)))
+    return cases
+
+
+def kernel_cases_k2(dev, gen) -> list:
+    """K2 (forward, both directions in one launch) against two plain
+    directions at the train step's batch (B=16), on frames sliced out of
+    (B, 2, P, C) clips as the k=2 path hands them over."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for p in MAIN_P + (RAGGED_P,):
+            b, c = TRAIN_B, KERNEL_C
+            clip = _rows(gen, b, 2, p, c).to(dev, dtype)
+            f1, f2 = clip[:, 0], clip[:, 1]
+            with torch.no_grad():
+                o1, o2 = k_coattn.coattention_fused(f1, f2, TEMPERATURE)
+            w1 = k_coattn.attend_plain(f1, f2, TEMPERATURE)
+            w2 = k_coattn.attend_plain(f2, f1, TEMPERATURE)
+            torch.cuda.synchronize()
+            ok1, err1, rel1 = agreement(o1, w1, dtype)
+            ok2, err2, rel2 = agreement(o2, w2, dtype)
+            rej = (rejects(w1, k_coattn.attend_plain(f1, f2, 1.0), dtype)
+                   and rejects(w2, k_coattn.attend_plain(f2, f1, 1.0), dtype))
+            # contiguous copies give the same result as the strided frames
+            with torch.no_grad():
+                c1, c2 = k_coattn.coattention_fused(f1.contiguous(),
+                                                    f2.contiguous(), TEMPERATURE)
+            torch.cuda.synchronize()
+            serr = max((c1 - o1).abs().max().item(), (c2 - o2).abs().max().item())
+            iters = 10 if p >= 1024 else 30
+
+            def run_kernel():
+                with torch.no_grad():
+                    k_coattn.coattention_fused(f1, f2, TEMPERATURE)
+
+            k_ms = cuda_ms(run_kernel, iters)
+            p_ms = cuda_ms(lambda: (k_coattn.attend_plain(f1, f2, TEMPERATURE),
+                                    k_coattn.attend_plain(f2, f1, TEMPERATURE)), iters)
+            qs = torch.stack([f1, f2], dim=1)   # both directions as 2 heads
+            kvs = torch.stack([f2, f1], dim=1)
+            backends = _sdpa_backends(qs, kvs)
+            l_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, kvs, kvs, scale=TEMPERATURE), iters)
+            cases.append(_record(
+                "coattn_pair", dtype, b, p, c, max(err1, err2), max(rel1, rel2),
+                serr, TOL, rej, ok1 and ok2 and rej and serr == 0.0, k_ms, p_ms,
+                l_ms, "F.scaled_dot_product_attention(q, kv, kv, scale=T) on "
+                "(B, 2, P, C): q = (f1, f2), kv = (f2, f1) as two heads",
+                backends, *attend_bound(b, p, c, dtype, directions=2)))
+    return cases
+
+
+def kernel_cases_k3(dev, gen) -> list:
+    """K3 (dq, dkv) against its plain version at the train step's batch
+    (B=16), on l2-normalized q, kv and a unit-normal upstream gradient, and
+    on batch-strided inputs (frames and gradients sliced out of clips)."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for p in MAIN_P + (RAGGED_P,):
+            b, c = TRAIN_B, KERNEL_C
+            q = _rows(gen, b, p, c).to(dev, dtype)
+            kv = _rows(gen, b, p, c).to(dev, dtype)
+            g = torch.randn(b, p, c, generator=gen).to(dev, dtype)
+            got = k_coattn.attend_bwd(q, kv, TEMPERATURE, g)
+            want = k_coattn.attend_bwd_plain(q, kv, TEMPERATURE, g)
+            wrong = k_coattn.attend_bwd_plain(q, kv, 1.0, g)
+            torch.cuda.synchronize()
+            checks = [agreement(a, w, dtype, BWD_TOL) for a, w in zip(got, want)]
+            rej = all(rejects(w, x, dtype, BWD_TOL) for w, x in zip(want, wrong))
+            clip = _rows(gen, b, 2, p, c).to(dev, dtype)
+            gclip = torch.randn(b, 2, p, c, generator=gen).to(dev, dtype)
+            sgot = k_coattn.attend_bwd(clip[:, 0], clip[:, 1], TEMPERATURE, gclip[:, 1])
+            swant = k_coattn.attend_bwd_plain(clip[:, 0], clip[:, 1], TEMPERATURE,
+                                              gclip[:, 1])
+            torch.cuda.synchronize()
+            schecks = [agreement(a, w, dtype, BWD_TOL) for a, w in zip(sgot, swant)]
+            ok = all(x[0] for x in checks + schecks) and rej
+            iters = 5 if p >= 1024 else 20
+            k_ms = cuda_ms(lambda: k_coattn.attend_bwd(q, kv, TEMPERATURE, g), iters)
+            p_ms = cuda_ms(lambda: k_coattn.attend_bwd_plain(q, kv, TEMPERATURE, g),
+                           iters)
+            ql = q[:, None].detach().requires_grad_()
+            kvl = kv[:, None].detach().requires_grad_()
+            backends = _sdpa_backends(ql.detach(), kvl.detach())
+            out = torch.nn.functional.scaled_dot_product_attention(
+                ql, kvl, kvl, scale=TEMPERATURE)
+            l_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, (ql, kvl), g[:, None], retain_graph=True), iters)
+            del out
+            cases.append(_record(
+                "coattn_attend_bwd", dtype, b, p, c,
+                max(x[1] for x in checks), max(x[2] for x in checks),
+                max(x[1] for x in schecks), BWD_TOL, rej, ok, k_ms, p_ms, l_ms,
+                "torch.autograd.grad through F.scaled_dot_product_attention("
+                "q, kv, kv, scale=T), (B, 1, P, C): dq and dkv = dk + dv",
+                backends, *attend_bwd_bound(b, p, c, dtype)))
+    return cases
+
+
+def phase_kernel(dev) -> list:
+    """K1, K2 and K3 against their plain versions on the card; returns the
+    case records."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    cases = (kernel_cases_k1(dev, gen) + kernel_cases_k2(dev, gen)
+             + kernel_cases_k3(dev, gen))
     kernels.reset_launches()  # the comparison launches above do not count
     return cases
 
@@ -223,18 +386,15 @@ def full_width_config():
                        compute_dtype="float32")
 
 
-def phase_slice(dev, profile_dir=None) -> dict:
-    """The main path on the card, on the full-width YOLOv3 model."""
-    from dcnet_tpu_torch.models.darknet import (
-        random_darknet_weights_file, yolov3_layer_defs)
+def seeded_model(cfg, dev):
+    """The full-width model on `dev`: the YOLOv3 backbone from a seeded
+    Darknet `.weights` file through the port's reader, the rest from
+    `seeded_init_(seed=0)`. Returns (model, layer defs, set-up seconds)."""
+    from dcnet_tpu_torch.models.darknet import random_darknet_weights_file
     from dcnet_tpu_torch.models.dcnet import DCNet
-    from dcnet_tpu_torch.ops.decode import decode_best
     from dcnet_tpu_torch.weights import seeded_init_, splice_darknet_weights
 
-    cfg = full_width_config()
-    defs = yolov3_layer_defs()
-    size = cfg.image_size
-    n_frame = 5
+    defs = _defs()
     t0 = time.perf_counter()
     model = DCNet(cfg, backbone_defs=defs, device=dev)
     seeded_init_(model, seed=0)
@@ -245,7 +405,18 @@ def phase_slice(dev, profile_dir=None) -> dict:
         splice_darknet_weights(model, wpath)
     finally:
         os.remove(wpath)
-    setup_s = time.perf_counter() - t0
+    return model, defs, time.perf_counter() - t0
+
+
+def phase_slice(dev, profile_dir=None) -> dict:
+    """The eval path on the card, on the full-width YOLOv3 model."""
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.ops.decode import decode_best
+
+    cfg = full_width_config()
+    size = cfg.image_size
+    n_frame = 5
+    model, defs, setup_s = seeded_model(cfg, dev)
 
     rng = np.random.RandomState(0)
 
@@ -327,8 +498,9 @@ def phase_slice(dev, profile_dir=None) -> dict:
                               "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
         if profile_dir:
             try:  # a diagnostic: a profiler that cannot trace is reported
-                timing[dtype_name]["profile"] = profile_eval_clip(
-                    m, images, ids, n_frame, profile_dir, dtype_name)
+                timing[dtype_name]["profile"] = profile_call(
+                    lambda: m.eval_clip(images, ids, n_frame=n_frame),
+                    profile_dir, f"eval_clip_{dtype_name}")
             except Exception as e:  # noqa: BLE001
                 timing[dtype_name]["profile"] = {"error": repr(e)[:300]}
         del m
@@ -379,15 +551,371 @@ def check_k1_on_mapped_features(model, images, n_frame) -> dict:
             "tol": {**TOL[model.dtype], "rel": REL_TOL[model.dtype]}}
 
 
-def profile_eval_clip(model, images, ids, n_frame, out_dir, tag) -> dict:
-    """torch.profiler over one eval_clip: device time by kernel (top
+# --- the train path -------------------------------------------------------
+
+TRAIN_STEPS = 3                   # train_epoch steps of the main path
+PARITY_CLIPS = 4                  # clips of the card-vs-CPU train step
+TIMED_STEPS, WARMUP_STEPS = 5, 2
+COLORS = {"red": (200, 40, 40), "green": (40, 180, 60), "blue": (40, 70, 200),
+          "yellow": (220, 200, 40), "purple": (150, 60, 180)}
+SIDES = {"small": 30, "large": 70}
+WORDS = {w: i + 1 for i, w in enumerate(
+    ["the", "box", "moving", "left", "right", *SIDES, *COLORS])}
+
+
+def synthetic_clips(rng, clips: int, k: int, size: int, query_len: int) -> dict:
+    """k-frame clips of a colored box moving over noise, drawn as
+    `dcnet_tpu/data/synthetic.py` draws its frames, at the model's input
+    size and without cv2: images (clips, k, size, size, 3) in [0, 1],
+    word_ids (clips, k, L) of "the <size> <color> box moving <dir>", bbox
+    (clips, k, 4) xyxy pixels."""
+    images = np.empty((clips, k, size, size, 3), np.float32)
+    bbox = np.empty((clips, k, 4), np.float32)
+    ids = np.zeros((clips, k, query_len), np.int64)
+    for c in range(clips):
+        color = list(COLORS)[rng.randint(len(COLORS))]
+        side_name = "small" if rng.rand() < 0.5 else "large"
+        direction = "left" if rng.rand() < 0.5 else "right"
+        side = SIDES[side_name]
+        cx, cy = rng.uniform(side, size - side, 2)
+        vx = (-1 if direction == "left" else 1) * rng.uniform(5, 15)
+        words = ["the", side_name, color, "box", "moving", direction]
+        for f in range(k):
+            img = rng.randint(0, 80, (size, size, 3)).astype(np.uint8)
+            x1 = int(np.clip(cx - side / 2, 0, size - 2))
+            y1 = int(np.clip(cy - side / 2, 0, size - 2))
+            x2 = int(np.clip(cx + side / 2, x1 + 1, size - 1))
+            y2 = int(np.clip(cy + side / 2, y1 + 1, size - 1))
+            img[y1:y2, x1:x2] = COLORS[color]
+            images[c, f] = img / 255.0
+            bbox[c, f] = (x1, y1, x2, y2)
+            ids[c, f, :len(words)] = [WORDS[w] for w in words]
+            cx += vx
+    return {"images": images, "word_ids": ids, "bbox": bbox}
+
+
+def _deterministic_negatives(generator, pos_idx, num_items, neg_n):
+    """The injected sampler of the parity step: the neg_n items after the
+    positive, cyclically (no randomness, never the positive)."""
+    steps = torch.arange(1, neg_n + 1, device=pos_idx.device)
+    return (pos_idx.long()[..., None] + steps) % num_items
+
+
+def _rel(got, want) -> float:
+    g, w = got.float(), want.float()
+    wn = w.norm().item()
+    return 0.0 if wn == 0.0 and g.norm().item() == 0.0 else (g - w).norm().item() / wn
+
+
+# Wrong K3 variants the gradient limit is shown against: the real kernel's
+# outputs altered in the way a faulty K3 would alter them.
+K3_FAULTS = {
+    "dq_without_T": lambda t, dq, dkv: (dq / t, dkv),
+    "outputs_rounded_to_bf16": lambda t, dq, dkv: (
+        dq.bfloat16().to(dq.dtype), dkv.bfloat16().to(dkv.dtype)),
+}
+
+
+def _parity_step(pcfg, state0, batch, where, dtype_name, k3_fault=None):
+    """One train step from state0: (metrics, gradients per top-level
+    module, running statistics, seconds). `k3_fault` swaps K3 for
+    K3_FAULTS[k3_fault] around the real kernel."""
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.train.loop import to_device
+    from dcnet_tpu_torch.train.state import create_train_state
+    from dcnet_tpu_torch.train.step import train_step
+
+    m = DCNet(pcfg.replace(compute_dtype=dtype_name), backbone_defs=_defs(),
+              device=where)
+    m.load_state_dict(state0)
+    if dtype_name == "float64":
+        m.double()
+    st = create_train_state(m, pcfg)
+    bwd = k_coattn.attend_bwd
+    if k3_fault:
+        fault = K3_FAULTS[k3_fault]
+        k_coattn.attend_bwd = lambda q, kv, t, g: fault(t, *bwd(q, kv, t, g))
+    try:
+        t0 = time.perf_counter()
+        metrics = train_step(st, to_device(batch, where))
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        k_coattn.attend_bwd = bwd
+    grads = {}
+    for name, prm in m.named_parameters():
+        grads.setdefault(name.split(".")[0], []).append(
+            prm.grad.cpu().double().flatten())
+    stats = {n: v.cpu().double() for n, v in m.state_dict().items()
+             if "running_" in n}
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: torch.cat(v) for k, v in grads.items()}, stats, seconds)
+
+
+def _stats_err(got: dict, want: dict) -> tuple:
+    """(worst |got - want| / (1e-5 + 1e-4 |want|) over every running
+    statistic, its name): at most 1 is within rtol 1e-4 / atol 1e-5."""
+    worst = (0.0, "")
+    for n, w in want.items():
+        r = ((got[n] - w).abs() / (1e-5 + 1e-4 * w.abs())).max().item()
+        worst = max(worst, (r, n))
+    return worst
+
+
+def train_parity(cfg, state0, batch, dev) -> dict:
+    """One fp32 train step on the card and on the CPU from the same weights
+    and clips (dropout 0, the deterministic negatives on both; TF32 off),
+    and the same step on the CPU in float64 as the exact reference.
+    Each loss part: card within rtol 1e-3 of the CPU. Every BatchNorm's
+    running statistics after the step: card within rtol 1e-4 / atol 1e-5
+    of float64. Each top-level module's gradient: the card's relative l2
+    distance from float64 at most max(1e-3, 2x the CPU fp32's own
+    distance). The float64 step shows why the limit follows the CPU: at
+    full width with random weights, the backward through 75 train-mode
+    BatchNorms turns fp32 rounding into ~1e-2 of the backbone's gradient on
+    any fp32 path (the card's and the CPU's alike: two independent draws of
+    that error), while the card and the CPU in float64 agree to ~1e-8. The
+    batch has 4 clips: the two frames of a clip share their phrase, so 2
+    clips would give the phrase BatchNorm1d two distinct rows, whose
+    backward is nearly all cancellation. Each of K3_FAULTS then runs on the
+    card in K3's place; the limit must reject `dq_without_T`, and the
+    reading of each is reported."""
+    pcfg = cfg.replace(jemb_dropout=0.0, input_dropout=0.0)
+    cpu = torch.device("cpu")
+    sampler = correspondence._sample_negatives_excluding
+    correspondence._sample_negatives_excluding = _deterministic_negatives
+    try:
+        mc, gc, sc, card_s = _parity_step(pcfg, state0, batch, dev, "float32")
+        mr, gr, sr, cpu_s = _parity_step(pcfg, state0, batch, cpu, "float32")
+        _, g64, s64, cpu64_s = _parity_step(pcfg, state0, batch, cpu, "float64")
+        faulty = {f: _parity_step(pcfg, state0, batch, dev, "float32", f)[1]
+                  for f in K3_FAULTS}
+    finally:
+        correspondence._sample_negatives_excluding = sampler
+    loss_rel = {k: abs(mc[k] - mr[k]) / max(abs(mr[k]), 1e-12)
+                for k in mr if k.startswith("loss")}
+    card_vs_64 = {k: _rel(gc[k], g64[k]) for k in g64}
+    cpu_vs_64 = {k: _rel(gr[k], g64[k]) for k in g64}
+    limit = {k: max(1e-3, 2 * v) for k, v in cpu_vs_64.items()}
+
+    def over(grads):  # modules whose gradient is outside its limit
+        return {k: _rel(grads[k], g64[k]) for k in limit
+                if _rel(grads[k], g64[k]) > limit[k]}
+
+    faults = {f: {"rejected": bool(over(g)), "over_limit": over(g),
+                  "grad_rel_l2_vs_cpu_fp64": {k: _rel(g[k], g64[k]) for k in g64}}
+              for f, g in faulty.items()}
+    stats_card, stats_cpu = _stats_err(sc, s64), _stats_err(sr, s64)
+    ok = (all(v <= 1e-3 for v in loss_rel.values()) and not over(gc)
+          and stats_card[0] <= 1.0 and faults["dq_without_T"]["rejected"])
+    rec = {"clips": batch["images"].shape[0] // 2, "loss_rel_err": loss_rel,
+           "rtol_loss": 1e-3,
+           "grad_rel_l2_card_fp32_vs_cpu_fp64": card_vs_64,
+           "grad_rel_l2_cpu_fp32_vs_cpu_fp64": cpu_vs_64,
+           "grad_rel_l2_card_vs_cpu_fp32": {k: _rel(gc[k], gr[k]) for k in gr},
+           "grad_limit": limit,
+           "running_stats": {"n": len(s64), "tol": "rtol 1e-4, atol 1e-5",
+                             "card_vs_cpu_fp64_worst_over_tol": stats_card,
+                             "cpu_fp32_vs_cpu_fp64_worst_over_tol": stats_cpu},
+           "k3_faults": faults,
+           "card_loss": {k: mc[k] for k in loss_rel},
+           "cpu_loss": {k: mr[k] for k in loss_rel},
+           "card_s": card_s, "cpu_s": cpu_s, "cpu_fp64_s": cpu64_s, "ok": ok}
+    if not ok:
+        emit({"phase": "train_parity", **rec})
+        raise AssertionError("the card's train step disagrees with the CPU's")
+    return rec
+
+
+@functools.lru_cache(maxsize=None)
+def _defs():
+    """The YOLOv3 layer list every full-width model here is built from."""
+    from dcnet_tpu_torch.models.darknet import yolov3_layer_defs
+    return yolov3_layer_defs()
+
+
+def _unit_rms(g: torch.Tensor) -> torch.Tensor:
+    return (g.float() / g.float().pow(2).mean().sqrt().clamp_min(1e-30)).to(g.dtype)
+
+
+def check_k2_k3_on_model(state, batch) -> dict:
+    """One train step with the pair wrapped: K2 is held against its plain
+    version on the features the model hands it, and K3 (and K2's backward)
+    on those features and the upstream gradients the real loss sends back
+    (captured with tensor hooks, rescaled to unit RMS: K3 is linear in g),
+    at each scale, in the model's compute dtype."""
+    import dcnet_tpu_torch.models.dcnet as dcnet_mod
+    from dcnet_tpu_torch.train.step import train_step
+
+    dtype = state.model.dtype
+    captured = []
+    pair = dcnet_mod.coattention_pair_fused
+
+    def wrapped(f1, f2, t):
+        a1, a2 = pair(f1, f2, t)
+        rec = {"f1": f1.detach(), "f2": f2.detach(), "t": t}
+        a1.register_hook(lambda g: rec.__setitem__("g1", g.detach()))
+        a2.register_hook(lambda g: rec.__setitem__("g2", g.detach()))
+        captured.append(rec)
+        return a1, a2
+
+    dcnet_mod.coattention_pair_fused = wrapped
+    try:
+        train_step(state, batch)
+    finally:
+        dcnet_mod.coattention_pair_fused = pair
+    worst = {"k2": [0.0, 0.0], "k3": [0.0, 0.0], "k2_bwd": [0.0, 0.0]}
+    ok = len(captured) == 3
+
+    def note(key, res):
+        nonlocal ok
+        ok = ok and res[0]
+        worst[key] = [max(worst[key][0], res[1]), max(worst[key][1], res[2])]
+
+    for rec in captured:
+        b, h, w, c = rec["f1"].shape
+        f1, f2 = (rec[k].reshape(b, h * w, c) for k in ("f1", "f2"))
+        g1, g2 = (_unit_rms(rec[k].reshape(b, h * w, c)) for k in ("g1", "g2"))
+        t = rec["t"]
+        with torch.no_grad():
+            o1, o2 = k_coattn.coattention_fused(f1, f2, t)
+        note("k2", agreement(o1, k_coattn.attend_plain(f1, f2, t), dtype))
+        note("k2", agreement(o2, k_coattn.attend_plain(f2, f1, t), dtype))
+        got1 = k_coattn.attend_bwd(f1, f2, t, k_coattn._rows_contiguous(g1))
+        got2 = k_coattn.attend_bwd(f2, f1, t, k_coattn._rows_contiguous(g2))
+        want1 = k_coattn.attend_bwd_plain(f1, f2, t, g1)
+        want2 = k_coattn.attend_bwd_plain(f2, f1, t, g2)
+        for a, x in zip(got1 + got2, want1 + want2):
+            note("k3", agreement(a, x, dtype, BWD_TOL))
+        note("k2_bwd", agreement(got1[0] + got2[1], want1[0] + want2[1], dtype,
+                                 BWD_TOL, terms=(want1[0], want2[1])))
+        note("k2_bwd", agreement(got1[1] + got2[0], want1[1] + want2[0], dtype,
+                                 BWD_TOL, terms=(want1[1], want2[0])))
+    torch.cuda.synchronize()
+    kernels.reset_launches()  # comparison launches do not count
+    if not ok:
+        raise AssertionError(f"K2/K3 disagree with their plain versions on the "
+                             f"model's inputs ({dtype}): {worst}")
+    return {"scales": len(captured),
+            **{f"{k}_max_abs_err": v[0] for k, v in worst.items()},
+            **{f"{k}_rel_err": v[1] for k, v in worst.items()},
+            "g": "captured upstream gradient, rescaled to unit RMS"}
+
+
+def phase_train(dev, profile_dir=None) -> dict:
+    """The train path on the card: the full-width model, the RMSprop recipe,
+    16-clip k=2 batches of synthetic clips."""
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.train.loop import (
+        flatten_clip_batch, to_device, train_epoch, validate)
+    from dcnet_tpu_torch.train.state import create_train_state
+    from dcnet_tpu_torch.train.step import train_step
+
+    cfg = full_width_config()
+    size, k = cfg.image_size, cfg.n_frames_train
+    model, _, setup_s = seeded_model(cfg, dev)
+    state0 = {n: v.detach().cpu().clone() for n, v in model.state_dict().items()}
+    rng = np.random.RandomState(1)
+    batches = [synthetic_clips(rng, TRAIN_B, k, size, cfg.query_len)
+               for _ in range(TRAIN_STEPS)]
+    state = create_train_state(model, cfg, steps_per_epoch=TRAIN_STEPS)
+
+    # --- the main path: train_epoch, launches counted -----------------------
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    averages = train_epoch(state, batches, epoch=0, print_freq=1,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = {"coattn_attend": 0, "coattn_pair": 3 * TRAIN_STEPS,
+            "coattn_attend_bwd": 6 * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"train_epoch launches {launches}, expected {want}")
+    if not all(np.isfinite(v) for v in averages.values()):
+        raise AssertionError(f"train metrics not finite: {averages}")
+    after = model.state_dict()
+    moved = {}
+    for name, v in after.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        kind = ("running_stats" if "running_" in name else name.split(".")[0])
+        d = (v.detach().cpu() - state0[name]).abs().max().item()
+        moved[kind] = max(moved.get(kind, 0.0), d)
+    if min(moved.values()) <= 0.0:
+        raise AssertionError(f"some parameters or BN statistics did not move: {moved}")
+
+    # --- validate: eval_step over two batches --------------------------------
+    val = validate(model, [synthetic_clips(rng, TRAIN_B, k, size, cfg.query_len)
+                           for _ in range(2)])
+    if not all(0.0 <= v <= 1.0 for v in val.values()):
+        raise AssertionError(f"validate metrics out of range: {val}")
+
+    # --- one fp32 step on the card against the same step on the CPU ----------
+    parity = train_parity(cfg, state0, flatten_clip_batch(
+        synthetic_clips(rng, PARITY_CLIPS, k, size, cfg.query_len)), dev)
+
+    # --- train_step at 16 clips, fp32 and bf16; K2/K3 on the model's inputs --
+    timing, on_model = {}, {}
+    del model, state
+    for dtype_name in ("float32", "bfloat16"):
+        m = DCNet(cfg.replace(compute_dtype=dtype_name), backbone_defs=_defs(),
+                  device=dev)
+        m.load_state_dict(state0)
+        st = create_train_state(m, cfg)
+        batch = to_device(flatten_clip_batch(
+            synthetic_clips(rng, TRAIN_B, k, size, cfg.query_len)), dev)
+        on_model[dtype_name] = check_k2_k3_on_model(st, batch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(WARMUP_STEPS):
+            train_step(st, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            metrics = train_step(st, batch)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t1) / TIMED_STEPS
+        if not all(torch.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"{dtype_name} train metrics not finite")
+        timing[dtype_name] = {
+            "clips": TRAIN_B, "frames": TRAIN_B * k, "s_per_step": dt,
+            "frames_per_s": TRAIN_B * k / dt,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "loss": float(metrics["loss"])}
+        if profile_dir:
+            try:  # a diagnostic: a profiler that cannot trace is reported
+                timing[dtype_name]["profile"] = profile_call(
+                    lambda: train_step(st, batch), profile_dir,
+                    f"train_step_{dtype_name}")
+            except Exception as e:  # noqa: BLE001
+                timing[dtype_name]["profile"] = {"error": repr(e)[:300]}
+        del m, st
+    kernels.reset_launches()
+    rec = {"phase": "train", "model": "YOLOv3/Darknet-53 + BiLSTM, 256 px, "
+           "emb 512, hidden 512, corpus 1000, k=2 clips, RMSprop lr 1e-4 "
+           "(backbone x0.1), wd 5e-4",
+           "data": "synthetic_clips: a colored box moving over noise, seed 1",
+           "setup_s": setup_s, "steps": TRAIN_STEPS, "clips_per_step": TRAIN_B,
+           "epoch_s": epoch_s, "launches": launches,
+           "launches_per_step": {k_: v // TRAIN_STEPS for k_, v in launches.items()},
+           "train_averages": averages, "moved_max_abs": moved,
+           "validate": val, "cpu_parity": parity, "k2_k3_on_model": on_model,
+           "timing": timing, "kind": torch.cuda.get_device_name(dev),
+           "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    return rec
+
+
+def profile_call(fn, out_dir, tag) -> dict:
+    """torch.profiler over one call of fn: device time by kernel (top
     entries), summed kernel time, the host wall time of the call and their
     ratio (the device's busy share). The full table goes to `out_dir`."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.eval_clip(images, ids, n_frame=n_frame)
+        fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = []  # kernels only: operator rows would count their kernels twice
@@ -398,7 +926,7 @@ def profile_eval_clip(model, images, ids, n_frame, out_dir, tag) -> dict:
     rows.sort(reverse=True)
     total_ms = sum(r[0] for r in rows) / 1e3
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_eval_clip_{tag}.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=60))
     return {"wall_ms": wall_ms, "device_ms": total_ms,
@@ -407,33 +935,50 @@ def profile_eval_clip(model, images, ids, n_frame, out_dir, tag) -> dict:
                     for us, k, n in rows[:12]]}
 
 
+KERNELS = (
+    ("coattn_attend", "dcnet_tpu_torch/csrc/coattn.cu",
+     "dcnet_tpu/ops/pallas/coattn.py:52 (_attend; body _attend_kernel :40)"),
+    ("coattn_pair", "dcnet_tpu_torch/csrc/coattn.cu",
+     "dcnet_tpu/ops/pallas/coattn.py:170 (coattention_fused; custom_vjp "
+     ":179-193; wrapper coattention_pair_fused :371)"),
+    ("coattn_attend_bwd", "dcnet_tpu_torch/csrc/coattn_bwd.cu",
+     "dcnet_tpu/ops/pallas/coattn.py:121 (_attend_bwd; body "
+     "_attend_bwd_kernel :80; wired by _bwd :183 and _one_bwd :215)"),
+)
+
+
 def kernels_line(cases: list, launches: dict) -> dict:
-    """One entry per kernel: headline numbers at the main path's dominant
-    launch (P=1024, C=512, B=8, bfloat16), every case under `cases`."""
-    head = next(c for c in cases if c["P"] == 1024 and c["dtype"] == "bfloat16")
-    worst = max(c["max_abs_err"] for c in cases if c["dtype"] == head["dtype"])
-    return {"kernels": [{
-        "name": "coattn_attend", "route": "cuda",
-        "source": "dcnet_tpu_torch/csrc/coattn.cu",
-        "replaces": "dcnet_tpu/ops/pallas/coattn.py:52 (_attend; body "
-                    "_attend_kernel :40)",
-        "launches": launches["coattn_attend"],
-        "shape": {"B": head["B"], "P": head["P"], "C": head["C"],
-                  "dtype": head["dtype"]},
-        "max_abs_err": worst, "ms": head["ms"],
-        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "cases": [{k: c[k] for k in ("dtype", "P", "max_abs_err", "rel_err", "ms",
-                                     "plain_ms", "library_ms", "bound_ms",
-                                     "bound_by", "library_backends")}
-                  for c in cases]}]}
+    """One entry per kernel: headline numbers at its path's dominant launch
+    (P=1024, C=512, bfloat16; B=8 for K1's eval request, B=16 for the train
+    step's K2 and K3), every case under `cases`. `launches` are the counts
+    of the path each kernel runs on (eval for K1, train for K2 and K3)."""
+    out = []
+    for name, source, replaces in KERNELS:
+        mine = [c for c in cases if c["name"] == name]
+        head = next(c for c in mine
+                    if c["P"] == max(MAIN_P) and c["dtype"] == "bfloat16")
+        worst = max(c["max_abs_err"] for c in mine if c["dtype"] == head["dtype"])
+        out.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name],
+            "shape": {"B": head["B"], "P": head["P"], "C": head["C"],
+                      "dtype": head["dtype"]},
+            "max_abs_err": worst, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "cases": [{k: c[k] for k in ("dtype", "P", "max_abs_err", "rel_err",
+                                         "ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_backends")}
+                      for c in mine]})
+    return {"kernels": out}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default="",
                     help="directory for torch.profiler tables of one "
-                         "eval_clip per dtype")
+                         "eval_clip and one train_step per dtype")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -443,7 +988,13 @@ def main(argv=None) -> int:
     info = phase_device(dev)
     phase_build()
     cases = phase_kernel(dev)
-    launches = phase_slice(dev, profile_dir=args.profile)["launches"]
+    eval_launches = phase_slice(dev, profile_dir=args.profile)["launches"]
+    train_launches = phase_train(dev, profile_dir=args.profile)["launches"]
+    launches = {"coattn_attend": eval_launches["coattn_attend"],
+                "coattn_pair": train_launches["coattn_pair"],
+                "coattn_attend_bwd": train_launches["coattn_attend_bwd"]}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the paths never launched: {launches}")
     emit(kernels_line(cases, launches))
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

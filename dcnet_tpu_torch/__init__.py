@@ -36,5 +36,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def resolve_dtype(name: str) -> torch.dtype:
-    """The config's compute_dtype, 'float32' or 'bfloat16', as a torch dtype."""
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+    """The config's compute_dtype as a torch dtype: 'float32' or 'bfloat16';
+    'float64' serves as an exact reference on the CPU only (the kernels take
+    float32 and bfloat16 and raise on anything else)."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float64": torch.float64}[name]

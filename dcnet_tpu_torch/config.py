@@ -1,11 +1,12 @@
-"""Typed configuration of the port: the eval fields of the JAX package's
-`DCNetConfig` and every shape derived from them.
+"""Typed configuration of the port: the eval and training fields of the JAX
+package's `DCNetConfig` and every shape derived from them.
 
 The port's own copy of `dcnet_tpu/config.py` (anchor tables, the
 `legacy_anchor_typo` switch, strides, grids, all_positions, scaled anchors,
-scale offsets); the training, sharding and TPU-only fields are not carried.
-Options the port does not run yet are kept as fields so a config reads the
-same in both packages, and raise where they would take effect.
+scale and position offsets, the clamping of the correspondence sizes); the
+TPU-only fields are not carried. Options the port does not run yet are kept
+as fields so a config reads the same in both packages, and raise where they
+would take effect.
 """
 
 from __future__ import annotations
@@ -52,13 +53,14 @@ def anchors_for_dataset(dataset: str, legacy_anchor_typo: bool = False
 
 @dataclasses.dataclass(frozen=True)
 class DCNetConfig:
-    """Eval-path configuration; every derived shape is computed here."""
+    """One typed config; every derived shape is computed here."""
 
     dataset: str = "VID"
     image_size: int = 256
     anchor_imsize: int = 416
     emb_size: int = 512
     query_len: int = 20
+    n_frames_train: int = 2        # train clip length (k=2: the pair kernel)
     n_frames_test: int = 5
     light: bool = False
     use_lstm: bool = True          # False = BERT text encoder (not ported)
@@ -67,7 +69,30 @@ class DCNetConfig:
     word_embedding_size: int = 512
     jemb_dropout: float = 0.1
     input_dropout: float = 0.2
+    # correspondence sampling (clamped to the coarsest grid in __post_init__)
+    interframe_top_k: int = 30
+    interframe_neg_n: int = 10
+    crossmodal_top_k: int = 1
+    crossmodal_neg_n: int = 5
     coattn_temperature: float = 10.0
+    infonce_temperature: float = 0.07
+    # loss weights
+    w_rank: float = 100.0
+    w_interframe: float = 100.0
+    w_crossmodal: float = 1.0
+    w_loc: float = 1.0
+    yolo_coord_weight: float = 5.0
+    rank_margin: float = 0.1
+    # optimizer: two parameter groups, the backbone at lr * backbone_lr_scale,
+    # poly decay per epoch
+    lr: float = 1e-4
+    backbone_lr_scale: float = 0.1
+    weight_decay: float = 5e-4
+    poly_power: float = 0.9
+    nb_epoch: int = 100
+    batch_size: int = 8
+    optimizer: str = "rmsprop"     # or "adam", "sgd"
+    seed: int = 13
     legacy_anchor_typo: bool = False
     compute_dtype: str = "float32"  # or "bfloat16"
     split_corr_conv: bool = True    # corr_conv computes the center half once
@@ -75,6 +100,19 @@ class DCNetConfig:
     coattn_multiref: bool = False     # not ported yet (ROADMAP queue B, K4)
     coattn_int8_logits: bool = False  # not ported yet (ROADMAP queue A, 9)
     trunk_quant: str = "off"          # not ported yet (ROADMAP queue A, 9)
+    remat_backbone: bool = False      # not ported yet (ROADMAP queue A, 6)
+    tp_internals: bool = False        # not ported yet (ROADMAP queue A, 12)
+
+    def __post_init__(self):
+        # the reference constants 30/10/5 assume 64 patches on the coarsest
+        # grid (256 px); smaller images offer fewer
+        p = (self.image_size // 32) ** 2
+        object.__setattr__(self, "interframe_top_k",
+                           min(self.interframe_top_k, p * p))
+        object.__setattr__(self, "interframe_neg_n",
+                           min(self.interframe_neg_n, max(p - 1, 1)))
+        object.__setattr__(self, "crossmodal_neg_n",
+                           min(self.crossmodal_neg_n, max(p - 1, 1)))
 
     def replace(self, **changes) -> "DCNetConfig":
         return dataclasses.replace(self, **changes)
@@ -112,4 +150,13 @@ class DCNetConfig:
         for g in self.grids:
             offs.append(acc)
             acc += ANCHORS_PER_SCALE * g * g
+        return tuple(offs)
+
+    def position_offsets(self) -> Tuple[int, ...]:
+        """Start of each scale inside the flat grid^2 position vector (the
+        all_positions-long layout of the sim/loc score maps)."""
+        offs, acc = [], 0
+        for g in self.grids:
+            offs.append(acc)
+            acc += g * g
         return tuple(offs)

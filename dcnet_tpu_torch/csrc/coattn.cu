@@ -1,11 +1,15 @@
-// K1: single-direction co-attention for Hopper (sm_90a).
+// K1: single-direction co-attention for Hopper (sm_90a), and K2, the pair.
 //
-// Replaces dcnet_tpu/ops/pallas/coattn.py::_attend (kernel body
+// K1 replaces dcnet_tpu/ops/pallas/coattn.py::_attend (kernel body
 // _attend_kernel), reached from DCNet.corr_features through
 // coattention_center_fused / coattention_one:
 //
 //     out[b] = softmax_rows(T * q[b] kv[b]^T) kv[b],   q, kv, out: (B, P, C)
 //
+// K2 replaces coattn.py::coattention_fused, the training step's pair: both
+// directions (attend(f1, f2), attend(f2, f1)) in one launch whose grid spans
+// the direction (blockIdx.z; z = 1 swaps the operands). The column softmax
+// of f1 f2^T is the row softmax of f2 f1^T, so each direction is K1.
 // Precision follows the TPU kernel: logits and softmax in fp32; bf16 inputs
 // take both products on the tensor cores (WMMA m16n16k16, fp32 accumulate)
 // with the softmax weights rounded to bf16 before the PV product; fp32
@@ -218,9 +222,8 @@ __device__ void tile_accumulate(const bf16* p_s, const bf16* kv_s, float* o_s,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attend_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-              T* __restrict__ out, int P, int C, long long q_bstride,
-              long long kv_bstride, float t) {
+attend_kernel(const T* q, const T* kv, T* out, T* out2, int P, int C,
+              long long q_bstride, long long kv_bstride, float t) {
   constexpr int BN = Tile<T>::kBlockN;
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout L = layout<T>(C);
@@ -232,6 +235,15 @@ attend_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   float* m_s = reinterpret_cast<float*>(smem + L.off_m);
   float* l_s = reinterpret_cast<float*>(smem + L.off_l);
 
+  if (blockIdx.z == 1) {  // the pair's second direction: attend(kv, q)
+    const T* tmp = q;
+    q = kv;
+    kv = tmp;
+    const long long st = q_bstride;
+    q_bstride = kv_bstride;
+    kv_bstride = st;
+    out = out2;
+  }
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * kBlockM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -295,8 +307,8 @@ attend_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 }
 
 template <typename T>
-int launch(const void* q, const void* kv, void* out, int B, int P, int C,
-           long long q_bstride, long long kv_bstride, float t,
+int launch(const void* q, const void* kv, void* out, void* out2, int B, int P,
+           int C, long long q_bstride, long long kv_bstride, float t,
            cudaStream_t stream) {
   const Layout L = layout<T>(C);
   cudaError_t err = cudaFuncSetAttribute(
@@ -306,10 +318,10 @@ int launch(const void* q, const void* kv, void* out, int B, int P, int C,
     cudaGetLastError();  // clear, so PyTorch's next check does not see it
     return (int)err;
   }
-  const dim3 grid((P + kBlockM - 1) / kBlockM, B);
+  const dim3 grid((P + kBlockM - 1) / kBlockM, B, out2 ? 2 : 1);
   attend_kernel<T><<<grid, kThreads, L.total, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv), static_cast<T*>(out),
-      P, C, q_bstride, kv_bstride, t);
+      static_cast<T*>(out2), P, C, q_bstride, kv_bstride, t);
   return (int)cudaGetLastError();
 }
 
@@ -318,16 +330,22 @@ int launch(const void* q, const void* kv, void* out, int B, int P, int C,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; rows of q and
-// kv are contiguous (row stride C). Returns a cudaError_t code, 0 on success.
-int dcnet_coattn_attend(const void* q, const void* kv, void* out, int B, int P,
-                        int C, long long q_bstride, long long kv_bstride,
-                        float t, int dtype, void* stream) {
+// kv are contiguous (row stride C). With out2 null this is K1 (out =
+// attend(q, kv)); otherwise K2 (out = attend(q, kv), out2 = attend(kv, q)).
+// Returns a cudaError_t code, 0 on success.
+int dcnet_coattn_attend(const void* q, const void* kv, void* out, void* out2,
+                        int B, int P, int C, long long q_bstride,
+                        long long kv_bstride, float t, int dtype, void* stream) {
   if (B <= 0 || P <= 0 || C <= 0 || C % 16 != 0 || B > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, kv, out, B, P, C, q_bstride, kv_bstride, t, s);
-  if (dtype == 1) return launch<bf16>(q, kv, out, B, P, C, q_bstride, kv_bstride, t, s);
+  if (dtype == 0) {
+    return launch<float>(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
+  }
+  if (dtype == 1) {
+    return launch<bf16>(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,16 +1,25 @@
-"""K1: single-direction co-attention, `softmax_rows(T * q kvᵀ) kv`.
+"""Co-attention kernels K1, K2 and K3 with their gradients.
 
-The port of `dcnet_tpu/ops/pallas/coattn.py::_attend` and its entry points
-`coattention_one` / `coattention_center_fused`. The kernel is CUDA C++ in
-`csrc/coattn.cu` (its source note gives the bound and the design); this
-module binds it with `ctypes`, holds its plain PyTorch version, and
-dispatches on where the tensors lie: CPU tensors take the plain version,
-CUDA tensors launch the kernel or raise.
+K1, `softmax_rows(T * q kvᵀ) kv`, is the port of
+`dcnet_tpu/ops/pallas/coattn.py::_attend`; K2, the pair `(K1(f1, f2),
+K1(f2, f1))` of the training step, of `coattention_fused`; K3, the
+backward of one direction, of `_attend_bwd`. K1 and K2 are one CUDA kernel
+in `csrc/coattn.cu` (K2's grid spans the direction), K3 is
+`csrc/coattn_bwd.cu`; their source notes give the bounds and the designs.
+This module binds them with `ctypes`, holds their plain PyTorch versions,
+and dispatches on where the tensors lie: CPU tensors take the plain
+versions, CUDA tensors launch the kernels or raise.
+
+The gradients are `torch.autograd.Function`s, as the JAX package's are
+`custom_vjp`s: `coattention_one` is K1 forward and K3 backward, and
+`coattention_fused` is K2 forward and two K3 backward, combined as
+df1 = dq1 + dkv2 and df2 = dkv1 + dq2, the sum taken in the input dtype.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -18,6 +27,12 @@ from dcnet_tpu_torch import kernels
 from dcnet_tpu_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+K3_MAX_C = 512  # csrc/coattn_bwd.cu holds its accumulators for C <= 512
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' math type: fp32, or fp64 for a float64 reference."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def attend_plain(q: torch.Tensor, kv: torch.Tensor,
@@ -25,21 +40,40 @@ def attend_plain(q: torch.Tensor, kv: torch.Tensor,
     """The plain version, with the TPU kernel's dtype rules: fp32 logits and
     softmax, weights rounded to bf16 before the PV product when kv is bf16,
     fp32 accumulation, output in q's dtype. q, kv: (B, P, C)."""
-    kvf = kv.float()
-    logits = torch.matmul(q.float(), kvf.transpose(1, 2)) * temperature
+    kvf = kv.to(_acc(kv.dtype))
+    logits = torch.matmul(q.to(kvf.dtype), kvf.transpose(1, 2)) * temperature
     w = torch.softmax(logits, dim=-1)
     if kv.dtype == torch.bfloat16:
-        w = w.to(torch.bfloat16).float()
+        w = w.to(torch.bfloat16).to(kvf.dtype)
     return torch.matmul(w, kvf).to(q.dtype)
+
+
+def attend_bwd_plain(q: torch.Tensor, kv: torch.Tensor, temperature: float,
+                     g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K3, the body of the TPU kernel on full rows:
+    everything in fp32 with the unrounded softmax W (not the autograd of
+    `attend_plain`, whose W is rounded to bf16 for bf16 inputs),
+        dW = g kvᵀ, dS = W (dW - rowsum(dW W)),
+        dq = T dS kv, dkv = T dSᵀ q + Wᵀ g,
+    each cast to its input's dtype. q, kv, g: (B, P, C)."""
+    acc = _acc(q.dtype)
+    qf, kvf, gf = q.to(acc), kv.to(acc), g.to(acc)
+    w = torch.softmax(torch.matmul(qf, kvf.transpose(1, 2)) * temperature, dim=-1)
+    dw = torch.matmul(gf, kvf.transpose(1, 2))
+    ds = w * (dw - torch.sum(dw * w, dim=-1, keepdim=True))
+    dq = temperature * torch.matmul(ds, kvf)
+    dkv = (temperature * torch.matmul(ds.transpose(1, 2), qf)
+           + torch.matmul(w.transpose(1, 2), gf))
+    return dq.to(q.dtype), dkv.to(kv.dtype)
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("coattn")
     if not getattr(lib, "_dcnet_bound", False):
         lib.dcnet_coattn_attend.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         lib.dcnet_coattn_attend.restype = ctypes.c_int
         lib.dcnet_coattn_error_string.argtypes = [ctypes.c_int]
         lib.dcnet_coattn_error_string.restype = ctypes.c_char_p
@@ -47,53 +81,178 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q: torch.Tensor, kv: torch.Tensor) -> None:
-    if q.device.type != "cuda" or kv.device != q.device:
-        raise ValueError(f"coattention kernel needs q and kv on one CUDA "
-                         f"device, got {q.device} and {kv.device}")
-    if q.dtype not in _DTYPE_CODE or kv.dtype != q.dtype:
-        raise TypeError(f"coattention kernel takes float32 or bfloat16 "
-                        f"(both the same), got {q.dtype} and {kv.dtype}")
-    if q.dim() != 3 or q.shape != kv.shape:
-        raise ValueError(f"coattention kernel needs q, kv of one (B, P, C) "
-                         f"shape, got {tuple(q.shape)} and {tuple(kv.shape)}")
-    b, p, c = q.shape
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("coattn_bwd")
+    if not getattr(lib, "_dcnet_bound", False):
+        lib.dcnet_coattn_attend_bwd.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+            + [ctypes.c_longlong] * 3
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.dcnet_coattn_attend_bwd.restype = ctypes.c_int
+        lib.dcnet_coattn_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.dcnet_coattn_bwd_error_string.restype = ctypes.c_char_p
+        lib._dcnet_bound = True
+    return lib
+
+
+def _check(**xs: torch.Tensor) -> None:
+    """The kernels' input rules: one CUDA device, float32 or bfloat16 (all
+    the same), one (B, P, C) shape with C % 16 == 0, rows contiguous and
+    16-byte aligned, any batch stride (a frame sliced out of a clip)."""
+    (n0, x0), *_ = xs.items()
+    if any(x.device.type != "cuda" or x.device != x0.device for x in xs.values()):
+        raise ValueError(f"coattention kernel needs {', '.join(xs)} on one "
+                         f"CUDA device, got "
+                         f"{', '.join(str(x.device) for x in xs.values())}")
+    if x0.dtype not in _DTYPE_CODE or any(x.dtype != x0.dtype for x in xs.values()):
+        raise TypeError(f"coattention kernel takes float32 or bfloat16 (all "
+                        f"the same), got "
+                        f"{', '.join(str(x.dtype) for x in xs.values())}")
+    if x0.dim() != 3 or any(x.shape != x0.shape for x in xs.values()):
+        raise ValueError(f"coattention kernel needs {', '.join(xs)} of one "
+                         f"(B, P, C) shape, got "
+                         f"{', '.join(str(tuple(x.shape)) for x in xs.values())}")
+    b, p, c = x0.shape
     if c % 16 or b > 65535:
         raise ValueError(f"coattention kernel needs C % 16 == 0 and "
                          f"B <= 65535, got B={b}, C={c}")
-    for name, x in (("q", q), ("kv", kv)):
-        # rows contiguous; any batch stride (a frame sliced out of a clip)
-        if x.stride(2) != 1 or (p > 1 and x.stride(1) != c):
+    for name, x in xs.items():
+        if not _rows_ok(x):
             raise ValueError(f"coattention kernel needs {name} rows "
-                             f"contiguous, got strides {x.stride()}")
-        if x.data_ptr() % 16 or (x.stride(0) * x.element_size()) % 16:
-            raise ValueError(f"coattention kernel needs {name} 16-byte "
-                             f"aligned per batch row")
+                             f"contiguous and 16-byte aligned per batch row, "
+                             f"got strides {x.stride()}")
+
+
+def _rows_ok(x: torch.Tensor) -> bool:
+    """The kernels' layout rule for a (B, P, C) tensor: rows contiguous and
+    16-byte aligned per batch row, any batch stride."""
+    p, c = x.shape[1], x.shape[2]
+    return (x.stride(2) == 1 and (p == 1 or x.stride(1) == c)
+            and x.data_ptr() % 16 == 0
+            and (x.stride(0) * x.element_size()) % 16 == 0)
+
+
+def _on_cpu(*xs: torch.Tensor) -> bool:
+    return all(x.device.type == "cpu" for x in xs)
+
+
+def _launch_attend(q: torch.Tensor, kv: torch.Tensor, temperature: float,
+                   pair: bool):
+    """One launch of csrc/coattn.cu: K1 (out = attend(q, kv)) or, with
+    `pair`, K2 (also out2 = attend(kv, q)). Counts nothing."""
+    _check(q=q, kv=kv)
+    lib = _lib()
+    b, p, c = q.shape
+    out = torch.empty((b, p, c), dtype=q.dtype, device=q.device)
+    out2 = torch.empty_like(out) if pair else None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.dcnet_coattn_attend(
+            q.data_ptr(), kv.data_ptr(), out.data_ptr(),
+            out2.data_ptr() if pair else None, b, p, c, q.stride(0),
+            kv.stride(0), float(temperature), _DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"coattention {'pair ' if pair else ''}kernel launch failed "
+            f"(B={b}, P={p}, C={c}, {q.dtype}): "
+            f"{lib.dcnet_coattn_error_string(err).decode()}")
+    return (out, out2) if pair else out
+
+
+def _rows_contiguous(x: torch.Tensor) -> torch.Tensor:
+    """x itself where its rows are contiguous and aligned as the kernels
+    need, else a contiguous copy (a gradient sliced out of a concat)."""
+    return x if _rows_ok(x) else x.contiguous()
+
+
+def attend_bwd(q: torch.Tensor, kv: torch.Tensor, temperature: float,
+               g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: (dq, dkv) of attend(q, kv) for the upstream gradient g, each in
+    its input's dtype. CPU tensors take `attend_bwd_plain`; CUDA tensors
+    launch the kernel (two grids, one count) or raise."""
+    if _on_cpu(q, kv, g):
+        return attend_bwd_plain(q, kv, temperature, g)
+    _check(q=q, kv=kv, g=g)
+    b, p, c = q.shape
+    if c > K3_MAX_C:
+        raise ValueError(f"coattention backward kernel needs C <= {K3_MAX_C}, "
+                         f"got C={c}")
+    lib = _bwd_lib()
+    dq = torch.empty((b, p, c), dtype=q.dtype, device=q.device)
+    dkv = torch.empty_like(dq)
+    lse = torch.empty((b, p), dtype=torch.float32, device=q.device)
+    dd = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.dcnet_coattn_attend_bwd(
+            q.data_ptr(), kv.data_ptr(), g.data_ptr(), dq.data_ptr(),
+            dkv.data_ptr(), lse.data_ptr(), dd.data_ptr(), b, p, c,
+            q.stride(0), kv.stride(0), g.stride(0), float(temperature),
+            _DTYPE_CODE[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"coattention backward kernel launch failed (B={b}, P={p}, C={c}, "
+            f"{q.dtype}): {lib.dcnet_coattn_bwd_error_string(err).decode()}")
+    kernels.LAUNCHES["coattn_attend_bwd"] += 1
+    return dq, dkv
+
+
+class _AttendOne(torch.autograd.Function):
+    """K1 forward, K3 backward (the JAX package's `_one_fwd` / `_one_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, kv, temperature):
+        ctx.save_for_backward(q, kv)
+        ctx.temperature = temperature
+        if _on_cpu(q, kv):
+            return attend_plain(q, kv, temperature)
+        out = _launch_attend(q, kv, temperature, pair=False)
+        kernels.LAUNCHES["coattn_attend"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, kv = ctx.saved_tensors
+        dq, dkv = attend_bwd(q, kv, ctx.temperature, _rows_contiguous(g))
+        return dq, dkv, None
+
+
+class _AttendPair(torch.autograd.Function):
+    """K2 forward, two K3 backward (the JAX package's `_fwd` / `_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, temperature):
+        ctx.save_for_backward(f1, f2)
+        ctx.temperature = temperature
+        if _on_cpu(f1, f2):
+            return attend_plain(f1, f2, temperature), attend_plain(f2, f1, temperature)
+        o1, o2 = _launch_attend(f1, f2, temperature, pair=True)
+        kernels.LAUNCHES["coattn_pair"] += 1
+        return o1, o2
+
+    @staticmethod
+    def backward(ctx, g1, g2):
+        f1, f2 = ctx.saved_tensors
+        t = ctx.temperature
+        dq1, dkv1 = attend_bwd(f1, f2, t, _rows_contiguous(g1))
+        dq2, dkv2 = attend_bwd(f2, f1, t, _rows_contiguous(g2))
+        return dq1 + dkv2, dkv1 + dq2, None
 
 
 def coattention_one(q: torch.Tensor, kv: torch.Tensor,
                     temperature: float) -> torch.Tensor:
     """Attended-for-q: softmax_rows(T q kvᵀ) kv. q, kv: (B, P, C) -> (B, P, C)
-    in q's dtype. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (on the current stream) or raise."""
-    if q.device.type == "cpu" and kv.device.type == "cpu":
-        return attend_plain(q, kv, temperature)
-    _check(q, kv)
-    lib = _lib()
-    b, p, c = q.shape
-    out = torch.empty((b, p, c), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dcnet_coattn_attend(
-            q.data_ptr(), kv.data_ptr(), out.data_ptr(), b, p, c,
-            q.stride(0), kv.stride(0), float(temperature), _DTYPE_CODE[q.dtype],
-            stream)
-    if err != 0:
-        raise RuntimeError(
-            f"coattention kernel launch failed (B={b}, P={p}, C={c}, "
-            f"{q.dtype}): {lib.dcnet_coattn_error_string(err).decode()}")
-    kernels.LAUNCHES["coattn_attend"] += 1
-    return out
+    in q's dtype, differentiable (K3). CPU tensors take the plain versions;
+    CUDA tensors launch the kernels (on the current stream) or raise."""
+    return _AttendOne.apply(q, kv, temperature)
+
+
+def coattention_fused(f1: torch.Tensor, f2: torch.Tensor, temperature: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: (attended_for_f1, attended_for_f2) = (attend(f1, f2),
+    attend(f2, f1)), the contract of ops.coattention.coattention_pair on
+    flattened patches. f1, f2: (B, P, C); differentiable (2 x K3)."""
+    return _AttendPair.apply(f1, f2, temperature)
 
 
 def coattention_center_fused(center: torch.Tensor, ref: torch.Tensor,
@@ -104,3 +263,14 @@ def coattention_center_fused(center: torch.Tensor, ref: torch.Tensor,
     out = coattention_one(center.reshape(b, h * w, c),
                           ref.reshape(b, h * w, c), temperature)
     return out.reshape(b, h, w, c)
+
+
+def coattention_pair_fused(f1: torch.Tensor, f2: torch.Tensor,
+                           temperature: float = 10.0
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Drop-in for ops.coattention.coattention_pair on NHWC (B, H, W, C)
+    maps: both directions through K2."""
+    b, h, w, c = f1.shape
+    o1, o2 = coattention_fused(f1.reshape(b, h * w, c),
+                               f2.reshape(b, h * w, c), temperature)
+    return o1.reshape(b, h, w, c), o2.reshape(b, h, w, c)

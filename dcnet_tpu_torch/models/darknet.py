@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dcnet_tpu_torch.models.heads import bn_eval, conv_nhwc, leaky_relu
+from dcnet_tpu_torch.models.heads import batch_norm, conv_nhwc, leaky_relu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,7 +214,8 @@ class DarknetBackbone(nn.Module):
     """cfg-driven backbone; forward returns the 3 captured NHWC maps
     (coarsest first). `module_list[i]` holds `conv_{i}` (and `batch_norm_{i}`)
     for conv layers and is empty otherwise, as in the reference. BN math
-    runs in fp32 and activations are stored in `dtype`."""
+    runs in fp32 and activations are stored in `dtype`; `train` takes the
+    batch statistics (torch momentum 0.1, flax's 0.9)."""
 
     def __init__(self, layer_defs: Sequence[LayerDef], device=None):
         super().__init__()
@@ -232,8 +233,8 @@ class DarknetBackbone(nn.Module):
             self.module_list.append(m)
         self._keep = _referenced_outputs(self.layer_defs)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32
-                ) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
+                train: bool = False) -> List[torch.Tensor]:
         """x: NHWC images (N, H, W, 3) -> [/32, /16, /8] NHWC maps."""
         captured: List[torch.Tensor] = []
         saved: Dict[int, torch.Tensor] = {}  # only outputs read again later
@@ -245,7 +246,7 @@ class DarknetBackbone(nn.Module):
                 conv = self.module_list[i][0]
                 x = conv_nhwc(x, conv.weight, conv.bias, ld.stride, ld.pad)
                 if ld.batch_normalize:
-                    x = bn_eval(x, self.module_list[i][1])
+                    x = batch_norm(x, self.module_list[i][1], train)
                 if ld.activation == "leaky":
                     x = leaky_relu(x)
             elif ld.type == "maxpool":

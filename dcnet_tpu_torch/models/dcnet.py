@@ -1,19 +1,23 @@
-"""DCNet grounding model, eval path (PyTorch).
+"""DCNet grounding model (PyTorch): the training forward and the eval path.
 
-The port of the inference half of `dcnet_tpu/models/dcnet.py`: backbone +
-per-scale mapping (`extract_features`), the language encoder
-(`encode_language`), the correspondence stage (`corr_features`: the center
-frame co-attends to each reference through kernel K1, then the split
-corr_conv, l2-norm and the mean over references), the fusion trunk with
-subject/location attention and confidence modulation (`_trunk`), and
-`eval_features` / `eval_clip`. The module tree carries the reference
-state_dict names, so the reference `.pth.tar` state_dict (and
-`weights.state_dict_from_jax` of a JAX checkpoint) loads with strict=True.
+The port of `dcnet_tpu/models/dcnet.py`: backbone + per-scale mapping
+(`extract_features`), the language encoder (`encode_language`), the
+correspondence stage (`corr_features`: the center frame co-attends to each
+reference through kernel K1, then the split corr_conv, l2-norm and the mean
+over references), the fusion trunk with subject/location attention and
+confidence modulation (`_trunk`), `eval_features` / `eval_clip`, and the
+training forward `forward(images, word_ids, train=True)` on interleaved
+k-frame clips: k=2 pairs the frames through kernel K2 (both directions,
+gradient 2 x K3), k>2 ring-pairs frame j with frame j+1 through K1 (gradient
+K3), then the trunk and the inter-frame and cross-modal contrastive samples.
+The module tree carries the reference state_dict names, so the reference
+`.pth.tar` state_dict (and `weights.state_dict_from_jax` of a JAX
+checkpoint) loads with strict=True.
 
 Public layouts follow the JAX package: images NHWC (B*n, H, W, 3), per-frame
-features (B, n, h, w, C), outbox (B, 3, 5, g, g). The training forward, the
-single-image baseline, the serving ring (`newest_slot`) and the opt-in
-co-attention variants are later slices (ROADMAP queues A and B).
+features (B, n, h, w, C), outbox (B, 3, 5, g, g). The single-image
+baseline, the serving ring (`newest_slot`) and the opt-in co-attention
+variants are later slices (ROADMAP queues A and B).
 """
 
 from __future__ import annotations
@@ -21,11 +25,13 @@ from __future__ import annotations
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dcnet_tpu_torch import DeviceLike, resolve_device, resolve_dtype
 from dcnet_tpu_torch.config import DCNetConfig
-from dcnet_tpu_torch.kernels.coattn import coattention_center_fused
+from dcnet_tpu_torch.kernels.coattn import (
+    coattention_center_fused, coattention_pair_fused)
 from dcnet_tpu_torch.models.attention import PhraseAttention
 from dcnet_tpu_torch.models.darknet import (
     DarknetBackbone, LayerDef, yolov3_layer_defs)
@@ -34,6 +40,19 @@ from dcnet_tpu_torch.models.heads import (
     l2_normalize, tile_language)
 from dcnet_tpu_torch.models.lstm import BiLSTMEncoder
 from dcnet_tpu_torch.ops.coords import generate_coord
+from dcnet_tpu_torch.ops.correspondence import (
+    ContrastiveSamples, crossmodal_pairs, interframe_pairs)
+
+
+class TrainOutputs(NamedTuple):
+    outbox: List[torch.Tensor]      # per scale (kB, 3, 5, g, g)
+    sim_score: List[torch.Tensor]   # per scale (kB, g, g)
+    loc_score: List[torch.Tensor]   # per scale (kB, g, g)
+    corr_feat: List[torch.Tensor]   # per scale (kB, g, g, C) fused features
+    flang_attn: torch.Tensor        # (kB, C) subject-attended phrase
+    interframe: ContrastiveSamples
+    crossmodal: ContrastiveSamples
+    only_obj: List[torch.Tensor]    # per scale (kB, g, g) raw objectness
 
 
 class EvalOutputs(NamedTuple):
@@ -50,9 +69,10 @@ def _not_ported(option: str, where: str) -> NotImplementedError:
 
 
 class DCNet(nn.Module):
-    """The eval model. Parameters stay fp32; activations are stored in
+    """The model. Parameters stay fp32; activations are stored in
     cfg.compute_dtype, BN math runs in fp32. `device` defaults to the CUDA
-    card (`default_device()`)."""
+    card (`default_device()`). The modules take `train` explicitly, as the
+    JAX package's do, so the module's train/eval mode changes no number."""
 
     def __init__(self, cfg: DCNetConfig,
                  backbone_defs: Optional[Sequence[LayerDef]] = None,
@@ -68,6 +88,10 @@ class DCNet(nn.Module):
         if cfg.coattn_multiref:
             raise _not_ported("coattn_multiref (ring kernel K4)",
                               "ROADMAP queue B, K4")
+        if cfg.remat_backbone:
+            raise _not_ported("remat_backbone", "ROADMAP queue A, item 6")
+        if cfg.tp_internals:
+            raise _not_ported("tp_internals", "ROADMAP queue A, item 12")
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = resolve_dtype(cfg.compute_dtype)
@@ -92,8 +116,7 @@ class DCNet(nn.Module):
         self.corr_conv = nn.ModuleList(
             nn.Sequential(ConvBNReLU(2 * emb, emb, 1, dtype=dt, device=device))
             for _ in range(3))
-        # Conv1d word-patch smoothing: used by the training forward only,
-        # kept so the reference state_dict loads strictly
+        # Conv1d word-patch smoothing of the cross-modal pairs (training)
         self.feature_map = nn.Sequential(nn.Conv1d(
             cfg.query_len, cfg.query_len, 3, padding=1, device=device))
         fcns = [build_fusion_fcn(2 * emb + 8, emb, cfg.light, dtype=dt,
@@ -111,9 +134,11 @@ class DCNet(nn.Module):
     # shared pieces
     # ------------------------------------------------------------------
 
-    def map_features(self, raw: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def map_features(self, raw: Sequence[torch.Tensor],
+                     train: bool = False) -> List[torch.Tensor]:
         """Per-scale mapping + channel l2-norm over raw backbone maps."""
-        return [l2_normalize(self.mapping_visu[i](raw[i])) for i in range(3)]
+        return [l2_normalize(self.mapping_visu[i](raw[i], train=train))
+                for i in range(3)]
 
     @torch.no_grad()
     def extract_features(self, images) -> List[torch.Tensor]:
@@ -122,9 +147,10 @@ class DCNet(nn.Module):
         images = torch.as_tensor(images, device=self.device)
         return self.map_features(self.visumodel(images, self.dtype))
 
-    def _language(self, word_ids: torch.Tensor):
-        raw_flang, context, embedded = self.textmodel(word_ids)
-        return l2_normalize(self.mapping_lang(raw_flang)), context, embedded
+    def _language(self, word_ids: torch.Tensor, train: bool = False):
+        raw_flang, context, embedded = self.textmodel(word_ids, train=train)
+        return (l2_normalize(self.mapping_lang(raw_flang, train=train)),
+                context, embedded)
 
     @torch.no_grad()
     def encode_language(self, word_ids):
@@ -162,7 +188,7 @@ class DCNet(nn.Module):
 
     def _trunk(self, corr_feat: Sequence[torch.Tensor], flang: torch.Tensor,
                context: torch.Tensor, embedded: torch.Tensor,
-               word_ids: torch.Tensor):
+               word_ids: torch.Tensor, train: bool = False):
         """Fusion FCN + subject/location attention + conf modulation."""
         cfg = self.cfg
         b = corr_feat[0].shape[0]
@@ -177,7 +203,7 @@ class DCNet(nn.Module):
                 [f, tile_language(flang, f.shape[1], f.shape[2]).to(f.dtype),
                  coord_list[i].to(f.dtype)], dim=-1)
             _, ob = fusion_fcn(self.fcn_emb[i], self.fcn_out[i], fused_in,
-                               self.dtype)
+                               self.dtype, train=train)
             outbox.append(ob)
 
         # subject attention -> similarity score per position
@@ -194,9 +220,10 @@ class DCNet(nn.Module):
         coord_map = torch.cat([c.reshape(b, -1, 8) for c in coord_list], dim=1)
         obj_map = l2_normalize(
             torch.cat([o.reshape(b, -1) for o in obj_score], dim=1))
-        coord_emb = self.loc_embedding(coord_map.reshape(-1, 8))
+        coord_emb = self.loc_embedding(coord_map.reshape(-1, 8), train=train)
         coord_emb = l2_normalize(coord_emb.reshape(b, -1, 8), dim=2)
-        rel = self.loc_text_embedding(None, gram_factors=(coord_emb, obj_map))
+        rel = self.loc_text_embedding(None, gram_factors=(coord_emb, obj_map),
+                                      train=train)
         rel = l2_normalize(rel.reshape(b, cfg.all_positions, -1), dim=2)
         loc_map = torch.einsum("bpc,bc->bp", rel, flang_loc.to(rel.dtype))
         lo = loc_map.min(dim=1, keepdim=True).values
@@ -209,13 +236,86 @@ class DCNet(nn.Module):
             loc_score.append(loc_map[:, s:s + g2].reshape(b, f.shape[1], f.shape[2]))
             s += g2
 
-        # confidence modulation: conf *= sim * loc
+        # confidence modulation: conf *= sim * loc (out of place, for autograd)
         modulated = []
         for ob, ss, ls in zip(outbox, sim_score, loc_score):
-            ob = ob.clone()
-            ob[:, :, 4] = (ob[:, :, 4] * (ss * ls)[:, None]).to(ob.dtype)
-            modulated.append(ob)
+            conf = (ob[:, :, 4] * (ss * ls)[:, None]).to(ob.dtype)
+            modulated.append(torch.cat([ob[:, :, :4], conf[:, :, None]], dim=2))
         return modulated, sim_score, loc_score, only_obj, flang_attn
+
+    # ------------------------------------------------------------------
+    # training forward: interleaved k-frame clips
+    # ------------------------------------------------------------------
+
+    def forward(self, images: torch.Tensor, word_ids: torch.Tensor,
+                train: bool = True,
+                generator: Optional[torch.Generator] = None) -> TrainOutputs:
+        """images: NHWC (kB, H, W, 3), clips frame-contiguous; word_ids
+        (kB, L). k = cfg.n_frames_train. k=2 co-attends the two frames of
+        each clip in both directions (K2); k>2 ring-pairs frame j with frame
+        (j+1) mod k (K1), which is the k=2 dataflow at k=2. `train` takes
+        batch statistics and dropout; `generator` draws the contrastive
+        negatives (the device's default generator when None)."""
+        cfg = self.cfg
+        k_frames = cfg.n_frames_train
+        images = torch.as_tensor(images, device=self.device)
+        word_ids = torch.as_tensor(word_ids, device=self.device)
+        bk = images.shape[0]
+        b = bk // k_frames
+        t = cfg.coattn_temperature
+        fvisu = self.map_features(
+            self.visumodel(images, self.dtype, train=train), train)
+
+        corr_feat = []
+        if k_frames == 2:
+            input1 = [f.reshape(b, 2, *f.shape[1:])[:, 0] for f in fvisu]
+            input2 = [f.reshape(b, 2, *f.shape[1:])[:, 1] for f in fvisu]
+            interframe = interframe_pairs(
+                input1[0], input2[0], cfg.interframe_top_k,
+                cfg.interframe_neg_n, generator)
+            for i in range(3):
+                a1, a2 = coattention_pair_fused(input1[i], input2[i], t)
+                c1 = torch.cat([input1[i], a1], dim=-1)     # (B, h, w, 2C)
+                c2 = torch.cat([input2[i], a2], dim=-1)
+                both = torch.stack([c1, c2], dim=1).reshape(bk, *c1.shape[1:])
+                corr_feat.append(l2_normalize(self.corr_conv[i][0](both, train=train)))
+        else:
+            def ring_next(f):
+                per_clip = f.reshape(b, k_frames, *f.shape[1:])
+                return torch.roll(per_clip, -1, dims=1).reshape(bk, *f.shape[1:])
+
+            interframe = interframe_pairs(
+                fvisu[0], ring_next(fvisu[0]), cfg.interframe_top_k,
+                cfg.interframe_neg_n, generator)
+            for i in range(3):
+                att = coattention_center_fused(fvisu[i], ring_next(fvisu[i]), t)
+                cf = self.corr_conv[i][0](torch.cat([fvisu[i], att], dim=-1),
+                                          train=train)
+                corr_feat.append(l2_normalize(cf))
+
+        flang, context, embedded = self._language(word_ids, train)
+        outbox, sim_score, loc_score, only_obj, flang_attn = self._trunk(
+            corr_feat, flang, context, embedded, word_ids, train)
+
+        # cross-modal correspondence on the coarsest scale: patch-normalised
+        # visual patches against the nearest-downsampled language context,
+        # the word-patch map smoothed by the Conv1d over patches and
+        # softmaxed over words
+        vit = l2_normalize(fvisu[0].reshape(bk, -1, cfg.emb_size).transpose(1, 2),
+                           dim=2)                          # (kB, C, P)
+        lang = l2_normalize(context[:, :, ::2], dim=1)     # (kB, L, C)
+        wp_map = torch.einsum("blc,bcp->blp", lang, vit.to(lang.dtype))
+        conv = self.feature_map[0]
+        wp_map = torch.softmax(F.conv1d(wp_map, conv.weight.to(wp_map.dtype),
+                                        conv.bias.to(wp_map.dtype), padding=1),
+                               dim=1)
+        crossmodal = crossmodal_pairs(
+            wp_map, lang, vit.transpose(1, 2), cfg.crossmodal_top_k,
+            cfg.crossmodal_neg_n, generator)
+        return TrainOutputs(
+            outbox=outbox, sim_score=sim_score, loc_score=loc_score,
+            corr_feat=corr_feat, flang_attn=flang_attn, interframe=interframe,
+            crossmodal=crossmodal, only_obj=only_obj)
 
     # ------------------------------------------------------------------
     # inference forward: n-frame clip, center-frame prediction

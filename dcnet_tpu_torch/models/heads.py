@@ -5,10 +5,11 @@ the split input that computes the shared center half of corr_conv once),
 DenseBNReLU (with the exact rank-8 `gram_factors` path), MappingLang, the
 per-scale fusion FCN + box head, and `tile_language`. Children carry the
 reference names (`conv`/`bn`, `0`/`1` of a Linear+BatchNorm1d pair), so the
-reference state_dict loads as it is. BN math runs in fp32 on the running
-statistics and activations are stored in the module's compute dtype, as in
-the JAX package. The int8 QuantConv2D modes are not ported yet (ROADMAP
-queue A, item 9).
+reference state_dict loads as it is. BN math runs in fp32 and activations
+are stored in the module's compute dtype, as in the JAX package; each
+forward takes `train`, which normalises with batch statistics and moves the
+running ones with flax's rule (`bn_train`) and turns dropout on. The int8
+QuantConv2D modes are not ported yet (ROADMAP queue A, item 9).
 """
 
 from __future__ import annotations
@@ -53,6 +54,53 @@ def bn_eval(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tenso
     return y.movedim(1, -1)
 
 
+def bn_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
+    """Training BatchNorm over the last axis: normalises with the batch
+    mean and the *biased* batch variance (fp32 math, output in x's dtype),
+    differentiable, and moves the running statistics as flax does:
+    stat = (1 - m) stat + m batch_stat with the module's torch momentum m
+    and the biased variance. (`F.batch_norm(training=True)` would store the
+    unbiased variance, n/(n-1) times flax's.)
+
+    On a CUDA card the fused kernel (`native_batch_norm`, Welford
+    statistics, one pass each way) normalises, and the variance comes back
+    from its saved 1/sqrt(var + eps). On the CPU that kernel sums its
+    statistics in plain fp32 order, which at 256 px (2^18 values a channel)
+    is 1e-5 to 1e-4 off and depends on the thread count; 75 train-mode
+    BatchNorms amplify that into 1e-2 of the backbone's gradient. So the CPU
+    takes the statistics from `torch.var_mean` (cascade sums, ~1e-7) and
+    normalises with the same formula as flax, (x - mean) (rsqrt(var + eps)
+    scale) + bias."""
+    if x.device.type == "cpu":
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        var, mean = torch.var_mean(x32, dim=tuple(range(x.dim() - 1)),
+                                   correction=0)
+        y = ((x32 - mean) * (torch.rsqrt(var + bn.eps) * bn.weight)
+             + bn.bias).to(x.dtype)
+        mean, var = mean.detach(), var.detach().double()
+    else:
+        y, mean, invstd = torch.native_batch_norm(
+            x.movedim(-1, 1), bn.weight, bn.bias, None, None, True, 0.0, bn.eps)
+        y = y.movedim(1, -1)
+        var = torch.clamp(invstd.detach().double().pow(-2) - bn.eps, min=0.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(mean.to(bn.running_mean.dtype), alpha=m)
+        bn.running_var.mul_(1 - m).add_(var.to(bn.running_var.dtype), alpha=m)
+        bn.num_batches_tracked.add_(1)
+    return y
+
+
+def batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
+               train: bool) -> torch.Tensor:
+    return bn_train(x, bn) if train else bn_eval(x, bn)
+
+
+def dropout(x: torch.Tensor, p: float, train: bool) -> torch.Tensor:
+    """Inverted dropout in training only (torch's global generator)."""
+    return F.dropout(x, p, training=True) if train and p > 0 else x
+
+
 @functools.lru_cache(maxsize=None)
 def _slope(dtype: torch.dtype) -> float:
     return torch.tensor(0.1, dtype=dtype).item()
@@ -90,23 +138,26 @@ class ConvBNReLU(nn.Module):
                                  device=device)
         self.leaky, self.relu, self.dtype = leaky, relu, dtype
 
-    def _finish(self, y: torch.Tensor) -> torch.Tensor:
-        return _act(bn_eval(y, self.bn), self.leaky, self.relu)
-
-    def forward(self, x: Union[torch.Tensor, Tuple[torch.Tensor, Sequence[torch.Tensor]]]
-                ) -> Union[torch.Tensor, List[torch.Tensor]]:
+    def forward(self, x: Union[torch.Tensor, Tuple[torch.Tensor, Sequence[torch.Tensor]]],
+                train: bool = False) -> Union[torch.Tensor, List[torch.Tensor]]:
+        """`train` normalises with batch statistics and moves the running
+        ones (`bn_train`); the split input is eval-only."""
         if isinstance(x, tuple):
             shared, parts = x
+            if train:
+                raise ValueError("split-input ConvBNReLU is an eval-path "
+                                 "optimization")
             if self.conv.kernel_size != (1, 1) or self.conv.stride != (1, 1):
                 raise ValueError("split-input ConvBNReLU is 1x1/stride-1 only")
             w = self.conv.weight.to(self.dtype).flatten(1)
             c_s = shared.shape[-1]
             y_s = F.linear(shared.to(self.dtype), w[:, :c_s])
-            return [self._finish(y_s + F.linear(p.to(self.dtype), w[:, c_s:]))
+            return [_act(bn_eval(y_s + F.linear(p.to(self.dtype), w[:, c_s:]),
+                             self.bn), self.leaky, self.relu)
                     for p in parts]
         y = conv_nhwc(x.to(self.dtype), self.conv.weight, None,
                       self.conv.stride[0], self.conv.padding[0])
-        return self._finish(y)
+        return _act(batch_norm(y, self.bn, train), self.leaky, self.relu)
 
 
 class DenseBNReLU(nn.Sequential):
@@ -120,12 +171,13 @@ class DenseBNReLU(nn.Sequential):
         self.dtype = dtype
 
     def forward(self, x: Optional[torch.Tensor],
-                gram_factors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                gram_factors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                train: bool = False) -> torch.Tensor:
         """ReLU(BN(x W + b)). With gram_factors=(ce (B,P,E), obj (B,P)) it
         computes ReLU(BN((ce ceᵀ diag(obj)) W + b)) without the (P, P) Gram:
         ce ceᵀ has rank <= E, so (ce ceᵀ diag(obj)) W = ce (ceᵀ (obj ∘ W)),
-        exact. `x` is ignored there; the output is (B*P, C)."""
+        exact. `x` is ignored there; the output is (B*P, C). `train` takes
+        the batch statistics (`bn_train`)."""
         lin = self[0]
         w = lin.weight.to(self.dtype)
         b = lin.bias.to(self.dtype)
@@ -137,7 +189,7 @@ class DenseBNReLU(nn.Sequential):
             h = F.linear(a.to(self.dtype), w, b)                # ceᵀ(obj∘W) + b
             y = (torch.einsum("bpe,bec->bpc", ce.to(self.dtype), h - b) + b
                  ).reshape(-1, w.shape[0])
-        return F.relu(bn_eval(y, self[1]))
+        return F.relu(batch_norm(y, self[1], train))
 
 
 class MappingLang(nn.Sequential):
@@ -154,11 +206,14 @@ class MappingLang(nn.Sequential):
             nn.BatchNorm1d(emb_size, device=device), nn.ReLU())
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """`train`: batch statistics, and dropout between the two layers."""
         for lin, bn in ((self[0], self[1]), (self[4], self[5])):
+            if lin is self[4]:
+                x = dropout(x, self[3].p, train)
             x = F.linear(x.to(self.dtype), lin.weight.to(self.dtype),
                          lin.bias.to(self.dtype))
-            x = F.relu(bn_eval(x, bn))
+            x = F.relu(batch_norm(x, bn, train))
         return x
 
 
@@ -183,14 +238,15 @@ def build_fusion_fcn(in_ch: int, emb_size: int, light: bool = False,
 
 
 def fusion_fcn(fcn_emb: nn.Sequential, fcn_out: nn.Sequential,
-               x: torch.Tensor, dtype: torch.dtype
+               x: torch.Tensor, dtype: torch.dtype, train: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-scale fusion trunk + box head on an NHWC map. Returns
     (intermediate NHWC features, outbox (B, 3, 5, h, w))."""
-    x = fcn_emb(x)
+    for m in fcn_emb:
+        x = m(x, train=train)
     intmd = x
     for m in fcn_out[:-1]:
-        x = m(x)
+        x = m(x, train=train)
     head = fcn_out[-1]
     x = conv_nhwc(x.to(dtype), head.weight, head.bias)
     b, h, w, _ = x.shape

@@ -9,7 +9,8 @@ carry the reference names (`embedding`, `mlp.0`, `rnn`); torch keeps
 `bias_ih` and `bias_hh` apart, as the JAX parameters do.
 
 The encoder runs in fp32 whatever the compute dtype (20 tokens a clip; the
-outputs are cast to the compute dtype).
+outputs are cast to the compute dtype). `train` turns the input dropout on;
+gradients flow through the packed sequence.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from typing import Tuple
 import torch
 from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+from dcnet_tpu_torch.models.heads import dropout
 
 
 class BiLSTMEncoder(nn.Module):
@@ -37,14 +40,19 @@ class BiLSTMEncoder(nn.Module):
                            bidirectional=True, device=device)
         self.dtype = dtype
 
-    def forward(self, word_ids: torch.Tensor
+    def forward(self, word_ids: torch.Tensor, train: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """word_ids (B, L) integer -> (sent (B, 2H), context (B, L, 2H),
         embedded (B, L, word_vec_size))."""
         seq_len = word_ids.shape[1]
         # empty phrases are clamped to one token, as in the JAX package
         lengths = torch.clamp((word_ids != 0).sum(dim=1), min=1)
-        emb = self.mlp(self.input_dropout(self.embedding(word_ids.long())))
+        emb = self.mlp(dropout(self.embedding(word_ids.long()),
+                               self.input_dropout.p, train))
+        # cuDNN's RNN backward needs the module in training mode; one layer
+        # has no inter-layer dropout, so the mode changes no number
+        if self.rnn.training != train:
+            self.rnn.train(train)
         packed = pack_padded_sequence(emb, lengths.cpu(), batch_first=True,
                                       enforce_sorted=False)
         out, _ = self.rnn(packed)

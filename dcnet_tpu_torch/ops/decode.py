@@ -32,6 +32,12 @@ def flatten_conf(outbox: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([o[:, :, 4].reshape(b, -1) for o in outbox], dim=1)
 
 
+def flatten_scores(scores: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-scale (B, g, g) score maps -> (B, sum(g^2)) position vector."""
+    b = scores[0].shape[0]
+    return torch.cat([s.reshape(b, -1) for s in scores], dim=1)
+
+
 def decode_indices(outbox: Sequence[torch.Tensor], flat_idx: torch.Tensor,
                    cfg: DCNetConfig) -> DecodedBoxes:
     """Decode boxes at flat conf indices. flat_idx: (B, K) integer."""

@@ -84,7 +84,7 @@ def test_cpu_wrapper_never_counts_a_launch():
     coattn.coattention_one(torch.from_numpy(q), torch.from_numpy(kv), 10.0)
     coattn.coattention_center_fused(torch.from_numpy(q).reshape(2, 4, 4, 8),
                                     torch.from_numpy(kv).reshape(2, 4, 4, 8))
-    assert kernels.LAUNCHES == {"coattn_attend": 0}
+    assert set(kernels.LAUNCHES.values()) == {0}
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():

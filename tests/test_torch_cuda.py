@@ -1,14 +1,18 @@
-"""K1's CUDA kernel on the card, against its plain PyTorch version.
+"""The co-attention CUDA kernels on the card (K1, the pair K2 and the
+backward K3), against their plain PyTorch versions, the launches of one
+train step, and train-mode BatchNorm's card branch against its CPU branch.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
 
     python3 -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda -q
 
-Without a CUDA card every test here skips: the kernel is CUDA C++ with no
-CPU mode (its plain version is held against the JAX package in
-`tests/test_torch_coattn.py`).
+Without a CUDA card every test here skips: the kernels are CUDA C++ with no
+CPU mode (their plain versions are held against the JAX package in
+`tests/test_torch_coattn.py` and `tests/test_torch_train_kernels.py`).
 """
+
+import copy
 
 import pytest
 import torch
@@ -23,6 +27,12 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
        torch.bfloat16: dict(rtol=1e-2, atol=2e-4)}
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # ||got-want||/||want||
+# K3 computes in fp32 whatever the input dtype and rounds once at the end, as
+# its plain version does: in bf16 the two may differ by one bf16 step of the
+# output (2^-7 relative) where fp32 summation order tips the rounding, plus
+# fp32 noise near zero.
+BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+           torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
 
 
 def _rel(got, want):
@@ -81,6 +91,160 @@ def test_each_launch_counts_once(card):
     assert kernels.LAUNCHES["coattn_attend"] == 2
 
 
+def _bwd_inputs(gen, b, p, c, dt, card):
+    return (_rows(gen, b, p, c).to(card, dt), _rows(gen, b, p, c).to(card, dt),
+            torch.randn(b, p, c, generator=gen).to(card, dt))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_kernel_matches_plain_on_card(card, dtype):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(3)
+    for p in (64, 169, 256, 1024):
+        q, kv, g = _bwd_inputs(gen, 4, p, 512, dt, card)
+        got = coattn.attend_bwd(q, kv, 10.0, g)
+        want = coattn.attend_bwd_plain(q, kv, 10.0, g)
+        wrong_t = coattn.attend_bwd_plain(q, kv, 1.0, g)
+        torch.cuda.synchronize()
+        for a, w, bad in zip(got, want, wrong_t):
+            assert a.dtype == dt and a.shape == q.shape
+            torch.testing.assert_close(a.float(), w.float(), **BWD_TOL[dt])
+            assert _rel(a, w) <= REL_TOL[dt]
+            assert _rel(bad, w) > REL_TOL[dt]
+            assert _rel(torch.zeros_like(w), w) > REL_TOL[dt]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pair_kernel_and_its_gradient_match_plain_on_card(card, dtype):
+    """K2 forward against two plain directions; its backward (2 x K3, the
+    sum in the input dtype) against the plain backward combined as the
+    JAX package's `_bwd` combines it. Each bf16 sum may differ by one step
+    of each term and of itself."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(4)
+    for p in (64, 169, 1024):
+        f1, f2, g1 = _bwd_inputs(gen, 4, p, 512, dt, card)
+        g2 = torch.randn(4, p, 512, generator=gen).to(card, dt)
+        a, b = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+        o1, o2 = coattn.coattention_fused(a, b, 10.0)
+        torch.autograd.backward((o1, o2), (g1, g2))
+        torch.cuda.synchronize()
+        for got, want in ((o1, coattn.attend_plain(f1, f2, 10.0)),
+                          (o2, coattn.attend_plain(f2, f1, 10.0))):
+            torch.testing.assert_close(got.detach().float(), want.float(), **TOL[dt])
+            assert _rel(got.detach(), want) <= REL_TOL[dt]
+        dq1, dkv1 = coattn.attend_bwd_plain(f1, f2, 10.0, g1)
+        dq2, dkv2 = coattn.attend_bwd_plain(f2, f1, 10.0, g2)
+        for got, x, y in ((a.grad, dq1, dkv2), (b.grad, dkv1, dq2)):
+            want = (x + y).float()
+            step = 0.0 if dt == torch.float32 else 2 ** -7
+            limit = (BWD_TOL[dt]["atol"] + BWD_TOL[dt]["rtol"] * want.abs()
+                     + step * (x.float().abs() + y.float().abs()))
+            assert ((got.float() - want).abs() <= limit).all()
+            assert _rel(got, want) <= REL_TOL[dt]
+
+
+def test_bwd_kernel_takes_strided_inputs(card):
+    """Frames sliced out of a clip and a gradient sliced out of a concat
+    (rows not contiguous: the autograd function copies it) give what their
+    contiguous copies give."""
+    gen = torch.Generator().manual_seed(5)
+    clip = _rows(gen, 4, 2, 169, 64).to(card)
+    cat = torch.randn(4, 169, 128, generator=gen).to(card)
+    got = coattn.attend_bwd(clip[:, 0], clip[:, 1], 10.0,
+                            coattn._rows_contiguous(cat[..., 64:]))
+    want = coattn.attend_bwd_plain(clip[:, 0].contiguous(),
+                                   clip[:, 1].contiguous(), 10.0,
+                                   cat[..., 64:].contiguous())
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **BWD_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_train_step_launches(card, k):
+    """One train step of a mini model on the card: k=2 runs K2 once and K3
+    twice per scale; k=3 runs K1 and K3 once per scale."""
+    from dcnet_tpu_torch.config import DCNetConfig
+    from dcnet_tpu_torch.models.darknet import mini_backbone_defs
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.train.state import create_train_state
+    from dcnet_tpu_torch.train.step import train_step
+    from dcnet_tpu_torch.weights import seeded_init_
+
+    cfg = DCNetConfig(image_size=64, corpus_size=50, emb_size=64,
+                      lstm_hidden=64, word_embedding_size=64, n_frames_train=k)
+    model = seeded_init_(DCNet(cfg, backbone_defs=mini_backbone_defs(),
+                               device=card), seed=0)
+    state = create_train_state(model, cfg)
+    gen = torch.Generator().manual_seed(6)
+    n = 2 * k
+    batch = {"images": torch.rand(n, 64, 64, 3, generator=gen),
+             "word_ids": torch.randint(1, 50, (n, 20), generator=gen),
+             "bbox": torch.tensor([[4.0, 6.0, 40.0, 50.0]] * n)}
+    kernels.reset_launches()
+    metrics = train_step(state, batch)
+    torch.cuda.synchronize()
+    want = ({"coattn_attend": 0, "coattn_pair": 3, "coattn_attend_bwd": 6}
+            if k == 2 else
+            {"coattn_attend": 3, "coattn_pair": 0, "coattn_attend_bwd": 3})
+    assert kernels.LAUNCHES == want
+    assert all(torch.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("momentum", [0.1, 0.999])
+def test_bn_train_on_card_matches_its_cpu_branch(card, dtype, momentum):
+    """`heads.bn_train` normalises with the card's fused kernel and takes the
+    variance back from its 1/sqrt(var + eps); the CPU branch computes
+    flax's formula from `torch.var_mean`. Both give the same output,
+    gradients and running statistics (biased variance, the module's
+    momentum), here with a channel whose mean is 100 times its spread."""
+    from torch import nn
+
+    from dcnet_tpu_torch.models.heads import bn_train
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 8, 8, 64, generator=gen) * torch.rand(64, generator=gen)
+    x[..., 0] = 1.5 + 0.015 * x[..., 0]
+    g = torch.randn(x.shape, generator=gen)
+    start = nn.BatchNorm2d(64, momentum=momentum)
+    with torch.no_grad():
+        start.weight.copy_(1 + 0.1 * torch.randn(64, generator=gen))
+        start.bias.copy_(0.1 * torch.randn(64, generator=gen))
+        start.running_mean.copy_(0.3 * torch.randn(64, generator=gen))
+        start.running_var.copy_(0.5 + torch.rand(64, generator=gen))
+    results = []
+    for dev in (card, torch.device("cpu")):
+        bn = copy.deepcopy(start).to(dev)
+        xi = x.to(dev, dt).requires_grad_()
+        y = bn_train(xi, bn)
+        y.backward(g.to(dev, dt))
+        results.append([t.detach().cpu().float() for t in (
+            y, xi.grad, bn.weight.grad, bn.bias.grad,
+            bn.running_mean, bn.running_var)])
+    # y and dx per element: rtol, plus atol at the scale of the element's
+    # channel (an fp32 BatchNorm's rounding error in dx is absolute, about
+    # 1e-7 of scale * |g| / std, where dx itself may cancel to near zero)
+    tol = BWD_TOL[dt]
+    for name, a, w in zip(("y", "dx"), results[0][:2], results[1][:2]):
+        scale = w.abs().amax(dim=(0, 1, 2), keepdim=True)
+        err = (a - w).abs() / (tol["rtol"] * w.abs() + tol["atol"] * scale)
+        assert err.max() <= 1.0, (name, err.max().item(), err.amax((0, 1, 2)))
+        assert _rel(a, w) <= REL_TOL[dt], (name, _rel(a, w))
+    for name, a, w in zip(("dweight", "dbias", "running_mean", "running_var"),
+                          results[0][2:], results[1][2:]):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    # the limit tells flax's biased variance from torch's unbiased one
+    n = x[..., 0].numel()
+    var = x.to(dt).double().var(dim=(0, 1, 2), correction=0)
+    unbiased = ((1 - momentum) * start.running_var.double()
+                + momentum * var * n / (n - 1)).float()
+    assert not torch.allclose(unbiased, results[0][5], rtol=1e-4, atol=1e-5)
+
+
 def test_kernel_refuses_what_it_cannot_take(card):
     """It raises instead of falling back to the plain version."""
     q = torch.zeros(2, 64, 32, device=card)
@@ -93,4 +257,11 @@ def test_kernel_refuses_what_it_cannot_take(card):
         coattn.coattention_one(q.transpose(1, 2), q.transpose(1, 2), 10.0)
     with pytest.raises(ValueError, match="CUDA"):
         coattn.coattention_one(q, q.cpu(), 10.0)
-    assert kernels.LAUNCHES["coattn_attend"] == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        coattn.coattention_fused(q, q.cpu(), 10.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        coattn.attend_bwd(q, q, 10.0, q.bfloat16())
+    with pytest.raises(ValueError, match="C <= 512"):
+        wide = torch.zeros(1, 16, 528, device=card)
+        coattn.attend_bwd(wide, wide, 10.0, wide)
+    assert set(kernels.LAUNCHES.values()) == {0}
