@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py                 # every phase (needs one CUDA card)
     python3 chip_smoke.py --profile DIR   # and torch.profiler tables of
-                                          # eval_clip and train_step
+                                          # eval_clip, train_step and a
+                                          # serving tick
 
 Phases, each printing JSON lines, any failure exiting non-zero:
   1. device  -- the card (nvidia-smi name and power limit), torch/CUDA
@@ -12,7 +13,9 @@ Phases, each printing JSON lines, any failure exiting non-zero:
   3. kernel  -- each kernel against its plain PyTorch version on the card at
      the main paths' shapes (plus a ragged P and batch-strided inputs),
      timed beside the plain version, one PyTorch library call and the
-     card's bound: K1 (co-attention), K2 (the pair) and K3 (the backward).
+     card's bound: K1 (co-attention), K2 (the pair), K3 (the backward) and
+     K4 (the ring: fp32, bf16 and int8 rings at every slot; zeros, T=1 and
+     a kernel that ignores the slot are shown to fail the limits).
   4. slice   -- the full-width 256 px model (YOLOv3 backbone from a seeded
      Darknet `.weights` file, the rest from a seeded torch.Generator)
      answers batches of 5-frame clips through eval_clip -> decode_best; the
@@ -31,6 +34,14 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      K3 are held against their
      plain versions on the model's own inputs and upstream gradients in
      each compute dtype; train_step is timed in float32 and bfloat16.
+  6. serving -- the same full-width model, cast for serving, in bf16 serves
+     120 streams through GroundingEngine: with coattn_multiref (float rings,
+     a query swap on a third of the streams mid-run; launches per tick K4 3,
+     K1 0), the default K1 path (K1 12, K4 0) and int8 rings; outputs
+     finite; at 4 streams in fp32 the engine on the card against the same
+     engine on the CPU tick by tick in each mode, and against eval_clip
+     after n_frame ticks; K4 against its plain version on the engine's own
+     rings in each ring dtype; s/tick, predictions/s and peak GiB per mode.
 Then the `kernels` line, the nvidia-smi line, and as the last line
 `{"ok": true, "device": {...}}`.
 """
@@ -60,7 +71,7 @@ from dcnet_tpu_torch.kernels import coattn as k_coattn
 from dcnet_tpu_torch.ops import correspondence
 
 # H100 SXM data-sheet peaks (dense), the card's memory rate
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 PEAK_BYTES = 3.35e12
 TEMPERATURE = 10.0
 KERNEL_B, KERNEL_C = 8, 512
@@ -180,12 +191,16 @@ def phase_device(dev) -> dict:
     return info
 
 
+SOURCES = ("coattn", "coattn_bwd", "coattn_ring")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    build.build(["coattn", "coattn_bwd"])
+    build.build(SOURCES)
     k_coattn._lib()
     k_coattn._bwd_lib()
-    emit({"phase": "build", "kernels": ["coattn", "coattn_bwd"],
+    k_coattn._ring_lib()
+    emit({"phase": "build", "kernels": list(SOURCES),
           "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": {k: round(v, 3)
                            for k, v in build.BUILD_SECONDS.items()}})
@@ -368,12 +383,116 @@ def kernel_cases_k3(dev, gen) -> list:
     return cases
 
 
+RING_S, RING_CENTER = 5, 2          # n_frame 5, the center frame
+SERVE_STREAMS = 120                 # the JAX bench's serving batch (24 clips x 5)
+RING_SLOTS = (None, 0, 2, 4)
+
+
+def ring_bound(b: int, s: int, p: int, c: int, dtype: torch.dtype):
+    """K4: 4 B (S-1) P^2 C operations (float rings at their dtype's peak;
+    int8 rings: the QK half at the int8 peak, the PV half at bf16's), and
+    B S P C input elements read once plus B (S-1) P C output elements
+    (bf16 for int8 rings) written once."""
+    ops = 4.0 * b * (s - 1) * p * p * c
+    out_dt = torch.bfloat16 if dtype == torch.int8 else dtype
+    nbytes = b * p * c * (s * itemsize(dtype) + (s - 1) * itemsize(out_dt))
+    if dtype == torch.int8:
+        t_ops = ops / 2 / PEAK_FLOPS[torch.int8] + ops / 2 / PEAK_FLOPS[torch.bfloat16]
+        t_bytes = nbytes / PEAK_BYTES
+        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                           else "bytes")
+    return bound(ops, nbytes, PEAK_FLOPS[dtype])
+
+
+def _ring_input(gen, dtype, *shape):
+    """l2-normalised rows in `dtype`; int8 as the serving engine quantises
+    them (clip(round(127 f)))."""
+    x = _rows(gen, *shape)
+    if dtype == torch.int8:
+        return torch.clamp(torch.round(x * 127.0), -127, 127).to(torch.int8)
+    return x.to(dtype)
+
+
+def check_ring(ring, t, center_t, slot) -> dict:
+    """K4 at one slot against its plain version on the same ring, at the
+    output dtype's limits; whether those limits reject zeros, T=1 and a
+    kernel that ignores the slot (physical order; no different ring for
+    slot None or S-1). Counts the comparison launch."""
+    got = k_coattn.coattention_ring(ring, t, center_t, newest_slot=slot)
+    want = k_coattn.ring_attend_plain(ring, t, center_t, newest_slot=slot)
+    torch.cuda.synchronize()
+    out_dt = want.dtype
+    ok, err, rel = agreement(got, want, out_dt)
+    rej = rejects(want, k_coattn.ring_attend_plain(ring, 1.0, center_t, slot), out_dt)
+    if slot not in (None, ring.shape[1] - 1):
+        blind = k_coattn.ring_attend_plain(ring, t, center_t)
+        rej = rej and not agreement(blind, want, out_dt)[0]
+    return {"agrees": ok, "max_abs_err": err, "rel_err": rel,
+            "limits_reject": rej}
+
+
+def kernel_cases_k4(dev, gen) -> list:
+    """K4 against its plain version on (B, 5, P, C=512) rings of
+    l2-normalised rows, float32, bfloat16 and int8, at slots None, 0, 2 and
+    4 (center at temporal index 2): B = 120 (the serving batch) at
+    P = 1024, B = 8 at P = 64, 256 and the ragged 169. Timed at slot 2.
+    Library: F.scaled_dot_product_attention of the center expanded to
+    (B, 4, P, C) against the gathered references (float rings; the int8
+    path has no library call)."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for p in MAIN_P + (RAGGED_P,):
+            b = SERVE_STREAMS if p == max(MAIN_P) else KERNEL_B
+            c = KERNEL_C
+            ring = _ring_input(gen, dtype, b, RING_S, p, c).to(dev)
+            checks = [check_ring(ring, TEMPERATURE, RING_CENTER, slot)
+                      for slot in RING_SLOTS]
+            iters = 3 if b == SERVE_STREAMS and dtype == torch.float32 else (
+                10 if p >= 1024 else 30)
+            k_ms = cuda_ms(lambda: k_coattn.coattention_ring(
+                ring, TEMPERATURE, RING_CENTER, 2), iters)
+            p_ms = cuda_ms(lambda: k_coattn.ring_attend_plain(
+                ring, TEMPERATURE, RING_CENTER, 2), iters)
+            l_ms, backends, library_call = None, [], (
+                "none: no PyTorch call computes int8-logit attention")
+            if dtype != torch.int8:
+                cs, rs = k_coattn.ring_slots(RING_S, RING_CENTER, 2)
+                q = ring[:, cs:cs + 1].expand(b, RING_S - 1, p, c).contiguous()
+                kv = ring[:, rs]
+                backends = _sdpa_backends(q, kv)
+                l_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kv, kv, scale=TEMPERATURE), iters)
+                library_call = ("F.scaled_dot_product_attention(center expanded "
+                                "to (B, 4, P, C), refs, refs, scale=T)")
+                del q, kv
+            ok = all(x["agrees"] and x["limits_reject"] for x in checks)
+            rec = {"phase": "kernel", "name": "coattn_ring",
+                   "dtype": str(dtype).replace("torch.", ""), "B": b, "S": RING_S,
+                   "P": p, "C": c, "T": TEMPERATURE, "slots": [str(x) for x in RING_SLOTS],
+                   "max_abs_err": max(x["max_abs_err"] for x in checks),
+                   "rel_err": max(x["rel_err"] for x in checks),
+                   "tol": {**TOL[torch.bfloat16 if dtype == torch.int8 else dtype],
+                           "rel": REL_TOL[torch.bfloat16 if dtype == torch.int8 else dtype]},
+                   "limits_reject_zeros_T1_and_slot_blind": all(
+                       x["limits_reject"] for x in checks), "ok": ok,
+                   "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                   "library_call": library_call, "library_backends": backends}
+            rec["bound_ms"], rec["bound_by"] = ring_bound(b, RING_S, p, c, dtype)
+            emit(rec)
+            if not ok:
+                raise AssertionError(f"coattn_ring disagrees with its plain version: "
+                                     f"{dtype} P={p}: {checks}")
+            cases.append(rec)
+            del ring
+    return cases
+
+
 def phase_kernel(dev) -> list:
-    """K1, K2 and K3 against their plain versions on the card; returns the
-    case records."""
+    """K1, K2, K3 and K4 against their plain versions on the card; returns
+    the case records."""
     gen = torch.Generator(device="cpu").manual_seed(0)
     cases = (kernel_cases_k1(dev, gen) + kernel_cases_k2(dev, gen)
-             + kernel_cases_k3(dev, gen))
+             + kernel_cases_k3(dev, gen) + kernel_cases_k4(dev, gen))
     kernels.reset_launches()  # the comparison launches above do not count
     return cases
 
@@ -830,7 +949,7 @@ def phase_train(dev, profile_dir=None) -> dict:
     epoch_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     want = {"coattn_attend": 0, "coattn_pair": 3 * TRAIN_STEPS,
-            "coattn_attend_bwd": 6 * TRAIN_STEPS}
+            "coattn_attend_bwd": 6 * TRAIN_STEPS, "coattn_ring": 0}
     if launches != want:
         raise AssertionError(f"train_epoch launches {launches}, expected {want}")
     if not all(np.isfinite(v) for v in averages.values()):
@@ -907,6 +1026,250 @@ def phase_train(dev, profile_dir=None) -> dict:
     return rec
 
 
+# --- the serving path -----------------------------------------------------
+
+SERVE_TICKS = 12                  # the fusion window (5) is full from tick 4
+SWAP_TICK = 6                     # update_queries on a third of the streams
+PARITY_STREAMS, PARITY_TICKS = 4, 6
+WARMUP_TICKS, TIMED_CHAINS, CHAIN_TICKS = 3, 3, 10
+# card vs CPU at 4 streams, fp32, TF32 off: raw and fused boxes (pixels) and
+# scores elementwise within rtol 1e-3 / atol 1e-3
+SERVE_TOL = dict(rtol=1e-3, atol=1e-3)
+
+
+def serving_config(**over):
+    """The JAX bench's serving configuration of the full-width model:
+    split_corr_conv off (the serving default)."""
+    return full_width_config().replace(split_corr_conv=False, **over)
+
+
+def _phrases(rng, cfg, n: int) -> torch.Tensor:
+    ids = rng.randint(1, cfg.corpus_size, (n, cfg.query_len))
+    ids[:, 12:] *= rng.rand(n, cfg.query_len - 12) < 0.5  # padding
+    return torch.from_numpy(ids)
+
+
+def _serve(eng, ids, ticks: int, frames_at, swap=None):
+    """Ticks 0..ticks-1 of a fresh engine state, with an optional
+    (tick, word_ids, mask) query swap: (state, launches of each tick,
+    outputs of each tick)."""
+    state = eng.init_state(ids)
+    per_tick, outs = [], []
+    for t in range(ticks):
+        if swap is not None and t == swap[0]:
+            state = eng.update_queries(state, swap[1], mask=swap[2])
+        before = dict(kernels.LAUNCHES)
+        state, fused, raw, score = eng.step(state, frames_at(t))
+        per_tick.append({k: kernels.LAUNCHES[k] - before[k] for k in before})
+        outs.append((fused, raw, score))
+    torch.cuda.synchronize()
+    return state, per_tick, outs
+
+
+def _expect_launches(per_tick, want: dict, what: str) -> None:
+    for t, got in enumerate(per_tick):
+        if any(got[k] != want.get(k, 0) for k in got):
+            raise AssertionError(f"{what}: tick {t} launched {got}, expected {want}")
+
+
+def _finite(outs, what: str) -> None:
+    for t, xs in enumerate(outs):
+        if not all(torch.isfinite(x).all() for x in xs):
+            raise AssertionError(f"{what}: tick {t} outputs not finite")
+
+
+def ring_on_engine_data(state, t: float) -> dict:
+    """K4 against its plain version on the rings the engine wrote, at each
+    scale, at the state's slot. Whether the limits also reject zeros, T=1
+    and a slot-blind kernel on these rings is reported, not required: the
+    mapped features of noise frames through random weights are nearly the
+    same in every frame and position (the kernel phase's random rows carry
+    that proof)."""
+    worst = {"max_abs_err": 0.0, "rel_err": 0.0, "limits_reject": True}
+    for ring in state.feat_rings:
+        n, s, h, w, c = ring.shape
+        res = check_ring(ring.reshape(n, s, h * w, c), t, s // 2, state.slot)
+        if not res["agrees"]:
+            raise AssertionError(f"K4 disagrees with its plain version on the "
+                                 f"engine's {ring.dtype} rings: {res}")
+        worst = {"max_abs_err": max(worst["max_abs_err"], res["max_abs_err"]),
+                 "rel_err": max(worst["rel_err"], res["rel_err"]),
+                 "limits_reject": worst["limits_reject"] and res["limits_reject"]}
+    return {"ring_dtype": str(state.feat_rings[0].dtype).replace("torch.", ""),
+            "streams": state.feat_rings[0].shape[0], "slot": state.slot, **worst}
+
+
+def serving_parity(weights, defs, dev) -> dict:
+    """At 4 streams in fp32 (TF32 off) the same engine on the card and on
+    the CPU, tick by tick, in each correspondence mode and with int8 rings:
+    raw and fused boxes and scores within SERVE_TOL, and the decoded index
+    of the center prediction (eval_features on the tick's rings) equal;
+    after n_frame ticks the card's raw prediction equals eval_clip's on the
+    same 5 frames; K4 on the card's fp32 rings against its plain version."""
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.ops.decode import decode_best
+    from dcnet_tpu_torch.serving.engine import GroundingEngine
+
+    cfg32 = serving_config(compute_dtype="float32")
+    rng = np.random.RandomState(4)
+    size = cfg32.image_size
+    frames = rng.rand(PARITY_TICKS, PARITY_STREAMS, size, size, 3).astype(np.float32)
+    ids = _phrases(rng, cfg32, PARITY_STREAMS)
+    cpu = torch.device("cpu")
+    res, on_data = {}, None
+    for mode in ("k1", "multiref", "multiref_int8"):
+        cfg = cfg32.replace(coattn_multiref=mode != "k1")
+        engines = {}
+        for role, where in (("card", dev), ("cpu", cpu)):
+            m = DCNet(cfg, backbone_defs=defs, device=where)
+            m.load_state_dict({k: v.to(where) for k, v in weights.items()})
+            engines[role] = GroundingEngine(
+                m, PARITY_STREAMS, int8_rings=mode.endswith("int8"))
+        states = {k: e.init_state(ids) for k, e in engines.items()}
+        worst, same_idx = 0.0, True
+        t0 = time.perf_counter()
+        for t in range(PARITY_TICKS):
+            got = {}
+            for k, e in engines.items():
+                states[k], *outs = e.step(states[k], torch.from_numpy(frames[t]))
+                st = states[k]
+                out = e.model.eval_features(st.feat_rings, st.word_ids,
+                                            language=st.language,
+                                            newest_slot=st.slot)
+                got[k] = ([x.cpu() for x in outs], decode_best(out.outbox, cfg))
+            for a, b in zip(got["card"][0], got["cpu"][0]):
+                torch.testing.assert_close(a, b, **SERVE_TOL)
+                worst = max(worst, (a - b).abs().max().item())
+            same_idx = same_idx and all(
+                torch.equal(getattr(got["card"][1], f).cpu(), getattr(got["cpu"][1], f))
+                for f in ("best_n", "gi", "gj", "scale"))
+            if t == cfg.n_frames_test - 1:  # streaming against offline
+                card = engines["card"]
+                clip = torch.from_numpy(frames[:5].transpose(1, 0, 2, 3, 4).reshape(
+                    -1, size, size, 3)).to(dev)
+                dec = decode_best(card.model.eval_clip(clip, ids.to(dev)).outbox, cfg)
+                # eval_clip batches 20 frames, the engine 4: cuDNN's fp32
+                # algorithms (FFT for some 3x3 layers) differ with the batch
+                torch.testing.assert_close(got["card"][0][1], dec.boxes[:, 0].cpu(),
+                                           **SERVE_TOL)
+        if not same_idx:
+            raise AssertionError(f"serving {mode}: decoded indices differ "
+                                 f"between the card and the CPU")
+        res[mode] = {"max_abs_err": worst, "same_decoded_index": same_idx,
+                     "offline_eval_clip_match": True,
+                     "seconds": time.perf_counter() - t0}
+        if mode == "multiref":
+            on_data = ring_on_engine_data(states["card"], cfg.coattn_temperature)
+        del engines, states
+    kernels.reset_launches()  # the parity runs and comparisons do not count
+    return {"streams": PARITY_STREAMS, "ticks": PARITY_TICKS, "tol": SERVE_TOL,
+            "modes": res, "k4_on_fp32_rings": on_data}
+
+
+def phase_serving(dev, profile_dir=None) -> dict:
+    """The serving path on the card: the full-width model, cast for
+    serving, in bf16 at 120 streams through GroundingEngine."""
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.serving.engine import GroundingEngine, cast_params_for_serving
+
+    cfg = serving_config(compute_dtype="bfloat16", coattn_multiref=True)
+    size, n = cfg.image_size, SERVE_STREAMS
+    model, defs, setup_s = seeded_model(cfg, dev)
+    cast_params_for_serving(model)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    k1_model = DCNet(cfg.replace(coattn_multiref=False), backbone_defs=defs, device=dev)
+    k1_model.load_state_dict(weights)
+    rng = np.random.RandomState(3)
+    ids, swap_ids = _phrases(rng, cfg, n).to(dev), _phrases(rng, cfg, n).to(dev)
+    swap_mask = np.arange(n) % 3 == 0
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def frames_at(_t):
+        return torch.rand((n, size, size, 3), generator=gen, device=dev)
+
+    # --- the main path: multiref, float rings, a query swap mid-run --------
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, per_tick, outs = _serve(GroundingEngine(model, n), ids, SERVE_TICKS,
+                                   frames_at, swap=(SWAP_TICK, swap_ids, swap_mask))
+    main_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    _expect_launches(per_tick, {"coattn_ring": 3}, "serving, multiref")
+    _finite(outs, "serving, multiref")
+    seen = state.frames_seen.cpu().numpy()
+    if not ((seen == np.where(swap_mask, SERVE_TICKS - SWAP_TICK, SERVE_TICKS)).all()
+            and state.feat_rings[0].dtype == torch.bfloat16):
+        raise AssertionError(f"serving state after the swap: frames_seen {seen}")
+    on_data = {"bfloat16": ring_on_engine_data(state, cfg.coattn_temperature)}
+    del state
+
+    # --- the default K1 path and int8 rings ---------------------------------
+    kernels.reset_launches()
+    state, per_tick, outs = _serve(GroundingEngine(k1_model, n), ids, 6, frames_at)
+    _expect_launches(per_tick, {"coattn_attend": 12}, "serving, default K1 path")
+    _finite(outs, "serving, default K1 path")
+    del state
+    kernels.reset_launches()
+    state, per_tick, outs = _serve(GroundingEngine(model, n, int8_rings=True), ids,
+                                   6, frames_at)
+    _expect_launches(per_tick, {"coattn_ring": 3}, "serving, multiref int8 rings")
+    _finite(outs, "serving, multiref int8 rings")
+    if state.feat_rings[0].dtype != torch.int8:
+        raise AssertionError("int8_rings engine wrote non-int8 rings")
+    on_data["int8"] = ring_on_engine_data(state, cfg.coattn_temperature)
+    del state
+    kernels.reset_launches()
+
+    parity = serving_parity(weights, defs, dev)
+
+    # --- s/tick at 120 streams, bf16: median of timed chains ----------------
+    timing = {}
+    for name, eng in (("multiref", GroundingEngine(model, n)),
+                      ("multiref_int8_rings", GroundingEngine(model, n, int8_rings=True)),
+                      ("k1", GroundingEngine(k1_model, n))):
+        frames = frames_at(0)
+        state = eng.init_state(ids)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(WARMUP_TICKS):
+            state, *_ = eng.step(state, frames)
+        chains = []
+        for _ in range(TIMED_CHAINS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(CHAIN_TICKS):
+                state, fused, raw, score = eng.step(state, frames)
+            torch.cuda.synchronize()
+            chains.append((time.perf_counter() - t1) / CHAIN_TICKS)
+        med = float(np.median(chains))
+        timing[name] = {"streams": n, "s_per_tick": med, "s_per_tick_chains": chains,
+                        "predictions_per_s": n / med,
+                        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        if profile_dir:
+            try:  # a diagnostic: a profiler that cannot trace is reported
+                timing[name]["profile"] = profile_call(
+                    lambda: eng.step(state, frames), profile_dir,
+                    f"serving_tick_{name}_bf16")
+            except Exception as e:  # noqa: BLE001
+                timing[name]["profile"] = {"error": repr(e)[:300]}
+        del state, eng
+    kernels.reset_launches()
+    rec = {"phase": "serving", "model": "YOLOv3/Darknet-53 + BiLSTM, 256 px, "
+           "emb 512, hidden 512, corpus 1000, n_frame 5, topk 5, fuse_window 5, "
+           "rotating rings, split_corr_conv off, bf16, cast_params_for_serving",
+           "setup_s": setup_s, "streams": n, "ticks": SERVE_TICKS,
+           "query_swap": {"tick": SWAP_TICK, "streams": int(swap_mask.sum())},
+           "main_path_s": main_s, "launches": launches,
+           "launches_per_tick": {"multiref": {"coattn_ring": 3, "coattn_attend": 0},
+                                 "k1": {"coattn_attend": 12, "coattn_ring": 0},
+                                 "multiref_int8_rings": {"coattn_ring": 3}},
+           "k4_on_engine_rings": on_data, "cpu_parity": parity,
+           "timing": timing, "kind": torch.cuda.get_device_name(dev),
+           "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    return rec
+
+
 def profile_call(fn, out_dir, tag) -> dict:
     """torch.profiler over one call of fn: device time by kernel (top
     entries), summed kernel time, the host wall time of the call and their
@@ -944,14 +1307,18 @@ KERNELS = (
     ("coattn_attend_bwd", "dcnet_tpu_torch/csrc/coattn_bwd.cu",
      "dcnet_tpu/ops/pallas/coattn.py:121 (_attend_bwd; body "
      "_attend_bwd_kernel :80; wired by _bwd :183 and _one_bwd :215)"),
+    ("coattn_ring", "dcnet_tpu_torch/csrc/coattn_ring.cu",
+     "dcnet_tpu/ops/pallas/coattn.py:267 (coattention_ring; body "
+     "_ring_attend_kernel :240; dispatch :334)"),
 )
 
 
 def kernels_line(cases: list, launches: dict) -> dict:
     """One entry per kernel: headline numbers at its path's dominant launch
     (P=1024, C=512, bfloat16; B=8 for K1's eval request, B=16 for the train
-    step's K2 and K3), every case under `cases`. `launches` are the counts
-    of the path each kernel runs on (eval for K1, train for K2 and K3)."""
+    step's K2 and K3, B=120 streams for K4), every case under `cases`.
+    `launches` are the counts of the path each kernel runs on (eval for K1,
+    train for K2 and K3, serving for K4)."""
     out = []
     for name, source, replaces in KERNELS:
         mine = [c for c in cases if c["name"] == name]
@@ -978,7 +1345,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default="",
                     help="directory for torch.profiler tables of one "
-                         "eval_clip and one train_step per dtype")
+                         "eval_clip and one train_step per dtype and one "
+                         "serving tick per mode")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -990,9 +1358,11 @@ def main(argv=None) -> int:
     cases = phase_kernel(dev)
     eval_launches = phase_slice(dev, profile_dir=args.profile)["launches"]
     train_launches = phase_train(dev, profile_dir=args.profile)["launches"]
+    serving_launches = phase_serving(dev, profile_dir=args.profile)["launches"]
     launches = {"coattn_attend": eval_launches["coattn_attend"],
                 "coattn_pair": train_launches["coattn_pair"],
-                "coattn_attend_bwd": train_launches["coattn_attend_bwd"]}
+                "coattn_attend_bwd": train_launches["coattn_attend_bwd"],
+                "coattn_ring": serving_launches["coattn_ring"]}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the paths never launched: {launches}")
     emit(kernels_line(cases, launches))

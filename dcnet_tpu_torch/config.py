@@ -97,7 +97,7 @@ class DCNetConfig:
     compute_dtype: str = "float32"  # or "bfloat16"
     split_corr_conv: bool = True    # corr_conv computes the center half once
     coattn_batch_refs: bool = False   # not ported yet (ROADMAP queue A, 9)
-    coattn_multiref: bool = False     # not ported yet (ROADMAP queue B, K4)
+    coattn_multiref: bool = False     # center vs every reference in one K4 launch
     coattn_int8_logits: bool = False  # not ported yet (ROADMAP queue A, 9)
     trunk_quant: str = "off"          # not ported yet (ROADMAP queue A, 9)
     remat_backbone: bool = False      # not ported yet (ROADMAP queue A, 6)

@@ -36,205 +36,19 @@
 // speed on purpose: synchronous tile loads (no cp.async/TMA pipeline),
 // WMMA instead of wgmma, and one block per SM (about 180 KB of shared
 // memory per block); each block rereads kv from L2, which BLOCK_M = 32
-// amortises over 32 rows.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+// amortises over 32 rows. The block's device code is attend_tile.cuh,
+// shared with K4 (coattn_ring.cu).
+#include "attend_tile.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBlockM = 32;
-
-template <typename T>
-struct Tile;
-
-template <>
-struct Tile<float> {
-  static constexpr int kBlockN = 32;  // one kv row per lane in the FMA loops
-  static constexpr int kPadQ = 4;     // q rows are read as warp broadcasts
-  static constexpr int kPadKV = 1;    // lanes walk kv rows at one k: pitch C+1
-                                      // puts them in 32 distinct banks
-};
-
-template <>
-struct Tile<bf16> {
-  static constexpr int kBlockN = 64;  // 2 x 4 WMMA fragments: one per warp
-  static constexpr int kPadQ = 8;     // pitches keep every fragment pointer
-  static constexpr int kPadKV = 8;    // 32-byte aligned and shift the banks
-};
-
-struct Layout {
-  int ldq, ldkv, ldo, lds, ldp;
-  size_t off_q, off_kv, off_o, off_s, off_p, off_m, off_l, total;
-};
-
-__host__ __device__ inline size_t align128(size_t n) {
-  return (n + 127) / 128 * 128;
-}
-
-template <typename T>
-__host__ __device__ inline Layout layout(int C) {
-  constexpr int BN = Tile<T>::kBlockN;
-  Layout L;
-  L.ldq = C + Tile<T>::kPadQ;
-  L.ldkv = C + Tile<T>::kPadKV;
-  L.ldo = C + 4;
-  L.lds = BN + 4;
-  L.ldp = BN + 8;
-  size_t off = 0;
-  L.off_q = off;  off += align128(sizeof(T) * kBlockM * L.ldq);
-  L.off_kv = off; off += align128(sizeof(T) * BN * L.ldkv);
-  L.off_o = off;  off += align128(sizeof(float) * kBlockM * L.ldo);
-  L.off_s = off;  off += align128(sizeof(float) * kBlockM * L.lds);
-  L.off_p = off;  off += align128(sizeof(T) * kBlockM * L.ldp);
-  L.off_m = off;  off += align128(sizeof(float) * kBlockM);
-  L.off_l = off;  off += align128(sizeof(float) * kBlockM);
-  L.total = off;
-  return L;
-}
-
-__device__ inline float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ inline float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename T>
-__device__ inline T from_float(float v);
-template <>
-__device__ inline float from_float<float>(float v) { return v; }
-template <>
-__device__ inline bf16 from_float<bf16>(float v) { return __float2bfloat16(v); }
-
-// Copies `rows` rows of C elements starting at row `row0` of a (P, C)
-// row-major matrix into shared memory with pitch `ld`; rows past P are
-// zero. Global reads are 16-byte vectors (the host checks alignment).
-template <typename T>
-__device__ void load_rows(T* dst, int ld, const T* src, int row0, int rows,
-                          int P, int C) {
-  constexpr int V = 16 / sizeof(T);
-  const int vecs = C / V;
-  for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
-    const int r = i / vecs;
-    const int c = (i - r * vecs) * V;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < P) {
-      v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * C + c);
-    }
-    T* d = dst + r * ld + c;
-    if constexpr (sizeof(T) == 2) {
-      *reinterpret_cast<uint4*>(d) = v;  // pitch (C + 8) * 2 bytes: aligned
-    } else {
-      const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-      for (int k = 0; k < V; ++k) d[k] = e[k];
-    }
-  }
-}
-
-// s[r][n] = <q_s[r], kv_s[n]> for the kBlockM x BN tile.
-__device__ void tile_scores(const float* q_s, const float* kv_s, float* s_s,
-                            const Layout& L, int C) {
-  constexpr int R = kBlockM / kWarps;
-  const int warp = threadIdx.x / 32, n = threadIdx.x % 32;
-  float acc[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] = 0.f;
-  const float* kr = kv_s + n * L.ldkv;
-  for (int k = 0; k < C; ++k) {
-    const float b = kr[k];
-#pragma unroll
-    for (int i = 0; i < R; ++i) acc[i] = fmaf(q_s[(warp + i * kWarps) * L.ldq + k], b, acc[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) s_s[(warp + i * kWarps) * L.lds + n] = acc[i];
-}
-
-__device__ void tile_scores(const bf16* q_s, const bf16* kv_s, float* s_s,
-                            const Layout& L, int C) {
-  constexpr int BN = Tile<bf16>::kBlockN;
-  const int warp = threadIdx.x / 32;
-  for (int f = warp; f < (kBlockM / 16) * (BN / 16); f += kWarps) {
-    const int fm = f / (BN / 16), fn = f % (BN / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int k = 0; k < C; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, q_s + fm * 16 * L.ldq + k, L.ldq);
-      wmma::load_matrix_sync(b, kv_s + fn * 16 * L.ldkv + k, L.ldkv);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(s_s + fm * 16 * L.lds + fn * 16, acc, L.lds,
-                            wmma::mem_row_major);
-  }
-}
-
-// o_s[r][c] += sum_j p_s[r][j] * kv_s[j][c] over the tile's BN kv rows.
-__device__ void tile_accumulate(const float* p_s, const float* kv_s, float* o_s,
-                                const Layout& L, int C) {
-  constexpr int BN = Tile<float>::kBlockN;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float col[BN];
-#pragma unroll
-    for (int j = 0; j < BN; ++j) col[j] = kv_s[j * L.ldkv + c];
-    for (int r = 0; r < kBlockM; ++r) {
-      float acc = o_s[r * L.ldo + c];
-#pragma unroll
-      for (int j = 0; j < BN; ++j) acc = fmaf(p_s[r * L.ldp + j], col[j], acc);
-      o_s[r * L.ldo + c] = acc;
-    }
-  }
-}
-
-__device__ void tile_accumulate(const bf16* p_s, const bf16* kv_s, float* o_s,
-                                const Layout& L, int C) {
-  constexpr int BN = Tile<bf16>::kBlockN;
-  const int warp = threadIdx.x / 32;
-  const int frags_c = C / 16;
-  for (int f = warp; f < (kBlockM / 16) * frags_c; f += kWarps) {
-    const int fm = f / frags_c, fc = f % frags_c;
-    float* optr = o_s + fm * 16 * L.ldo + fc * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::load_matrix_sync(acc, optr, L.ldo, wmma::mem_row_major);
-#pragma unroll
-    for (int k = 0; k < BN; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, p_s + fm * 16 * L.ldp + k, L.ldp);
-      wmma::load_matrix_sync(b, kv_s + k * L.ldkv + fc * 16, L.ldkv);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(optr, acc, L.ldo, wmma::mem_row_major);
-  }
-}
+using namespace dcnet;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attend_kernel(const T* q, const T* kv, T* out, T* out2, int P, int C,
               long long q_bstride, long long kv_bstride, float t) {
-  constexpr int BN = Tile<T>::kBlockN;
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = layout<T>(C);
-  T* q_s = reinterpret_cast<T*>(smem + L.off_q);
-  T* kv_s = reinterpret_cast<T*>(smem + L.off_kv);
-  float* o_s = reinterpret_cast<float*>(smem + L.off_o);
-  float* s_s = reinterpret_cast<float*>(smem + L.off_s);
-  T* p_s = reinterpret_cast<T*>(smem + L.off_p);
-  float* m_s = reinterpret_cast<float*>(smem + L.off_m);
-  float* l_s = reinterpret_cast<float*>(smem + L.off_l);
-
   if (blockIdx.z == 1) {  // the pair's second direction: attend(kv, q)
     const T* tmp = q;
     q = kv;
@@ -244,66 +58,9 @@ attend_kernel(const T* q, const T* kv, T* out, T* out2, int P, int C,
     kv_bstride = st;
     out = out2;
   }
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * kBlockM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* qb = q + (long long)b * q_bstride;
-  const T* kvb = kv + (long long)b * kv_bstride;
-
-  load_rows(q_s, L.ldq, qb, row0, kBlockM, P, C);
-  for (int i = threadIdx.x; i < kBlockM * C; i += kThreads) {
-    o_s[(i / C) * L.ldo + i % C] = 0.f;
-  }
-  for (int r = threadIdx.x; r < kBlockM; r += kThreads) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
-  }
-
-  for (int n0 = 0; n0 < P; n0 += BN) {
-    __syncthreads();  // the last tile's readers of kv_s and p_s are done
-    load_rows(kv_s, L.ldkv, kvb, n0, BN, P, C);
-    __syncthreads();
-    tile_scores(q_s, kv_s, s_s, L, C);
-    __syncthreads();
-    // online softmax, one warp per row; columns past P get -inf logits
-    for (int r = warp; r < kBlockM; r += kWarps) {
-      float v[BN / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int k = 0; k < BN / 32; ++k) {
-        const int j = lane + 32 * k;
-        v[k] = (n0 + j < P) ? s_s[r * L.lds + j] * t : -INFINITY;
-        mx = fmaxf(mx, v[k]);
-      }
-      mx = warp_max(mx);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);  // finite: column n0 < P is valid
-      float sum = 0.f;
-#pragma unroll
-      for (int k = 0; k < BN / 32; ++k) {
-        const float e = expf(v[k] - m_new);
-        p_s[r * L.ldp + lane + 32 * k] = from_float<T>(e);
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      const float alpha = expf(m_old - m_new);  // 0 on the first tile
-      for (int c = lane; c < C; c += 32) o_s[r * L.ldo + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + sum;
-      }
-    }
-    __syncthreads();
-    tile_accumulate(p_s, kv_s, o_s, L, C);
-  }
-  __syncthreads();
-
-  T* ob = out + ((long long)b * P + row0) * C;
-  for (int i = threadIdx.x; i < kBlockM * C; i += kThreads) {
-    const int r = i / C, c = i % C;
-    if (row0 + r < P) ob[(long long)r * C + c] = from_float<T>(o_s[r * L.ldo + c] / l_s[r]);
-  }
+  const long long b = blockIdx.y;
+  attend_rows<T, T>(q + b * q_bstride, kv + b * kv_bstride, out + b * P * C,
+                    blockIdx.x * kBlockM, P, C, t, smem);
 }
 
 template <typename T>

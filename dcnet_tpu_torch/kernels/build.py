@@ -1,9 +1,11 @@
 """Builds the hand-written CUDA kernels in `dcnet_tpu_torch/csrc/` at first use.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
-for Hopper (`sm_90a`) into its own shared library, loaded with `ctypes`.
+for Hopper (`sm_90a`) into its own shared library, loaded with `ctypes`;
+device code shared between sources lives in `csrc/*.cuh` headers.
 Libraries land in `dcnet_tpu_torch/_build/` (listed in `.gitignore`) under a
-name that carries a hash of the source, so an edited source rebuilds. One
+name that carries a hash of the source and the headers, so an edited source
+or header rebuilds. One
 `nvcc` process runs per source, all started together. A failed build raises
 with the compiler's output; nothing falls back.
 """
@@ -42,8 +44,13 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library path of `csrc/<name>.cu`, named by a hash of the source,
+    the headers of `csrc/` it may include, and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(SRC_DIR) if n.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(SRC_DIR, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

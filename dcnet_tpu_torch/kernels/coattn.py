@@ -1,14 +1,17 @@
-"""Co-attention kernels K1, K2 and K3 with their gradients.
+"""Co-attention kernels K1, K2, K3 and K4, with the gradients of K1 and K2.
 
 K1, `softmax_rows(T * q kvᵀ) kv`, is the port of
 `dcnet_tpu/ops/pallas/coattn.py::_attend`; K2, the pair `(K1(f1, f2),
 K1(f2, f1))` of the training step, of `coattention_fused`; K3, the
-backward of one direction, of `_attend_bwd`. K1 and K2 are one CUDA kernel
-in `csrc/coattn.cu` (K2's grid spans the direction), K3 is
-`csrc/coattn_bwd.cu`; their source notes give the bounds and the designs.
-This module binds them with `ctypes`, holds their plain PyTorch versions,
-and dispatches on where the tensors lie: CPU tensors take the plain
-versions, CUDA tensors launch the kernels or raise.
+backward of one direction, of `_attend_bwd`; K4, the center frame against
+every reference straight off a (B, S, P, C) feature ring (float or int8),
+of `coattention_ring`. K1 and K2 are one CUDA kernel in `csrc/coattn.cu`
+(K2's grid spans the direction), K3 is `csrc/coattn_bwd.cu`, K4
+`csrc/coattn_ring.cu` (its float blocks are K1's device code,
+`csrc/attend_tile.cuh`); their source notes give the bounds and the
+designs. This module binds them with `ctypes`, holds their plain PyTorch
+versions, and dispatches on where the tensors lie: CPU tensors take the
+plain versions, CUDA tensors launch the kernels or raise.
 
 The gradients are `torch.autograd.Function`s, as the JAX package's are
 `custom_vjp`s: `coattention_one` is K1 forward and K3 backward, and
@@ -27,7 +30,12 @@ from dcnet_tpu_torch import kernels
 from dcnet_tpu_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_RING_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 K3_MAX_C = 512  # csrc/coattn_bwd.cu holds its accumulators for C <= 512
+# int8 ring logits are integer sums of at most 127^2 C; fp32 holds them
+# exactly (in any summation order) while 127^2 C < 2^24
+INT8_RING_MAX_C = 1040
+INT8_SCALE = 127.0
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -67,6 +75,63 @@ def attend_bwd_plain(q: torch.Tensor, kv: torch.Tensor, temperature: float,
     return dq.to(q.dtype), dkv.to(kv.dtype)
 
 
+def _newest_slot(s: int, center_t: int, newest_slot=None) -> int:
+    """The physical slot of a ring's newest frame (None: S - 1, physical
+    order is temporal order), checked with the center's temporal index."""
+    slot = s - 1 if newest_slot is None else int(newest_slot)
+    if not 0 <= slot < s or not 0 <= center_t < s:
+        raise ValueError(f"ring of {s} frames: newest_slot {newest_slot} and "
+                         f"center_t {center_t} must lie in [0, {s})")
+    return slot
+
+
+def ring_slots(s: int, center_t: int, newest_slot=None) -> Tuple[int, list]:
+    """Physical slots of the center and of the references (temporal order,
+    the center skipped) in a ring of S frames whose newest frame sits in
+    slot `newest_slot`: temporal frame j lives in slot
+    (newest_slot + 1 + j) mod S."""
+    slot = _newest_slot(s, center_t, newest_slot)
+    return ((slot + 1 + center_t) % s,
+            [(slot + 1 + j) % s for j in range(s) if j != center_t])
+
+
+def _ring_out_dtype(ring_dtype: torch.dtype, out_dtype) -> torch.dtype:
+    if out_dtype is None:
+        return torch.bfloat16 if ring_dtype == torch.int8 else ring_dtype
+    return out_dtype
+
+
+def ring_attend_plain(ring: torch.Tensor, temperature: float, center_t: int,
+                      newest_slot=None, out_dtype=None) -> torch.Tensor:
+    """The plain version of K4, the TPU kernel's body on full rows. ring:
+    (B, S, P, C) -> (B, S-1, P, C), the center frame attended to each
+    reference in temporal order. Float rings follow `attend_plain`'s dtype
+    rules. int8 rings: logits are the int8 products summed exactly (fp32 of
+    integers below 2^24) times T/127²; kv is dequantised as
+    bf16(bf16(kv) * bf16(1/127)); the weights are rounded to bf16 and the PV
+    product sums in fp32. Output in the ring's dtype (bf16 for int8) unless
+    `out_dtype` is given."""
+    b, s, p, c = ring.shape
+    cs, rs = ring_slots(s, center_t, newest_slot)
+    cen, refs = ring[:, cs:cs + 1], ring[:, rs]       # (B, 1, P, C), (B, R, P, C)
+    if ring.dtype == torch.int8:
+        if c > INT8_RING_MAX_C:
+            raise ValueError(f"int8 ring logits are exact in fp32 for C <= "
+                             f"{INT8_RING_MAX_C}, got C={c}")
+        logits = (torch.matmul(cen.float(), refs.float().transpose(2, 3))
+                  * (temperature / (INT8_SCALE * INT8_SCALE)))
+        scale = torch.tensor(1.0 / INT8_SCALE, dtype=torch.bfloat16)
+        kvf = (refs.to(torch.bfloat16) * scale).float()
+        w = torch.softmax(logits, dim=-1).to(torch.bfloat16).float()
+    else:
+        kvf = refs.to(_acc(ring.dtype))
+        logits = torch.matmul(cen.to(kvf.dtype), kvf.transpose(2, 3)) * temperature
+        w = torch.softmax(logits, dim=-1)
+        if ring.dtype == torch.bfloat16:
+            w = w.to(torch.bfloat16).to(kvf.dtype)
+    return torch.matmul(w, kvf).to(_ring_out_dtype(ring.dtype, out_dtype))
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("coattn")
     if not getattr(lib, "_dcnet_bound", False):
@@ -91,6 +156,20 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.dcnet_coattn_attend_bwd.restype = ctypes.c_int
         lib.dcnet_coattn_bwd_error_string.argtypes = [ctypes.c_int]
         lib.dcnet_coattn_bwd_error_string.restype = ctypes.c_char_p
+        lib._dcnet_bound = True
+    return lib
+
+
+def _ring_lib() -> ctypes.CDLL:
+    lib = build.load("coattn_ring")
+    if not getattr(lib, "_dcnet_bound", False):
+        lib.dcnet_coattn_ring.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+            + [ctypes.c_longlong] * 2
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.dcnet_coattn_ring.restype = ctypes.c_int
+        lib.dcnet_coattn_ring_error_string.argtypes = [ctypes.c_int]
+        lib.dcnet_coattn_ring_error_string.restype = ctypes.c_char_p
         lib._dcnet_bound = True
     return lib
 
@@ -274,3 +353,79 @@ def coattention_pair_fused(f1: torch.Tensor, f2: torch.Tensor,
     o1, o2 = coattention_fused(f1.reshape(b, h * w, c),
                                f2.reshape(b, h * w, c), temperature)
     return o1.reshape(b, h, w, c), o2.reshape(b, h, w, c)
+
+
+def _check_ring(ring: torch.Tensor, out_dtype: torch.dtype) -> None:
+    """K4's input rules: a CUDA (B, S, P, C) ring in float32, bfloat16 or
+    int8 with S >= 2, C % 16 == 0 (int8: C <= 1040), rows of C contiguous,
+    16-byte aligned frames (any batch and slot stride); output float32 or
+    bfloat16."""
+    if ring.device.type != "cuda":
+        raise ValueError(f"ring kernel needs the ring on a CUDA device, got "
+                         f"{ring.device}")
+    if ring.dtype not in _RING_DTYPE_CODE:
+        raise TypeError(f"ring kernel takes float32, bfloat16 or int8 rings, "
+                        f"got {ring.dtype}")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"ring kernel writes float32 or bfloat16, got {out_dtype}")
+    if ring.dim() != 4 or ring.shape[1] < 2:
+        raise ValueError(f"ring kernel needs a (B, S, P, C) ring with S >= 2, "
+                         f"got {tuple(ring.shape)}")
+    b, s, p, c = ring.shape
+    if c % 16 or (ring.dtype == torch.int8 and c > INT8_RING_MAX_C):
+        raise ValueError(f"ring kernel needs C % 16 == 0 (and C <= "
+                         f"{INT8_RING_MAX_C} for int8), got C={c}")
+    size = ring.element_size()
+    if not (ring.stride(3) == 1 and (p == 1 or ring.stride(2) == c)
+            and ring.data_ptr() % 16 == 0
+            and (ring.stride(0) * size) % 16 == 0
+            and (ring.stride(1) * size) % 16 == 0):
+        raise ValueError(f"ring kernel needs rows contiguous and frames "
+                         f"16-byte aligned, got strides {ring.stride()}")
+
+
+def coattention_ring(ring: torch.Tensor, temperature: float, center_t: int,
+                     newest_slot=None, out_dtype=None) -> torch.Tensor:
+    """K4 on a CUDA (B, S, P, C) ring: one launch computes the center frame
+    (temporal index `center_t`) attended to every reference, -> (B, S-1,
+    P, C) in temporal reference order. `newest_slot` is the physical slot
+    of the newest frame (None: S - 1), a host integer passed by value.
+    Output bf16 for int8 rings, the ring's dtype otherwise, unless
+    `out_dtype` is given. Forward only. Raises on what the kernel does not
+    take."""
+    out_dtype = _ring_out_dtype(ring.dtype, out_dtype)
+    _check_ring(ring, out_dtype)
+    b, s, p, c = ring.shape
+    slot = _newest_slot(s, center_t, newest_slot)
+    t = (temperature / (INT8_SCALE * INT8_SCALE) if ring.dtype == torch.int8
+         else temperature)
+    lib = _ring_lib()
+    out = torch.empty((b, s - 1, p, c), dtype=out_dtype, device=ring.device)
+    with torch.cuda.device(ring.device):
+        stream = torch.cuda.current_stream(ring.device).cuda_stream
+        err = lib.dcnet_coattn_ring(
+            ring.data_ptr(), out.data_ptr(), b, s, p, c, center_t, slot,
+            ring.stride(0), ring.stride(1), float(t),
+            _RING_DTYPE_CODE[ring.dtype], _DTYPE_CODE[out_dtype], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"ring kernel launch failed (B={b}, S={s}, P={p}, C={c}, "
+            f"{ring.dtype}): {lib.dcnet_coattn_ring_error_string(err).decode()}")
+    kernels.LAUNCHES["coattn_ring"] += 1
+    return out
+
+
+def coattention_ring_fused(ring: torch.Tensor, temperature: float = 10.0,
+                           center_t=None, newest_slot=None) -> torch.Tensor:
+    """The dispatch of K4 on an NHWC ring (B, S, H, W, C) -> the STACKED
+    (B, S-1, H, W, C) attended features, references in temporal order;
+    `center_t` defaults to S // 2. CPU tensors take `ring_attend_plain`;
+    CUDA tensors launch the kernel (`coattention_ring`) or raise."""
+    b, s, h, w, c = ring.shape
+    center_t = s // 2 if center_t is None else center_t
+    flat = ring.reshape(b, s, h * w, c)
+    if _on_cpu(ring):
+        out = ring_attend_plain(flat, temperature, center_t, newest_slot)
+    else:
+        out = coattention_ring(flat, temperature, center_t, newest_slot)
+    return out.reshape(b, s - 1, h, w, c)

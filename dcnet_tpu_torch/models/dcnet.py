@@ -15,9 +15,12 @@ The module tree carries the reference state_dict names, so the reference
 checkpoint) loads with strict=True.
 
 Public layouts follow the JAX package: images NHWC (B*n, H, W, 3), per-frame
-features (B, n, h, w, C), outbox (B, 3, 5, g, g). The single-image
-baseline, the serving ring (`newest_slot`) and the opt-in co-attention
-variants are later slices (ROADMAP queues A and B).
+features (B, n, h, w, C), outbox (B, 3, 5, g, g). The correspondence stage
+also reads the serving engine's rotating feature rings (`newest_slot`, int8
+rings dequantised on read) and, with `cfg.coattn_multiref`, co-attends the
+center to every reference in one launch of kernel K4 per scale. The
+single-image baseline and the other opt-in co-attention variants are later
+slices (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from torch import nn
 from dcnet_tpu_torch import DeviceLike, resolve_device, resolve_dtype
 from dcnet_tpu_torch.config import DCNetConfig
 from dcnet_tpu_torch.kernels.coattn import (
-    coattention_center_fused, coattention_pair_fused)
+    coattention_center_fused, coattention_pair_fused, coattention_ring_fused)
 from dcnet_tpu_torch.models.attention import PhraseAttention
 from dcnet_tpu_torch.models.darknet import (
     DarknetBackbone, LayerDef, yolov3_layer_defs)
@@ -85,9 +88,6 @@ class DCNet(nn.Module):
                               "ROADMAP queue A, item 9")
         if cfg.coattn_batch_refs:
             raise _not_ported("coattn_batch_refs", "ROADMAP queue A, item 9")
-        if cfg.coattn_multiref:
-            raise _not_ported("coattn_multiref (ring kernel K4)",
-                              "ROADMAP queue B, K4")
         if cfg.remat_backbone:
             raise _not_ported("remat_backbone", "ROADMAP queue A, item 6")
         if cfg.tp_internals:
@@ -157,33 +157,62 @@ class DCNet(nn.Module):
         """(flang (B, C) mapped + normalised, context, embedded)."""
         return self._language(torch.as_tensor(word_ids, device=self.device))
 
+    def _dequantize(self, x: torch.Tensor) -> torch.Tensor:
+        """An int8 ring frame (l2-normalised features quantised with the
+        static scale 1/127) in the compute dtype: x * (1/127) with the scale
+        rounded to the compute dtype first, as the JAX package applies a
+        Python float to a bf16 array. Float frames pass through."""
+        if x.dtype != torch.int8:
+            return x
+        return x.to(self.dtype) * torch.tensor(1.0 / 127.0, dtype=self.dtype)
+
     @torch.no_grad()
-    def corr_features(self, per_frame: Sequence[torch.Tensor]
-                      ) -> List[torch.Tensor]:
-        """Center-vs-each-reference co-attention (K1) + corr_conv,
-        l2-normalised and averaged over the references.
-        per_frame: per scale (B, n_frame, h, w, C)."""
+    def corr_features(self, per_frame: Sequence[torch.Tensor],
+                      center: Optional[int] = None,
+                      newest_slot: Optional[int] = None) -> List[torch.Tensor]:
+        """Center-vs-each-reference co-attention + corr_conv, l2-normalised
+        and averaged over the references. per_frame: per scale
+        (B, n_frame, h, w, C), float or int8; see `eval_features` for
+        `newest_slot`. Without cfg.coattn_multiref the center attends to
+        each reference through K1; with it, one K4 launch per scale reads
+        every reference off the ring in place and returns them stacked."""
         cfg = self.cfg
         n_frame = per_frame[0].shape[1]
-        center = n_frame // 2
+        center = n_frame // 2 if center is None else center
         ref_idx = [j for j in range(n_frame) if j != center]
+        slot = n_frame - 1 if newest_slot is None else newest_slot
+
+        def frame(x: torch.Tensor, j: int) -> torch.Tensor:
+            # temporal frame j lives in physical slot (slot + 1 + j) mod n
+            return self._dequantize(x[:, (slot + 1 + j) % n_frame])
+
         corr_feat = []
         for i in range(3):
-            frames = per_frame[i]
-            cen = frames[:, center]
-            atts = [coattention_center_fused(cen, frames[:, j],
-                                             cfg.coattn_temperature)
-                    for j in ref_idx]
+            ring = per_frame[i]
+            cen = frame(ring, center)
+            if cfg.coattn_multiref:  # stacked (B, R, h, w, C), temporal order
+                atts = coattention_ring_fused(
+                    ring, cfg.coattn_temperature, center_t=center,
+                    newest_slot=newest_slot).to(cen.dtype)
+            else:
+                atts = [coattention_center_fused(cen, frame(ring, j),
+                                                 cfg.coattn_temperature)
+                        for j in ref_idx]
             conv = self.corr_conv[i][0]
             if cfg.split_corr_conv:  # center half of the 1x1 contraction once
                 cfs = conv((cen, atts))
             else:
+                if cfg.coattn_multiref:
+                    atts = list(atts.unbind(1))
                 cfs = [conv(torch.cat([cen, a], dim=-1)) for a in atts]
-            acc = None
-            for cf in cfs:
-                cf = l2_normalize(cf)
-                acc = cf if acc is None else acc + cf
-            corr_feat.append(acc / len(ref_idx))
+            if isinstance(cfs, list):
+                acc = None
+                for cf in cfs:
+                    cf = l2_normalize(cf)
+                    acc = cf if acc is None else acc + cf
+                corr_feat.append(acc / len(ref_idx))
+            else:  # stacked (B, R, h, w, F) from the split conv
+                corr_feat.append(l2_normalize(cfs).mean(dim=1))
         return corr_feat
 
     def _trunk(self, corr_feat: Sequence[torch.Tensor], flang: torch.Tensor,
@@ -323,13 +352,22 @@ class DCNet(nn.Module):
 
     @torch.no_grad()
     def eval_features(self, per_frame: Sequence[torch.Tensor], word_ids,
-                      language: Optional[Tuple[torch.Tensor, ...]] = None
-                      ) -> EvalOutputs:
+                      center: Optional[int] = None,
+                      language: Optional[Tuple[torch.Tensor, ...]] = None,
+                      newest_slot: Optional[int] = None) -> EvalOutputs:
         """Trunk over pre-extracted per-frame features (per scale
-        (B, n_frame, h, w, C)); word_ids (B, L). Pass `language` =
-        (flang, context, embedded) to skip the text encoder."""
+        (B, n_frame, h, w, C), float or int8); word_ids (B, L). Pass
+        `language` = (flang, context, embedded) to skip the text encoder.
+
+        newest_slot: the serving engine's rotating ring stores frames in
+        modular order (newest in slot `newest_slot`, oldest right after it)
+        instead of shifting the buffer each tick: temporal frame j (0 =
+        oldest) lives in physical slot (newest_slot + 1 + j) mod n_frame. A
+        host integer, so reading the ring syncs nothing. None = physical
+        order is temporal order (offline eval)."""
         word_ids = torch.as_tensor(word_ids, device=self.device)
-        corr_feat = self.corr_features(per_frame)
+        corr_feat = self.corr_features(per_frame, center=center,
+                                       newest_slot=newest_slot)
         if language is None:
             language = self._language(word_ids)
         flang, context, embedded = language

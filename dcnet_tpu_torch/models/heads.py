@@ -126,7 +126,9 @@ class ConvBNReLU(nn.Module):
     the conv on the R concatenations [shared, part_r] while contracting the
     shared half once: W @ concat(s, p) = W_s @ s + W_p @ p. The kernel keeps
     its single concat shape, so checkpoints are unaffected. Returns a list
-    of R outputs for a split input."""
+    of R outputs for a split input, or one stacked (B, R, H, W, F) output
+    when the parts come stacked as one (B, R, H, W, C) tensor (eval BN and
+    the activation act per channel, whatever the rank)."""
 
     def __init__(self, in_ch: int, features: int, kernel: int = 1,
                  stride: int = 1, leaky: bool = False, relu: bool = True,
@@ -152,6 +154,9 @@ class ConvBNReLU(nn.Module):
             w = self.conv.weight.to(self.dtype).flatten(1)
             c_s = shared.shape[-1]
             y_s = F.linear(shared.to(self.dtype), w[:, :c_s])
+            if isinstance(parts, torch.Tensor):  # stacked (B, R, H, W, C)
+                y = y_s[:, None] + F.linear(parts.to(self.dtype), w[:, c_s:])
+                return _act(bn_eval(y, self.bn), self.leaky, self.relu)
             return [_act(bn_eval(y_s + F.linear(p.to(self.dtype), w[:, c_s:]),
                              self.bn), self.leaky, self.relu)
                     for p in parts]

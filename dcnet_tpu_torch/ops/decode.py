@@ -8,7 +8,8 @@ Top-k keeps JAX's tie order (lower index first) through a stable sort.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -38,6 +39,14 @@ def flatten_scores(scores: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([s.reshape(b, -1) for s in scores], dim=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _anchor_table(anchors: Tuple[Tuple[float, float], ...],
+                  device: torch.device) -> torch.Tensor:
+    """A scale's (3, 2) anchors on `device`, made once: a table copied from
+    the host on every call would sync the host with the card each time."""
+    return torch.tensor(anchors, dtype=torch.float32, device=device)
+
+
 def decode_indices(outbox: Sequence[torch.Tensor], flat_idx: torch.Tensor,
                    cfg: DCNetConfig) -> DecodedBoxes:
     """Decode boxes at flat conf indices. flat_idx: (B, K) integer."""
@@ -61,8 +70,7 @@ def decode_indices(outbox: Sequence[torch.Tensor], flat_idx: torch.Tensor,
         rem = local % (g * g)
         gj, gi = rem // g, rem % g
         picked = o.reshape(b, 3, 5, g * g)[rows, anchor, :, rem].float()  # (B, K, 5)
-        anchors_s = torch.tensor(cfg.scaled_anchors(s), dtype=torch.float32,
-                                 device=dev)
+        anchors_s = _anchor_table(cfg.scaled_anchors(s), dev)
         aw, ah = anchors_s[anchor, 0], anchors_s[anchor, 1]
         cx = (torch.sigmoid(picked[..., 0]) + gi) * strides[s]
         cy = (torch.sigmoid(picked[..., 1]) + gj) * strides[s]

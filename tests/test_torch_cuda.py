@@ -1,6 +1,7 @@
-"""The co-attention CUDA kernels on the card (K1, the pair K2 and the
-backward K3), against their plain PyTorch versions, the launches of one
-train step, and train-mode BatchNorm's card branch against its CPU branch.
+"""The co-attention CUDA kernels on the card (K1, the pair K2, the backward
+K3 and the ring kernel K4), against their plain PyTorch versions, the
+launches of one train step and of serving ticks, and train-mode
+BatchNorm's card branch against its CPU branch.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -9,7 +10,8 @@ only PyTorch is installed:
 
 Without a CUDA card every test here skips: the kernels are CUDA C++ with no
 CPU mode (their plain versions are held against the JAX package in
-`tests/test_torch_coattn.py` and `tests/test_torch_train_kernels.py`).
+`tests/test_torch_coattn.py`, `tests/test_torch_train_kernels.py` and
+`tests/test_torch_ring.py`).
 """
 
 import copy
@@ -185,9 +187,10 @@ def test_train_step_launches(card, k):
     kernels.reset_launches()
     metrics = train_step(state, batch)
     torch.cuda.synchronize()
-    want = ({"coattn_attend": 0, "coattn_pair": 3, "coattn_attend_bwd": 6}
-            if k == 2 else
-            {"coattn_attend": 3, "coattn_pair": 0, "coattn_attend_bwd": 3})
+    want = ({"coattn_attend": 0, "coattn_pair": 3, "coattn_attend_bwd": 6,
+             "coattn_ring": 0} if k == 2 else
+            {"coattn_attend": 3, "coattn_pair": 0, "coattn_attend_bwd": 3,
+             "coattn_ring": 0})
     assert kernels.LAUNCHES == want
     assert all(torch.isfinite(v) for v in metrics.values())
 
@@ -265,3 +268,96 @@ def test_kernel_refuses_what_it_cannot_take(card):
         wide = torch.zeros(1, 16, 528, device=card)
         coattn.attend_bwd(wide, wide, 10.0, wide)
     assert set(kernels.LAUNCHES.values()) == {0}
+
+
+def _int8_ring(gen, *shape):
+    """An int8 ring as the serving engine writes it: l2-normalised rows
+    quantised with the static scale 1/127."""
+    return torch.clamp(torch.round(_rows(gen, *shape) * 127.0), -127, 127).to(torch.int8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_ring_kernel_matches_plain_on_card(card, dtype):
+    """K4 against its plain version at every slot, P 64, 169 and 1024,
+    C = 512. Its output is the ring's dtype, bf16 for int8 rings: K1's
+    limits for that output dtype (the int8 logits are exact on both sides,
+    the rest is K1's bf16 arithmetic)."""
+    gen = torch.Generator().manual_seed(7)
+    for p in (64, 169, 1024):
+        if dtype == "int8":
+            ring = _int8_ring(gen, 2, 5, p, 512).to(card)
+        else:
+            ring = _rows(gen, 2, 5, p, 512).to(card, getattr(torch, dtype))
+        for slot in (None, 0, 2, 4):
+            got = coattn.coattention_ring(ring, 10.0, 2, newest_slot=slot)
+            want = coattn.ring_attend_plain(ring, 10.0, 2, newest_slot=slot)
+            torch.cuda.synchronize()
+            out_dt = torch.bfloat16 if dtype == "int8" else ring.dtype
+            assert got.dtype == out_dt and got.shape == (2, 4, p, 512)
+            torch.testing.assert_close(got.float(), want.float(), **TOL[out_dt])
+            assert _rel(got, want) <= REL_TOL[out_dt]
+            # a kernel that read the frames in physical order would fail
+            if slot not in (None, 4):
+                blind = coattn.ring_attend_plain(ring, 10.0, 2)
+                assert _rel(blind, want) > REL_TOL[out_dt]
+
+
+def test_ring_kernel_out_dtype_and_strided_ring(card):
+    """fp32 output of an int8 ring, and a ring sliced out of a wider batch
+    (batch-strided), as the plain version gives them."""
+    gen = torch.Generator().manual_seed(8)
+    ring = _int8_ring(gen, 3, 5, 169, 64).to(card)
+    got = coattn.coattention_ring(ring, 10.0, 2, 1, out_dtype=torch.float32)
+    want = coattn.ring_attend_plain(ring, 10.0, 2, 1, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=2e-4)
+    wide = _rows(gen, 4, 5, 64, 64).to(card)
+    got = coattn.coattention_ring(wide[::2], 10.0, 1, 3)
+    want = coattn.ring_attend_plain(wide[::2].contiguous(), 10.0, 1, 3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+def test_ring_kernel_refuses_what_it_cannot_take(card):
+    ring = torch.zeros(2, 5, 64, 32, device=card)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        coattn.coattention_ring(ring.cpu(), 10.0, 2)
+    with pytest.raises(TypeError, match="int8"):
+        coattn.coattention_ring(ring.half(), 10.0, 2)
+    with pytest.raises(ValueError, match="C % 16"):
+        coattn.coattention_ring(ring[..., :24], 10.0, 2)
+    with pytest.raises(ValueError, match="must lie in"):
+        coattn.coattention_ring(ring, 10.0, 2, newest_slot=5)
+    assert set(kernels.LAUNCHES.values()) == {0}
+    coattn.coattention_ring_fused(ring.reshape(2, 5, 8, 8, 32))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["coattn_ring"] == 1
+
+
+@pytest.mark.parametrize("multiref", [False, True])
+def test_serving_tick_launches(card, multiref):
+    """A serving tick of a mini model on the card: with coattn_multiref one
+    K4 launch per scale and no K1, without it 4 K1 launches per scale."""
+    from dcnet_tpu_torch.config import DCNetConfig
+    from dcnet_tpu_torch.models.darknet import mini_backbone_defs
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.serving.engine import GroundingEngine
+    from dcnet_tpu_torch.weights import seeded_init_
+
+    cfg = DCNetConfig(image_size=64, corpus_size=50, emb_size=64,
+                      lstm_hidden=64, word_embedding_size=64,
+                      coattn_multiref=multiref)
+    model = seeded_init_(DCNet(cfg, backbone_defs=mini_backbone_defs(),
+                               device=card), seed=0)
+    eng = GroundingEngine(model, n_streams=3, int8_rings=multiref)
+    gen = torch.Generator().manual_seed(9)
+    state = eng.init_state(torch.randint(1, 50, (3, 20), generator=gen))
+    kernels.reset_launches()
+    for _ in range(6):
+        state, fused, raw, score = eng.step(state, torch.rand(3, 64, 64, 3, generator=gen))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["coattn_ring"] == (18 if multiref else 0)
+    assert kernels.LAUNCHES["coattn_attend"] == (0 if multiref else 72)
+    assert all(torch.isfinite(x).all() for x in (fused, raw, score))

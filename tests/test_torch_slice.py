@@ -216,9 +216,24 @@ def test_bfloat16_eval_clip_matches_jax(pair, monkeypatch):
 
 @pytest.mark.parametrize("option", [
     dict(use_lstm=False), dict(trunk_quant="int8"),
-    dict(coattn_batch_refs=True), dict(coattn_multiref=True),
-    dict(coattn_int8_logits=True)])
+    dict(coattn_batch_refs=True), dict(coattn_int8_logits=True)])
 def test_unported_options_raise(option):
     cfg = DCNetConfig(**SMALL, **option)
     with pytest.raises(NotImplementedError, match="not ported"):
         DCNet(cfg, backbone_defs=mini_backbone_defs(), device="cpu")
+
+
+@pytest.mark.parametrize("option", [
+    "int8_chain", "quantize", "mesh", "compiler_options"])
+def test_unported_engine_options_raise(option):
+    """The serving engine's int8 backbone (`int8_chain`, `quantize()`), its
+    device mesh and XLA compiler options are not carried."""
+    from dcnet_tpu_torch.serving.engine import GroundingEngine
+    model = DCNet(DCNetConfig(**SMALL), backbone_defs=mini_backbone_defs(),
+                  device="cpu")
+    kw = {"int8_chain": dict(int8_chain=True), "quantize": {},
+          "mesh": dict(mesh=object()),
+          "compiler_options": dict(compiler_options={"opt": "1"})}[option]
+    with pytest.raises(NotImplementedError, match="not ported"):
+        eng = GroundingEngine(model, n_streams=2, **kw)
+        eng.quantize(np.zeros((5, 64, 64, 3), np.float32))
