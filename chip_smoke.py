@@ -41,7 +41,8 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      finite; at 4 streams in fp32 the engine on the card against the same
      engine on the CPU tick by tick in each mode, and against eval_clip
      after n_frame ticks; K4 against its plain version on the engine's own
-     rings in each ring dtype; s/tick, predictions/s and peak GiB per mode.
+     rings in each ring dtype, and K1 on the default path's rings at 120
+     streams; s/tick, predictions/s and peak GiB per mode.
 Then the `kernels` line, the nvidia-smi line, and as the last line
 `{"ok": true, "device": {...}}`.
 """
@@ -639,35 +640,43 @@ def phase_slice(dev, profile_dir=None) -> dict:
     return rec
 
 
-def check_k1_on_mapped_features(model, images, n_frame) -> dict:
-    """K1 against its plain version on the inputs eval_clip hands it: the
-    model's own mapped features of one request, center frame against each
-    reference at each scale, in the model's compute dtype."""
-    dev = model.device
-    feats = model.extract_features(images.to(dev))
-    b = feats[0].shape[0] // n_frame
-    center = n_frame // 2
-    t = model.cfg.coattn_temperature
+def check_k1_on_frames(per_frame, t: float, newest_slot=None) -> dict:
+    """K1 against its plain version on the frames a path hands it: per
+    scale a (B, n_frame, h, w, C) stack (a request's mapped features, or a
+    serving ring whose newest frame sits in slot `newest_slot`), the center
+    frame against each reference, each a batch-strided frame view. K1's
+    limits in the frames' dtype; raises on a mismatch. Resets the launch
+    counts: comparison launches do not count."""
+    dt = per_frame[0].dtype
     worst_abs, worst_rel, ok, pairs = 0.0, 0.0, True, 0
-    for f in feats:
-        frames = f.reshape(b, n_frame, -1, f.shape[-1])
-        for j in range(n_frame):
-            if j == center:
-                continue
-            got = k_coattn.coattention_one(frames[:, center], frames[:, j], t)
-            want = k_coattn.attend_plain(frames[:, center], frames[:, j], t)
-            good, err, rel = agreement(got, want, model.dtype)
+    for f in per_frame:
+        b, n, c = f.shape[0], f.shape[1], f.shape[-1]
+        frames = f.reshape(b, n, -1, c)
+        cs, rs = k_coattn.ring_slots(n, n // 2, newest_slot)
+        for r in rs:
+            got = k_coattn.coattention_one(frames[:, cs], frames[:, r], t)
+            want = k_coattn.attend_plain(frames[:, cs], frames[:, r], t)
+            good, err, rel = agreement(got, want, dt)
             ok, worst_abs, worst_rel = (ok and good, max(worst_abs, err),
                                         max(worst_rel, rel))
             pairs += 1
     torch.cuda.synchronize()
-    kernels.reset_launches()  # comparison launches do not count
+    kernels.reset_launches()
     if not ok:
         raise AssertionError(f"K1 disagrees with its plain version on the "
-                             f"mapped features ({model.dtype}): max err "
-                             f"{worst_abs}, rel {worst_rel}")
+                             f"path's frames ({dt}, slot {newest_slot}): max "
+                             f"err {worst_abs}, rel {worst_rel}")
     return {"pairs": pairs, "max_abs_err": worst_abs, "rel_err": worst_rel,
-            "tol": {**TOL[model.dtype], "rel": REL_TOL[model.dtype]}}
+            "tol": {**TOL[dt], "rel": REL_TOL[dt]}}
+
+
+def check_k1_on_mapped_features(model, images, n_frame) -> dict:
+    """K1 against its plain version on the inputs eval_clip hands it: the
+    model's own mapped features of one request, in its compute dtype."""
+    feats = model.extract_features(images.to(model.device))
+    b = feats[0].shape[0] // n_frame
+    return check_k1_on_frames([f.reshape(b, n_frame, *f.shape[1:]) for f in feats],
+                              model.cfg.coattn_temperature)
 
 
 # --- the train path -------------------------------------------------------
@@ -1035,6 +1044,9 @@ WARMUP_TICKS, TIMED_CHAINS, CHAIN_TICKS = 3, 3, 10
 # card vs CPU at 4 streams, fp32, TF32 off: raw and fused boxes (pixels) and
 # scores elementwise within rtol 1e-3 / atol 1e-3
 SERVE_TOL = dict(rtol=1e-3, atol=1e-3)
+# streamed against eval_clip on the card, float rings: the CPU test's limits
+OFFLINE_BOX_TOL = dict(rtol=1e-4, atol=1e-4)
+OFFLINE_SCORE_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def serving_config(**over):
@@ -1104,8 +1116,10 @@ def serving_parity(weights, defs, dev) -> dict:
     the CPU, tick by tick, in each correspondence mode and with int8 rings:
     raw and fused boxes and scores within SERVE_TOL, and the decoded index
     of the center prediction (eval_features on the tick's rings) equal;
-    after n_frame ticks the card's raw prediction equals eval_clip's on the
-    same 5 frames; K4 on the card's fp32 rings against its plain version."""
+    after n_frame ticks the card's raw box and score with float rings equal
+    eval_clip's on the same 5 frames within the CPU test's limits (int8
+    rings quantise what eval_clip keeps in float: their gap is reported);
+    K4 on the card's fp32 rings against its plain version."""
     from dcnet_tpu_torch.models.dcnet import DCNet
     from dcnet_tpu_torch.ops.decode import decode_best
     from dcnet_tpu_torch.serving.engine import GroundingEngine
@@ -1148,21 +1162,26 @@ def serving_parity(weights, defs, dev) -> dict:
                 clip = torch.from_numpy(frames[:5].transpose(1, 0, 2, 3, 4).reshape(
                     -1, size, size, 3)).to(dev)
                 dec = decode_best(card.model.eval_clip(clip, ids.to(dev)).outbox, cfg)
-                # eval_clip batches 20 frames, the engine 4: cuDNN's fp32
-                # algorithms (FFT for some 3x3 layers) differ with the batch
-                torch.testing.assert_close(got["card"][0][1], dec.boxes[:, 0].cpu(),
-                                           **SERVE_TOL)
+                raw, score = got["card"][0][1], got["card"][0][2]
+                want_box, want_score = dec.boxes[:, 0].cpu(), dec.score[:, 0].cpu()
+                offline = {"box_max_abs": (raw - want_box).abs().max().item(),
+                           "score_max_abs": (score - want_score).abs().max().item(),
+                           "held": not mode.endswith("int8")}
+                if offline["held"]:
+                    torch.testing.assert_close(raw, want_box, **OFFLINE_BOX_TOL)
+                    torch.testing.assert_close(score, want_score, **OFFLINE_SCORE_TOL)
         if not same_idx:
             raise AssertionError(f"serving {mode}: decoded indices differ "
                                  f"between the card and the CPU")
         res[mode] = {"max_abs_err": worst, "same_decoded_index": same_idx,
-                     "offline_eval_clip_match": True,
+                     "offline_eval_clip": offline,
                      "seconds": time.perf_counter() - t0}
         if mode == "multiref":
             on_data = ring_on_engine_data(states["card"], cfg.coattn_temperature)
         del engines, states
     kernels.reset_launches()  # the parity runs and comparisons do not count
     return {"streams": PARITY_STREAMS, "ticks": PARITY_TICKS, "tol": SERVE_TOL,
+            "offline_tol": {"box": OFFLINE_BOX_TOL, "score": OFFLINE_SCORE_TOL},
             "modes": res, "k4_on_fp32_rings": on_data}
 
 
@@ -1208,6 +1227,8 @@ def phase_serving(dev, profile_dir=None) -> dict:
     state, per_tick, outs = _serve(GroundingEngine(k1_model, n), ids, 6, frames_at)
     _expect_launches(per_tick, {"coattn_attend": 12}, "serving, default K1 path")
     _finite(outs, "serving, default K1 path")
+    k1_on_data = {"streams": n, "slot": state.slot, **check_k1_on_frames(
+        state.feat_rings, cfg.coattn_temperature, state.slot)}
     del state
     kernels.reset_launches()
     state, per_tick, outs = _serve(GroundingEngine(model, n, int8_rings=True), ids,
@@ -1263,7 +1284,8 @@ def phase_serving(dev, profile_dir=None) -> dict:
            "launches_per_tick": {"multiref": {"coattn_ring": 3, "coattn_attend": 0},
                                  "k1": {"coattn_attend": 12, "coattn_ring": 0},
                                  "multiref_int8_rings": {"coattn_ring": 3}},
-           "k4_on_engine_rings": on_data, "cpu_parity": parity,
+           "k4_on_engine_rings": on_data, "k1_on_engine_rings": k1_on_data,
+           "cpu_parity": parity,
            "timing": timing, "kind": torch.cuda.get_device_name(dev),
            "nvidia_smi": nvidia_smi()}
     emit(rec)

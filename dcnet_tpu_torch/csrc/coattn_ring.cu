@@ -27,14 +27,15 @@
 // the conversion is exact); the PV product reads kv dequantised as
 // bf16(bf16(kv) * bf16(1/127)), the rounding the TPU body gives it, with bf16
 // weights and fp32 accumulation. The output is bf16 for int8 rings and the
-// ring's dtype otherwise, unless the caller asks for fp32 or bf16.
+// ring's dtype otherwise.
 //
 // Bound per launch: 4*B*(S-1)*P^2*C operations and B*S*P*C input elements
 // read once plus B*(S-1)*P*C output elements written once. On the serving
 // tick (B = 120 streams, S = 5, C = 512) the P = 1024 launch is compute-bound:
 // 1.03e12 operations, about 1.04 ms at the H100's 989 TFLOP/s bf16 data-sheet
-// rate (int8: half of them at 1979 TOP/s), against 0.56 GB of traffic
-// (0.17 ms at 3.35 TB/s). The P = 64 launch is memory-bound.
+// rate (int8: half of them at 1979 TOP/s), against 1.13 GB of traffic in bf16
+// ((5 + 4) * P * C * 2 bytes a stream; 0.34 ms at 3.35 TB/s). The P = 64
+// launch is memory-bound.
 //
 // Design. The TPU grid (B, refs, row tiles) keeps each reference's (P, C)
 // block resident in VMEM across the center's row tiles. Here the grid is one
@@ -201,50 +202,35 @@ int launch(const void* ring, void* out, int B, int S, int P, int C,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_out(const void* ring, void* out, int B, int S, int P, int C,
-               int center_t, int slot, long long b_stride, long long s_stride,
-               float t, int out_dtype, cudaStream_t stream) {
-  if (out_dtype == 0) {
-    return launch<T, float>(ring, out, B, S, P, C, center_t, slot, b_stride,
-                            s_stride, t, stream);
-  }
-  if (out_dtype == 1) {
-    return launch<T, bf16>(ring, out, B, S, P, C, center_t, slot, b_stride,
-                           s_stride, t, stream);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 extern "C" {
 
 // ring: (B, S, P, C) with rows of C contiguous, batch and slot strides in
-// elements; out: (B, S-1, P, C) contiguous. dtype: 0 = float32, 1 = bfloat16,
-// 2 = int8; out_dtype: 0 = float32, 1 = bfloat16. slot is the physical slot
-// of the newest frame, 0 <= slot < S. t is the softmax temperature for float
-// rings and T/127^2 for int8 rings. Returns a cudaError_t code, 0 on success.
+// elements; out: (B, S-1, P, C) contiguous, in the ring's dtype (bfloat16 for
+// int8 rings). dtype: 0 = float32, 1 = bfloat16, 2 = int8. slot is the
+// physical slot of the newest frame, 0 <= slot < S. t is the softmax
+// temperature for float rings and T/127^2 for int8 rings. Returns a
+// cudaError_t code, 0 on success.
 int dcnet_coattn_ring(const void* ring, void* out, int B, int S, int P, int C,
                       int center_t, int slot, long long b_stride,
-                      long long s_stride, float t, int dtype, int out_dtype,
-                      void* stream) {
+                      long long s_stride, float t, int dtype, void* stream) {
   if (B <= 0 || S < 2 || P <= 0 || C <= 0 || C % 16 != 0 || center_t < 0 ||
       center_t >= S || slot < 0 || slot >= S) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch_out<float>(ring, out, B, S, P, C, center_t, slot, b_stride,
-                             s_stride, t, out_dtype, s);
+    return launch<float, float>(ring, out, B, S, P, C, center_t, slot,
+                                b_stride, s_stride, t, s);
   }
   if (dtype == 1) {
-    return launch_out<bf16>(ring, out, B, S, P, C, center_t, slot, b_stride,
-                            s_stride, t, out_dtype, s);
+    return launch<bf16, bf16>(ring, out, B, S, P, C, center_t, slot, b_stride,
+                              s_stride, t, s);
   }
   if (dtype == 2) {
-    return launch_out<int8_t>(ring, out, B, S, P, C, center_t, slot, b_stride,
-                              s_stride, t, out_dtype, s);
+    return launch<int8_t, bf16>(ring, out, B, S, P, C, center_t, slot,
+                                b_stride, s_stride, t, s);
   }
   return (int)cudaErrorInvalidValue;
 }

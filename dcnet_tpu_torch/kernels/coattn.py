@@ -95,22 +95,20 @@ def ring_slots(s: int, center_t: int, newest_slot=None) -> Tuple[int, list]:
             [(slot + 1 + j) % s for j in range(s) if j != center_t])
 
 
-def _ring_out_dtype(ring_dtype: torch.dtype, out_dtype) -> torch.dtype:
-    if out_dtype is None:
-        return torch.bfloat16 if ring_dtype == torch.int8 else ring_dtype
-    return out_dtype
+def _ring_out_dtype(ring_dtype: torch.dtype) -> torch.dtype:
+    """K4's output dtype: bf16 for int8 rings, the ring's dtype otherwise."""
+    return torch.bfloat16 if ring_dtype == torch.int8 else ring_dtype
 
 
 def ring_attend_plain(ring: torch.Tensor, temperature: float, center_t: int,
-                      newest_slot=None, out_dtype=None) -> torch.Tensor:
+                      newest_slot=None) -> torch.Tensor:
     """The plain version of K4, the TPU kernel's body on full rows. ring:
     (B, S, P, C) -> (B, S-1, P, C), the center frame attended to each
     reference in temporal order. Float rings follow `attend_plain`'s dtype
     rules. int8 rings: logits are the int8 products summed exactly (fp32 of
     integers below 2^24) times T/127²; kv is dequantised as
     bf16(bf16(kv) * bf16(1/127)); the weights are rounded to bf16 and the PV
-    product sums in fp32. Output in the ring's dtype (bf16 for int8) unless
-    `out_dtype` is given."""
+    product sums in fp32. Output in the ring's dtype (bf16 for int8)."""
     b, s, p, c = ring.shape
     cs, rs = ring_slots(s, center_t, newest_slot)
     cen, refs = ring[:, cs:cs + 1], ring[:, rs]       # (B, 1, P, C), (B, R, P, C)
@@ -129,7 +127,7 @@ def ring_attend_plain(ring: torch.Tensor, temperature: float, center_t: int,
         w = torch.softmax(logits, dim=-1)
         if ring.dtype == torch.bfloat16:
             w = w.to(torch.bfloat16).to(kvf.dtype)
-    return torch.matmul(w, kvf).to(_ring_out_dtype(ring.dtype, out_dtype))
+    return torch.matmul(w, kvf).to(_ring_out_dtype(ring.dtype))
 
 
 def _lib() -> ctypes.CDLL:
@@ -166,7 +164,7 @@ def _ring_lib() -> ctypes.CDLL:
         lib.dcnet_coattn_ring.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 2
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.dcnet_coattn_ring.restype = ctypes.c_int
         lib.dcnet_coattn_ring_error_string.argtypes = [ctypes.c_int]
         lib.dcnet_coattn_ring_error_string.restype = ctypes.c_char_p
@@ -355,19 +353,16 @@ def coattention_pair_fused(f1: torch.Tensor, f2: torch.Tensor,
     return o1.reshape(b, h, w, c), o2.reshape(b, h, w, c)
 
 
-def _check_ring(ring: torch.Tensor, out_dtype: torch.dtype) -> None:
+def _check_ring(ring: torch.Tensor) -> None:
     """K4's input rules: a CUDA (B, S, P, C) ring in float32, bfloat16 or
     int8 with S >= 2, C % 16 == 0 (int8: C <= 1040), rows of C contiguous,
-    16-byte aligned frames (any batch and slot stride); output float32 or
-    bfloat16."""
+    16-byte aligned frames (any batch and slot stride)."""
     if ring.device.type != "cuda":
         raise ValueError(f"ring kernel needs the ring on a CUDA device, got "
                          f"{ring.device}")
     if ring.dtype not in _RING_DTYPE_CODE:
         raise TypeError(f"ring kernel takes float32, bfloat16 or int8 rings, "
                         f"got {ring.dtype}")
-    if out_dtype not in _DTYPE_CODE:
-        raise TypeError(f"ring kernel writes float32 or bfloat16, got {out_dtype}")
     if ring.dim() != 4 or ring.shape[1] < 2:
         raise ValueError(f"ring kernel needs a (B, S, P, C) ring with S >= 2, "
                          f"got {tuple(ring.shape)}")
@@ -385,28 +380,27 @@ def _check_ring(ring: torch.Tensor, out_dtype: torch.dtype) -> None:
 
 
 def coattention_ring(ring: torch.Tensor, temperature: float, center_t: int,
-                     newest_slot=None, out_dtype=None) -> torch.Tensor:
+                     newest_slot=None) -> torch.Tensor:
     """K4 on a CUDA (B, S, P, C) ring: one launch computes the center frame
     (temporal index `center_t`) attended to every reference, -> (B, S-1,
     P, C) in temporal reference order. `newest_slot` is the physical slot
     of the newest frame (None: S - 1), a host integer passed by value.
-    Output bf16 for int8 rings, the ring's dtype otherwise, unless
-    `out_dtype` is given. Forward only. Raises on what the kernel does not
-    take."""
-    out_dtype = _ring_out_dtype(ring.dtype, out_dtype)
-    _check_ring(ring, out_dtype)
+    Output bf16 for int8 rings, the ring's dtype otherwise. Forward only.
+    Raises on what the kernel does not take."""
+    _check_ring(ring)
     b, s, p, c = ring.shape
     slot = _newest_slot(s, center_t, newest_slot)
     t = (temperature / (INT8_SCALE * INT8_SCALE) if ring.dtype == torch.int8
          else temperature)
     lib = _ring_lib()
-    out = torch.empty((b, s - 1, p, c), dtype=out_dtype, device=ring.device)
+    out = torch.empty((b, s - 1, p, c), dtype=_ring_out_dtype(ring.dtype),
+                      device=ring.device)
     with torch.cuda.device(ring.device):
         stream = torch.cuda.current_stream(ring.device).cuda_stream
         err = lib.dcnet_coattn_ring(
             ring.data_ptr(), out.data_ptr(), b, s, p, c, center_t, slot,
             ring.stride(0), ring.stride(1), float(t),
-            _RING_DTYPE_CODE[ring.dtype], _DTYPE_CODE[out_dtype], stream)
+            _RING_DTYPE_CODE[ring.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"ring kernel launch failed (B={b}, S={s}, P={p}, C={c}, "

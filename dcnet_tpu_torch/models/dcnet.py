@@ -34,7 +34,8 @@ from torch import nn
 from dcnet_tpu_torch import DeviceLike, resolve_device, resolve_dtype
 from dcnet_tpu_torch.config import DCNetConfig
 from dcnet_tpu_torch.kernels.coattn import (
-    coattention_center_fused, coattention_pair_fused, coattention_ring_fused)
+    coattention_center_fused, coattention_pair_fused, coattention_ring_fused,
+    ring_slots)
 from dcnet_tpu_torch.models.attention import PhraseAttention
 from dcnet_tpu_torch.models.darknet import (
     DarknetBackbone, LayerDef, yolov3_layer_defs)
@@ -179,25 +180,20 @@ class DCNet(nn.Module):
         cfg = self.cfg
         n_frame = per_frame[0].shape[1]
         center = n_frame // 2 if center is None else center
-        ref_idx = [j for j in range(n_frame) if j != center]
-        slot = n_frame - 1 if newest_slot is None else newest_slot
-
-        def frame(x: torch.Tensor, j: int) -> torch.Tensor:
-            # temporal frame j lives in physical slot (slot + 1 + j) mod n
-            return self._dequantize(x[:, (slot + 1 + j) % n_frame])
+        cen_slot, ref_slots = ring_slots(n_frame, center, newest_slot)
 
         corr_feat = []
         for i in range(3):
             ring = per_frame[i]
-            cen = frame(ring, center)
+            cen = self._dequantize(ring[:, cen_slot])
             if cfg.coattn_multiref:  # stacked (B, R, h, w, C), temporal order
                 atts = coattention_ring_fused(
                     ring, cfg.coattn_temperature, center_t=center,
                     newest_slot=newest_slot).to(cen.dtype)
             else:
-                atts = [coattention_center_fused(cen, frame(ring, j),
+                atts = [coattention_center_fused(cen, self._dequantize(ring[:, j]),
                                                  cfg.coattn_temperature)
-                        for j in ref_idx]
+                        for j in ref_slots]
             conv = self.corr_conv[i][0]
             if cfg.split_corr_conv:  # center half of the 1x1 contraction once
                 cfs = conv((cen, atts))
@@ -210,7 +206,7 @@ class DCNet(nn.Module):
                 for cf in cfs:
                     cf = l2_normalize(cf)
                     acc = cf if acc is None else acc + cf
-                corr_feat.append(acc / len(ref_idx))
+                corr_feat.append(acc / len(ref_slots))
             else:  # stacked (B, R, h, w, F) from the split conv
                 corr_feat.append(l2_normalize(cfs).mean(dim=1))
         return corr_feat
