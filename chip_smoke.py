@@ -9,20 +9,29 @@ Phases, each printing JSON lines, any failure exiting non-zero:
   1. device  -- the card (nvidia-smi name and power limit), torch/CUDA
      versions; TF32 is switched off for matmuls and cuDNN convolutions.
   2. build   -- compiles every kernel from `dcnet_tpu_torch/csrc/` with nvcc,
-     one process per source, all started together.
+     one process per source, all started together; prints ptxas's register
+     and spill lines, and the counts of HGMMA (wgmma) and UTMALDG (TMA load)
+     instructions in the coattn and coattn_ring libraries (cuobjdump -sass),
+     failing if either is 0.
   3. kernel  -- each kernel against its plain PyTorch version on the card at
      the main paths' shapes (plus a ragged P and batch-strided inputs),
      timed beside the plain version, one PyTorch library call and the
-     card's bound: K1 (co-attention), K2 (the pair), K3 (the backward) and
+     card's bound: K1 (co-attention; bf16 at C=512 and 256 on the wgmma
+     block, at C=80 on the WMMA block), K2 (the pair), K3 (the backward),
      K4 (the ring: fp32, bf16 and int8 rings at every slot; zeros, T=1 and
-     a kernel that ignores the slot are shown to fail the limits).
+     a kernel that ignores the slot are shown to fail the limits) and K5
+     (the fused location Gram, fp32 and bf16 ce, at P=1344 and the ragged
+     3549, timed beside the rank-8 route; zeros, a dropped obj and a
+     dropped bias are shown to fail the limits). K5 runs on no path.
   4. slice   -- the full-width 256 px model (YOLOv3 backbone from a seeded
      Darknet `.weights` file, the rest from a seeded torch.Generator)
      answers batches of 5-frame clips through eval_clip -> decode_best; the
      kernel launch counts of that run are checked (12 per eval_clip), the
      outputs are held against the same model run on the CPU, K1 is held
      against its plain version on the model's own mapped features in each
-     compute dtype, and eval_clip is timed in float32 and bfloat16.
+     compute dtype, K5 (with the folded loc_text_embedding) against the
+     trunk's rank-8 route on the coord_emb and obj_map of one fp32
+     eval_clip, and eval_clip is timed in float32 and bfloat16.
   5. train   -- the same full-width model trains with the RMSprop recipe on
      synthetic k=2 clips (a colored box moving over noise) through
      train_epoch (launches checked: per step K2 3, K3 6, K1 0; losses
@@ -62,6 +71,8 @@ import torch
 
 try:
     import dcnet_tpu_torch  # noqa: F401
+    # the kernel phase times K1, K2, K4 and K5 with device_ms, K3 with cuda_ms
+    from kernel_timing import TIMERS, cuda_ms, device_ms
 except ImportError as e:  # run outside a checkout of the repository
     sys.exit(f"chip_smoke: cannot import dcnet_tpu_torch ({e}); run it from "
              f"the root of a checkout")
@@ -69,6 +80,7 @@ except ImportError as e:  # run outside a checkout of the repository
 from dcnet_tpu_torch import kernels
 from dcnet_tpu_torch.kernels import build
 from dcnet_tpu_torch.kernels import coattn as k_coattn
+from dcnet_tpu_torch.kernels import locgram as k_locgram
 from dcnet_tpu_torch.ops import correspondence
 
 # H100 SXM data-sheet peaks (dense), the card's memory rate
@@ -136,21 +148,6 @@ def rejects(want, wrong_t, dtype, tol=None, terms=()) -> bool:
                 or agreement(wrong_t, want, dtype, tol, terms)[0])
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds of fn() on the card, by CUDA events over `iters`."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
 def bound(ops: float, nbytes: float, peak_flops: float):
     """Least time (ms) for `ops` operations and `nbytes` bytes, and which
     of the two bounds it."""
@@ -192,7 +189,22 @@ def phase_device(dev) -> dict:
     return info
 
 
-SOURCES = ("coattn", "coattn_bwd", "coattn_ring")
+SOURCES = ("coattn", "coattn_bwd", "coattn_ring", "locgram")
+SASS_COUNTED = {"coattn": ("HGMMA", "UTMALDG"), "coattn_ring": ("HGMMA", "UTMALDG")}
+
+
+def sass_counts(name: str, opcodes) -> dict:
+    """How many instructions of each opcode the built library of
+    `csrc/<name>.cu` holds, from `cuobjdump -sass` (the toolkit's, beside
+    nvcc)."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", build.build([name])[name]],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {name}: {out.stderr.strip()[:500]}")
+    lines = out.stdout.splitlines()
+    return {op: sum(1 for line in lines if f" {op}" in line or f"\t{op}" in line)
+            for op in opcodes}
 
 
 def phase_build() -> None:
@@ -201,14 +213,21 @@ def phase_build() -> None:
     k_coattn._lib()
     k_coattn._bwd_lib()
     k_coattn._ring_lib()
-    emit({"phase": "build", "kernels": list(SOURCES),
-          "seconds": round(time.perf_counter() - t0, 3),
-          "nvcc_seconds": {k: round(v, 3)
-                           for k, v in build.BUILD_SECONDS.items()}})
+    k_locgram._lib()
+    seconds = time.perf_counter() - t0
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(k in line for k in ("registers", "spill", "error", "wgmma",
+                                       "setmaxnreg", "Performance")):
                 print(f"[nvcc {name}] {line.strip()}", flush=True)
+    sass = {n: sass_counts(n, ops) for n, ops in SASS_COUNTED.items()}
+    emit({"phase": "build", "kernels": list(SOURCES),
+          "seconds": round(seconds, 3),
+          "nvcc_seconds": {k: round(v, 3) for k, v in build.BUILD_SECONDS.items()},
+          "sass_instructions": sass})
+    if not all(v > 0 for counts in sass.values() for v in counts.values()):
+        raise AssertionError(f"the co-attention libraries lack wgmma or TMA "
+                             f"instructions: {sass}")
 
 
 def _sdpa_backends(q, kv):
@@ -237,16 +256,17 @@ def _rows(gen, *shape):
 
 
 def _record(name, dtype, b, p, c, err, rel, serr, tol, rej, ok, k_ms, p_ms,
-            l_ms, library_call, backends, bound_ms, bound_by) -> dict:
+            l_ms, library_call, backends, bound_ms, bound_by, timer, body=None,
+            call_ms=None) -> dict:
     rec = {"phase": "kernel", "name": name,
            "dtype": str(dtype).replace("torch.", ""),
-           "B": b, "P": p, "C": c, "T": TEMPERATURE,
+           "B": b, "P": p, "C": c, "T": TEMPERATURE, "body": body,
            "max_abs_err": err, "rel_err": rel, "max_abs_err_strided": serr,
            "tol": {**tol[dtype], "rel": REL_TOL[dtype]},
            "limits_reject_zeros_and_T1": rej, "ok": ok,
-           "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-           "library_call": library_call, "library_backends": backends,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+           "timer": timer, "ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms,
+           "library_ms": l_ms, "library_call": library_call,
+           "library_backends": backends, "bound_ms": bound_ms, "bound_by": bound_by}
     emit(rec)
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version: "
@@ -255,37 +275,47 @@ def _record(name, dtype, b, p, c, err, rel, serr, tol, rej, ok, k_ms, p_ms,
     return rec
 
 
+# K1 in bf16 at other widths: C=256 on the wgmma block, C=80 on the WMMA
+# block (the launcher's choice by shape), B=8
+WIDTH_CASES = ((256, (169, 1024)), (80, (169, 1024)))
+
+
 def kernel_cases_k1(dev, gen) -> list:
-    """K1 against its plain version at the eval path's request (B=8)."""
+    """K1 against its plain version at the eval path's request (B=8), and
+    bf16 at the widths of WIDTH_CASES."""
+    shapes = [(dtype, p, KERNEL_C) for dtype in (torch.float32, torch.bfloat16)
+              for p in MAIN_P + (RAGGED_P,)]
+    shapes += [(torch.bfloat16, p, c) for c, ps in WIDTH_CASES for p in ps]
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for p in MAIN_P + (RAGGED_P,):
-            b, c = KERNEL_B, KERNEL_C
-            q = _rows(gen, b, p, c).to(dev, dtype)
-            kv = _rows(gen, b, p, c).to(dev, dtype)
-            got = k_coattn.coattention_one(q, kv, TEMPERATURE)
-            want = k_coattn.attend_plain(q, kv, TEMPERATURE)
-            torch.cuda.synchronize()
-            ok, err, rel = agreement(got, want, dtype)
-            rej = rejects(want, k_coattn.attend_plain(q, kv, 1.0), dtype)
-            # a frame sliced out of a (B, 5, P, C) clip: batch-strided input
-            clip = _rows(gen, b, 5, p, c).to(dev, dtype)
-            sgot = k_coattn.coattention_one(clip[:, 2], clip[:, 0], TEMPERATURE)
-            swant = k_coattn.attend_plain(clip[:, 2], clip[:, 0], TEMPERATURE)
-            torch.cuda.synchronize()
-            sok, serr, _ = agreement(sgot, swant, dtype)
-            iters = 20 if p >= 1024 else 50
-            k_ms = cuda_ms(lambda: k_coattn.coattention_one(q, kv, TEMPERATURE), iters)
-            p_ms = cuda_ms(lambda: k_coattn.attend_plain(q, kv, TEMPERATURE), iters)
-            q4, kv4 = q[:, None], kv[:, None]
-            backends = _sdpa_backends(q4, kv4)
-            l_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q4, kv4, kv4, scale=TEMPERATURE), iters)
-            cases.append(_record(
-                "coattn_attend", dtype, b, p, c, err, rel, serr, TOL, rej,
-                ok and sok and rej, k_ms, p_ms, l_ms,
-                "F.scaled_dot_product_attention(q, kv, kv, scale=T), (B, 1, P, C)",
-                backends, *attend_bound(b, p, c, dtype)))
+    for dtype, p, c in shapes:
+        b = KERNEL_B
+        q = _rows(gen, b, p, c).to(dev, dtype)
+        kv = _rows(gen, b, p, c).to(dev, dtype)
+        got = k_coattn.coattention_one(q, kv, TEMPERATURE)
+        want = k_coattn.attend_plain(q, kv, TEMPERATURE)
+        torch.cuda.synchronize()
+        ok, err, rel = agreement(got, want, dtype)
+        rej = rejects(want, k_coattn.attend_plain(q, kv, 1.0), dtype)
+        # a frame sliced out of a (B, 5, P, C) clip: batch-strided input
+        clip = _rows(gen, b, 5, p, c).to(dev, dtype)
+        sgot = k_coattn.coattention_one(clip[:, 2], clip[:, 0], TEMPERATURE)
+        swant = k_coattn.attend_plain(clip[:, 2], clip[:, 0], TEMPERATURE)
+        torch.cuda.synchronize()
+        sok, serr, _ = agreement(sgot, swant, dtype)
+        iters = 20 if p >= 1024 else 50
+        k_ms = device_ms(lambda: k_coattn.coattention_one(q, kv, TEMPERATURE), iters)
+        call_ms = cuda_ms(lambda: k_coattn.coattention_one(q, kv, TEMPERATURE), iters)
+        p_ms = device_ms(lambda: k_coattn.attend_plain(q, kv, TEMPERATURE), iters)
+        q4, kv4 = q[:, None], kv[:, None]
+        backends = _sdpa_backends(q4, kv4)
+        l_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, kv4, kv4, scale=TEMPERATURE), iters)
+        cases.append(_record(
+            "coattn_attend", dtype, b, p, c, err, rel, serr, TOL, rej,
+            ok and sok and rej, k_ms, p_ms, l_ms,
+            "F.scaled_dot_product_attention(q, kv, kv, scale=T), (B, 1, P, C)",
+            backends, *attend_bound(b, p, c, dtype), timer="device",
+            body=k_coattn.attend_body(dtype, c), call_ms=call_ms))
     return cases
 
 
@@ -320,20 +350,22 @@ def kernel_cases_k2(dev, gen) -> list:
                 with torch.no_grad():
                     k_coattn.coattention_fused(f1, f2, TEMPERATURE)
 
-            k_ms = cuda_ms(run_kernel, iters)
-            p_ms = cuda_ms(lambda: (k_coattn.attend_plain(f1, f2, TEMPERATURE),
-                                    k_coattn.attend_plain(f2, f1, TEMPERATURE)), iters)
+            k_ms = device_ms(run_kernel, iters)
+            call_ms = cuda_ms(run_kernel, iters)
+            p_ms = device_ms(lambda: (k_coattn.attend_plain(f1, f2, TEMPERATURE),
+                                      k_coattn.attend_plain(f2, f1, TEMPERATURE)), iters)
             qs = torch.stack([f1, f2], dim=1)   # both directions as 2 heads
             kvs = torch.stack([f2, f1], dim=1)
             backends = _sdpa_backends(qs, kvs)
-            l_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            l_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qs, kvs, kvs, scale=TEMPERATURE), iters)
             cases.append(_record(
                 "coattn_pair", dtype, b, p, c, max(err1, err2), max(rel1, rel2),
                 serr, TOL, rej, ok1 and ok2 and rej and serr == 0.0, k_ms, p_ms,
                 l_ms, "F.scaled_dot_product_attention(q, kv, kv, scale=T) on "
                 "(B, 2, P, C): q = (f1, f2), kv = (f2, f1) as two heads",
-                backends, *attend_bound(b, p, c, dtype, directions=2)))
+                backends, *attend_bound(b, p, c, dtype, directions=2),
+                timer="device", body=k_coattn.attend_body(dtype, c), call_ms=call_ms))
     return cases
 
 
@@ -380,7 +412,7 @@ def kernel_cases_k3(dev, gen) -> list:
                 max(x[1] for x in schecks), BWD_TOL, rej, ok, k_ms, p_ms, l_ms,
                 "torch.autograd.grad through F.scaled_dot_product_attention("
                 "q, kv, kv, scale=T), (B, 1, P, C): dq and dkv = dk + dv",
-                backends, *attend_bwd_bound(b, p, c, dtype)))
+                backends, *attend_bwd_bound(b, p, c, dtype), timer="call"))
     return cases
 
 
@@ -450,9 +482,11 @@ def kernel_cases_k4(dev, gen) -> list:
                       for slot in RING_SLOTS]
             iters = 3 if b == SERVE_STREAMS and dtype == torch.float32 else (
                 10 if p >= 1024 else 30)
-            k_ms = cuda_ms(lambda: k_coattn.coattention_ring(
+            k_ms = device_ms(lambda: k_coattn.coattention_ring(
                 ring, TEMPERATURE, RING_CENTER, 2), iters)
-            p_ms = cuda_ms(lambda: k_coattn.ring_attend_plain(
+            call_ms = cuda_ms(lambda: k_coattn.coattention_ring(
+                ring, TEMPERATURE, RING_CENTER, 2), iters)
+            p_ms = device_ms(lambda: k_coattn.ring_attend_plain(
                 ring, TEMPERATURE, RING_CENTER, 2), iters)
             l_ms, backends, library_call = None, [], (
                 "none: no PyTorch call computes int8-logit attention")
@@ -461,7 +495,7 @@ def kernel_cases_k4(dev, gen) -> list:
                 q = ring[:, cs:cs + 1].expand(b, RING_S - 1, p, c).contiguous()
                 kv = ring[:, rs]
                 backends = _sdpa_backends(q, kv)
-                l_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                l_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, kv, kv, scale=TEMPERATURE), iters)
                 library_call = ("F.scaled_dot_product_attention(center expanded "
                                 "to (B, 4, P, C), refs, refs, scale=T)")
@@ -476,8 +510,10 @@ def kernel_cases_k4(dev, gen) -> list:
                            "rel": REL_TOL[torch.bfloat16 if dtype == torch.int8 else dtype]},
                    "limits_reject_zeros_T1_and_slot_blind": all(
                        x["limits_reject"] for x in checks), "ok": ok,
-                   "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                   "library_call": library_call, "library_backends": backends}
+                   "timer": "device", "ms": k_ms, "call_ms": call_ms,
+                   "plain_ms": p_ms, "library_ms": l_ms, "library_call": library_call,
+                   "library_backends": backends,
+                   "body": k_coattn.attend_body(dtype, c)}
             rec["bound_ms"], rec["bound_by"] = ring_bound(b, RING_S, p, c, dtype)
             emit(rec)
             if not ok:
@@ -488,14 +524,138 @@ def kernel_cases_k4(dev, gen) -> list:
     return cases
 
 
-def phase_kernel(dev) -> list:
-    """K1, K2, K3 and K4 against their plain versions on the card; returns
-    the case records."""
+# K5: P = all_positions at 256 px (the model's) and at 416 px (ragged)
+LOC_P, LOC_P_RAGGED, LOC_E = 1344, 3549, 8
+LOC_CASES = ((8, LOC_P), (64, LOC_P), (2, LOC_P_RAGGED))
+# K5 against its plain version: both sum fp32 products of the same values in
+# other orders (relative ~1e-6 on outputs of order 0.1-1); a bf16 output is
+# one rounding of those sums, so an element may be one bf16 step apart
+# (2^-7 relative). Zeros, a kernel that drops obj and one that drops the
+# bias (about a third of the outputs' size here) fail these limits (checked
+# per case).
+K5_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+          torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+# K5 against the trunk's rank-8 route in fp32: one function, two summation
+# orders (P-term Gram rows against an E-term factorisation): rtol 1e-4, and
+# atol 1e-5 of the largest output, relative l2 1e-4
+ROUTE_RTOL, ROUTE_ATOL_REL, ROUTE_REL = 1e-4, 1e-5, 1e-4
+
+
+def loc_gram_bound(b: int, p: int, e: int, c: int, dtype: torch.dtype):
+    """K5: the least work of the function, 4 B P E C operations (the
+    rank-E factorisation ce (ceᵀ (obj ∘ W)); the kernel's Gram algorithm
+    does P/(2E) times more) at the fp32 peak (the math is fp32 for either ce
+    dtype); ce, obj, w and b read once and the output (ce's dtype) written
+    once."""
+    nbytes = (itemsize(dtype) * b * p * e + 4 * (b * p + p * c + c)
+              + itemsize(dtype) * b * p * c)
+    return bound(4.0 * b * p * e * c, nbytes, PEAK_FLOPS[torch.float32])
+
+
+def route_agreement(got: torch.Tensor, want: torch.Tensor):
+    """(ok, max |got - want|, relative l2) at the rank-8 route's limits."""
+    g, w = got.float(), want.float()
+    limit = ROUTE_ATOL_REL * w.abs().max() + ROUTE_RTOL * w.abs()
+    rel = ((g - w).norm() / w.norm()).item()
+    return (bool(((g - w).abs() <= limit).all()) and rel <= ROUTE_REL,
+            (g - w).abs().max().item(), rel)
+
+
+def _random_dense_bn_relu(gen, p: int, c: int, dtype, dev):
+    """A location-branch DenseBNReLU (P -> C) with random weights and
+    running statistics, in eval mode."""
+    from dcnet_tpu_torch.models.heads import DenseBNReLU
+
+    mod = DenseBNReLU(p, c, dtype=dtype, device=dev).eval()
+    with torch.no_grad():
+        mod[0].weight.copy_(torch.randn(c, p, generator=gen))
+        mod[0].bias.copy_(0.1 * torch.randn(c, generator=gen))
+        mod[1].running_mean.copy_(0.1 * torch.randn(c, generator=gen))
+        mod[1].running_var.copy_(0.5 + torch.rand(c, generator=gen))
+        mod[1].weight.copy_(1 + 0.1 * torch.randn(c, generator=gen))
+        mod[1].bias.copy_(0.1 * torch.randn(c, generator=gen))
+    return mod
+
+
+def kernel_cases_k5(dev, gen) -> list:
+    """K5 against its plain version, ce in fp32 and bf16, at LOC_CASES with
+    C=512, E=8: w and b are `fold_dense_bn` of a random DenseBNReLU, ce unit
+    rows, obj an l2-normalised map. Timed beside the plain version and the
+    trunk's rank-8 route (`DenseBNReLU(None, gram_factors=...)`, eval mode,
+    in ce's dtype: a different algorithm, about P/(2E) = 84x fewer
+    operations, and no single PyTorch call, so no library time); in fp32
+    the route's output is held at its limits too. Returns the records and
+    the launches of the checked calls, counted without CUDA graphs (a
+    captured call would count once and run at every replay), so the timing
+    calls do not count."""
+    cases, launches = [], 0
+    c = KERNEL_C
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, p in LOC_CASES:
+            mod = _random_dense_bn_relu(gen, p, c, dtype, dev)
+            w, bias = k_locgram.fold_dense_bn(mod)
+            ce = _rows(gen, b, p, LOC_E).to(dev, dtype)
+            obj = _rows(gen, b, p).to(dev)
+            kernels.reset_launches()
+            got = k_locgram.fused_loc_gram(ce, obj, w, bias)
+            launches += kernels.LAUNCHES["loc_gram"]
+            want = k_locgram.loc_gram_plain(ce, obj, w, bias)
+            with torch.no_grad():
+                route = mod(None, gram_factors=(ce, obj)).reshape(b, p, c)
+            torch.cuda.synchronize()
+            ok, err, rel = agreement(got, want, dtype, K5_TOL)
+            wrong = {"zeros": torch.zeros_like(want),
+                     "obj_dropped": k_locgram.loc_gram_plain(
+                         ce, torch.ones_like(obj), w, bias),
+                     "bias_dropped": k_locgram.loc_gram_plain(
+                         ce, obj, w, torch.zeros_like(bias))}
+            rej = {k: not agreement(v, want, dtype, K5_TOL)[0] for k, v in wrong.items()}
+            r_ok, r_err, r_rel = route_agreement(got, route)
+            iters = 5 if b * p > 20000 else 20
+            k_ms = device_ms(lambda: k_locgram.fused_loc_gram(ce, obj, w, bias), iters)
+            call_ms = cuda_ms(lambda: k_locgram.fused_loc_gram(ce, obj, w, bias), iters)
+            p_ms = device_ms(lambda: k_locgram.loc_gram_plain(ce, obj, w, bias), iters)
+
+            def run_route():
+                with torch.no_grad():
+                    mod(None, gram_factors=(ce, obj))
+
+            r_ms = device_ms(run_route, iters)
+            rec = {"phase": "kernel", "name": "loc_gram",
+                   "dtype": str(dtype).replace("torch.", ""), "B": b, "P": p,
+                   "C": c, "E": LOC_E, "max_abs_err": err, "rel_err": rel,
+                   "tol": {**K5_TOL[dtype], "rel": REL_TOL[dtype]},
+                   "limits_reject": rej,
+                   "rank8_route": {"max_abs_err": r_err, "rel_err": r_rel,
+                                   "held": dtype == torch.float32,
+                                   "tol": {"rtol": ROUTE_RTOL,
+                                           "atol_of_max": ROUTE_ATOL_REL,
+                                           "rel": ROUTE_REL}},
+                   "timer": "device", "ms": k_ms, "call_ms": call_ms,
+                   "plain_ms": p_ms, "library_ms": None,
+                   "library_call": "none: no single PyTorch call computes it",
+                   "rank8_route_ms": r_ms, "library_backends": []}
+            rec["bound_ms"], rec["bound_by"] = loc_gram_bound(b, p, LOC_E, c, dtype)
+            rec["ok"] = ok and all(rej.values()) and (r_ok or dtype != torch.float32)
+            emit(rec)
+            if not rec["ok"]:
+                raise AssertionError(f"loc_gram disagrees with its plain version "
+                                     f"or the rank-8 route: {rec}")
+            cases.append(rec)
+            del mod, ce, obj, got, want, route, wrong
+    return cases, launches
+
+
+def phase_kernel(dev):
+    """K1-K5 against their plain versions on the card; returns the case
+    records and K5's launches (K5 runs on no path: its count is that of
+    the kernel phase's checked calls, one a case)."""
     gen = torch.Generator(device="cpu").manual_seed(0)
     cases = (kernel_cases_k1(dev, gen) + kernel_cases_k2(dev, gen)
              + kernel_cases_k3(dev, gen) + kernel_cases_k4(dev, gen))
+    k5_cases, k5_launches = kernel_cases_k5(dev, gen)
     kernels.reset_launches()  # the comparison launches above do not count
-    return cases
+    return cases + k5_cases, k5_launches
 
 
 def full_width_config():
@@ -587,6 +747,10 @@ def phase_slice(dev, profile_dir=None) -> dict:
         raise AssertionError("decoded boxes differ between the card and CPU")
     del cpu_model
 
+    # --- K5 on the trunk's own location-branch inputs ----------------------
+    images, ids = request(8)
+    k5_on_model = check_k5_on_model(model, images.to(dev), ids.to(dev), n_frame)
+
     # --- eval_clip throughput at 64 clips, fp32 and bf16 -------------------
     timing, main_path_k1 = {}, {}
     state = model.state_dict()
@@ -630,7 +794,7 @@ def phase_slice(dev, profile_dir=None) -> dict:
                       "the port's .weights reader; rest: seeded_init_(seed=0)",
            "setup_s": setup_s, "requests": 3, "clips_per_request": 8,
            "launches": launches, "launches_per_eval_clip": 12,
-           "main_path_k1": main_path_k1,
+           "main_path_k1": main_path_k1, "k5_on_model": k5_on_model,
            "cpu_parity": {"clips": 2, "max_abs_outbox_err": parity_err,
                           "rtol": 1e-3, "atol": 1e-3, "same_decoded_index": same_idx,
                           "cpu_s": cpu_s},
@@ -668,6 +832,53 @@ def check_k1_on_frames(per_frame, t: float, newest_slot=None) -> dict:
                              f"err {worst_abs}, rel {worst_rel}")
     return {"pairs": pairs, "max_abs_err": worst_abs, "rel_err": worst_rel,
             "tol": {**TOL[dt], "rel": REL_TOL[dt]}}
+
+
+def check_k5_on_model(model, images, ids, n_frame) -> dict:
+    """K5 on what the trunk hands its location branch in one fp32
+    eval_clip: the coord_emb (B, P, 8) and obj_map (B, P) that
+    `loc_text_embedding(None, gram_factors=...)` receives, with
+    `fold_dense_bn(loc_text_embedding)`, against that route's own output
+    (the rank-8 factorisation, eval mode) at the route limits, and against
+    K5's plain version at its limits. Resets the launch counts."""
+    lte = model.loc_text_embedding
+    seen = {}
+    forward = lte.forward
+
+    def capture(x, gram_factors=None, train=False):
+        out = forward(x, gram_factors=gram_factors, train=train)
+        seen["ce"], seen["obj"] = (t.detach() for t in gram_factors)
+        seen["out"] = out.detach()
+        return out
+
+    lte.forward = capture
+    try:
+        with torch.no_grad():
+            model.eval_clip(images, ids, n_frame=n_frame)
+    finally:
+        del lte.forward
+    ce, obj = seen["ce"].contiguous(), seen["obj"].contiguous()
+    w, b = k_locgram.fold_dense_bn(lte)
+    got = k_locgram.fused_loc_gram(ce, obj, w, b)
+    route = seen["out"].reshape(got.shape)
+    plain = k_locgram.loc_gram_plain(ce, obj, w, b)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    r_ok, r_err, r_rel = route_agreement(got, route)
+    ok, err, rel = agreement(got, plain, ce.dtype, K5_TOL)
+    rec = {"shape": {"B": ce.shape[0], "P": ce.shape[1], "E": ce.shape[2],
+                     "C": w.shape[1], "dtype": str(ce.dtype).replace("torch.", "")},
+           "vs_rank8_route": {"max_abs_err": r_err, "rel_err": r_rel,
+                              "max_abs_route": route.abs().max().item(),
+                              "tol": {"rtol": ROUTE_RTOL,
+                                      "atol_of_max": ROUTE_ATOL_REL,
+                                      "rel": ROUTE_REL}},
+           "vs_plain": {"max_abs_err": err, "rel_err": rel,
+                        "tol": {**K5_TOL[ce.dtype], "rel": REL_TOL[ce.dtype]}},
+           "relu_zero_share": (route == 0).float().mean().item()}
+    if not (r_ok and ok):
+        raise AssertionError(f"K5 disagrees on the model's own inputs: {rec}")
+    return rec
 
 
 def check_k1_on_mapped_features(model, images, n_frame) -> dict:
@@ -958,7 +1169,7 @@ def phase_train(dev, profile_dir=None) -> dict:
     epoch_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     want = {"coattn_attend": 0, "coattn_pair": 3 * TRAIN_STEPS,
-            "coattn_attend_bwd": 6 * TRAIN_STEPS, "coattn_ring": 0}
+            "coattn_attend_bwd": 6 * TRAIN_STEPS, "coattn_ring": 0, "loc_gram": 0}
     if launches != want:
         raise AssertionError(f"train_epoch launches {launches}, expected {want}")
     if not all(np.isfinite(v) for v in averages.values()):
@@ -1320,47 +1531,62 @@ def profile_call(fn, out_dir, tag) -> dict:
                     for us, k, n in rows[:12]]}
 
 
-KERNELS = (
-    ("coattn_attend", "dcnet_tpu_torch/csrc/coattn.cu",
+KERNELS = (  # name, path it runs on, source, the TPU kernel it replaces
+    ("coattn_attend", "eval", "dcnet_tpu_torch/csrc/coattn.cu",
      "dcnet_tpu/ops/pallas/coattn.py:52 (_attend; body _attend_kernel :40)"),
-    ("coattn_pair", "dcnet_tpu_torch/csrc/coattn.cu",
+    ("coattn_pair", "train", "dcnet_tpu_torch/csrc/coattn.cu",
      "dcnet_tpu/ops/pallas/coattn.py:170 (coattention_fused; custom_vjp "
      ":179-193; wrapper coattention_pair_fused :371)"),
-    ("coattn_attend_bwd", "dcnet_tpu_torch/csrc/coattn_bwd.cu",
+    ("coattn_attend_bwd", "train", "dcnet_tpu_torch/csrc/coattn_bwd.cu",
      "dcnet_tpu/ops/pallas/coattn.py:121 (_attend_bwd; body "
      "_attend_bwd_kernel :80; wired by _bwd :183 and _one_bwd :215)"),
-    ("coattn_ring", "dcnet_tpu_torch/csrc/coattn_ring.cu",
+    ("coattn_ring", "serving", "dcnet_tpu_torch/csrc/coattn_ring.cu",
      "dcnet_tpu/ops/pallas/coattn.py:267 (coattention_ring; body "
      "_ring_attend_kernel :240; dispatch :334)"),
+    ("loc_gram", None, "dcnet_tpu_torch/csrc/locgram.cu",
+     "dcnet_tpu/ops/pallas/locgram.py:49 (fused_loc_gram; body _kernel :35; "
+     "fold_dense_bn :91)"),
 )
 
 
+def _headline(name: str, case: dict) -> bool:
+    """The case a kernel's entry reports: K1-K4 at P=1024, C=512, bf16 (B=8
+    for K1's eval request, B=16 for the train step's K2 and K3, B=120
+    streams for K4); K5 at B=8, P=1344, fp32 ce (the fp32 eval trunk's)."""
+    if name == "loc_gram":
+        return case["B"] == 8 and case["P"] == LOC_P and case["dtype"] == "float32"
+    return (case["P"] == max(MAIN_P) and case["C"] == KERNEL_C
+            and case["dtype"] == "bfloat16")
+
+
 def kernels_line(cases: list, launches: dict) -> dict:
-    """One entry per kernel: headline numbers at its path's dominant launch
-    (P=1024, C=512, bfloat16; B=8 for K1's eval request, B=16 for the train
-    step's K2 and K3, B=120 streams for K4), every case under `cases`.
-    `launches` are the counts of the path each kernel runs on (eval for K1,
-    train for K2 and K3, serving for K4)."""
+    """One entry per kernel: headline numbers (`_headline`), every case
+    under `cases`. `launches` are the counts of the path each kernel runs
+    on (eval for K1, train for K2 and K3, serving for K4); K5 runs on no
+    path (`"path": null`) and reports its kernel-phase launches. Each
+    entry's "timer" names what its "ms", "plain_ms" and "library_ms"
+    measure (`TIMERS`)."""
     out = []
-    for name, source, replaces in KERNELS:
+    for name, path, source, replaces in KERNELS:
         mine = [c for c in cases if c["name"] == name]
-        head = next(c for c in mine
-                    if c["P"] == max(MAIN_P) and c["dtype"] == "bfloat16")
-        worst = max(c["max_abs_err"] for c in mine if c["dtype"] == head["dtype"])
+        head = next(c for c in mine if _headline(name, c))
+        worst = max(c["max_abs_err"] for c in mine
+                    if c["dtype"] == head["dtype"] and c["C"] == head["C"])
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
+            "path": path, "launches": launches[name],
             "shape": {"B": head["B"], "P": head["P"], "C": head["C"],
                       "dtype": head["dtype"]},
-            "max_abs_err": worst, "ms": head["ms"],
+            "max_abs_err": worst, "timer": head["timer"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "cases": [{k: c[k] for k in ("dtype", "P", "max_abs_err", "rel_err",
-                                         "ms", "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by",
-                                         "library_backends")}
+            "cases": [{k: c.get(k) for k in ("dtype", "B", "P", "C", "body",
+                                             "max_abs_err", "rel_err", "ms",
+                                             "call_ms", "plain_ms", "library_ms",
+                                             "rank8_route_ms", "bound_ms",
+                                             "bound_by", "library_backends")}
                       for c in mine]})
-    return {"kernels": out}
+    return {"kernels": out, "timers": TIMERS}
 
 
 def main(argv=None) -> int:
@@ -1377,16 +1603,19 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     info = phase_device(dev)
     phase_build()
-    cases = phase_kernel(dev)
+    cases, k5_launches = phase_kernel(dev)
     eval_launches = phase_slice(dev, profile_dir=args.profile)["launches"]
     train_launches = phase_train(dev, profile_dir=args.profile)["launches"]
     serving_launches = phase_serving(dev, profile_dir=args.profile)["launches"]
-    launches = {"coattn_attend": eval_launches["coattn_attend"],
+    on_paths = {"coattn_attend": eval_launches["coattn_attend"],
                 "coattn_pair": train_launches["coattn_pair"],
                 "coattn_attend_bwd": train_launches["coattn_attend_bwd"],
                 "coattn_ring": serving_launches["coattn_ring"]}
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel of the paths never launched: {launches}")
+    if not all(on_paths.values()):
+        raise AssertionError(f"a kernel of the paths never launched: {on_paths}")
+    if not k5_launches:
+        raise AssertionError("K5 never launched in the kernel phase")
+    launches = {**on_paths, "loc_gram": k5_launches}
     emit(kernels_line(cases, launches))
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

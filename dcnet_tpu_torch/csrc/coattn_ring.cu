@@ -18,9 +18,9 @@
 // value: the serving engine carries it as a host integer, so a tick reads no
 // device scalar and syncs nothing.
 //
-// Precision follows the TPU kernel. Float rings are K1 (attend_tile.cuh):
-// fp32 logits and softmax, bf16 rings on WMMA with the softmax weights
-// rounded to bf16 before PV, fp32 rings on FMA. int8 rings (features
+// Precision follows the TPU kernel. Float rings are K1's blocks: fp32
+// logits and softmax, bf16 rings on the tensor cores with the softmax
+// weights rounded to bf16 before PV, fp32 rings on FMA. int8 rings (features
 // quantised as clip(round(127 f)), f l2-normalised) take the logits as exact
 // int32 sums on the tensor cores (WMMA s8 x s8 -> s32, m16n16k16), converted
 // to fp32 and scaled by T/127^2 (|logit| <= 127^2 C < 2^24 at C <= 1040, so
@@ -39,19 +39,30 @@
 //
 // Design. The TPU grid (B, refs, row tiles) keeps each reference's (P, C)
 // block resident in VMEM across the center's row tiles. Here the grid is one
-// dimension of B*(S-1)*ceil(P/32) blocks (y and z are capped at 65535; at 120
-// streams and P = 1024 there are 15,360 blocks), ordered so that the blocks
-// of one (b, reference) pair run next to each other and share the reference
-// in L2. Each block is a K1 block: 32 center rows, kv streamed in tiles with
-// an online softmax, ragged P masked. The int8 block keeps its q rows and kv
-// tile as int8 in shared memory in a 16-byte-chunked layout ([C/16][rows][16])
-// so every WMMA fragment pointer is 256-bit aligned, and writes the
-// dequantised bf16 kv tile beside it for the PV product (212 KB of shared
-// memory at C = 512, one block per SM). Like K1 it gives away speed on purpose
-// (synchronous loads, WMMA instead of wgmma); the redesign is later work.
+// dimension of B*(S-1)*ceil(P/rows) blocks (y and z are capped at 65535),
+// ordered so that the blocks of one (b, reference) pair run next to each
+// other and share the reference in L2; each block picks its center and
+// reference slots by (slot + 1 + t) mod S. Three blocks, chosen by dtype
+// and C in the entry point (K1's rule, wg::takes):
+//
+// - bf16 rings with C % 128 == 0 and C <= 512: K1's wgmma + TMA block
+//   (attend_wgmma.cuh, the design notes in coattn.cu), 64 center rows a
+//   block (7,680 blocks at 120 streams and P = 1024), over one 4-D tensor
+//   map (C, P, S, B) of the ring in place: TMA reads the center's rows and
+//   the reference's tiles by their (slot, stream) coordinates. What bounded
+//   the WMMA block here was K1's: issue, not the tensor cores.
+// - fp32 rings and bf16 rings of other widths: K1's block of
+//   attend_tile.cuh, 32 center rows a block.
+// - int8 rings: the int8 block below, 32 center rows, synchronous loads and
+//   WMMA (its move to wgmma s8 is queued). It keeps its q rows and kv tile
+//   as int8 in shared memory in a 16-byte-chunked layout ([C/16][rows][16])
+//   so every WMMA fragment pointer is 256-bit aligned, and writes the
+//   dequantised bf16 kv tile beside it for the PV product (212 KB of shared
+//   memory at C = 512, one block per SM).
 #include <type_traits>
 
 #include "attend_tile.cuh"
+#include "attend_wgmma.cuh"
 
 namespace {
 
@@ -176,6 +187,62 @@ ring_kernel(const T* ring, OutT* out, int S, int center_t, int slot, int tiles,
   }
 }
 
+// The bf16 wgmma + TMA block over a ring: one 4-D map (C, P, S, B); each
+// block picks its center and reference slots as ring_kernel does.
+template <int C>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+ring_wgmma_kernel(const __grid_constant__ CUtensorMap map, bf16* out, int S,
+                  int center_t, int slot, int tiles, int P, float t) {
+  extern __shared__ __align__(128) unsigned char smem[];  // aligned to 1024 inside
+  const int n_ref = S - 1;
+  const int tile = blockIdx.x % tiles;
+  const int rest = blockIdx.x / tiles;
+  const int r = rest % n_ref;
+  const int b = rest / n_ref;
+  const int ref_t = r < center_t ? r : r + 1;
+  wg::attend_rows<C, 4>(&map, {(slot + 1 + center_t) % S, b}, &map,
+                        {(slot + 1 + ref_t) % S, b},
+                        out + ((long long)b * n_ref + r) * P * C, tile * wg::kRows,
+                        P, t, smem);
+}
+
+template <int C>
+int launch_wgmma(const void* ring, void* out, int B, int S, int P, int center_t,
+                 int slot, long long b_stride, long long s_stride, float t,
+                 cudaStream_t stream) {
+  CUtensorMap map;
+  const uint64_t dims[4] = {(uint64_t)C, (uint64_t)P, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)C * 2, (uint64_t)s_stride * 2,
+                               (uint64_t)b_stride * 2};
+  const int enc = wg::encode_map(&map, ring, 4, dims, strides);
+  if (enc != 0) return enc;
+  const int bytes = (int)wg::smem_bytes(C);
+  cudaError_t err = cudaFuncSetAttribute(
+      ring_wgmma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear, so PyTorch's next check does not see it
+    return (int)err;
+  }
+  const int tiles = (P + wg::kRows - 1) / wg::kRows;
+  const long long blocks = (long long)B * (S - 1) * tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  ring_wgmma_kernel<C><<<(unsigned)blocks, wg::kThreads, bytes, stream>>>(
+      map, static_cast<bf16*>(out), S, center_t, slot, tiles, P, t);
+  return (int)cudaGetLastError();
+}
+
+int launch_wgmma_c(const void* ring, void* out, int B, int S, int P, int C,
+                   int center_t, int slot, long long b_stride,
+                   long long s_stride, float t, cudaStream_t s) {
+  switch (C) {
+    case 128: return launch_wgmma<128>(ring, out, B, S, P, center_t, slot, b_stride, s_stride, t, s);
+    case 256: return launch_wgmma<256>(ring, out, B, S, P, center_t, slot, b_stride, s_stride, t, s);
+    case 384: return launch_wgmma<384>(ring, out, B, S, P, center_t, slot, b_stride, s_stride, t, s);
+    case 512: return launch_wgmma<512>(ring, out, B, S, P, center_t, slot, b_stride, s_stride, t, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename T, typename OutT>
 int launch(const void* ring, void* out, int B, int S, int P, int C,
            int center_t, int slot, long long b_stride, long long s_stride,
@@ -208,7 +275,9 @@ extern "C" {
 
 // ring: (B, S, P, C) with rows of C contiguous, batch and slot strides in
 // elements; out: (B, S-1, P, C) contiguous, in the ring's dtype (bfloat16 for
-// int8 rings). dtype: 0 = float32, 1 = bfloat16, 2 = int8. slot is the
+// int8 rings). dtype: 0 = float32, 1 = bfloat16, 2 = int8: bf16 rings with
+// C % 128 == 0, C <= 512 take the wgmma + TMA block of attend_wgmma.cuh,
+// other rings the blocks of attend_tile.cuh and attend_rows_i8. slot is the
 // physical slot of the newest frame, 0 <= slot < S. t is the softmax
 // temperature for float rings and T/127^2 for int8 rings. Returns a
 // cudaError_t code, 0 on success.
@@ -220,6 +289,10 @@ int dcnet_coattn_ring(const void* ring, void* out, int B, int S, int P, int C,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && wg::takes(C)) {
+    return launch_wgmma_c(ring, out, B, S, P, C, center_t, slot, b_stride,
+                          s_stride, t, s);
+  }
   if (dtype == 0) {
     return launch<float, float>(ring, out, B, S, P, C, center_t, slot,
                                 b_stride, s_stride, t, s);

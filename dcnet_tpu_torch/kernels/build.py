@@ -8,6 +8,12 @@ name that carries a hash of the source and the headers, so an edited source
 or header rebuilds. One
 `nvcc` process runs per source, all started together. A failed build raises
 with the compiler's output; nothing falls back.
+
+No library is linked beyond the CUDA runtime: the TMA tensor maps of
+`csrc/attend_wgmma.cuh` are encoded with the driver's
+`cuTensorMapEncodeTiled`, reached at run time through the runtime's
+`cudaGetDriverEntryPoint(ByVersion)`, not by linking `-lcuda`. The kernels
+use raw PTX, no CUTLASS headers.
 """
 
 from __future__ import annotations

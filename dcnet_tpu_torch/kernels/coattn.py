@@ -38,6 +38,19 @@ INT8_RING_MAX_C = 1040
 INT8_SCALE = 127.0
 
 
+def attend_body(dtype: torch.dtype, c: int) -> str:
+    """Which block K1, K2 and K4 launch for inputs of `dtype` with C
+    channels, for records and tests: "wgmma" (csrc/attend_wgmma.cuh: bf16,
+    C % 128 == 0, C <= 512, every configuration the repository runs) or
+    "block" (csrc/attend_tile.cuh: WMMA for other bf16 widths, FMA for
+    fp32; K4's int8 block for int8 rings). The C entry points make the
+    choice, by shape, never as a fallback (`dcnet_coattn_block`, which the
+    card-only tests hold this against)."""
+    if dtype == torch.bfloat16 and c % 128 == 0 and 128 <= c <= 512:
+        return "wgmma"
+    return "block"
+
+
 def _acc(dtype: torch.dtype) -> torch.dtype:
     """The plain versions' math type: fp32, or fp64 for a float64 reference."""
     return torch.promote_types(dtype, torch.float32)
@@ -111,7 +124,8 @@ def ring_attend_plain(ring: torch.Tensor, temperature: float, center_t: int,
     product sums in fp32. Output in the ring's dtype (bf16 for int8)."""
     b, s, p, c = ring.shape
     cs, rs = ring_slots(s, center_t, newest_slot)
-    cen, refs = ring[:, cs:cs + 1], ring[:, rs]       # (B, 1, P, C), (B, R, P, C)
+    cen = ring[:, cs:cs + 1]                          # (B, 1, P, C)
+    refs = torch.stack([ring[:, r] for r in rs], dim=1)  # (B, R, P, C), no index tensor
     if ring.dtype == torch.int8:
         if c > INT8_RING_MAX_C:
             raise ValueError(f"int8 ring logits are exact in fp32 for C <= "
@@ -138,6 +152,8 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         lib.dcnet_coattn_attend.restype = ctypes.c_int
+        lib.dcnet_coattn_block.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.dcnet_coattn_block.restype = ctypes.c_int
         lib.dcnet_coattn_error_string.argtypes = [ctypes.c_int]
         lib.dcnet_coattn_error_string.restype = ctypes.c_char_p
         lib._dcnet_bound = True

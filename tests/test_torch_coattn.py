@@ -96,3 +96,14 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         coattn.coattention_one(q.to("meta"), q.to("meta"), 10.0)
 
+
+
+@pytest.mark.parametrize("dtype,c,body", [
+    ("bfloat16", 512, "wgmma"), ("bfloat16", 256, "wgmma"), ("bfloat16", 128, "wgmma"),
+    ("bfloat16", 384, "wgmma"), ("bfloat16", 80, "block"), ("bfloat16", 64, "block"),
+    ("bfloat16", 640, "block"), ("float32", 512, "block"), ("int8", 512, "block")])
+def test_block_is_chosen_by_shape(dtype, c, body):
+    """K1, K2 and K4 launch the wgmma block for bf16 with C % 128 == 0 and
+    C <= 512 (every configuration the repository runs), the WMMA / FMA /
+    int8 blocks otherwise: a rule of dtype and width alone."""
+    assert coattn.attend_body(getattr(torch, dtype), c) == body

@@ -1,6 +1,6 @@
-"""The co-attention CUDA kernels on the card (K1, the pair K2, the backward
-K3 and the ring kernel K4), against their plain PyTorch versions, the
-launches of one train step and of serving ticks, and train-mode
+"""The CUDA kernels on the card (K1, the pair K2, the backward K3, the ring
+kernel K4 and the location Gram K5), against their plain PyTorch versions,
+the launches of one train step and of serving ticks, and train-mode
 BatchNorm's card branch against its CPU branch.
 
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -10,8 +10,8 @@ only PyTorch is installed:
 
 Without a CUDA card every test here skips: the kernels are CUDA C++ with no
 CPU mode (their plain versions are held against the JAX package in
-`tests/test_torch_coattn.py`, `tests/test_torch_train_kernels.py` and
-`tests/test_torch_ring.py`).
+`tests/test_torch_coattn.py`, `tests/test_torch_train_kernels.py`,
+`tests/test_torch_ring.py` and `tests/test_torch_locgram.py`).
 """
 
 import copy
@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from dcnet_tpu_torch import kernels
-from dcnet_tpu_torch.kernels import coattn
+from dcnet_tpu_torch.kernels import coattn, locgram
 
 pytestmark = pytest.mark.cuda
 # On l2-normalised rows (C=512) an output element is about 0.044/sqrt(P),
@@ -188,9 +188,9 @@ def test_train_step_launches(card, k):
     metrics = train_step(state, batch)
     torch.cuda.synchronize()
     want = ({"coattn_attend": 0, "coattn_pair": 3, "coattn_attend_bwd": 6,
-             "coattn_ring": 0} if k == 2 else
+             "coattn_ring": 0, "loc_gram": 0} if k == 2 else
             {"coattn_attend": 3, "coattn_pair": 0, "coattn_attend_bwd": 3,
-             "coattn_ring": 0})
+             "coattn_ring": 0, "loc_gram": 0})
     assert kernels.LAUNCHES == want
     assert all(torch.isfinite(v) for v in metrics.values())
 
@@ -361,3 +361,92 @@ def test_serving_tick_launches(card, multiref):
     assert kernels.LAUNCHES["coattn_ring"] == (18 if multiref else 0)
     assert kernels.LAUNCHES["coattn_attend"] == (0 if multiref else 72)
     assert all(torch.isfinite(x).all() for x in (fused, raw, score))
+
+
+@pytest.mark.parametrize("c,body", [(128, "wgmma"), (256, "wgmma"), (384, "wgmma"),
+                                    (80, "block")])
+def test_bf16_block_chosen_by_shape(card, c, body):
+    """bf16 K1, K2 and K4 at widths the wgmma block takes (every
+    instantiation but C=512, which the tests above run) and one it does
+    not (C=80, the WMMA block): the C entry point picks the block by shape,
+    as `attend_body` reports it, and either agrees with the plain version
+    at ragged and whole P."""
+    assert coattn.attend_body(torch.bfloat16, c) == body
+    assert coattn._lib().dcnet_coattn_block(1, c) == (body == "wgmma")
+    assert coattn._lib().dcnet_coattn_block(0, c) == 0  # fp32: FMA block
+    gen = torch.Generator().manual_seed(10)
+    dt = torch.bfloat16
+    for p in (64, 169, 256):
+        q = _rows(gen, 3, p, c).to(card, dt)
+        kv = _rows(gen, 3, p, c).to(card, dt)
+        got = coattn.coattention_one(q, kv, 10.0)
+        with torch.no_grad():
+            o1, o2 = coattn.coattention_fused(q, kv, 10.0)
+        ring = _rows(gen, 2, 5, p, c).to(card, dt)
+        rgot = coattn.coattention_ring(ring, 10.0, 2, newest_slot=1)
+        torch.cuda.synchronize()
+        for a, w in ((got, coattn.attend_plain(q, kv, 10.0)), (o1, coattn.attend_plain(q, kv, 10.0)),
+                     (o2, coattn.attend_plain(kv, q, 10.0)),
+                     (rgot, coattn.ring_attend_plain(ring, 10.0, 2, newest_slot=1))):
+            torch.testing.assert_close(a.float(), w.float(), **TOL[dt])
+            assert _rel(a, w) <= REL_TOL[dt]
+
+
+# K5 against its plain version: both sum fp32 products of the same values in
+# other orders (relative ~1e-6 on outputs of order 0.1-1); bf16 outputs are
+# one rounding of those sums, so an element may be one bf16 step apart
+# (2^-7 relative). A dropped bias (0.1 of the outputs) or obj, or zeros,
+# fail these limits.
+K5_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+          torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+
+
+def _loc_gram_inputs(gen, b, p, c, dt, card):
+    ce = _rows(gen, b, p, 8).to(card, dt)
+    obj = _rows(gen, b, p).to(card)
+    w = torch.randn(p, c, generator=gen).to(card)
+    bias = (0.1 * torch.randn(c, generator=gen)).to(card)
+    return ce, obj, w, bias
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_loc_gram_matches_plain_on_card(card, dtype):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(11)
+    for p in (84, 1344, 3549):
+        ce, obj, w, bias = _loc_gram_inputs(gen, 2, p, 512, dt, card)
+        got = locgram.fused_loc_gram(ce, obj, w, bias)
+        want = locgram.loc_gram_plain(ce, obj, w, bias)
+        torch.cuda.synchronize()
+        assert got.dtype == dt and got.shape == (2, p, 512)
+        torch.testing.assert_close(got.float(), want.float(), **K5_TOL[dt])
+        assert _rel(got, want) <= REL_TOL[dt]
+        for wrong in (torch.zeros_like(want),
+                      locgram.loc_gram_plain(ce, obj, w, torch.zeros_like(bias)),
+                      locgram.loc_gram_plain(ce, torch.ones_like(obj), w, bias)):
+            assert _rel(wrong, want) > REL_TOL[dt]
+
+
+def test_loc_gram_refuses_what_it_cannot_take(card):
+    gen = torch.Generator().manual_seed(12)
+    ce, obj, w, bias = _loc_gram_inputs(gen, 2, 84, 64, torch.float32, card)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        locgram.fused_loc_gram(ce, obj.cpu(), w, bias)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        locgram.fused_loc_gram(ce.half(), obj, w, bias)
+    with pytest.raises(TypeError, match="float32"):
+        locgram.fused_loc_gram(ce, obj.bfloat16(), w, bias)
+    with pytest.raises(ValueError, match="E <= 16"):
+        locgram.fused_loc_gram(torch.zeros(2, 84, 17, device=card), obj, w, bias)
+    with pytest.raises(ValueError, match="C % 4"):
+        locgram.fused_loc_gram(ce, obj, w[:, :62].contiguous(), bias[:62])
+    with pytest.raises(ValueError, match="contiguous"):
+        locgram.fused_loc_gram(ce, obj, w.t().contiguous().t(), bias)
+    with pytest.raises(ValueError, match="disagree"):
+        locgram.fused_loc_gram(ce, obj[:, :80], w, bias)
+    assert set(kernels.LAUNCHES.values()) == {0}
+    locgram.fused_loc_gram(ce, obj, w, bias)
+    locgram.fused_loc_gram(ce.bfloat16(), obj, w, bias)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["loc_gram"] == 2

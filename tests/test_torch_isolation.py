@@ -33,7 +33,7 @@ def _run(code, cwd=REPO):
 
 
 def test_importing_the_port_loads_no_jax():
-    mods = _port_modules() + ["chip_smoke"]
+    mods = _port_modules() + ["chip_smoke", "kernel_timing"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -47,7 +47,7 @@ def test_sources_import_no_jax():
     pattern = re.compile(
         r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|orbax|dcnet_tpu)(?:[.\s]|$)",
         re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "kernel_timing.py")]
     for root, dirs, names in os.walk(PKG):
         dirs[:] = [d for d in dirs if d != "_build"]  # build outputs, not source
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
