@@ -10,14 +10,17 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      versions; TF32 is switched off for matmuls and cuDNN convolutions.
   2. build   -- compiles every kernel from `dcnet_tpu_torch/csrc/` with nvcc,
      one process per source, all started together; prints ptxas's register
-     and spill lines, and the counts of HGMMA (wgmma) and UTMALDG (TMA load)
-     instructions in the coattn and coattn_ring libraries (cuobjdump -sass),
-     failing if either is 0.
+     and spill lines (and the spill bytes per library), and the counts of
+     HGMMA (wgmma) and UTMALDG (TMA load) instructions in the coattn and
+     coattn_ring libraries and of tensor-core instructions with a TF32
+     operand (HMMA or HGMMA ... TF32) in coattn, coattn_bwd and coattn_ring
+     (cuobjdump -sass), failing if any is 0.
   3. kernel  -- each kernel against its plain PyTorch version on the card at
      the main paths' shapes (plus a ragged P and batch-strided inputs),
      timed beside the plain version, one PyTorch library call and the
-     card's bound: K1 (co-attention; bf16 at C=512 and 256 on the wgmma
-     block, at C=80 on the WMMA block), K2 (the pair), K3 (the backward),
+     card's bound: K1 (co-attention; fp32 on the 3xTF32 block at C=512 and
+     80, bf16 at C=512 and 256 on the wgmma block, at C=80 on the WMMA
+     block), K2 (the pair), K3 (the backward, 3xTF32),
      K4 (the ring: fp32, bf16 and int8 rings at every slot; zeros, T=1 and
      a kernel that ignores the slot are shown to fail the limits) and K5
      (the fused location Gram, fp32 and bf16 ce, at P=1344 and the ragged
@@ -62,6 +65,7 @@ import argparse
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -71,7 +75,7 @@ import torch
 
 try:
     import dcnet_tpu_torch  # noqa: F401
-    # the kernel phase times K1, K2, K4 and K5 with device_ms, K3 with cuda_ms
+    # the kernel phase times every kernel with device_ms, beside cuda_ms
     from kernel_timing import TIMERS, cuda_ms, device_ms
 except ImportError as e:  # run outside a checkout of the repository
     sys.exit(f"chip_smoke: cannot import dcnet_tpu_torch ({e}); run it from "
@@ -83,8 +87,15 @@ from dcnet_tpu_torch.kernels import coattn as k_coattn
 from dcnet_tpu_torch.kernels import locgram as k_locgram
 from dcnet_tpu_torch.ops import correspondence
 
-# H100 SXM data-sheet peaks (dense), the card's memory rate
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+# H100 SXM data-sheet peaks (dense), the card's memory rate. Each product
+# is counted at the card's fastest route that keeps the TPU body's
+# accuracy: bf16 x bf16 on the tensor cores (exact products); fp32 x fp32 by
+# 3xTF32, three TF32 passes at 495 TFLOP/s (six bf16 products give the same
+# rate), not the 67 TFLOP/s of FMA outside the tensor cores; fp32 x bf16 as
+# a three-piece bf16 split of the fp32 operand (FP32_X_BF16).
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3,
+              torch.int8: 1979e12}
+FP32_X_BF16 = 989e12 / 3
 PEAK_BYTES = 3.35e12
 TEMPERATURE = 10.0
 KERNEL_B, KERNEL_C = 8, 512
@@ -162,17 +173,25 @@ def itemsize(dtype: torch.dtype) -> int:
 
 def attend_bound(b: int, p: int, c: int, dtype: torch.dtype, directions: int = 1):
     """K1 (one direction) or K2 (two): 4 B P^2 C operations at the dtype's
-    peak and 3 B P C elements moved, per direction."""
+    rate (bf16: 989 TFLOP/s; fp32: 3xTF32's 165) and 3 B P C elements
+    moved, per direction."""
     return bound(directions * 4.0 * b * p * p * c,
                  directions * 3.0 * b * p * c * itemsize(dtype), PEAK_FLOPS[dtype])
 
 
 def attend_bwd_bound(b: int, p: int, c: int, dtype: torch.dtype):
-    """K3: 10 B P^2 C operations (the JAX cost estimate) at the fp32 peak,
-    the precision K3 computes in for either input dtype, and 5 B P C
-    elements moved (q, kv, g read; dq, dkv written)."""
-    return bound(10.0 * b * p * p * c, 5.0 * b * p * c * itemsize(dtype),
-                 PEAK_FLOPS[torch.float32])
+    """K3: the TPU body's five products, 2 B P^2 C operations each (10 B P^2
+    C, the JAX cost estimate), each at its route's rate: fp32 inputs all
+    five at 3xTF32's 165 TFLOP/s; bf16 inputs S = q kvᵀ and dW = g kvᵀ
+    (bf16 x bf16) at 989 and dS kv, dSᵀ q, Wᵀ g (an fp32 operand) at 989 / 3;
+    and 5 B P C elements moved (q, kv, g read; dq, dkv written)."""
+    one = 2.0 * b * p * p * c
+    if dtype == torch.bfloat16:
+        t_ops = 2 * one / PEAK_FLOPS[torch.bfloat16] + 3 * one / FP32_X_BF16
+    else:
+        t_ops = 5 * one / PEAK_FLOPS[torch.float32]
+    t_bytes = 5.0 * b * p * c * itemsize(dtype) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def phase_device(dev) -> dict:
@@ -190,21 +209,35 @@ def phase_device(dev) -> dict:
 
 
 SOURCES = ("coattn", "coattn_bwd", "coattn_ring", "locgram")
-SASS_COUNTED = {"coattn": ("HGMMA", "UTMALDG"), "coattn_ring": ("HGMMA", "UTMALDG")}
+# TF32_MMA: tensor-core instructions with a TF32 operand (HMMA.1688.F32.TF32
+# of mma.sync, or HGMMA ... TF32)
+SASS_COUNTED = {"coattn": ("HGMMA", "UTMALDG", "TF32_MMA"),
+                "coattn_ring": ("HGMMA", "UTMALDG", "TF32_MMA"),
+                "coattn_bwd": ("TF32_MMA",)}
+
+
+def _has_op(line: str, op: str) -> bool:
+    if op == "TF32_MMA":
+        return "TF32" in line and ("HMMA" in line or "HGMMA" in line)
+    return f" {op}" in line or f"\t{op}" in line
 
 
 def sass_counts(name: str, opcodes) -> dict:
     """How many instructions of each opcode the built library of
     `csrc/<name>.cu` holds, from `cuobjdump -sass` (the toolkit's, beside
-    nvcc)."""
+    nvcc); TF32_MMA counts tensor-core instructions with a TF32 operand."""
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", build.build([name])[name]],
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         raise RuntimeError(f"cuobjdump failed on {name}: {out.stderr.strip()[:500]}")
     lines = out.stdout.splitlines()
-    return {op: sum(1 for line in lines if f" {op}" in line or f"\t{op}" in line)
-            for op in opcodes}
+    return {op: sum(1 for line in lines if _has_op(line, op)) for op in opcodes}
+
+
+def spill_bytes(log: str) -> int:
+    """Spill stores and loads summed over ptxas's `-v` lines of a build."""
+    return sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log))
 
 
 def phase_build() -> None:
@@ -224,10 +257,11 @@ def phase_build() -> None:
     emit({"phase": "build", "kernels": list(SOURCES),
           "seconds": round(seconds, 3),
           "nvcc_seconds": {k: round(v, 3) for k, v in build.BUILD_SECONDS.items()},
-          "sass_instructions": sass})
+          "sass_instructions": sass,
+          "spill_bytes": {k: spill_bytes(v) for k, v in build.BUILD_LOG.items()}})
     if not all(v > 0 for counts in sass.values() for v in counts.values()):
-        raise AssertionError(f"the co-attention libraries lack wgmma or TMA "
-                             f"instructions: {sass}")
+        raise AssertionError(f"the co-attention libraries lack wgmma, TMA or "
+                             f"TF32 tensor-core instructions: {sass}")
 
 
 def _sdpa_backends(q, kv):
@@ -275,17 +309,18 @@ def _record(name, dtype, b, p, c, err, rel, serr, tol, rej, ok, k_ms, p_ms,
     return rec
 
 
-# K1 in bf16 at other widths: C=256 on the wgmma block, C=80 on the WMMA
-# block (the launcher's choice by shape), B=8
-WIDTH_CASES = ((256, (169, 1024)), (80, (169, 1024)))
+# K1 at other widths (the launcher's choice by shape), B=8: bf16 C=256 on
+# the wgmma block, C=80 on the WMMA block; fp32 C=80 on the 3xTF32 block
+WIDTH_CASES = ((torch.bfloat16, 256, (169, 1024)), (torch.bfloat16, 80, (169, 1024)),
+               (torch.float32, 80, (169, 1024)))
 
 
 def kernel_cases_k1(dev, gen) -> list:
     """K1 against its plain version at the eval path's request (B=8), and
-    bf16 at the widths of WIDTH_CASES."""
+    at the widths of WIDTH_CASES."""
     shapes = [(dtype, p, KERNEL_C) for dtype in (torch.float32, torch.bfloat16)
               for p in MAIN_P + (RAGGED_P,)]
-    shapes += [(torch.bfloat16, p, c) for c, ps in WIDTH_CASES for p in ps]
+    shapes += [(dtype, p, c) for dtype, c, ps in WIDTH_CASES for p in ps]
     cases = []
     for dtype, p, c in shapes:
         b = KERNEL_B
@@ -395,24 +430,32 @@ def kernel_cases_k3(dev, gen) -> list:
             schecks = [agreement(a, w, dtype, BWD_TOL) for a, w in zip(sgot, swant)]
             ok = all(x[0] for x in checks + schecks) and rej
             iters = 5 if p >= 1024 else 20
-            k_ms = cuda_ms(lambda: k_coattn.attend_bwd(q, kv, TEMPERATURE, g), iters)
-            p_ms = cuda_ms(lambda: k_coattn.attend_bwd_plain(q, kv, TEMPERATURE, g),
-                           iters)
+            k_ms = device_ms(lambda: k_coattn.attend_bwd(q, kv, TEMPERATURE, g), iters)
+            call_ms = cuda_ms(lambda: k_coattn.attend_bwd(q, kv, TEMPERATURE, g), iters)
+            p_ms = device_ms(lambda: k_coattn.attend_bwd_plain(q, kv, TEMPERATURE, g),
+                             iters)
             ql = q[:, None].detach().requires_grad_()
             kvl = kv[:, None].detach().requires_grad_()
             backends = _sdpa_backends(ql.detach(), kvl.detach())
-            out = torch.nn.functional.scaled_dot_product_attention(
-                ql, kvl, kvl, scale=TEMPERATURE)
-            l_ms = cuda_ms(lambda: torch.autograd.grad(
-                out, (ql, kvl), g[:, None], retain_graph=True), iters)
-            del out
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    ql, kvl, kvl, scale=TEMPERATURE)
+
+            # autograd replays the backward on the forward's stream, so the
+            # graph captures both: the backward's time is their difference
+            l_ms = (device_ms(lambda: torch.autograd.grad(sdpa(), (ql, kvl), g[:, None]),
+                              iters)
+                    - device_ms(sdpa, iters))
             cases.append(_record(
                 "coattn_attend_bwd", dtype, b, p, c,
                 max(x[1] for x in checks), max(x[2] for x in checks),
                 max(x[1] for x in schecks), BWD_TOL, rej, ok, k_ms, p_ms, l_ms,
                 "torch.autograd.grad through F.scaled_dot_product_attention("
-                "q, kv, kv, scale=T), (B, 1, P, C): dq and dkv = dk + dv",
-                backends, *attend_bwd_bound(b, p, c, dtype), timer="call"))
+                "q, kv, kv, scale=T), (B, 1, P, C): dq and dkv = dk + dv "
+                "(device time of forward and backward less the forward's)",
+                backends, *attend_bwd_bound(b, p, c, dtype), timer="device",
+                body="tf32x3", call_ms=call_ms))
     return cases
 
 
@@ -544,9 +587,9 @@ ROUTE_RTOL, ROUTE_ATOL_REL, ROUTE_REL = 1e-4, 1e-5, 1e-4
 def loc_gram_bound(b: int, p: int, e: int, c: int, dtype: torch.dtype):
     """K5: the least work of the function, 4 B P E C operations (the
     rank-E factorisation ce (ceᵀ (obj ∘ W)); the kernel's Gram algorithm
-    does P/(2E) times more) at the fp32 peak (the math is fp32 for either ce
-    dtype); ce, obj, w and b read once and the output (ce's dtype) written
-    once."""
+    does P/(2E) times more) at the fp32 rate, 3xTF32's 165 TFLOP/s (the
+    math is fp32 for either ce dtype); ce, obj, w and b read once and the
+    output (ce's dtype) written once: bound by those bytes."""
     nbytes = (itemsize(dtype) * b * p * e + 4 * (b * p + p * c + c)
               + itemsize(dtype) * b * p * c)
     return bound(4.0 * b * p * e * c, nbytes, PEAK_FLOPS[torch.float32])

@@ -1,13 +1,15 @@
-// Device code shared by K1/K2 (coattn.cu) and K4 (coattn_ring.cu): one block
-// computes softmax_rows(T * q kv^T) kv for kBlockM rows of q against a whole
-// (P, C) kv frame, streaming kv through shared memory in tiles of BLOCK_N rows
-// with an online softmax (running row max m and row sum l; the accumulator is
-// rescaled by exp(m_old - m_new) before each tile is added). The 32 x C fp32
-// accumulator lives in shared memory. Rows and columns past P are masked
-// (zero rows in, -inf logits, no store). bf16 takes both products on the
-// tensor cores (WMMA m16n16k16, fp32 accumulate) with the softmax weights
-// rounded to bf16 before the PV product; fp32 uses FMA throughout. The design
-// notes (bounds, what is given away on purpose) are in coattn.cu.
+// Device code shared by K1/K2 (coattn.cu) and K4 (coattn_ring.cu) for bf16
+// at the widths the wgmma block (attend_wgmma.cuh) does not take, and for
+// K4's int8 block: one block computes softmax_rows(T * q kv^T) kv for
+// kBlockM rows of q against a whole (P, C) kv frame, streaming kv through
+// shared memory in tiles of BLOCK_N rows with an online softmax (running row
+// max m and row sum l; the accumulator is rescaled by exp(m_old - m_new)
+// before each tile is added). The 32 x C fp32 accumulator lives in shared
+// memory. Rows and columns past P are masked (zero rows in, -inf logits, no
+// store). Both products run on the tensor cores (WMMA m16n16k16, fp32
+// accumulate) with the softmax weights rounded to bf16 before the PV
+// product. fp32 inputs take the block of attend_tf32.cuh. The design notes
+// (bounds, what is given away on purpose) are in coattn.cu.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,14 +29,6 @@ constexpr int kBlockM = 32;
 
 template <typename T>
 struct Tile;
-
-template <>
-struct Tile<float> {
-  static constexpr int kBlockN = 32;  // one kv row per lane in the FMA loops
-  static constexpr int kPadQ = 4;     // q rows are read as warp broadcasts
-  static constexpr int kPadKV = 1;    // lanes walk kv rows at one k: pitch C+1
-                                      // puts them in 32 distinct banks
-};
 
 template <>
 struct Tile<bf16> {
@@ -90,16 +84,15 @@ __device__ inline float warp_sum(float v) {
 template <typename T>
 __device__ inline T from_float(float v);
 template <>
-__device__ inline float from_float<float>(float v) { return v; }
-template <>
 __device__ inline bf16 from_float<bf16>(float v) { return __float2bfloat16(v); }
 
-// Copies `rows` rows of C elements starting at row `row0` of a (P, C)
+// Copies `rows` bf16 rows of C elements starting at row `row0` of a (P, C)
 // row-major matrix into shared memory with pitch `ld`; rows past P are
 // zero. Global reads are 16-byte vectors (the host checks alignment).
 template <typename T>
 __device__ void load_rows(T* dst, int ld, const T* src, int row0, int rows,
                           int P, int C) {
+  static_assert(sizeof(T) == 2, "fp32 takes the block of attend_tf32.cuh");
   constexpr int V = 16 / sizeof(T);
   const int vecs = C / V;
   for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
@@ -109,35 +102,11 @@ __device__ void load_rows(T* dst, int ld, const T* src, int row0, int rows,
     if (row0 + r < P) {
       v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * C + c);
     }
-    T* d = dst + r * ld + c;
-    if constexpr (sizeof(T) == 2) {
-      *reinterpret_cast<uint4*>(d) = v;  // pitch (C + 8) * 2 bytes: aligned
-    } else {
-      const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-      for (int k = 0; k < V; ++k) d[k] = e[k];
-    }
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;  // pitch (C + 8) * 2 bytes: aligned
   }
 }
 
 // s[r][n] = <q_s[r], kv_s[n]> for the kBlockM x BN tile.
-__device__ inline void tile_scores(const float* q_s, const float* kv_s,
-                                   float* s_s, const Layout& L, int C) {
-  constexpr int R = kBlockM / kWarps;
-  const int warp = threadIdx.x / 32, n = threadIdx.x % 32;
-  float acc[R];
-#pragma unroll
-  for (int i = 0; i < R; ++i) acc[i] = 0.f;
-  const float* kr = kv_s + n * L.ldkv;
-  for (int k = 0; k < C; ++k) {
-    const float b = kr[k];
-#pragma unroll
-    for (int i = 0; i < R; ++i) acc[i] = fmaf(q_s[(warp + i * kWarps) * L.ldq + k], b, acc[i]);
-  }
-#pragma unroll
-  for (int i = 0; i < R; ++i) s_s[(warp + i * kWarps) * L.lds + n] = acc[i];
-}
-
 __device__ inline void tile_scores(const bf16* q_s, const bf16* kv_s, float* s_s,
                                    const Layout& L, int C) {
   constexpr int BN = Tile<bf16>::kBlockN;
@@ -159,22 +128,6 @@ __device__ inline void tile_scores(const bf16* q_s, const bf16* kv_s, float* s_s
 }
 
 // o_s[r][c] += sum_j p_s[r][j] * kv_s[j][c] over the tile's BN kv rows.
-__device__ inline void tile_accumulate(const float* p_s, const float* kv_s,
-                                       float* o_s, const Layout& L, int C) {
-  constexpr int BN = Tile<float>::kBlockN;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float col[BN];
-#pragma unroll
-    for (int j = 0; j < BN; ++j) col[j] = kv_s[j * L.ldkv + c];
-    for (int r = 0; r < kBlockM; ++r) {
-      float acc = o_s[r * L.ldo + c];
-#pragma unroll
-      for (int j = 0; j < BN; ++j) acc = fmaf(p_s[r * L.ldp + j], col[j], acc);
-      o_s[r * L.ldo + c] = acc;
-    }
-  }
-}
-
 __device__ inline void tile_accumulate(const bf16* p_s, const bf16* kv_s,
                                        float* o_s, const Layout& L, int C) {
   constexpr int BN = Tile<bf16>::kBlockN;

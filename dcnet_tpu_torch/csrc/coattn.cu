@@ -12,15 +12,18 @@
 // of f1 f2^T is the row softmax of f2 f1^T, so each direction is K1.
 // Precision follows the TPU kernel: logits and softmax in fp32; bf16 inputs
 // take both products on the tensor cores with fp32 accumulation and the
-// softmax weights rounded to bf16 before the PV product; fp32 inputs use
-// fp32 FMA throughout. The output has q's dtype.
+// softmax weights rounded to bf16 before the PV product; fp32 inputs take
+// both products on the tensor cores by 3xTF32 (fp32 accuracy, the unrounded
+// weights in PV; tf32x3.cuh). The output has q's dtype.
 //
 // Bound per launch: 4*B*P^2*C operations and 3*B*P*C*sizeof(T) bytes (q and
-// kv read once, out written once). On the main path (B clips, C = 512) the
-// P = 1024 launch is compute-bound: 2.1 GFLOP per clip, about 2.2 us at the
-// H100's 989 TFLOP/s bf16 data-sheet rate, against 3 MiB of traffic. The
-// P = 64 launch is memory-bound: about 197 KB per clip, about 0.06 us at
-// 3.35 TB/s.
+// kv read once, out written once), each product at the card's fastest route
+// that keeps the TPU body's accuracy: 989 TFLOP/s for bf16 (exact products),
+// 495 / 3 = 165 TFLOP/s for fp32 (3xTF32). On the main path (B clips,
+// C = 512) the P = 1024 launch is compute-bound: 2.1 GFLOP per clip, about
+// 2.2 us in bf16 and 13 us in fp32, against 3 MiB (bf16) of traffic. The
+// P = 64 launch is memory-bound: about 197 KB per clip in bf16, about
+// 0.06 us at 3.35 TB/s.
 //
 // Design. The TPU kernel keeps the whole (P, C) kv block in VMEM; at P = 1024,
 // C = 512 that is 1-2 MiB, far above the 227 KB of shared memory a block may
@@ -29,8 +32,8 @@
 // the accumulator is rescaled by exp(m_old - m_new) before each tile is
 // added). The (P, P) logits never leave the SM. Rows and columns past P are
 // masked (zero rows in, -inf logits, no store), so ragged P (169, 676, 2704
-// at 416 px) works. Two blocks, chosen by dtype and C in the entry point
-// (dcnet_coattn_block, the rule of wg::takes), never as a fallback:
+// at 416 px) works. Three blocks, chosen by dtype and C in the entry point
+// (dcnet_coattn_block: wg::takes, tf32::takes), never as a fallback:
 //
 // - bf16 with C % 128 == 0 and C <= 512 (every configuration the repository
 //   runs): the wgmma + TMA block of attend_wgmma.cuh. What bounded the
@@ -49,13 +52,27 @@
 //   tile for 64 rows), the softmax does not overlap the products, and the
 //   two warpgroups meet at two named barriers a tile: the next redesign's
 //   targets.
-// - fp32, and bf16 at other widths: the block of attend_tile.cuh (32 rows,
-//   kv tiles loaded synchronously, the accumulator in shared memory; bf16
-//   products on WMMA m16n16k16, fp32 on FMA), about 180 KB of shared memory
-//   at C = 512.
+// - fp32 with C % 16 == 0 and C <= 512 (every fp32 width the port
+//   launches): the 3xTF32 block of attend_tf32.cuh. Both products run on
+//   mma.sync m16n8k8 TF32, each fp32 operand split into a TF32 big and
+//   small part in registers as its fragment is loaded (three passes, fp32
+//   accuracy; one pass misses the fp32 limits). wgmma reads
+//   TF32 operands K-major only, so PV could not take the kv tile as its B
+//   operand as the bf16 block does; mma.sync fragments are loaded by hand
+//   and take any layout. A block owns 32 q rows (a 64 x C fp32 q tile alone
+//   is 128 KB); 16 warps split them into 2 row groups x 8 channel groups,
+//   each keeping a 16 x C/8 fp32 accumulator in registers; kv tiles of 32
+//   rows are double-buffered by cp.async; the partial logits of the eight
+//   channel groups are summed through shared memory. About 226 KB of shared
+//   memory at C = 512: one block per SM, and each block rereads kv from L2
+//   per 32 rows.
+// - bf16 at other widths: the block of attend_tile.cuh (32 rows, kv tiles
+//   loaded synchronously, the accumulator in shared memory, products on
+//   WMMA m16n16k16).
 //
-// K2 runs either block with the direction on grid.z; the wgmma block swaps
+// K2 runs each block with the direction on grid.z; the wgmma block swaps
 // its two tensor maps there.
+#include "attend_tf32.cuh"
 #include "attend_tile.cuh"
 #include "attend_wgmma.cuh"
 
@@ -80,6 +97,26 @@ attend_kernel(const T* q, const T* kv, T* out, T* out2, int P, int C,
   const long long b = blockIdx.y;
   attend_rows<T, T>(q + b * q_bstride, kv + b * kv_bstride, out + b * P * C,
                     blockIdx.x * kBlockM, P, C, t, smem);
+}
+
+// The fp32 block on the tensor cores by 3xTF32 (attend_tf32.cuh).
+__global__ void __launch_bounds__(tf32::kThreads, 1)
+attend_tf32_kernel(const float* q, const float* kv, float* out, float* out2,
+                   int P, int C, long long q_bstride, long long kv_bstride,
+                   float t) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  if (blockIdx.z == 1) {  // the pair's second direction: attend(kv, q)
+    const float* tmp = q;
+    q = kv;
+    kv = tmp;
+    const long long st = q_bstride;
+    q_bstride = kv_bstride;
+    kv_bstride = st;
+    out = out2;
+  }
+  const long long b = blockIdx.y;
+  tf32::attend_rows(q + b * q_bstride, kv + b * kv_bstride, out + b * P * C,
+                    blockIdx.x * tf32::kRows, P, C, t, smem);
 }
 
 // The bf16 block on wgmma + TMA; maps (C, P, B) of q and kv. z = 1 swaps
@@ -113,6 +150,24 @@ int launch(const void* q, const void* kv, void* out, void* out2, int B, int P,
   attend_kernel<T><<<grid, kThreads, L.total, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv), static_cast<T*>(out),
       static_cast<T*>(out2), P, C, q_bstride, kv_bstride, t);
+  return (int)cudaGetLastError();
+}
+
+int launch_tf32(const void* q, const void* kv, void* out, void* out2, int B,
+                int P, int C, long long q_bstride, long long kv_bstride,
+                float t, cudaStream_t stream) {
+  const int bytes = (int)tf32::smem_bytes(C);
+  cudaError_t err = cudaFuncSetAttribute(
+      attend_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear, so PyTorch's next check does not see it
+    return (int)err;
+  }
+  const dim3 grid((P + tf32::kRows - 1) / tf32::kRows, B, out2 ? 2 : 1);
+  attend_tf32_kernel<<<grid, tf32::kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(kv),
+      static_cast<float*>(out), static_cast<float*>(out2), P, C, q_bstride,
+      kv_bstride, t);
   return (int)cudaGetLastError();
 }
 
@@ -160,10 +215,14 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. The block each launch takes, by shape:
 // 1 = the bf16 wgmma + TMA block of attend_wgmma.cuh (bf16 with C % 128 ==
-// 0, C <= 512), 0 = the block of attend_tile.cuh (WMMA for other bf16
-// widths, FMA for fp32). K4's entry point applies the same rule.
+// 0, C <= 512), 2 = the fp32 3xTF32 block of attend_tf32.cuh (fp32 with
+// C % 16 == 0, C <= 512), 0 = the WMMA block of attend_tile.cuh (other bf16
+// widths; -1 for fp32 widths no block takes). K4's entry point applies the
+// same rule to float rings.
 int dcnet_coattn_block(int dtype, int C) {
-  return dtype == 1 && wg::takes(C) ? 1 : 0;
+  if (dtype == 1) return wg::takes(C) ? 1 : 0;
+  if (dtype == 0) return tf32::takes(C) ? 2 : -1;
+  return -1;
 }
 
 // Strides are in elements; rows of q and kv are contiguous (row stride C).
@@ -178,16 +237,12 @@ int dcnet_coattn_attend(const void* q, const void* kv, void* out, void* out2,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dcnet_coattn_block(dtype, C) == 1) {
-    return launch_wgmma_c(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
+  switch (dcnet_coattn_block(dtype, C)) {
+    case 1: return launch_wgmma_c(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
+    case 2: return launch_tf32(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
+    case 0: return launch<bf16>(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  if (dtype == 0) {
-    return launch<float>(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
-  }
-  if (dtype == 1) {
-    return launch<bf16>(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 const char* dcnet_coattn_error_string(int code) {

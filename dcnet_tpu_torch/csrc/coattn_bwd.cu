@@ -11,16 +11,23 @@
 //     dq  = T dS kv
 //     dkv = T dS^T q + W^T g
 //
-// Precision follows the TPU kernel: q, kv and g are read as fp32 and every
-// product, exponential and sum is fp32, with the *unrounded* fp32 W (the
-// forward rounds W to bf16 before PV for bf16 inputs; the backward does
-// not). dq and dkv are rounded once to the input dtype at the end.
+// Precision follows the TPU kernel: every product, exponential and sum is
+// fp32, with the *unrounded* fp32 W (the forward rounds W to bf16 before PV
+// for bf16 inputs; the backward does not). dq and dkv are rounded once to
+// the input dtype at the end. The products run on the tensor cores
+// (mma.sync m16n8k8 TF32) by 3xTF32 (tf32x3.cuh), which keeps fp32
+// accuracy: each fp32 operand is split into a TF32 big and small part in
+// registers. bf16 values are exact in TF32, so with bf16 inputs S and dW
+// (bf16 x bf16) take one pass and the products with an fp32 operand (dS kv,
+// dS^T q, W^T g) two; fp32 inputs take three passes everywhere.
 //
-// Bound per call: 10*B*P^2*C operations (the JAX cost estimate: four
-// products of the TPU body plus the softmax) and 5*B*P*C*sizeof(T) bytes
-// (q, kv, g read once; dq, dkv written once). Everything is fp32 FMA, so
-// the bound is taken at the card's fp32 rate (67 TFLOP/s, not the tensor
-// cores): at B = 16, P = 1024, C = 512 that is 1.28 ms, compute-bound.
+// Bound per call: the TPU body's five products (S, dW, dS kv, dS^T q,
+// W^T g), 2*B*P^2*C operations each, at the card's fastest route that keeps
+// their accuracy: bf16 x bf16 at 989 TFLOP/s, an fp32 operand by 3xTF32 at
+// 495 / 3 TFLOP/s (the bound counts a bf16 x fp32 product at 989 / 3, a
+// three-piece bf16 split); and 5*B*P*C*sizeof(T) bytes (q, kv, g read once;
+// dq, dkv written once). At B = 16, P = 1024, C = 512 that is 0.52 ms in
+// fp32 and 0.19 ms in bf16, compute-bound.
 //
 // Design. The TPU kernel holds each row tile's full (R, P) softmax in VMEM
 // and accumulates dkv across row tiles of one resident block, which relies
@@ -30,382 +37,387 @@
 //   1. dq pass (q-major). A block owns kOwn rows of q and g and streams kv
 //      in tiles of kStream rows twice. Sweep 1 keeps, per row, the running
 //      max m, sum l and a = sum exp(S - m) dW (rescaled as m grows), which
-//      gives the logsumexp L = m + log l and D = a / l = rowsum(dW * W) =
-//      rowsum(g * o); both go to global scratch. Sweep 2 recomputes S and
-//      dW, forms dS = exp(S - L) (dW - D) and accumulates dq = T dS kv in
-//      registers.
+//      gives the logsumexp L = m + log l and D = a / l = rowsum(dW * W);
+//      both go to global scratch. Sweep 2 recomputes S and dW, forms
+//      dS = exp(S - L) (dW - D) and accumulates dq = T dS kv.
 //   2. dkv pass (kv-major). A block owns kOwn rows of kv and streams q and
-//      g in tiles of kStream rows with their L and D; it recomputes W and
-//      dS for the tile and accumulates dkv = T dS^T q + W^T g in registers.
-// That costs 18 P^2 C operations against the TPU body's 10 (S and dW are
-// formed three times), the price of no (R, P) tile. Rows and columns past
-// P are masked (zero rows in, W = 0, no store), so ragged P (169 at 416 px)
-// works. Operands sit in shared memory as fp32 with a pitch of C + 4
-// floats: the dot products read 16-byte vectors along C, where lanes that
-// walk different rows land in distinct banks and lanes that share a row get
-// a broadcast. Left for later on purpose: the tensor cores (wgmma), cp.async
-// or TMA pipelining, and more than one block per SM (~133 KB and ~168 KB of
-// shared memory per block at C = 512).
+//      g in tiles of kStream rows with their L and D; it computes S^T and
+//      dW^T directly (kv rows against q and g rows), so that W^T and dS^T
+//      are accumulator tiles, and accumulates dkv = T dS^T q + W^T g.
+// That is nine products against the TPU body's five (S and dW are formed
+// three times), the price of no (R, P) tile. 256 threads: 8 warps, 2 row
+// groups of 16 owned rows x 4 channel groups of about C/4 channels; each
+// warp keeps a 16 x C/4 fp32 accumulator in registers and takes the partial
+// S and dW of its channels, which the four warps of a row group sum through
+// shared memory (in channel-group order, so they hold the same values).
+// (16 warps of C/8 channels, as the fp32 forward block has, ran bf16 18%
+// slower and fp32 7% faster on the H100, spilling at 128 registers a
+// thread.)
+// Operands sit in shared memory in the input dtype with a pitch of
+// C + 16 bytes (conflict-free fragment loads); the streamed tiles are
+// double-buffered by cp.async. A block owns 32 rows, not 64: the owned q and
+// g rows at C = 512 in fp32 are already 128 KB, and the accumulator of 64
+// rows would not fit the registers of 8 warps. About 210 KB of shared memory
+// in fp32 (one block per SM) and 115 KB in bf16 at C = 512. Rows and columns
+// past P are masked (zero rows in, W = 0, no store), so ragged P (169 at
+// 416 px) works.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace dcnet::tf32;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kOwn = 16;                 // rows a block owns
-constexpr int kStream = 32;              // streamed rows per tile: one per lane
-constexpr int kRowsPerWarp = kOwn / kWarps;
+constexpr int kGroups = 4;               // channel groups
+constexpr int kWarps = 2 * kGroups;      // 2 row groups of 16 rows x kGroups
+constexpr int kThreads = 32 * kWarps;
+constexpr int kOwn = 32;                 // rows a block owns
+constexpr int kStream = 16;              // streamed rows per tile
 constexpr int kMaxC = 512;
-constexpr int kCols = kMaxC / kThreads;  // output columns per thread
+constexpr int kMaxOwn = kMaxC / (8 * kGroups);  // n8 channel tiles a warp owns, at most
+constexpr int kXch = kWarps * 2 * 2 * 32;       // float4: [warp][S, dW][n8][lane]
 
 __host__ __device__ inline size_t align128(size_t n) {
   return (n + 127) / 128 * 128;
 }
 
-__host__ __device__ inline int pitch(int C) { return C + 4; }
-
-// dq pass: q, g (kOwn rows), kv tile (kStream rows), dS tile, L and D.
-__host__ __device__ inline size_t smem_dq(int C) {
-  return align128(sizeof(float) * (2 * kOwn + kStream) * pitch(C)) +
-         align128(sizeof(float) * kOwn * kStream) +
-         align128(sizeof(float) * 2 * kOwn);
+// Pitch in elements: 16 bytes past C.
+template <typename T>
+__host__ __device__ inline int pitch(int C) {
+  return C + 16 / (int)sizeof(T);
 }
 
-// dkv pass: kv (kOwn rows), q and g tiles (kStream rows), W^T and T dS^T
-// tiles, the tile's L and D.
-__host__ __device__ inline size_t smem_dkv(int C) {
-  return align128(sizeof(float) * (kOwn + 2 * kStream) * pitch(C)) +
-         align128(sizeof(float) * 2 * kOwn * kStream) +
-         align128(sizeof(float) * 2 * kStream);
+// Both passes: the owned rows (two matrices in the dq pass, one in the dkv
+// pass) and two stages of streamed tiles (one matrix in the dq pass, two in
+// the dkv pass): three matrices of kOwn rows' size either way, the exchange,
+// and the dkv pass's L and D of two stages.
+template <typename T>
+__host__ __device__ inline size_t smem_bytes(int C) {
+  static_assert(kOwn == 2 * kStream, "the passes share one layout size");
+  return align128(sizeof(T) * 3 * kOwn * pitch<T>(C)) + sizeof(float4) * kXch +
+         sizeof(float) * 4 * kStream;
 }
 
-__device__ inline float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+__device__ inline void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-__device__ inline float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ inline void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The partial products of this warp's channels for one tile: x = A B1^T and
+// y = A2 B2^T, 16 owned rows x 16 streamed rows, where A1, A2 are the owned
+// rows at `a1`, `a2` and B1, B2 the streamed rows at `b1`, `b2` (all at the
+// warp's first channel). Then summed over the four channel groups through
+// `xch`, after a __syncthreads. Where a2 == a1 (the dkv pass: kv against q
+// and g) or b2 == b1 (the dq pass: q and g against kv) one fragment serves
+// both products.
+template <typename T>
+__device__ __forceinline__ void scores(const T* a1, const T* a2, const T* b1,
+                                       const T* b2, int ld, int count,
+                                       float4* xch, float (&x)[2][4],
+                                       float (&y)[2][4]) {
+  constexpr bool kSmall = !kExact<T>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, rg = warp & 1;
+  float ex[2][4], ey[2][4];  // the small-part terms
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[n][j] = y[n][j] = ex[n][j] = ey[n][j] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxOwn; ++i) {
+    if (i < count) {
+      FragA fa1, fa2;
+      load_a(fa1, a1 + 8 * i, ld, lane);
+      if (a2 == a1) {
+        fa2 = fa1;
+      } else {
+        load_a(fa2, a2 + 8 * i, ld, lane);
+      }
+      FragB fb1[2], fb2[2];
+      load_b_k2(fb1[0], fb1[1], b1 + 8 * i, ld, lane);
+      if (b2 == b1) {
+        fb2[0] = fb1[0];
+        fb2[1] = fb1[1];
+      } else {
+        load_b_k2(fb2[0], fb2[1], b2 + 8 * i, ld, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        mma3<kSmall, kSmall>(x[n], ex[n], fa1, fb1[n]);
+        mma3<kSmall, kSmall>(y[n], ey[n], fa2, fb2[n]);
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    xch[((warp * 2 + 0) * 2 + n) * 32 + lane] = make_float4(
+        x[n][0] + ex[n][0], x[n][1] + ex[n][1], x[n][2] + ex[n][2], x[n][3] + ex[n][3]);
+    xch[((warp * 2 + 1) * 2 + n) * 32 + lane] = make_float4(
+        y[n][0] + ey[n][0], y[n][1] + ey[n][1], y[n][2] + ey[n][2], y[n][3] + ey[n][3]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    float4 u = xch[((rg * 2 + 0) * 2 + n) * 32 + lane];  // channel group 0
+    float4 v = xch[((rg * 2 + 1) * 2 + n) * 32 + lane];
+#pragma unroll
+    for (int c = 1; c < kGroups; ++c) {
+      const int w = rg + 2 * c;
+      const float4 du = xch[((w * 2 + 0) * 2 + n) * 32 + lane];
+      const float4 dv = xch[((w * 2 + 1) * 2 + n) * 32 + lane];
+      u.x += du.x; u.y += du.y; u.z += du.z; u.w += du.w;
+      v.x += dv.x; v.y += dv.y; v.z += dv.z; v.w += dv.w;
+    }
+    x[n][0] = u.x; x[n][1] = u.y; x[n][2] = u.z; x[n][3] = u.w;
+    y[n][0] = v.x; y[n][1] = v.y; y[n][2] = v.z; y[n][3] = v.w;
+  }
+}
+
+// acc (16 x own channels) += A B for the 16 streamed rows of a tile: A from
+// the accumulator tiles a[2] (16 x 16), B the streamed rows at `b` (the
+// warp's first channel). kSmallB: B has a small part (fp32 inputs).
+template <typename T>
+__device__ __forceinline__ void accumulate(float (&acc)[kMaxOwn][4],
+                                           const float (&a)[2][4], const T* b,
+                                           int ld, int count) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    FragA fa;
+    acc_to_a(fa, a[k]);
+#pragma unroll
+    for (int i = 0; i < kMaxOwn; ++i) {
+      if (i < count) {
+        FragB fb;
+        load_b_n(fb, b + 8 * k * ld + 8 * i, ld, lane);
+        mma3<true, !kExact<T>>(acc[i], fa, fb);
+      }
+    }
+  }
+}
+
+// Rows row0 + 16 rg + g (and + 8) of a (P, C) output, this warp's channels,
+// scaled by `scale`, rounded to T; rows past P are not stored.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[kMaxOwn][4],
+                                           float scale, int row0, int P, int C,
+                                           int c0, int count) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = row0 + 16 * (warp & 1) + lane / 4;
+  T* p = dst + (long long)r * C + c0 + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < kMaxOwn; ++i) {
+    if (i < count) {
+      if (r < P) store2(p + 8 * i, scale * acc[i][0], scale * acc[i][1]);
+      if (r + 8 < P) store2(p + 8 * C + 8 * i, scale * acc[i][2], scale * acc[i][3]);
+    }
+  }
 }
 
 template <typename T>
-__device__ inline T from_float(float v);
-template <>
-__device__ inline float from_float<float>(float v) { return v; }
-template <>
-__device__ inline bf16 from_float<bf16>(float v) { return __float2bfloat16(v); }
-
-// Copies `rows` rows of C elements, starting at row `row0` of a (P, C)
-// row-major matrix, into fp32 shared memory with pitch `ld`; rows past P
-// are zero. Global reads are 16-byte vectors (the host checks alignment).
-__device__ void load_rows(float* dst, int ld, const float* src, int row0,
-                          int rows, int P, int C) {
-  const int vecs = C / 4;
-  for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
-    const int r = i / vecs;
-    const int c = (i - r * vecs) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < P) {
-      v = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) * C + c);
-    }
-    *reinterpret_cast<float4*>(dst + r * ld + c) = v;
-  }
-}
-
-__device__ void load_rows(float* dst, int ld, const bf16* src, int row0,
-                          int rows, int P, int C) {
-  const int vecs = C / 8;
-  for (int i = threadIdx.x; i < rows * vecs; i += kThreads) {
-    const int r = i / vecs;
-    const int c = (i - r * vecs) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < P) {
-      v = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * C + c);
-    }
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-    float4 lo = make_float4(__bfloat162float(e[0]), __bfloat162float(e[1]),
-                            __bfloat162float(e[2]), __bfloat162float(e[3]));
-    float4 hi = make_float4(__bfloat162float(e[4]), __bfloat162float(e[5]),
-                            __bfloat162float(e[6]), __bfloat162float(e[7]));
-    *reinterpret_cast<float4*>(dst + r * ld + c) = lo;
-    *reinterpret_cast<float4*>(dst + r * ld + c + 4) = hi;
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// s[i] = <xr[i], y>, d[i] = <zr[i], y> over C, for the kRowsPerWarp rows
-// this warp takes; y is this lane's row.
-__device__ __forceinline__ void two_dots(const float* const* xr,
-                                         const float* const* zr, const float* y,
-                                         int C, float* s, float* d) {
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) s[i] = d[i] = 0.f;
-  for (int k = 0; k < C; k += 4) {
-    const float4 yv = *reinterpret_cast<const float4*>(y + k);
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      s[i] = dot4(*reinterpret_cast<const float4*>(xr[i] + k), yv, s[i]);
-      d[i] = dot4(*reinterpret_cast<const float4*>(zr[i] + k), yv, d[i]);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
               const T* __restrict__ g, T* __restrict__ dq,
               float* __restrict__ lse, float* __restrict__ dd, int P, int C,
               long long q_bstride, long long kv_bstride, long long g_bstride,
               float t) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = pitch(C);
-  float* q_s = reinterpret_cast<float*>(smem);
-  float* g_s = q_s + kOwn * ld;
-  float* kv_s = g_s + kOwn * ld;
-  float* ds_s = reinterpret_cast<float*>(
-      smem + align128(sizeof(float) * (2 * kOwn + kStream) * ld));
-  float* l_s = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(ds_s) + align128(sizeof(float) * kOwn * kStream));
-  float* d_s = l_s + kOwn;
+  const int ld = pitch<T>(C);
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* g_s = q_s + kOwn * ld;
+  T* kv_s = g_s + kOwn * ld;  // stage s at kv_s + s * kStream * ld
+  float4* xch = reinterpret_cast<float4*>(smem + align128(sizeof(T) * 3 * kOwn * ld));
 
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * kOwn;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, rg = warp & 1;
+  const Channels ch = channel_group(warp >> 1, kGroups, C);
+  const int c0 = 8 * ch.first;
   const T* kvb = kv + (long long)b * kv_bstride;
+  const int tiles = (P + kStream - 1) / kStream;
+  const float scale = t * kLog2e;  // logits in the log2 domain
+  const T* qw = q_s + 16 * rg * ld + c0;
+  const T* gw = g_s + 16 * rg * ld + c0;
 
-  load_rows(q_s, ld, q + (long long)b * q_bstride, row0, kOwn, P, C);
-  load_rows(g_s, ld, g + (long long)b * g_bstride, row0, kOwn, P, C);
+  load_rows_async(q_s, ld, q + (long long)b * q_bstride, row0, kOwn, P, C, kThreads);
+  load_rows_async(g_s, ld, g + (long long)b * g_bstride, row0, kOwn, P, C, kThreads);
 
-  const float* xr[kRowsPerWarp];
-  const float* zr[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    xr[i] = q_s + (warp + i * kWarps) * ld;
-    zr[i] = g_s + (warp + i * kWarps) * ld;
-  }
-  float s[kRowsPerWarp], dw[kRowsPerWarp];
-
-  // sweep 1: logsumexp and D per row, online over the kv tiles
-  float m[kRowsPerWarp], l[kRowsPerWarp], a[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-    a[i] = 0.f;
-  }
-  for (int n0 = 0; n0 < P; n0 += kStream) {
-    __syncthreads();  // the previous tile's readers of kv_s are done
-    load_rows(kv_s, ld, kvb, n0, kStream, P, C);
-    __syncthreads();
-    two_dots(xr, zr, kv_s + lane * ld, C, s, dw);
-    const bool valid = n0 + lane < P;
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const float sv = valid ? s[i] * t : -INFINITY;
-      const float m_new = fmaxf(m[i], warp_max(sv));  // column n0 is valid
-      const float e = valid ? expf(sv - m_new) : 0.f;
-      const float alpha = expf(m[i] - m_new);         // 0 on the first tile
-      l[i] = l[i] * alpha + warp_sum(e);
-      a[i] = a[i] * alpha + warp_sum(e * dw[i]);
-      m[i] = m_new;
+  // Two sweeps over the kv tiles; `body(it, kv tile)` runs between the
+  // tile's arrival and the next tile's copy.
+  auto sweep = [&](auto body) {
+    __syncthreads();  // the last sweep's readers of stage 0 are done
+    load_rows_async(kv_s, ld, kvb, 0, kStream, P, C, kThreads);
+    cp_async_commit();
+    for (int it = 0; it < tiles; ++it) {
+      __syncthreads();  // every warp is done with tile it-1's stage and the exchange
+      if (it + 1 < tiles) {
+        load_rows_async(kv_s + ((it + 1) & 1) * kStream * ld, ld, kvb,
+                        (it + 1) * kStream, kStream, P, C, kThreads);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      body(it, kv_s + (it & 1) * kStream * ld);
     }
-  }
-  float* lseb = lse + (long long)b * P;
-  float* ddb = dd + (long long)b * P;
+  };
+  float s[2][4], dw[2][4];
+
+  // sweep 1: logsumexp and D per row (rows g and g + 8), online
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0 = 0.f, a1 = 0.f;
+  sweep([&](int it, const T* kvt) {
+    scores(qw, gw, kvt + c0, kvt + c0, ld, ch.count, xch, s, dw);
+    const int col0 = it * kStream + 2 * (lane & 3);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int r = warp + i * kWarps;
-    if (lane == 0) {
-      l_s[r] = m[i] + logf(l[i]);
-      d_s[r] = a[i] / l[i];
-      if (row0 + r < P) {
-        lseb[row0 + r] = l_s[r];
-        ddb[row0 + r] = d_s[r];
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[n][j] = col0 + 8 * n + (j & 1) < P ? s[n][j] * scale : -INFINITY;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(mx0));  // finite: column it*16 < P
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float alpha0 = exp2f(m0 - mn0), alpha1 = exp2f(m1 - mn1);  // 0 at first
+    float e0 = 0.f, e1 = 0.f, d0 = 0.f, d1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float u = exp2f(s[n][j] - mn0), v = exp2f(s[n][j + 2] - mn1);
+        e0 += u;
+        d0 += u * dw[n][j];
+        e1 += v;
+        d1 += v * dw[n][j + 2];
       }
     }
+    l0 = l0 * alpha0 + quad_sum(e0);
+    l1 = l1 * alpha1 + quad_sum(e1);
+    a0 = a0 * alpha0 + quad_sum(d0);
+    a1 = a1 * alpha1 + quad_sum(d1);
+    m0 = mn0;
+    m1 = mn1;
+  });
+  const float lse0 = m0 + log2f(l0), lse1 = m1 + log2f(l1);  // log2 domain
+  const float dd0 = a0 / l0, dd1 = a1 / l1;
+  const int r = row0 + 16 * rg + lane / 4;
+  if (warp < 2 && (lane & 3) == 0) {  // channel group 0 writes L and D
+    if (r < P) {
+      lse[(long long)b * P + r] = lse0;
+      dd[(long long)b * P + r] = dd0;
+    }
+    if (r + 8 < P) {
+      lse[(long long)b * P + r + 8] = lse1;
+      dd[(long long)b * P + r + 8] = dd1;
+    }
   }
 
-  // sweep 2: dq = T dS kv, accumulated in registers (columns c = tid + 256u)
-  float acc[kOwn][kCols];
+  // sweep 2: dq = T dS kv
+  float acc[kMaxOwn][4];
 #pragma unroll
-  for (int r = 0; r < kOwn; ++r)
+  for (int i = 0; i < kMaxOwn; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  sweep([&](int it, const T* kvt) {
+    scores(qw, gw, kvt + c0, kvt + c0, ld, ch.count, xch, s, dw);
+    const int col0 = it * kStream + 2 * (lane & 3);
 #pragma unroll
-    for (int u = 0; u < kCols; ++u) acc[r][u] = 0.f;
-  for (int n0 = 0; n0 < P; n0 += kStream) {
-    __syncthreads();  // l_s/d_s written; the last tile's readers are done
-    load_rows(kv_s, ld, kvb, n0, kStream, P, C);
-    __syncthreads();
-    two_dots(xr, zr, kv_s + lane * ld, C, s, dw);
-    const bool valid = n0 + lane < P;
+    for (int n = 0; n < 2; ++n) {
 #pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int r = warp + i * kWarps;
-      const float w = valid ? expf(s[i] * t - l_s[r]) : 0.f;
-      ds_s[r * kStream + lane] = w * (dw[i] - d_s[r]);
-    }
-    __syncthreads();
-    for (int j = 0; j < kStream; j += 4) {
-      float kvv[4][kCols];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int u = 0; u < kCols; ++u) {
-          const int c = threadIdx.x + u * kThreads;
-          kvv[jj][u] = c < C ? kv_s[(j + jj) * ld + c] : 0.f;
-        }
-#pragma unroll
-      for (int r = 0; r < kOwn; ++r) {
-        const float4 p = *reinterpret_cast<const float4*>(ds_s + r * kStream + j);
-#pragma unroll
-        for (int u = 0; u < kCols; ++u) {
-          float v = acc[r][u];
-          v = fmaf(p.x, kvv[0][u], v);
-          v = fmaf(p.y, kvv[1][u], v);
-          v = fmaf(p.z, kvv[2][u], v);
-          acc[r][u] = fmaf(p.w, kvv[3][u], v);
-        }
+      for (int j = 0; j < 4; ++j) {
+        const bool lo = j < 2;
+        const float w = col0 + 8 * n + (j & 1) < P
+                            ? exp2f(s[n][j] * scale - (lo ? lse0 : lse1)) : 0.f;
+        s[n][j] = w * (dw[n][j] - (lo ? dd0 : dd1));
       }
     }
-  }
-  T* dqb = dq + (long long)b * P * C;
-#pragma unroll
-  for (int r = 0; r < kOwn; ++r) {
-    if (row0 + r >= P) continue;
-#pragma unroll
-    for (int u = 0; u < kCols; ++u) {
-      const int c = threadIdx.x + u * kThreads;
-      if (c < C) dqb[(long long)(row0 + r) * C + c] = from_float<T>(t * acc[r][u]);
-    }
-  }
+    accumulate(acc, s, kvt + c0, ld, ch.count);
+  });
+  store_rows(dq + (long long)b * P * C, acc, t, row0, P, C, c0, ch.count);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                const T* __restrict__ g, T* __restrict__ dkv,
                const float* __restrict__ lse, const float* __restrict__ dd,
                int P, int C, long long q_bstride, long long kv_bstride,
                long long g_bstride, float t) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = pitch(C);
-  float* kv_s = reinterpret_cast<float*>(smem);
-  float* q_s = kv_s + kOwn * ld;
-  float* g_s = q_s + kStream * ld;
-  float* w_s = reinterpret_cast<float*>(
-      smem + align128(sizeof(float) * (kOwn + 2 * kStream) * ld));
-  float* ds_s = w_s + kOwn * kStream;  // T dS, transposed like w_s: [j][r]
-  float* l_s = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(w_s) + align128(sizeof(float) * 2 * kOwn * kStream));
-  float* d_s = l_s + kStream;
+  const int ld = pitch<T>(C);
+  T* kv_s = reinterpret_cast<T*>(smem);
+  T* st_s = kv_s + kOwn * ld;  // stage s: q rows, then g rows, kStream each
+  float4* xch = reinterpret_cast<float4*>(smem + align128(sizeof(T) * 3 * kOwn * ld));
+  float* ld_s = reinterpret_cast<float*>(xch + kXch);  // stage s: L, then D
 
   const int b = blockIdx.y;
   const int col0 = blockIdx.x * kOwn;  // the kv rows this block owns
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, rg = warp & 1;
+  const Channels ch = channel_group(warp >> 1, kGroups, C);
+  const int c0 = 8 * ch.first;
   const T* qb = q + (long long)b * q_bstride;
   const T* gb = g + (long long)b * g_bstride;
   const float* lseb = lse + (long long)b * P;
   const float* ddb = dd + (long long)b * P;
+  const int tiles = (P + kStream - 1) / kStream;
+  const float scale = t * kLog2e;
+  const T* kw = kv_s + 16 * rg * ld + c0;
 
-  load_rows(kv_s, ld, kv + (long long)b * kv_bstride, col0, kOwn, P, C);
-
-  const float* kr[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) kr[i] = kv_s + (warp + i * kWarps) * ld;
-  float s[kRowsPerWarp], dw[kRowsPerWarp];
-
-  float acc[kOwn][kCols];
-#pragma unroll
-  for (int j = 0; j < kOwn; ++j)
-#pragma unroll
-    for (int u = 0; u < kCols; ++u) acc[j][u] = 0.f;
-
-  for (int r0 = 0; r0 < P; r0 += kStream) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows(q_s, ld, qb, r0, kStream, P, C);
-    load_rows(g_s, ld, gb, r0, kStream, P, C);
-    if (threadIdx.x < kStream) {
-      const bool ok = r0 + threadIdx.x < P;
-      l_s[threadIdx.x] = ok ? lseb[r0 + threadIdx.x] : 0.f;
-      d_s[threadIdx.x] = ok ? ddb[r0 + threadIdx.x] : 0.f;
+  // tile it's q and g rows into stage it & 1 (asynchronous) with their L
+  // and D (plain loads: visible after the next __syncthreads)
+  auto fetch = [&](int it) {
+    T* st = st_s + (it & 1) * 2 * kStream * ld;
+    const int r0 = it * kStream;
+    load_rows_async(st, ld, qb, r0, kStream, P, C, kThreads);
+    load_rows_async(st + kStream * ld, ld, gb, r0, kStream, P, C, kThreads);
+    if (threadIdx.x < 2 * kStream) {
+      const int i = threadIdx.x % kStream, which = threadIdx.x / kStream;
+      const bool ok = r0 + i < P;
+      ld_s[(it & 1) * 2 * kStream + which * kStream + i] =
+          ok ? (which ? ddb : lseb)[r0 + i] : 0.f;
     }
+  };
+  load_rows_async(kv_s, ld, kv + (long long)b * kv_bstride, col0, kOwn, P, C, kThreads);
+  fetch(0);
+  cp_async_commit();
+
+  float acc[kMaxOwn][4];
+#pragma unroll
+  for (int i = 0; i < kMaxOwn; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float s[2][4], dw[2][4];
+  for (int it = 0; it < tiles; ++it) {
+    __syncthreads();  // every warp is done with tile it-1's stage and the exchange
+    if (it + 1 < tiles) fetch(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    // lane = streamed row r; this warp's owned kv rows j: S[r][j], dW[r][j]
-    {
-      const float* qr = q_s + lane * ld;
-      const float* gr = g_s + lane * ld;
+    const T* qt = st_s + (it & 1) * 2 * kStream * ld;
+    const T* gt = qt + kStream * ld;
+    const float* l_t = ld_s + (it & 1) * 2 * kStream;
+    const float* d_t = l_t + kStream;
+    // S^T and dW^T: owned kv rows (g, g + 8) x streamed rows (columns)
+    scores(kw, kw, qt + c0, gt + c0, ld, ch.count, xch, s, dw);
+    const int rr0 = 2 * (lane & 3);
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) s[i] = dw[i] = 0.f;
-      for (int k = 0; k < C; k += 4) {
-        const float4 qv = *reinterpret_cast<const float4*>(qr + k);
-        const float4 gv = *reinterpret_cast<const float4*>(gr + k);
+    for (int n = 0; n < 2; ++n) {
 #pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) {
-          const float4 kk = *reinterpret_cast<const float4*>(kr[i] + k);
-          s[i] = dot4(qv, kk, s[i]);
-          dw[i] = dot4(gv, kk, dw[i]);
-        }
+      for (int j = 0; j < 4; ++j) {
+        const int rr = rr0 + 8 * n + (j & 1);
+        const float w = it * kStream + rr < P ? exp2f(s[n][j] * scale - l_t[rr]) : 0.f;
+        s[n][j] = w;                                  // W^T
+        dw[n][j] = t * w * (dw[n][j] - d_t[rr]);      // T dS^T
       }
     }
-    const bool valid = r0 + lane < P;
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const int j = warp + i * kWarps;
-      const float w = valid ? expf(s[i] * t - l_s[lane]) : 0.f;
-      w_s[j * kStream + lane] = w;
-      ds_s[j * kStream + lane] = t * w * (dw[i] - d_s[lane]);
-    }
-    __syncthreads();
-    for (int r = 0; r < kStream; r += 4) {
-      float qv[4][kCols], gv[4][kCols];
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-        for (int u = 0; u < kCols; ++u) {
-          const int c = threadIdx.x + u * kThreads;
-          qv[rr][u] = c < C ? q_s[(r + rr) * ld + c] : 0.f;
-          gv[rr][u] = c < C ? g_s[(r + rr) * ld + c] : 0.f;
-        }
-#pragma unroll
-      for (int j = 0; j < kOwn; ++j) {
-        const float4 d4 = *reinterpret_cast<const float4*>(ds_s + j * kStream + r);
-        const float4 w4 = *reinterpret_cast<const float4*>(w_s + j * kStream + r);
-#pragma unroll
-        for (int u = 0; u < kCols; ++u) {
-          float v = acc[j][u];
-          v = fmaf(d4.x, qv[0][u], v);
-          v = fmaf(w4.x, gv[0][u], v);
-          v = fmaf(d4.y, qv[1][u], v);
-          v = fmaf(w4.y, gv[1][u], v);
-          v = fmaf(d4.z, qv[2][u], v);
-          v = fmaf(w4.z, gv[2][u], v);
-          v = fmaf(d4.w, qv[3][u], v);
-          acc[j][u] = fmaf(w4.w, gv[3][u], v);
-        }
-      }
-    }
+    accumulate(acc, dw, qt + c0, ld, ch.count);
+    accumulate(acc, s, gt + c0, ld, ch.count);
   }
-  T* dkvb = dkv + (long long)b * P * C;
-#pragma unroll
-  for (int j = 0; j < kOwn; ++j) {
-    if (col0 + j >= P) continue;
-#pragma unroll
-    for (int u = 0; u < kCols; ++u) {
-      const int c = threadIdx.x + u * kThreads;
-      if (c < C) dkvb[(long long)(col0 + j) * C + c] = from_float<T>(acc[j][u]);
-    }
-  }
+  store_rows(dkv + (long long)b * P * C, acc, 1.f, col0, P, C, c0, ch.count);
 }
 
 template <typename T>
@@ -413,25 +425,25 @@ int launch(const void* q, const void* kv, const void* g, void* dq, void* dkv,
            float* lse, float* dd, int B, int P, int C, long long q_bstride,
            long long kv_bstride, long long g_bstride, float t,
            cudaStream_t stream) {
-  const size_t sa = smem_dq(C), sb = smem_dkv(C);
+  const int bytes = (int)smem_bytes<T>(C);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sa);
+      bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(bwd_dkv_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sb);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   }
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear, so PyTorch's next check does not see it
     return (int)err;
   }
   const dim3 grid((P + kOwn - 1) / kOwn, B);
-  bwd_dq_kernel<T><<<grid, kThreads, sa, stream>>>(
+  bwd_dq_kernel<T><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv),
       static_cast<const T*>(g), static_cast<T*>(dq), lse, dd, P, C,
       q_bstride, kv_bstride, g_bstride, t);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dkv_kernel<T><<<grid, kThreads, sb, stream>>>(
+  bwd_dkv_kernel<T><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv),
       static_cast<const T*>(g), static_cast<T*>(dkv), lse, dd, P, C,
       q_bstride, kv_bstride, g_bstride, t);
@@ -462,8 +474,8 @@ int dcnet_coattn_attend_bwd(const void* q, const void* kv, const void* g,
                          kv_bstride, g_bstride, t, s);
   }
   if (dtype == 1) {
-    return launch<bf16>(q, kv, g, dq, dkv, l, d, B, P, C, q_bstride,
-                        kv_bstride, g_bstride, t, s);
+    return launch<__nv_bfloat16>(q, kv, g, dq, dkv, l, d, B, P, C, q_bstride,
+                                 kv_bstride, g_bstride, t, s);
   }
   return (int)cudaErrorInvalidValue;
 }

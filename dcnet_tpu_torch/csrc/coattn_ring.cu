@@ -20,7 +20,8 @@
 //
 // Precision follows the TPU kernel. Float rings are K1's blocks: fp32
 // logits and softmax, bf16 rings on the tensor cores with the softmax
-// weights rounded to bf16 before PV, fp32 rings on FMA. int8 rings (features
+// weights rounded to bf16 before PV, fp32 rings on the tensor cores by
+// 3xTF32 with the unrounded weights. int8 rings (features
 // quantised as clip(round(127 f)), f l2-normalised) take the logits as exact
 // int32 sums on the tensor cores (WMMA s8 x s8 -> s32, m16n16k16), converted
 // to fp32 and scaled by T/127^2 (|logit| <= 127^2 C < 2^24 at C <= 1040, so
@@ -33,17 +34,17 @@
 // read once plus B*(S-1)*P*C output elements written once. On the serving
 // tick (B = 120 streams, S = 5, C = 512) the P = 1024 launch is compute-bound:
 // 1.03e12 operations, about 1.04 ms at the H100's 989 TFLOP/s bf16 data-sheet
-// rate (int8: half of them at 1979 TOP/s), against 1.13 GB of traffic in bf16
-// ((5 + 4) * P * C * 2 bytes a stream; 0.34 ms at 3.35 TB/s). The P = 64
-// launch is memory-bound.
+// rate (int8: half of them at 1979 TOP/s; fp32: 6.25 ms at 3xTF32's
+// 495 / 3 TFLOP/s), against 1.13 GB of traffic in bf16 ((5 + 4) * P * C * 2
+// bytes a stream; 0.34 ms at 3.35 TB/s). The P = 64 launch is memory-bound.
 //
 // Design. The TPU grid (B, refs, row tiles) keeps each reference's (P, C)
 // block resident in VMEM across the center's row tiles. Here the grid is one
 // dimension of B*(S-1)*ceil(P/rows) blocks (y and z are capped at 65535),
 // ordered so that the blocks of one (b, reference) pair run next to each
 // other and share the reference in L2; each block picks its center and
-// reference slots by (slot + 1 + t) mod S. Three blocks, chosen by dtype
-// and C in the entry point (K1's rule, wg::takes):
+// reference slots by (slot + 1 + t) mod S. Four blocks, chosen by dtype
+// and C in the entry point (K1's rule, dcnet_coattn_block):
 //
 // - bf16 rings with C % 128 == 0 and C <= 512: K1's wgmma + TMA block
 //   (attend_wgmma.cuh, the design notes in coattn.cu), 64 center rows a
@@ -51,8 +52,10 @@
 //   map (C, P, S, B) of the ring in place: TMA reads the center's rows and
 //   the reference's tiles by their (slot, stream) coordinates. What bounded
 //   the WMMA block here was K1's: issue, not the tensor cores.
-// - fp32 rings and bf16 rings of other widths: K1's block of
-//   attend_tile.cuh, 32 center rows a block.
+// - fp32 rings with C % 16 == 0 and C <= 512: K1's 3xTF32 block
+//   (attend_tf32.cuh), 32 center rows a block.
+// - bf16 rings of other widths: K1's WMMA block of attend_tile.cuh, 32
+//   center rows a block.
 // - int8 rings: the int8 block below, 32 center rows, synchronous loads and
 //   WMMA (its move to wgmma s8 is queued). It keeps its q rows and kv tile
 //   as int8 in shared memory in a 16-byte-chunked layout ([C/16][rows][16])
@@ -61,12 +64,19 @@
 //   memory at C = 512, one block per SM).
 #include <type_traits>
 
+#include "attend_tf32.cuh"
 #include "attend_tile.cuh"
 #include "attend_wgmma.cuh"
 
 namespace {
 
 using namespace dcnet;
+
+static_assert(tf32::kRows == kBlockM, "ring_kernel's grid serves every float block");
+
+// Threads of ring_kernel's block for ring dtype T.
+template <typename T>
+constexpr int kRingThreads = std::is_same<T, float>::value ? tf32::kThreads : kThreads;
 
 // The int8 block's shared memory: the bf16 block's layout (kv_s holds the
 // dequantised tile, s_s the int32 scores, q_s the int8 q rows), plus the int8
@@ -166,7 +176,7 @@ __device__ void attend_rows_i8(const int8_t* qb, const int8_t* kvb, OutT* ob,
 }
 
 template <typename T, typename OutT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRingThreads<T>, 1)
 ring_kernel(const T* ring, OutT* out, int S, int center_t, int slot, int tiles,
             int P, int C, long long b_stride, long long s_stride, float t) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -182,6 +192,8 @@ ring_kernel(const T* ring, OutT* out, int S, int center_t, int slot, int tiles,
   OutT* ob = out + (b * n_ref + r) * (long long)P * C;
   if constexpr (std::is_same<T, int8_t>::value) {
     attend_rows_i8<OutT>(qb, kvb, ob, tile * kBlockM, P, C, t, smem);
+  } else if constexpr (std::is_same<T, float>::value) {
+    tf32::attend_rows(qb, kvb, ob, tile * kBlockM, P, C, t, smem);
   } else {
     attend_rows<T, OutT>(qb, kvb, ob, tile * kBlockM, P, C, t, smem);
   }
@@ -247,15 +259,17 @@ template <typename T, typename OutT>
 int launch(const void* ring, void* out, int B, int S, int P, int C,
            int center_t, int slot, long long b_stride, long long s_stride,
            float t, cudaStream_t stream) {
-  Layout L;
+  size_t bytes;
   if constexpr (std::is_same<T, int8_t>::value) {
-    L = layout_i8(C);
+    bytes = layout_i8(C).total;
+  } else if constexpr (std::is_same<T, float>::value) {
+    bytes = tf32::smem_bytes(C);
   } else {
-    L = layout<T>(C);
+    bytes = layout<T>(C).total;
   }
   cudaError_t err = cudaFuncSetAttribute(
       ring_kernel<T, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
+      (int)bytes);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear, so PyTorch's next check does not see it
     return (int)err;
@@ -263,7 +277,7 @@ int launch(const void* ring, void* out, int B, int S, int P, int C,
   const int tiles = (P + kBlockM - 1) / kBlockM;
   const long long blocks = (long long)B * (S - 1) * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  ring_kernel<T, OutT><<<(unsigned)blocks, kThreads, L.total, stream>>>(
+  ring_kernel<T, OutT><<<(unsigned)blocks, kRingThreads<T>, bytes, stream>>>(
       static_cast<const T*>(ring), static_cast<OutT*>(out), S, center_t, slot,
       tiles, P, C, b_stride, s_stride, t);
   return (int)cudaGetLastError();
@@ -277,7 +291,8 @@ extern "C" {
 // elements; out: (B, S-1, P, C) contiguous, in the ring's dtype (bfloat16 for
 // int8 rings). dtype: 0 = float32, 1 = bfloat16, 2 = int8: bf16 rings with
 // C % 128 == 0, C <= 512 take the wgmma + TMA block of attend_wgmma.cuh,
-// other rings the blocks of attend_tile.cuh and attend_rows_i8. slot is the
+// fp32 rings with C <= 512 the 3xTF32 block of attend_tf32.cuh, other bf16
+// rings the block of attend_tile.cuh, int8 rings attend_rows_i8. slot is the
 // physical slot of the newest frame, 0 <= slot < S. t is the softmax
 // temperature for float rings and T/127^2 for int8 rings. Returns a
 // cudaError_t code, 0 on success.
@@ -294,6 +309,7 @@ int dcnet_coattn_ring(const void* ring, void* out, int B, int S, int P, int C,
                           s_stride, t, s);
   }
   if (dtype == 0) {
+    if (!tf32::takes(C)) return (int)cudaErrorInvalidValue;
     return launch<float, float>(ring, out, B, S, P, C, center_t, slot,
                                 b_stride, s_stride, t, s);
   }

@@ -7,11 +7,14 @@ backward of one direction, of `_attend_bwd`; K4, the center frame against
 every reference straight off a (B, S, P, C) feature ring (float or int8),
 of `coattention_ring`. K1 and K2 are one CUDA kernel in `csrc/coattn.cu`
 (K2's grid spans the direction), K3 is `csrc/coattn_bwd.cu`, K4
-`csrc/coattn_ring.cu` (its float blocks are K1's device code,
-`csrc/attend_tile.cuh`); their source notes give the bounds and the
-designs. This module binds them with `ctypes`, holds their plain PyTorch
-versions, and dispatches on where the tensors lie: CPU tensors take the
-plain versions, CUDA tensors launch the kernels or raise.
+`csrc/coattn_ring.cu` (its float blocks are K1's device code:
+`csrc/attend_wgmma.cuh` for bf16, `csrc/attend_tf32.cuh` for fp32,
+`csrc/attend_tile.cuh` for other bf16 widths); K3 and the fp32 block share
+the 3xTF32 tensor-core primitives of `csrc/tf32x3.cuh`. Their source notes
+give the bounds and the designs. This module binds them with `ctypes`,
+holds their plain PyTorch versions, and dispatches on where the tensors
+lie: CPU tensors take the plain versions, CUDA tensors launch the kernels
+or raise.
 
 The gradients are `torch.autograd.Function`s, as the JAX package's are
 `custom_vjp`s: `coattention_one` is K1 forward and K3 backward, and
@@ -32,6 +35,7 @@ from dcnet_tpu_torch.kernels import build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _RING_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 K3_MAX_C = 512  # csrc/coattn_bwd.cu holds its accumulators for C <= 512
+FP32_MAX_C = 512  # the fp32 block (csrc/attend_tf32.cuh) likewise
 # int8 ring logits are integer sums of at most 127^2 C; fp32 holds them
 # exactly (in any summation order) while 127^2 C < 2^24
 INT8_RING_MAX_C = 1040
@@ -41,13 +45,17 @@ INT8_SCALE = 127.0
 def attend_body(dtype: torch.dtype, c: int) -> str:
     """Which block K1, K2 and K4 launch for inputs of `dtype` with C
     channels, for records and tests: "wgmma" (csrc/attend_wgmma.cuh: bf16,
-    C % 128 == 0, C <= 512, every configuration the repository runs) or
-    "block" (csrc/attend_tile.cuh: WMMA for other bf16 widths, FMA for
-    fp32; K4's int8 block for int8 rings). The C entry points make the
+    C % 128 == 0, C <= 512, every configuration the repository runs),
+    "tf32x3" (csrc/attend_tf32.cuh: fp32, C % 16 == 0, C <= 512, every fp32
+    width the port launches), "block" (csrc/attend_tile.cuh: WMMA for
+    other bf16 widths; K4's int8 block for int8 rings) or "none" (fp32
+    wider than 512: the wrappers refuse it). The C entry points make the
     choice, by shape, never as a fallback (`dcnet_coattn_block`, which the
     card-only tests hold this against)."""
     if dtype == torch.bfloat16 and c % 128 == 0 and 128 <= c <= 512:
         return "wgmma"
+    if dtype == torch.float32:
+        return "tf32x3" if c % 16 == 0 and 16 <= c <= FP32_MAX_C else "none"
     return "block"
 
 
@@ -190,8 +198,9 @@ def _ring_lib() -> ctypes.CDLL:
 
 def _check(**xs: torch.Tensor) -> None:
     """The kernels' input rules: one CUDA device, float32 or bfloat16 (all
-    the same), one (B, P, C) shape with C % 16 == 0, rows contiguous and
-    16-byte aligned, any batch stride (a frame sliced out of a clip)."""
+    the same), one (B, P, C) shape with C % 16 == 0 (float32: C <= 512),
+    rows contiguous and 16-byte aligned, any batch stride (a frame sliced
+    out of a clip)."""
     (n0, x0), *_ = xs.items()
     if any(x.device.type != "cuda" or x.device != x0.device for x in xs.values()):
         raise ValueError(f"coattention kernel needs {', '.join(xs)} on one "
@@ -209,6 +218,9 @@ def _check(**xs: torch.Tensor) -> None:
     if c % 16 or b > 65535:
         raise ValueError(f"coattention kernel needs C % 16 == 0 and "
                          f"B <= 65535, got B={b}, C={c}")
+    if x0.dtype == torch.float32 and c > FP32_MAX_C:
+        raise ValueError(f"coattention kernel needs C <= {FP32_MAX_C} in "
+                         f"float32, got C={c}")
     for name, x in xs.items():
         if not _rows_ok(x):
             raise ValueError(f"coattention kernel needs {name} rows "
@@ -371,8 +383,9 @@ def coattention_pair_fused(f1: torch.Tensor, f2: torch.Tensor,
 
 def _check_ring(ring: torch.Tensor) -> None:
     """K4's input rules: a CUDA (B, S, P, C) ring in float32, bfloat16 or
-    int8 with S >= 2, C % 16 == 0 (int8: C <= 1040), rows of C contiguous,
-    16-byte aligned frames (any batch and slot stride)."""
+    int8 with S >= 2, C % 16 == 0 (float32: C <= 512, int8: C <= 1040),
+    rows of C contiguous, 16-byte aligned frames (any batch and slot
+    stride)."""
     if ring.device.type != "cuda":
         raise ValueError(f"ring kernel needs the ring on a CUDA device, got "
                          f"{ring.device}")
@@ -383,9 +396,11 @@ def _check_ring(ring: torch.Tensor) -> None:
         raise ValueError(f"ring kernel needs a (B, S, P, C) ring with S >= 2, "
                          f"got {tuple(ring.shape)}")
     b, s, p, c = ring.shape
-    if c % 16 or (ring.dtype == torch.int8 and c > INT8_RING_MAX_C):
+    if c % 16 or (ring.dtype == torch.int8 and c > INT8_RING_MAX_C) or (
+            ring.dtype == torch.float32 and c > FP32_MAX_C):
         raise ValueError(f"ring kernel needs C % 16 == 0 (and C <= "
-                         f"{INT8_RING_MAX_C} for int8), got C={c}")
+                         f"{FP32_MAX_C} for float32, {INT8_RING_MAX_C} for "
+                         f"int8), got C={c}")
     size = ring.element_size()
     if not (ring.stride(3) == 1 and (p == 1 or ring.stride(2) == c)
             and ring.data_ptr() % 16 == 0

@@ -2,12 +2,12 @@
 
 `chip_smoke.py` times its kernels with `device_ms` (one replay of a CUDA
 graph of the calls: device time) and `cuda_ms` (calls enqueued from the
-host: a call's time). Run as a script, this module times the bf16
-co-attention kernels K1 (B=8), K2 (B=16) and K4 (B=120 at P=1024, 8
-otherwise), C=512, with the fp32 K1 at P=1024 as a control, in two
-checkouts of the repository with both timers, in turns (other, this,
-this, other), each run in its own process importing its checkout's
-`dcnet_tpu_torch`:
+host: a call's time). Run as a script, this module times the fp32
+co-attention kernels K1 (B=8), K2 (B=16) and K4 (B=120 at P=1024, 8 at
+P=169) and the backward K3 in fp32 and bf16 (B=16), C=512, with the bf16
+K1 at P=1024 as a control, in two checkouts of the repository with both
+timers, in turns (other, this, this, other), each run in its own process
+importing its checkout's `dcnet_tpu_torch`:
 
     python3 kernel_timing.py OTHER_CHECKOUT      # needs one CUDA card
 
@@ -85,11 +85,12 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 T, C, S, CENTER, SLOT = 10.0, 512, 5, 2, 2
-CASES = ([("K1", torch.bfloat16, 8, p) for p in (64, 256, 1024, 169)]
-         + [("K1", torch.float32, 8, 1024)]
-         + [("K2", torch.bfloat16, 16, p) for p in (64, 256, 1024, 169)]
-         + [("K4", torch.bfloat16, 120 if p == 1024 else 8, p)
-            for p in (64, 256, 1024, 169)])
+MAIN_P = (64, 256, 1024, 169)
+CASES = ([("K1", torch.float32, 8, p) for p in MAIN_P]
+         + [("K2", torch.float32, 16, p) for p in MAIN_P]
+         + [("K4", torch.float32, 120 if p == 1024 else 8, p) for p in (1024, 169)]
+         + [("K3", dt, 16, p) for dt in (torch.float32, torch.bfloat16) for p in MAIN_P]
+         + [("K1", torch.bfloat16, 8, 1024)])
 
 
 def time_cases() -> dict:
@@ -116,10 +117,15 @@ def time_cases() -> dict:
                 with torch.no_grad():
                     coattn.coattention_fused(f1, f2, T)
             iters = 10 if p >= 1024 else 30
+        elif name == "K3":
+            q, kv = rows(b, p, C), rows(b, p, C)
+            g = torch.randn(b, p, C, generator=gen).to(dev, dtype)
+            fn = functools.partial(coattn.attend_bwd, q, kv, T, g)
+            iters = 5 if p >= 1024 else 20
         else:
             ring = rows(b, S, p, C)
             fn = functools.partial(coattn.coattention_ring, ring, T, CENTER, SLOT)
-            iters = 10 if p >= 1024 else 30
+            iters = 3 if b * p > 100000 else 30
         out.append({"kernel": name, "dtype": str(dtype).replace("torch.", ""),
                     "B": b, "P": p, "C": C, "device_ms": device_ms(fn, iters),
                     "call_ms": cuda_ms(fn, iters)})

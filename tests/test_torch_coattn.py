@@ -101,9 +101,13 @@ def test_non_cpu_tensors_never_take_the_plain_version():
 @pytest.mark.parametrize("dtype,c,body", [
     ("bfloat16", 512, "wgmma"), ("bfloat16", 256, "wgmma"), ("bfloat16", 128, "wgmma"),
     ("bfloat16", 384, "wgmma"), ("bfloat16", 80, "block"), ("bfloat16", 64, "block"),
-    ("bfloat16", 640, "block"), ("float32", 512, "block"), ("int8", 512, "block")])
+    ("bfloat16", 640, "block"), ("float32", 512, "tf32x3"), ("int8", 512, "block"),
+    ("float32", 16, "tf32x3"), ("float32", 80, "tf32x3"), ("float32", 256, "tf32x3"),
+    ("float32", 528, "none")])
 def test_block_is_chosen_by_shape(dtype, c, body):
     """K1, K2 and K4 launch the wgmma block for bf16 with C % 128 == 0 and
-    C <= 512 (every configuration the repository runs), the WMMA / FMA /
-    int8 blocks otherwise: a rule of dtype and width alone."""
+    C <= 512 (every configuration the repository runs), the 3xTF32 block
+    for fp32 with C % 16 == 0 and C <= 512 (every fp32 width the port
+    launches), the WMMA / int8 blocks otherwise: a rule of dtype and width
+    alone."""
     assert coattn.attend_body(getattr(torch, dtype), c) == body

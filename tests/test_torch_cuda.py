@@ -72,6 +72,37 @@ def test_kernel_matches_plain_on_card(card, dtype):
         assert _rel(torch.zeros_like(want), want) > REL_TOL[dt]
 
 
+@pytest.mark.parametrize("c", [16, 80, 512])
+def test_fp32_block_matches_plain_on_card(card, c):
+    """The 3xTF32 block at the fp32 limits in K1 (contiguous and
+    batch-strided frames of a clip), K2 and K4 (a batch-strided ring, every
+    slot), at ragged and whole P; the limits reject zeros and T=1."""
+    gen = torch.Generator().manual_seed(13)
+    tol = TOL[torch.float32]
+    for p in (64, 169, 1024):
+        clip = _rows(gen, 3, 5, p, c).to(card)
+        q, kv = clip[:, 2], clip[:, 0]  # batch-strided frame views
+        want = coattn.attend_plain(q.contiguous(), kv.contiguous(), 10.0)
+        for got in (coattn.coattention_one(q, kv, 10.0),
+                    coattn.coattention_one(q.contiguous(), kv.contiguous(), 10.0)):
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **tol)
+            assert _rel(got, want) <= REL_TOL[torch.float32]
+        assert _rel(coattn.attend_plain(q, kv, 1.0), want) > REL_TOL[torch.float32]
+        assert _rel(torch.zeros_like(want), want) > REL_TOL[torch.float32]
+        with torch.no_grad():
+            o1, o2 = coattn.coattention_fused(q, kv, 10.0)
+        torch.testing.assert_close(o1, want, **tol)
+        torch.testing.assert_close(o2, coattn.attend_plain(kv, q, 10.0), **tol)
+        ring = _rows(gen, 4, 5, p, c).to(card)[::2]  # batch-strided ring
+        for slot in (None, 0, 3):
+            got = coattn.coattention_ring(ring, 10.0, 2, newest_slot=slot)
+            want = coattn.ring_attend_plain(ring, 10.0, 2, newest_slot=slot)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, **tol)
+            assert _rel(got, want) <= REL_TOL[torch.float32]
+
+
 def test_kernel_takes_frames_sliced_from_a_clip(card):
     """The main path hands K1 frames of a (B, n, h, w, C) clip: batch-strided
     NHWC views. The NHWC wrapper gives what the plain version gives."""
@@ -144,6 +175,23 @@ def test_pair_kernel_and_its_gradient_match_plain_on_card(card, dtype):
                      + step * (x.float().abs() + y.float().abs()))
             assert ((got.float() - want).abs() <= limit).all()
             assert _rel(got, want) <= REL_TOL[dt]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [16, 80])
+def test_bwd_kernel_narrow_widths(card, dtype, c):
+    """K3 at widths whose channel groups own no channels (C=16) or unequal
+    counts (C=80), ragged and whole P, against its plain version."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(14)
+    for p in (16, 169, 256):
+        q, kv, g = _bwd_inputs(gen, 3, p, c, dt, card)
+        got = coattn.attend_bwd(q, kv, 10.0, g)
+        want = coattn.attend_bwd_plain(q, kv, 10.0, g)
+        torch.cuda.synchronize()
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a.float(), w.float(), **BWD_TOL[dt])
+            assert _rel(a, w) <= REL_TOL[dt]
 
 
 def test_bwd_kernel_takes_strided_inputs(card):
@@ -267,6 +315,10 @@ def test_kernel_refuses_what_it_cannot_take(card):
     with pytest.raises(ValueError, match="C <= 512"):
         wide = torch.zeros(1, 16, 528, device=card)
         coattn.attend_bwd(wide, wide, 10.0, wide)
+    with pytest.raises(ValueError, match="C <= 512"):
+        coattn.coattention_one(wide, wide, 10.0)
+    with pytest.raises(ValueError, match="C <= 512"):
+        coattn.coattention_ring(torch.zeros(1, 5, 16, 528, device=card), 10.0, 2)
     assert set(kernels.LAUNCHES.values()) == {0}
 
 
@@ -363,19 +415,25 @@ def test_serving_tick_launches(card, multiref):
     assert all(torch.isfinite(x).all() for x in (fused, raw, score))
 
 
-@pytest.mark.parametrize("c,body", [(128, "wgmma"), (256, "wgmma"), (384, "wgmma"),
-                                    (80, "block")])
-def test_bf16_block_chosen_by_shape(card, c, body):
-    """bf16 K1, K2 and K4 at widths the wgmma block takes (every
-    instantiation but C=512, which the tests above run) and one it does
-    not (C=80, the WMMA block): the C entry point picks the block by shape,
-    as `attend_body` reports it, and either agrees with the plain version
-    at ragged and whole P."""
-    assert coattn.attend_body(torch.bfloat16, c) == body
-    assert coattn._lib().dcnet_coattn_block(1, c) == (body == "wgmma")
-    assert coattn._lib().dcnet_coattn_block(0, c) == 0  # fp32: FMA block
+_BLOCK_CODE = {"block": 0, "wgmma": 1, "tf32x3": 2, "none": -1}
+
+
+@pytest.mark.parametrize("dtype,c,body", [
+    ("bfloat16", 128, "wgmma"), ("bfloat16", 256, "wgmma"), ("bfloat16", 384, "wgmma"),
+    ("bfloat16", 80, "block"), ("float32", 16, "tf32x3"), ("float32", 80, "tf32x3"),
+    ("float32", 256, "tf32x3")])
+def test_block_chosen_by_shape(card, dtype, c, body):
+    """K1, K2 and K4 at widths of each block but C=512, which the tests
+    above run: bf16 on the wgmma block (every instantiation) or the WMMA
+    block (C=80), fp32 on the 3xTF32 block (C=16: two of the four channel
+    groups own no channels; C=80: groups of unequal width). The C entry
+    point picks the block by shape, as `attend_body` reports it, and each
+    agrees with the plain version at ragged and whole P."""
+    dt = getattr(torch, dtype)
+    assert coattn.attend_body(dt, c) == body
+    assert coattn._lib().dcnet_coattn_block(coattn._DTYPE_CODE[dt], c) == _BLOCK_CODE[body]
+    assert coattn._lib().dcnet_coattn_block(0, 528) == -1  # fp32 past 512: none
     gen = torch.Generator().manual_seed(10)
-    dt = torch.bfloat16
     for p in (64, 169, 256):
         q = _rows(gen, 3, p, c).to(card, dt)
         kv = _rows(gen, 3, p, c).to(card, dt)
@@ -385,7 +443,8 @@ def test_bf16_block_chosen_by_shape(card, c, body):
         ring = _rows(gen, 2, 5, p, c).to(card, dt)
         rgot = coattn.coattention_ring(ring, 10.0, 2, newest_slot=1)
         torch.cuda.synchronize()
-        for a, w in ((got, coattn.attend_plain(q, kv, 10.0)), (o1, coattn.attend_plain(q, kv, 10.0)),
+        for a, w in ((got, coattn.attend_plain(q, kv, 10.0)),
+                     (o1, coattn.attend_plain(q, kv, 10.0)),
                      (o2, coattn.attend_plain(kv, q, 10.0)),
                      (rgot, coattn.ring_attend_plain(ring, 10.0, 2, newest_slot=1))):
             torch.testing.assert_close(a.float(), w.float(), **TOL[dt])
