@@ -14,18 +14,24 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      HGMMA (wgmma) and UTMALDG (TMA load) instructions in the coattn and
      coattn_ring libraries and of tensor-core instructions with a TF32
      operand (HMMA or HGMMA ... TF32) in coattn, coattn_bwd and coattn_ring
-     (cuobjdump -sass), failing if any is 0.
+     (cuobjdump -sass), failing if any is 0; and in the kernel functions of
+     K4's int8 block alone, integer wgmma (IGMMA) for the logits, HGMMA for
+     PV and UTMALDG, failing if one is 0 or any IMMA is there.
   3. kernel  -- each kernel against its plain PyTorch version on the card at
      the main paths' shapes (plus a ragged P and batch-strided inputs),
      timed beside the plain version, one PyTorch library call and the
      card's bound: K1 (co-attention; fp32 on the 3xTF32 block at C=512 and
      80, bf16 at C=512 and 256 on the wgmma block, at C=80 on the WMMA
      block), K2 (the pair), K3 (the backward, 3xTF32),
-     K4 (the ring: fp32, bf16 and int8 rings at every slot; zeros, T=1 and
-     a kernel that ignores the slot are shown to fail the limits) and K5
-     (the fused location Gram, fp32 and bf16 ce, at P=1344 and the ragged
-     3549, timed beside the rank-8 route; zeros, a dropped obj and a
-     dropped bias are shown to fail the limits). K5 runs on no path.
+     K4 (the ring: fp32, bf16 and int8 rings at every slot, int8 on the
+     wgmma s8 block; zeros, T=1 and a kernel that ignores the slot are shown
+     to fail the limits) and K5 (the fused location Gram, fp32 and bf16 ce,
+     at P=1344 and the ragged 3549, timed beside the rank-8 route; zeros, a
+     dropped obj and a dropped bias are shown to fail the limits). K5 runs
+     on no path. Then K1-K4 at widths no configuration runs and the JAX
+     package takes (C = 24, 528, 1024; int8 rings also 1056; P = 169 and
+     1024) in every dtype: the general block, the WMMA block for bf16 at
+     528, K3's general pass.
   4. slice   -- the full-width 256 px model (YOLOv3 backbone from a seeded
      Darknet `.weights` file, the rest from a seeded torch.Generator)
      answers batches of 5-frame clips through eval_clip -> decode_best; the
@@ -222,17 +228,30 @@ def _has_op(line: str, op: str) -> bool:
     return f" {op}" in line or f"\t{op}" in line
 
 
-def sass_counts(name: str, opcodes) -> dict:
-    """How many instructions of each opcode the built library of
-    `csrc/<name>.cu` holds, from `cuobjdump -sass` (the toolkit's, beside
-    nvcc); TF32_MMA counts tensor-core instructions with a TF32 operand."""
+def _sass(name: str) -> list:
+    """The lines of `cuobjdump -sass` (the toolkit's, beside nvcc) on the
+    built library of `csrc/<name>.cu`."""
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", build.build([name])[name]],
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         raise RuntimeError(f"cuobjdump failed on {name}: {out.stderr.strip()[:500]}")
-    lines = out.stdout.splitlines()
-    return {op: sum(1 for line in lines if _has_op(line, op)) for op in opcodes}
+    return out.stdout.splitlines()
+
+
+def sass_counts(name: str, opcodes, function: str = "") -> dict:
+    """How many instructions of each opcode the built library of
+    `csrc/<name>.cu` holds, or (`function`) the kernel functions whose
+    mangled names contain it; TF32_MMA counts tensor-core instructions with
+    a TF32 operand."""
+    counts, inside = dict.fromkeys(opcodes, 0), not function
+    for line in _sass(name):
+        if "Function :" in line:
+            inside = not function or function in line
+        elif inside:
+            for op in opcodes:
+                counts[op] += _has_op(line, op)
+    return counts
 
 
 def spill_bytes(log: str) -> int:
@@ -254,14 +273,21 @@ def phase_build() -> None:
                                        "setmaxnreg", "Performance")):
                 print(f"[nvcc {name}] {line.strip()}", flush=True)
     sass = {n: sass_counts(n, ops) for n, ops in SASS_COUNTED.items()}
+    # K4's int8 block: integer wgmma (IGMMA) for the logits, bf16 wgmma
+    # (HGMMA) for PV, TMA loads, and no mma.sync integer product (IMMA)
+    s8 = sass_counts("coattn_ring", ("IGMMA", "HGMMA", "UTMALDG", "IMMA"),
+                     function="ring_s8_kernel")
     emit({"phase": "build", "kernels": list(SOURCES),
           "seconds": round(seconds, 3),
           "nvcc_seconds": {k: round(v, 3) for k, v in build.BUILD_SECONDS.items()},
-          "sass_instructions": sass,
+          "sass_instructions": sass, "sass_int8_block": s8,
           "spill_bytes": {k: spill_bytes(v) for k, v in build.BUILD_LOG.items()}})
     if not all(v > 0 for counts in sass.values() for v in counts.values()):
         raise AssertionError(f"the co-attention libraries lack wgmma, TMA or "
                              f"TF32 tensor-core instructions: {sass}")
+    if not (s8["IGMMA"] and s8["HGMMA"] and s8["UTMALDG"]) or s8["IMMA"]:
+        raise AssertionError(f"K4's int8 block is not on wgmma s8 + bf16 "
+                             f"wgmma + TMA alone: {s8}")
 
 
 def _sdpa_backends(q, kv):
@@ -313,17 +339,40 @@ def _record(name, dtype, b, p, c, err, rel, serr, tol, rej, ok, k_ms, p_ms,
 # the wgmma block, C=80 on the WMMA block; fp32 C=80 on the 3xTF32 block
 WIDTH_CASES = ((torch.bfloat16, 256, (169, 1024)), (torch.bfloat16, 80, (169, 1024)),
                (torch.float32, 80, (169, 1024)))
+# Widths no configuration runs, which the JAX package takes (any
+# --emb_size): not a multiple of 16, just past 512, twice 512. K1-K4 at
+# each, in every dtype, at the ragged and the headline P (K4 at B=8: the
+# general block at 120 streams would take seconds a launch); int8 rings
+# also at 1056, past 1040, where 127² C passes 2^24. bf16 at 528 takes the
+# WMMA block, every other case here the general block (K3: its general
+# pass).
+ANY_WIDTHS = (24, 528, 1024)
+ANY_WIDTHS_INT8 = ANY_WIDTHS + (1056,)
+ANY_WIDTH_P = (RAGGED_P, 1024)
 
 
-def kernel_cases_k1(dev, gen) -> list:
+def _width_shapes(b: int, dtypes=(torch.float32, torch.bfloat16), widths=ANY_WIDTHS):
+    return [(dtype, b, p, c) for dtype in dtypes for c in widths for p in ANY_WIDTH_P]
+
+
+def _iters(body: str, p: int, big: int, small: int) -> int:
+    """Launches a timer replays: few for the general block (tens of ms a
+    launch at P=1024), `big` at P >= 1024 and `small` below."""
+    if body == "wide":
+        return 3
+    return big if p >= 1024 else small
+
+
+def kernel_cases_k1(dev, gen, shapes=None) -> list:
     """K1 against its plain version at the eval path's request (B=8), and
-    at the widths of WIDTH_CASES."""
-    shapes = [(dtype, p, KERNEL_C) for dtype in (torch.float32, torch.bfloat16)
-              for p in MAIN_P + (RAGGED_P,)]
-    shapes += [(dtype, p, c) for dtype, c, ps in WIDTH_CASES for p in ps]
+    at the widths of WIDTH_CASES; `shapes` ((dtype, B, P, C), ...) in their
+    place."""
+    if shapes is None:
+        shapes = [(dtype, KERNEL_B, p, KERNEL_C) for dtype in (torch.float32, torch.bfloat16)
+                  for p in MAIN_P + (RAGGED_P,)]
+        shapes += [(dtype, KERNEL_B, p, c) for dtype, c, ps in WIDTH_CASES for p in ps]
     cases = []
-    for dtype, p, c in shapes:
-        b = KERNEL_B
+    for dtype, b, p, c in shapes:
         q = _rows(gen, b, p, c).to(dev, dtype)
         kv = _rows(gen, b, p, c).to(dev, dtype)
         got = k_coattn.coattention_one(q, kv, TEMPERATURE)
@@ -337,7 +386,7 @@ def kernel_cases_k1(dev, gen) -> list:
         swant = k_coattn.attend_plain(clip[:, 2], clip[:, 0], TEMPERATURE)
         torch.cuda.synchronize()
         sok, serr, _ = agreement(sgot, swant, dtype)
-        iters = 20 if p >= 1024 else 50
+        iters = _iters(k_coattn.attend_body(dtype, c), p, 20, 50)
         k_ms = device_ms(lambda: k_coattn.coattention_one(q, kv, TEMPERATURE), iters)
         call_ms = cuda_ms(lambda: k_coattn.coattention_one(q, kv, TEMPERATURE), iters)
         p_ms = device_ms(lambda: k_coattn.attend_plain(q, kv, TEMPERATURE), iters)
@@ -354,114 +403,118 @@ def kernel_cases_k1(dev, gen) -> list:
     return cases
 
 
-def kernel_cases_k2(dev, gen) -> list:
+def kernel_cases_k2(dev, gen, shapes=None) -> list:
     """K2 (forward, both directions in one launch) against two plain
     directions at the train step's batch (B=16), on frames sliced out of
-    (B, 2, P, C) clips as the k=2 path hands them over."""
+    (B, 2, P, C) clips as the k=2 path hands them over; `shapes` ((dtype,
+    B, P, C), ...) in their place."""
+    if shapes is None:
+        shapes = [(dtype, TRAIN_B, p, KERNEL_C) for dtype in (torch.float32, torch.bfloat16)
+                  for p in MAIN_P + (RAGGED_P,)]
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for p in MAIN_P + (RAGGED_P,):
-            b, c = TRAIN_B, KERNEL_C
-            clip = _rows(gen, b, 2, p, c).to(dev, dtype)
-            f1, f2 = clip[:, 0], clip[:, 1]
-            with torch.no_grad():
-                o1, o2 = k_coattn.coattention_fused(f1, f2, TEMPERATURE)
-            w1 = k_coattn.attend_plain(f1, f2, TEMPERATURE)
-            w2 = k_coattn.attend_plain(f2, f1, TEMPERATURE)
-            torch.cuda.synchronize()
-            ok1, err1, rel1 = agreement(o1, w1, dtype)
-            ok2, err2, rel2 = agreement(o2, w2, dtype)
-            rej = (rejects(w1, k_coattn.attend_plain(f1, f2, 1.0), dtype)
-                   and rejects(w2, k_coattn.attend_plain(f2, f1, 1.0), dtype))
-            # contiguous copies give the same result as the strided frames
-            with torch.no_grad():
-                c1, c2 = k_coattn.coattention_fused(f1.contiguous(),
-                                                    f2.contiguous(), TEMPERATURE)
-            torch.cuda.synchronize()
-            serr = max((c1 - o1).abs().max().item(), (c2 - o2).abs().max().item())
-            iters = 10 if p >= 1024 else 30
+    for dtype, b, p, c in shapes:
+        clip = _rows(gen, b, 2, p, c).to(dev, dtype)
+        f1, f2 = clip[:, 0], clip[:, 1]
+        with torch.no_grad():
+            o1, o2 = k_coattn.coattention_fused(f1, f2, TEMPERATURE)
+        w1 = k_coattn.attend_plain(f1, f2, TEMPERATURE)
+        w2 = k_coattn.attend_plain(f2, f1, TEMPERATURE)
+        torch.cuda.synchronize()
+        ok1, err1, rel1 = agreement(o1, w1, dtype)
+        ok2, err2, rel2 = agreement(o2, w2, dtype)
+        rej = (rejects(w1, k_coattn.attend_plain(f1, f2, 1.0), dtype)
+               and rejects(w2, k_coattn.attend_plain(f2, f1, 1.0), dtype))
+        # contiguous copies give the same result as the strided frames
+        with torch.no_grad():
+            c1, c2 = k_coattn.coattention_fused(f1.contiguous(),
+                                                f2.contiguous(), TEMPERATURE)
+        torch.cuda.synchronize()
+        serr = max((c1 - o1).abs().max().item(), (c2 - o2).abs().max().item())
+        iters = _iters(k_coattn.attend_body(dtype, c), p, 10, 30)
 
-            def run_kernel():
-                with torch.no_grad():
-                    k_coattn.coattention_fused(f1, f2, TEMPERATURE)
+        def run_kernel():
+            with torch.no_grad():
+                k_coattn.coattention_fused(f1, f2, TEMPERATURE)
 
-            k_ms = device_ms(run_kernel, iters)
-            call_ms = cuda_ms(run_kernel, iters)
-            p_ms = device_ms(lambda: (k_coattn.attend_plain(f1, f2, TEMPERATURE),
-                                      k_coattn.attend_plain(f2, f1, TEMPERATURE)), iters)
-            qs = torch.stack([f1, f2], dim=1)   # both directions as 2 heads
-            kvs = torch.stack([f2, f1], dim=1)
-            backends = _sdpa_backends(qs, kvs)
-            l_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qs, kvs, kvs, scale=TEMPERATURE), iters)
-            cases.append(_record(
-                "coattn_pair", dtype, b, p, c, max(err1, err2), max(rel1, rel2),
-                serr, TOL, rej, ok1 and ok2 and rej and serr == 0.0, k_ms, p_ms,
-                l_ms, "F.scaled_dot_product_attention(q, kv, kv, scale=T) on "
-                "(B, 2, P, C): q = (f1, f2), kv = (f2, f1) as two heads",
-                backends, *attend_bound(b, p, c, dtype, directions=2),
-                timer="device", body=k_coattn.attend_body(dtype, c), call_ms=call_ms))
+        k_ms = device_ms(run_kernel, iters)
+        call_ms = cuda_ms(run_kernel, iters)
+        p_ms = device_ms(lambda: (k_coattn.attend_plain(f1, f2, TEMPERATURE),
+                                  k_coattn.attend_plain(f2, f1, TEMPERATURE)), iters)
+        qs = torch.stack([f1, f2], dim=1)   # both directions as 2 heads
+        kvs = torch.stack([f2, f1], dim=1)
+        backends = _sdpa_backends(qs, kvs)
+        l_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, kvs, kvs, scale=TEMPERATURE), iters)
+        cases.append(_record(
+            "coattn_pair", dtype, b, p, c, max(err1, err2), max(rel1, rel2),
+            serr, TOL, rej, ok1 and ok2 and rej and serr == 0.0, k_ms, p_ms,
+            l_ms, "F.scaled_dot_product_attention(q, kv, kv, scale=T) on "
+            "(B, 2, P, C): q = (f1, f2), kv = (f2, f1) as two heads",
+            backends, *attend_bound(b, p, c, dtype, directions=2),
+            timer="device", body=k_coattn.attend_body(dtype, c), call_ms=call_ms))
     return cases
 
 
-def kernel_cases_k3(dev, gen) -> list:
+def kernel_cases_k3(dev, gen, shapes=None) -> list:
     """K3 (dq, dkv) against its plain version at the train step's batch
     (B=16), on l2-normalized q, kv and a unit-normal upstream gradient, and
-    on batch-strided inputs (frames and gradients sliced out of clips)."""
+    on batch-strided inputs (frames and gradients sliced out of clips);
+    `shapes` ((dtype, B, P, C), ...) in their place."""
+    if shapes is None:
+        shapes = [(dtype, TRAIN_B, p, KERNEL_C) for dtype in (torch.float32, torch.bfloat16)
+                  for p in MAIN_P + (RAGGED_P,)]
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for p in MAIN_P + (RAGGED_P,):
-            b, c = TRAIN_B, KERNEL_C
-            q = _rows(gen, b, p, c).to(dev, dtype)
-            kv = _rows(gen, b, p, c).to(dev, dtype)
-            g = torch.randn(b, p, c, generator=gen).to(dev, dtype)
-            got = k_coattn.attend_bwd(q, kv, TEMPERATURE, g)
-            want = k_coattn.attend_bwd_plain(q, kv, TEMPERATURE, g)
-            wrong = k_coattn.attend_bwd_plain(q, kv, 1.0, g)
-            torch.cuda.synchronize()
-            checks = [agreement(a, w, dtype, BWD_TOL) for a, w in zip(got, want)]
-            rej = all(rejects(w, x, dtype, BWD_TOL) for w, x in zip(want, wrong))
-            clip = _rows(gen, b, 2, p, c).to(dev, dtype)
-            gclip = torch.randn(b, 2, p, c, generator=gen).to(dev, dtype)
-            sgot = k_coattn.attend_bwd(clip[:, 0], clip[:, 1], TEMPERATURE, gclip[:, 1])
-            swant = k_coattn.attend_bwd_plain(clip[:, 0], clip[:, 1], TEMPERATURE,
-                                              gclip[:, 1])
-            torch.cuda.synchronize()
-            schecks = [agreement(a, w, dtype, BWD_TOL) for a, w in zip(sgot, swant)]
-            ok = all(x[0] for x in checks + schecks) and rej
-            iters = 5 if p >= 1024 else 20
-            k_ms = device_ms(lambda: k_coattn.attend_bwd(q, kv, TEMPERATURE, g), iters)
-            call_ms = cuda_ms(lambda: k_coattn.attend_bwd(q, kv, TEMPERATURE, g), iters)
-            p_ms = device_ms(lambda: k_coattn.attend_bwd_plain(q, kv, TEMPERATURE, g),
-                             iters)
-            ql = q[:, None].detach().requires_grad_()
-            kvl = kv[:, None].detach().requires_grad_()
-            backends = _sdpa_backends(ql.detach(), kvl.detach())
+    for dtype, b, p, c in shapes:
+        q = _rows(gen, b, p, c).to(dev, dtype)
+        kv = _rows(gen, b, p, c).to(dev, dtype)
+        g = torch.randn(b, p, c, generator=gen).to(dev, dtype)
+        got = k_coattn.attend_bwd(q, kv, TEMPERATURE, g)
+        want = k_coattn.attend_bwd_plain(q, kv, TEMPERATURE, g)
+        wrong = k_coattn.attend_bwd_plain(q, kv, 1.0, g)
+        torch.cuda.synchronize()
+        checks = [agreement(a, w, dtype, BWD_TOL) for a, w in zip(got, want)]
+        rej = all(rejects(w, x, dtype, BWD_TOL) for w, x in zip(want, wrong))
+        clip = _rows(gen, b, 2, p, c).to(dev, dtype)
+        gclip = torch.randn(b, 2, p, c, generator=gen).to(dev, dtype)
+        sgot = k_coattn.attend_bwd(clip[:, 0], clip[:, 1], TEMPERATURE, gclip[:, 1])
+        swant = k_coattn.attend_bwd_plain(clip[:, 0], clip[:, 1], TEMPERATURE,
+                                          gclip[:, 1])
+        torch.cuda.synchronize()
+        schecks = [agreement(a, w, dtype, BWD_TOL) for a, w in zip(sgot, swant)]
+        ok = all(x[0] for x in checks + schecks) and rej
+        iters = _iters(k_coattn.attend_bwd_body(c), p, 5, 20)
+        k_ms = device_ms(lambda: k_coattn.attend_bwd(q, kv, TEMPERATURE, g), iters)
+        call_ms = cuda_ms(lambda: k_coattn.attend_bwd(q, kv, TEMPERATURE, g), iters)
+        p_ms = device_ms(lambda: k_coattn.attend_bwd_plain(q, kv, TEMPERATURE, g),
+                         iters)
+        ql = q[:, None].detach().requires_grad_()
+        kvl = kv[:, None].detach().requires_grad_()
+        backends = _sdpa_backends(ql.detach(), kvl.detach())
 
-            def sdpa():
-                return torch.nn.functional.scaled_dot_product_attention(
-                    ql, kvl, kvl, scale=TEMPERATURE)
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                ql, kvl, kvl, scale=TEMPERATURE)
 
-            # autograd replays the backward on the forward's stream, so the
-            # graph captures both: the backward's time is their difference
-            l_ms = (device_ms(lambda: torch.autograd.grad(sdpa(), (ql, kvl), g[:, None]),
-                              iters)
-                    - device_ms(sdpa, iters))
-            cases.append(_record(
-                "coattn_attend_bwd", dtype, b, p, c,
-                max(x[1] for x in checks), max(x[2] for x in checks),
-                max(x[1] for x in schecks), BWD_TOL, rej, ok, k_ms, p_ms, l_ms,
-                "torch.autograd.grad through F.scaled_dot_product_attention("
-                "q, kv, kv, scale=T), (B, 1, P, C): dq and dkv = dk + dv "
-                "(device time of forward and backward less the forward's)",
-                backends, *attend_bwd_bound(b, p, c, dtype), timer="device",
-                body="tf32x3", call_ms=call_ms))
+        # autograd replays the backward on the forward's stream, so the
+        # graph captures both: the backward's time is their difference
+        l_ms = (device_ms(lambda: torch.autograd.grad(sdpa(), (ql, kvl), g[:, None]),
+                          iters)
+                - device_ms(sdpa, iters))
+        cases.append(_record(
+            "coattn_attend_bwd", dtype, b, p, c,
+            max(x[1] for x in checks), max(x[2] for x in checks),
+            max(x[1] for x in schecks), BWD_TOL, rej, ok, k_ms, p_ms, l_ms,
+            "torch.autograd.grad through F.scaled_dot_product_attention("
+            "q, kv, kv, scale=T), (B, 1, P, C): dq and dkv = dk + dv "
+            "(device time of forward and backward less the forward's)",
+            backends, *attend_bwd_bound(b, p, c, dtype), timer="device",
+            body=k_coattn.attend_bwd_body(c), call_ms=call_ms))
     return cases
 
 
 RING_S, RING_CENTER = 5, 2          # n_frame 5, the center frame
 SERVE_STREAMS = 120                 # the JAX bench's serving batch (24 clips x 5)
-RING_SLOTS = (None, 0, 2, 4)
+RING_SLOTS = (None, 0, 1, 2, 3, 4)
 
 
 def ring_bound(b: int, s: int, p: int, c: int, dtype: torch.dtype):
@@ -507,63 +560,65 @@ def check_ring(ring, t, center_t, slot) -> dict:
             "limits_reject": rej}
 
 
-def kernel_cases_k4(dev, gen) -> list:
+def kernel_cases_k4(dev, gen, shapes=None) -> list:
     """K4 against its plain version on (B, 5, P, C=512) rings of
-    l2-normalised rows, float32, bfloat16 and int8, at slots None, 0, 2 and
-    4 (center at temporal index 2): B = 120 (the serving batch) at
-    P = 1024, B = 8 at P = 64, 256 and the ragged 169. Timed at slot 2.
-    Library: F.scaled_dot_product_attention of the center expanded to
-    (B, 4, P, C) against the gathered references (float rings; the int8
-    path has no library call)."""
+    l2-normalised rows, float32, bfloat16 and int8, at every slot (None,
+    0-4; center at temporal index 2): B = 120 (the serving batch) at
+    P = 1024, B = 8 at P = 64, 256 and the ragged 169; `shapes` ((dtype,
+    B, P, C), ...) in their place. Timed at slot 2. Library:
+    F.scaled_dot_product_attention of the center expanded to (B, 4, P, C)
+    against the gathered references (float rings; the int8 path has no
+    library call)."""
+    if shapes is None:
+        shapes = [(dtype, SERVE_STREAMS if p == max(MAIN_P) else KERNEL_B, p, KERNEL_C)
+                  for dtype in (torch.float32, torch.bfloat16, torch.int8)
+                  for p in MAIN_P + (RAGGED_P,)]
     cases = []
-    for dtype in (torch.float32, torch.bfloat16, torch.int8):
-        for p in MAIN_P + (RAGGED_P,):
-            b = SERVE_STREAMS if p == max(MAIN_P) else KERNEL_B
-            c = KERNEL_C
-            ring = _ring_input(gen, dtype, b, RING_S, p, c).to(dev)
-            checks = [check_ring(ring, TEMPERATURE, RING_CENTER, slot)
-                      for slot in RING_SLOTS]
-            iters = 3 if b == SERVE_STREAMS and dtype == torch.float32 else (
-                10 if p >= 1024 else 30)
-            k_ms = device_ms(lambda: k_coattn.coattention_ring(
-                ring, TEMPERATURE, RING_CENTER, 2), iters)
-            call_ms = cuda_ms(lambda: k_coattn.coattention_ring(
-                ring, TEMPERATURE, RING_CENTER, 2), iters)
-            p_ms = device_ms(lambda: k_coattn.ring_attend_plain(
-                ring, TEMPERATURE, RING_CENTER, 2), iters)
-            l_ms, backends, library_call = None, [], (
-                "none: no PyTorch call computes int8-logit attention")
-            if dtype != torch.int8:
-                cs, rs = k_coattn.ring_slots(RING_S, RING_CENTER, 2)
-                q = ring[:, cs:cs + 1].expand(b, RING_S - 1, p, c).contiguous()
-                kv = ring[:, rs]
-                backends = _sdpa_backends(q, kv)
-                l_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, kv, kv, scale=TEMPERATURE), iters)
-                library_call = ("F.scaled_dot_product_attention(center expanded "
-                                "to (B, 4, P, C), refs, refs, scale=T)")
-                del q, kv
-            ok = all(x["agrees"] and x["limits_reject"] for x in checks)
-            rec = {"phase": "kernel", "name": "coattn_ring",
-                   "dtype": str(dtype).replace("torch.", ""), "B": b, "S": RING_S,
-                   "P": p, "C": c, "T": TEMPERATURE, "slots": [str(x) for x in RING_SLOTS],
-                   "max_abs_err": max(x["max_abs_err"] for x in checks),
-                   "rel_err": max(x["rel_err"] for x in checks),
-                   "tol": {**TOL[torch.bfloat16 if dtype == torch.int8 else dtype],
-                           "rel": REL_TOL[torch.bfloat16 if dtype == torch.int8 else dtype]},
-                   "limits_reject_zeros_T1_and_slot_blind": all(
-                       x["limits_reject"] for x in checks), "ok": ok,
-                   "timer": "device", "ms": k_ms, "call_ms": call_ms,
-                   "plain_ms": p_ms, "library_ms": l_ms, "library_call": library_call,
-                   "library_backends": backends,
-                   "body": k_coattn.attend_body(dtype, c)}
-            rec["bound_ms"], rec["bound_by"] = ring_bound(b, RING_S, p, c, dtype)
-            emit(rec)
-            if not ok:
-                raise AssertionError(f"coattn_ring disagrees with its plain version: "
-                                     f"{dtype} P={p}: {checks}")
-            cases.append(rec)
-            del ring
+    for dtype, b, p, c in shapes:
+        ring = _ring_input(gen, dtype, b, RING_S, p, c).to(dev)
+        checks = [check_ring(ring, TEMPERATURE, RING_CENTER, slot)
+                  for slot in RING_SLOTS]
+        iters = 3 if b == SERVE_STREAMS and dtype == torch.float32 else _iters(
+            k_coattn.attend_body(dtype, c), p, 10, 30)
+        k_ms = device_ms(lambda: k_coattn.coattention_ring(
+            ring, TEMPERATURE, RING_CENTER, 2), iters)
+        call_ms = cuda_ms(lambda: k_coattn.coattention_ring(
+            ring, TEMPERATURE, RING_CENTER, 2), iters)
+        p_ms = device_ms(lambda: k_coattn.ring_attend_plain(
+            ring, TEMPERATURE, RING_CENTER, 2), iters)
+        l_ms, backends, library_call = None, [], (
+            "none: no PyTorch call computes int8-logit attention")
+        if dtype != torch.int8:
+            cs, rs = k_coattn.ring_slots(RING_S, RING_CENTER, 2)
+            q = ring[:, cs:cs + 1].expand(b, RING_S - 1, p, c).contiguous()
+            kv = ring[:, rs]
+            backends = _sdpa_backends(q, kv)
+            l_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kv, kv, scale=TEMPERATURE), iters)
+            library_call = ("F.scaled_dot_product_attention(center expanded "
+                            "to (B, 4, P, C), refs, refs, scale=T)")
+            del q, kv
+        ok = all(x["agrees"] and x["limits_reject"] for x in checks)
+        rec = {"phase": "kernel", "name": "coattn_ring",
+               "dtype": str(dtype).replace("torch.", ""), "B": b, "S": RING_S,
+               "P": p, "C": c, "T": TEMPERATURE, "slots": [str(x) for x in RING_SLOTS],
+               "max_abs_err": max(x["max_abs_err"] for x in checks),
+               "rel_err": max(x["rel_err"] for x in checks),
+               "tol": {**TOL[torch.bfloat16 if dtype == torch.int8 else dtype],
+                       "rel": REL_TOL[torch.bfloat16 if dtype == torch.int8 else dtype]},
+               "limits_reject_zeros_T1_and_slot_blind": all(
+                   x["limits_reject"] for x in checks), "ok": ok,
+               "timer": "device", "ms": k_ms, "call_ms": call_ms,
+               "plain_ms": p_ms, "library_ms": l_ms, "library_call": library_call,
+               "library_backends": backends,
+               "body": k_coattn.attend_body(dtype, c)}
+        rec["bound_ms"], rec["bound_by"] = ring_bound(b, RING_S, p, c, dtype)
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"coattn_ring disagrees with its plain version: "
+                                 f"{dtype} P={p}: {checks}")
+        cases.append(rec)
+        del ring
     return cases
 
 
@@ -696,6 +751,13 @@ def phase_kernel(dev):
     gen = torch.Generator(device="cpu").manual_seed(0)
     cases = (kernel_cases_k1(dev, gen) + kernel_cases_k2(dev, gen)
              + kernel_cases_k3(dev, gen) + kernel_cases_k4(dev, gen))
+    # every width the JAX package takes (ANY_WIDTHS)
+    cases += (kernel_cases_k1(dev, gen, _width_shapes(KERNEL_B))
+              + kernel_cases_k2(dev, gen, _width_shapes(TRAIN_B))
+              + kernel_cases_k3(dev, gen, _width_shapes(TRAIN_B))
+              + kernel_cases_k4(dev, gen, _width_shapes(KERNEL_B))
+              + kernel_cases_k4(dev, gen, _width_shapes(KERNEL_B, (torch.int8,),
+                                                        ANY_WIDTHS_INT8)))
     k5_cases, k5_launches = kernel_cases_k5(dev, gen)
     kernels.reset_launches()  # the comparison launches above do not count
     return cases + k5_cases, k5_launches
@@ -1623,6 +1685,7 @@ def kernels_line(cases: list, launches: dict) -> dict:
             "max_abs_err": worst, "timer": head["timer"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "bodies": sorted({c["body"] for c in mine if c.get("body")}),
             "cases": [{k: c.get(k) for k in ("dtype", "B", "P", "C", "body",
                                              "max_abs_err", "rel_err", "ms",
                                              "call_ms", "plain_ms", "library_ms",

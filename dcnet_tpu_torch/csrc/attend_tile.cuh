@@ -1,6 +1,7 @@
 // Device code shared by K1/K2 (coattn.cu) and K4 (coattn_ring.cu) for bf16
-// at the widths the wgmma block (attend_wgmma.cuh) does not take, and for
-// K4's int8 block: one block computes softmax_rows(T * q kv^T) kv for
+// at the widths the wgmma block (attend_wgmma.cuh) does not take and whose
+// shared memory fits a block (`takes`: C % 16 == 0, C < 688); wider bf16
+// goes to the general block (attend_wide.cuh). One block computes softmax_rows(T * q kv^T) kv for
 // kBlockM rows of q against a whole (P, C) kv frame, streaming kv through
 // shared memory in tiles of BLOCK_N rows with an online softmax (running row
 // max m and row sum l; the accumulator is rescaled by exp(m_old - m_new)
@@ -17,6 +18,8 @@
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "attend_wide.cuh"
 
 namespace dcnet {
 
@@ -39,7 +42,7 @@ struct Tile<bf16> {
 
 struct Layout {
   int ldq, ldkv, ldo, lds, ldp;
-  size_t off_q, off_kv, off_o, off_s, off_p, off_m, off_l, off_kv8, total;
+  size_t off_q, off_kv, off_o, off_s, off_p, off_m, off_l, total;
 };
 
 __host__ __device__ inline size_t align128(size_t n) {
@@ -66,9 +69,14 @@ __host__ __device__ inline Layout layout(int C) {
   L.off_p = off;  off += align128(sizeof(T) * kBlockM * L.ldp);
   L.off_m = off;  off += align128(sizeof(float) * kBlockM);
   L.off_l = off;  off += align128(sizeof(float) * kBlockM);
-  L.off_kv8 = off;
   L.total = off;
   return L;
+}
+
+// The bf16 widths this block takes: whole 16-channel WMMA fragments and a
+// layout within a block's shared memory (C <= 672; 688 needs 235,776 B).
+__host__ __device__ inline bool tile_takes(int C) {
+  return C % 16 == 0 && C >= 16 && layout<bf16>(C).total <= kSmemLimit;
 }
 
 __device__ inline float warp_max(float v) {

@@ -443,13 +443,16 @@ __device__ __forceinline__ void attend_rows(const CUtensorMap* map_q, Frame fq,
 
 // --- host side ---------------------------------------------------------------
 
-// A tensor map of `rank` (3 or 4) over a bf16 tensor whose innermost
-// dimension (C channels) is contiguous: dims innermost first, strides in
-// bytes of dims 1..rank-1; boxes of 64 rows x 64 channels, 128B swizzle,
-// zero fill out of bounds. cuTensorMapEncodeTiled is reached through the
+// A tensor map of `rank` (3 or 4) over a tensor whose innermost dimension
+// (C channels) is contiguous: dims innermost first, strides in bytes of
+// dims 1..rank-1; boxes of 64 rows x `box_c` elements of `type` (128 bytes:
+// 64 bf16 by default, 128 for the int8 block's UINT8), 128B swizzle, zero
+// fill out of bounds. cuTensorMapEncodeTiled is reached through the
 // runtime's driver entry point (no -lcuda). Returns a cudaError_t code.
 inline int encode_map(CUtensorMap* map, const void* base, int rank,
-                      const uint64_t* dims, const uint64_t* strides) {
+                      const uint64_t* dims, const uint64_t* strides,
+                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      uint32_t box_c = kBox) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave,
@@ -473,10 +476,10 @@ inline int encode_map(CUtensorMap* map, const void* base, int rank,
     encode = reinterpret_cast<Encode>(fn);
   }
   cuuint64_t d[4], st[3];
-  cuuint32_t box[4] = {kBox, kRows, 1, 1}, elem[4] = {1, 1, 1, 1};
+  cuuint32_t box[4] = {box_c, kRows, 1, 1}, elem[4] = {1, 1, 1, 1};
   for (int i = 0; i < rank; ++i) d[i] = dims[i];
   for (int i = 0; i < rank - 1; ++i) st[i] = strides[i];
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  const CUresult r = encode(map, type, rank,
                             const_cast<void*>(base), d, st, box, elem,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -32,8 +32,9 @@
 // the accumulator is rescaled by exp(m_old - m_new) before each tile is
 // added). The (P, P) logits never leave the SM. Rows and columns past P are
 // masked (zero rows in, -inf logits, no store), so ragged P (169, 676, 2704
-// at 416 px) works. Three blocks, chosen by dtype and C in the entry point
-// (dcnet_coattn_block: wg::takes, tf32::takes), never as a fallback:
+// at 416 px) works. Four blocks, chosen by dtype and C in the entry point
+// (dcnet_coattn_block, blocks.cuh), never as a fallback; every C >= 1 has
+// one:
 //
 // - bf16 with C % 128 == 0 and C <= 512 (every configuration the repository
 //   runs): the wgmma + TMA block of attend_wgmma.cuh. What bounded the
@@ -66,15 +67,21 @@
 //   channel groups are summed through shared memory. About 226 KB of shared
 //   memory at C = 512: one block per SM, and each block rereads kv from L2
 //   per 32 rows.
-// - bf16 at other widths: the block of attend_tile.cuh (32 rows, kv tiles
-//   loaded synchronously, the accumulator in shared memory, products on
-//   WMMA m16n16k16).
+// - bf16 at other widths with C % 16 == 0 and C <= 672 (its shared memory
+//   at C = 688 would be 235,776 B): the block of attend_tile.cuh (32 rows,
+//   kv tiles loaded synchronously, the accumulator in shared memory,
+//   products on WMMA m16n16k16).
+// - every other width (C % 16 != 0, fp32 past 512, bf16 past the WMMA
+//   block's shared memory; no configuration of the repository runs one):
+//   the general block of attend_wide.cuh, a block per 32 rows and output
+//   chunk of at most 512 channels, on the CUDA cores, any alignment.
+// The rule is blocks.cuh's choose_block. Each launch sizes its shared
+// memory by the formula its block runs on and checks it against the
+// 232,448 B a block may have (prepare_smem) before launching.
 //
 // K2 runs each block with the direction on grid.z; the wgmma block swaps
 // its two tensor maps there.
-#include "attend_tf32.cuh"
-#include "attend_tile.cuh"
-#include "attend_wgmma.cuh"
+#include "blocks.cuh"
 
 namespace {
 
@@ -134,18 +141,59 @@ attend_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                         blockIdx.x * wg::kRows, P, t, smem);
 }
 
+// The general block (attend_wide.cuh): grid.z = direction x output chunk.
+template <typename T, int NC>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+attend_wide_kernel(const T* q, const T* kv, T* out, T* out2, int P, int C,
+                   long long q_bstride, long long kv_bstride, float t, int nch) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  if (blockIdx.z >= nch) {  // the pair's second direction: attend(kv, q)
+    const T* tmp = q;
+    q = kv;
+    kv = tmp;
+    const long long st = q_bstride;
+    q_bstride = kv_bstride;
+    kv_bstride = st;
+    out = out2;
+  }
+  const long long b = blockIdx.y;
+  wide::attend_rows<NC, T, T>(q + b * q_bstride, kv + b * kv_bstride, out + b * P * C,
+                              blockIdx.x * wide::kRows, (blockIdx.z % nch) * NC, P,
+                              C, t, smem);
+}
+
+template <typename T, int NC>
+int launch_wide_nc(const void* q, const void* kv, void* out, void* out2, int B,
+                   int P, int C, long long q_bstride, long long kv_bstride,
+                   float t, cudaStream_t stream) {
+  const size_t bytes = wide::layout<T>(NC, 1).total;
+  const int err = prepare_smem(attend_wide_kernel<T, NC>, bytes);
+  if (err != 0) return err;
+  const int nch = wide::chunks(C);
+  const dim3 grid((P + wide::kRows - 1) / wide::kRows, B, (out2 ? 2 : 1) * nch);
+  attend_wide_kernel<T, NC><<<grid, wide::kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kv), static_cast<T*>(out),
+      static_cast<T*>(out2), P, C, q_bstride, kv_bstride, t, nch);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* kv, void* out, void* out2, int B, int P,
+                int C, long long q_bstride, long long kv_bstride, float t,
+                cudaStream_t s) {
+  return wide::with_chunk(C, [&](auto nc) {
+    return launch_wide_nc<T, decltype(nc)::value>(q, kv, out, out2, B, P, C, q_bstride,
+                                                  kv_bstride, t, s);
+  });
+}
+
 template <typename T>
 int launch(const void* q, const void* kv, void* out, void* out2, int B, int P,
            int C, long long q_bstride, long long kv_bstride, float t,
            cudaStream_t stream) {
   const Layout L = layout<T>(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      attend_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.total);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear, so PyTorch's next check does not see it
-    return (int)err;
-  }
+  const int err = prepare_smem(attend_kernel<T>, L.total);
+  if (err != 0) return err;
   const dim3 grid((P + kBlockM - 1) / kBlockM, B, out2 ? 2 : 1);
   attend_kernel<T><<<grid, kThreads, L.total, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv), static_cast<T*>(out),
@@ -156,13 +204,9 @@ int launch(const void* q, const void* kv, void* out, void* out2, int B, int P,
 int launch_tf32(const void* q, const void* kv, void* out, void* out2, int B,
                 int P, int C, long long q_bstride, long long kv_bstride,
                 float t, cudaStream_t stream) {
-  const int bytes = (int)tf32::smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      attend_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear, so PyTorch's next check does not see it
-    return (int)err;
-  }
+  const size_t bytes = tf32::smem_bytes(C);
+  const int err = prepare_smem(attend_tf32_kernel, bytes);
+  if (err != 0) return err;
   const dim3 grid((P + tf32::kRows - 1) / tf32::kRows, B, out2 ? 2 : 1);
   attend_tf32_kernel<<<grid, tf32::kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(kv),
@@ -184,13 +228,9 @@ int launch_wgmma(const void* q, const void* kv, void* out, void* out2, int B,
     const int err = wg::encode_map(&maps[i], bases[i], 3, dims, strides);
     if (err != 0) return err;
   }
-  const int bytes = (int)wg::smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      attend_wgmma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear, so PyTorch's next check does not see it
-    return (int)err;
-  }
+  const size_t bytes = wg::smem_bytes(C);
+  const int err = prepare_smem(attend_wgmma_kernel<C>, bytes);
+  if (err != 0) return err;
   const dim3 grid((P + wg::kRows - 1) / wg::kRows, B, out2 ? 2 : 1);
   attend_wgmma_kernel<C><<<grid, wg::kThreads, bytes, stream>>>(
       maps[0], maps[1], static_cast<bf16*>(out), static_cast<bf16*>(out2), P, t);
@@ -213,17 +253,12 @@ int launch_wgmma_c(const void* q, const void* kv, void* out, void* out2, int B,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. The block each launch takes, by shape:
-// 1 = the bf16 wgmma + TMA block of attend_wgmma.cuh (bf16 with C % 128 ==
-// 0, C <= 512), 2 = the fp32 3xTF32 block of attend_tf32.cuh (fp32 with
-// C % 16 == 0, C <= 512), 0 = the WMMA block of attend_tile.cuh (other bf16
-// widths; -1 for fp32 widths no block takes). K4's entry point applies the
-// same rule to float rings.
-int dcnet_coattn_block(int dtype, int C) {
-  if (dtype == 1) return wg::takes(C) ? 1 : 0;
-  if (dtype == 0) return tf32::takes(C) ? 2 : -1;
-  return -1;
-}
+// dtype: 0 = float32, 1 = bfloat16, 2 = int8 (K4's rings). The block each
+// launch takes, by shape (blocks.cuh): 1 = the bf16 wgmma + TMA block, 2 =
+// the fp32 3xTF32 block, 0 = the bf16 WMMA block, 4 = the int8 wgmma s8 +
+// TMA block, 3 = the general block; -1 for C < 1 or another dtype. K4's
+// entry point applies the same rule to its rings.
+int dcnet_coattn_block(int dtype, int C) { return choose_block(dtype, C); }
 
 // Strides are in elements; rows of q and kv are contiguous (row stride C).
 // With out2 null this is K1 (out = attend(q, kv)); otherwise K2 (out =
@@ -233,14 +268,17 @@ int dcnet_coattn_attend(const void* q, const void* kv, void* out, void* out2,
                         int B, int P, int C, long long q_bstride,
                         long long kv_bstride, float t, int dtype,
                         void* stream) {
-  if (B <= 0 || P <= 0 || C <= 0 || C % 16 != 0 || B > 65535) {
+  if (B <= 0 || P <= 0 || C <= 0 || B > 65535 || dtype < 0 || dtype > 1) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dcnet_coattn_block(dtype, C)) {
-    case 1: return launch_wgmma_c(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
-    case 2: return launch_tf32(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
-    case 0: return launch<bf16>(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
+  switch (choose_block(dtype, C)) {
+    case kBlockWgmma: return launch_wgmma_c(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
+    case kBlockTf32: return launch_tf32(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
+    case kBlockTile: return launch<bf16>(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
+    case kBlockWide:
+      return dtype == 0 ? launch_wide<float>(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s)
+                        : launch_wide<bf16>(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

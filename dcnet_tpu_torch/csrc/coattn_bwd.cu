@@ -61,16 +61,32 @@
 // in fp32 (one block per SM) and 115 KB in bf16 at C = 512. Rows and columns
 // past P are masked (zero rows in, W = 0, no store), so ragged P (169 at
 // 416 px) works.
+//
+// Widths the passes above do not take (C % 16 != 0 or C > 512; no
+// configuration of the repository runs one) take K3's general pass, chosen
+// by shape in the entry point, never as a fallback: the same two passes on
+// the tile primitives of the general forward block (attend_wide.cuh), on
+// the CUDA cores in fp32. A block owns 32 rows and one output chunk of at
+// most 512 channels (a grid dimension); S and dW (dkv pass: S^T and dW^T)
+// need all of C, so each 32 x 32 tile of both is summed over C in chunks
+// of 32 channels staged through shared memory, once per output chunk. Each
+// global load is one element wide and masked (channels past C are zero,
+// which adds 0 to S and dW and gives zero columns in dq and dkv), so rows
+// need no alignment. The dq pass keeps L (natural log) and D per row in
+// the same scratch; its chunk 0 writes them. Shared memory (157 KB at
+// C > 256) is checked against the 232,448 B limit before the launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attend_wide.cuh"
 #include "tf32x3.cuh"
 
 namespace {
 
 using namespace dcnet::tf32;
+namespace wide = dcnet::wide;
 
 constexpr int kGroups = 4;               // channel groups
 constexpr int kWarps = 2 * kGroups;      // 2 row groups of 16 rows x kGroups
@@ -80,6 +96,9 @@ constexpr int kStream = 16;              // streamed rows per tile
 constexpr int kMaxC = 512;
 constexpr int kMaxOwn = kMaxC / (8 * kGroups);  // n8 channel tiles a warp owns, at most
 constexpr int kXch = kWarps * 2 * 2 * 32;       // float4: [warp][S, dW][n8][lane]
+
+// The widths of the two 3xTF32 passes: C % 16 == 0, C <= 512.
+inline bool tf32_takes(int C) { return C % 16 == 0 && C >= 16 && C <= kMaxC; }
 
 __host__ __device__ inline size_t align128(size_t n) {
   return (n + 127) / 128 * 128;
@@ -420,28 +439,187 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   store_rows(dkv + (long long)b * P * C, acc, 1.f, col0, P, C, c0, ch.count);
 }
 
+// --- the general pass: any C ------------------------------------------------
+
+// dq pass: rows row0.. of q and g against every kv tile, output chunk
+// blockIdx.z. Sweep 1: per row the running max m, sum l and a = sum
+// exp(S - m) dW, so L = m + log l and D = a / l (chunk 0 writes them);
+// sweep 2: dq = T (exp(S - L) (dW - D)) kv[:, chunk].
+template <typename T, int NC>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+bwd_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                   const T* __restrict__ g, T* __restrict__ dq,
+                   float* __restrict__ lse, float* __restrict__ dd, int P, int C,
+                   long long q_bstride, long long kv_bstride, long long g_bstride,
+                   float t) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const wide::Layout L = wide::layout<T>(NC, 2);
+  float* a_s = reinterpret_cast<float*>(smem + L.a);
+  float* b_s = reinterpret_cast<float*>(smem + L.b);
+  float* w_s = reinterpret_cast<float*>(smem + L.p);
+  float* v_s = reinterpret_cast<float*>(smem + L.v);
+  const long long b = blockIdx.y;
+  const int row0 = blockIdx.x * wide::kRows, ch0 = blockIdx.z * NC;
+  const int r = wide::dot_row(), cq = wide::dot_col();
+  const T* kvb = kv + b * kv_bstride;
+  const T* const lhs[2] = {q + b * q_bstride, g + b * g_bstride};
+  const T* const rhs[2] = {kvb, kvb};
+  float sd[2][4];  // S and dW of this thread's row and 4 columns
+
+  float m = -INFINITY, l = 0.f, a = 0.f;  // the same in the row's 8 lanes
+  for (int n0 = 0; n0 < P; n0 += wide::kTile) {
+    wide::tile_dots<2>(sd, lhs, row0, rhs, n0, P, C, a_s, b_s);
+    float v[4], mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = n0 + cq + 8 * j < P ? sd[0][j] * t : -INFINITY;
+      mx = fmaxf(mx, v[j]);
+    }
+    const float mn = fmaxf(m, wide::row8_max(mx));  // finite: column n0 < P
+    const float alpha = expf(m - mn);                 // 0 on the first tile
+    float e = 0.f, d = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x = expf(v[j] - mn);
+      e += x;
+      d += x * sd[1][j];
+    }
+    l = l * alpha + wide::row8_sum(e);
+    a = a * alpha + wide::row8_sum(d);
+    m = mn;
+  }
+  const float lse_r = m + logf(l), dd_r = a / l;
+  if (blockIdx.z == 0 && cq == 0 && row0 + r < P) {
+    lse[b * P + row0 + r] = lse_r;
+    dd[b * P + row0 + r] = dd_r;
+  }
+
+  float acc[8][NC / 64];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int k = 0; k < NC / 64; ++k) acc[i][k] = 0.f;
+  }
+  for (int n0 = 0; n0 < P; n0 += wide::kTile) {
+    wide::tile_dots<2>(sd, lhs, row0, rhs, n0, P, C, a_s, b_s);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float w = n0 + cq + 8 * j < P ? expf(sd[0][j] * t - lse_r) : 0.f;
+      w_s[r * wide::kPitch + cq + 8 * j] = w * (sd[1][j] - dd_r);  // dS
+    }
+    wide::stage_pv<NC>(v_s, kvb, n0, ch0, P, C);
+    __syncthreads();
+    wide::pv_accumulate<NC>(acc, w_s, v_s);
+  }
+  wide::store_rows<NC>(dq + b * P * C, acc, t, row0, ch0, P, C);
+}
+
+// dkv pass: owned kv rows col0.. against every q and g tile with their L
+// and D, output chunk blockIdx.z: S^T and dW^T as tiles, W^T = exp(S^T - L),
+// dkv = T (W^T (dW^T - D)) q[:, chunk] + W^T g[:, chunk].
+template <typename T, int NC>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+bwd_wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                    const T* __restrict__ g, T* __restrict__ dkv,
+                    const float* __restrict__ lse, const float* __restrict__ dd,
+                    int P, int C, long long q_bstride, long long kv_bstride,
+                    long long g_bstride, float t) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const wide::Layout L = wide::layout<T>(NC, 2);
+  float* a_s = reinterpret_cast<float*>(smem + L.a);
+  float* b_s = reinterpret_cast<float*>(smem + L.b);
+  float* w_s = reinterpret_cast<float*>(smem + L.p);  // T dS^T, then W^T
+  float* v_s = reinterpret_cast<float*>(smem + L.v);  // q chunk, then g chunk
+  float* cols = reinterpret_cast<float*>(smem + L.cols);  // L, then D of the tile
+  const long long b = blockIdx.y;
+  const int col0 = blockIdx.x * wide::kRows, ch0 = blockIdx.z * NC;
+  const int r = wide::dot_row(), cq = wide::dot_col();
+  const T* kvb = kv + b * kv_bstride;
+  const T* qb = q + b * q_bstride;
+  const T* gb = g + b * g_bstride;
+  const T* const lhs[2] = {kvb, kvb};
+  const T* const rhs[2] = {qb, gb};
+  float sd[2][4];  // S^T and dW^T of this thread's owned row and 4 columns
+  float acc[8][NC / 64];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int k = 0; k < NC / 64; ++k) acc[i][k] = 0.f;
+  }
+  for (int n0 = 0; n0 < P; n0 += wide::kTile) {
+    // L and D of the tile's rows (the last tile's readers passed the
+    // __syncthreads before its products; tile_dots' syncs publish these)
+    if (threadIdx.x < 2 * wide::kTile) {
+      const int i = threadIdx.x % wide::kTile, which = threadIdx.x / wide::kTile;
+      cols[threadIdx.x] = n0 + i < P ? (which ? dd : lse)[b * P + n0 + i] : 0.f;
+    }
+    wide::tile_dots<2>(sd, lhs, col0, rhs, n0, P, C, a_s, b_s);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = cq + 8 * j;
+      const float w = n0 + c < P ? expf(sd[0][j] * t - cols[c]) : 0.f;
+      w_s[r * wide::kPitch + c] = t * w * (sd[1][j] - cols[wide::kTile + c]);
+      w_s[(wide::kRows + r) * wide::kPitch + c] = w;
+    }
+    wide::stage_pv<NC>(v_s, qb, n0, ch0, P, C);
+    wide::stage_pv<NC>(v_s + wide::kTile * NC, gb, n0, ch0, P, C);
+    __syncthreads();
+    wide::pv_accumulate<NC>(acc, w_s, v_s);
+    wide::pv_accumulate<NC>(acc, w_s + wide::kRows * wide::kPitch, v_s + wide::kTile * NC);
+  }
+  wide::store_rows<NC>(dkv + b * P * C, acc, 1.f, col0, ch0, P, C);
+}
+
+template <typename T, int NC>
+int launch_wide_nc(const void* q, const void* kv, const void* g, void* dq, void* dkv,
+                   float* lse, float* dd, int B, int P, int C, long long q_bstride,
+                   long long kv_bstride, long long g_bstride, float t,
+                   cudaStream_t stream) {
+  const size_t bytes = wide::layout<T>(NC, 2).total;
+  int err = dcnet::prepare_smem(bwd_wide_dq_kernel<T, NC>, bytes);
+  if (err == 0) err = dcnet::prepare_smem(bwd_wide_dkv_kernel<T, NC>, bytes);
+  if (err != 0) return err;
+  const dim3 grid((P + wide::kRows - 1) / wide::kRows, B, wide::chunks(C));
+  bwd_wide_dq_kernel<T, NC><<<grid, wide::kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kv), static_cast<const T*>(g),
+      static_cast<T*>(dq), lse, dd, P, C, q_bstride, kv_bstride, g_bstride, t);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  bwd_wide_dkv_kernel<T, NC><<<grid, wide::kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kv), static_cast<const T*>(g),
+      static_cast<T*>(dkv), lse, dd, P, C, q_bstride, kv_bstride, g_bstride, t);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* kv, const void* g, void* dq, void* dkv,
+                float* lse, float* dd, int B, int P, int C, long long q_bstride,
+                long long kv_bstride, long long g_bstride, float t, cudaStream_t s) {
+  return wide::with_chunk(C, [&](auto nc) {
+    return launch_wide_nc<T, decltype(nc)::value>(q, kv, g, dq, dkv, lse, dd, B, P, C,
+                                                  q_bstride, kv_bstride, g_bstride, t, s);
+  });
+}
+
 template <typename T>
 int launch(const void* q, const void* kv, const void* g, void* dq, void* dkv,
            float* lse, float* dd, int B, int P, int C, long long q_bstride,
            long long kv_bstride, long long g_bstride, float t,
            cudaStream_t stream) {
-  const int bytes = (int)smem_bytes<T>(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(bwd_dkv_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (!tf32_takes(C)) {
+    return launch_wide<T>(q, kv, g, dq, dkv, lse, dd, B, P, C, q_bstride, kv_bstride,
+                          g_bstride, t, stream);
   }
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear, so PyTorch's next check does not see it
-    return (int)err;
-  }
+  const size_t bytes = smem_bytes<T>(C);
+  int perr = dcnet::prepare_smem(bwd_dq_kernel<T>, bytes);
+  if (perr == 0) perr = dcnet::prepare_smem(bwd_dkv_kernel<T>, bytes);
+  if (perr != 0) return perr;
   const dim3 grid((P + kOwn - 1) / kOwn, B);
   bwd_dq_kernel<T><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv),
       static_cast<const T*>(g), static_cast<T*>(dq), lse, dd, P, C,
       q_bstride, kv_bstride, g_bstride, t);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bwd_dkv_kernel<T><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv),
@@ -454,6 +632,12 @@ int launch(const void* q, const void* kv, const void* g, void* dq, void* dkv,
 
 extern "C" {
 
+// The pass K3 takes for width C, by shape: 2 = the 3xTF32 passes (C % 16
+// == 0, C <= 512), 3 = the general pass (every other C >= 1); -1 for C < 1.
+int dcnet_coattn_bwd_block(int C) {
+  return C < 1 ? -1 : tf32_takes(C) ? 2 : 3;
+}
+
 // dtype: 0 = float32, 1 = bfloat16. q, kv, g: (B, P, C) with contiguous rows
 // and the given batch strides (elements); dq, dkv: contiguous (B, P, C) in
 // the same dtype; lse, dd: fp32 (B, P) scratch. Returns a cudaError_t code,
@@ -463,7 +647,7 @@ int dcnet_coattn_attend_bwd(const void* q, const void* kv, const void* g,
                             int P, int C, long long q_bstride,
                             long long kv_bstride, long long g_bstride, float t,
                             int dtype, void* stream) {
-  if (B <= 0 || P <= 0 || C <= 0 || C % 16 != 0 || C > kMaxC || B > 65535) {
+  if (B <= 0 || P <= 0 || C <= 0 || B > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -7,14 +7,17 @@ backward of one direction, of `_attend_bwd`; K4, the center frame against
 every reference straight off a (B, S, P, C) feature ring (float or int8),
 of `coattention_ring`. K1 and K2 are one CUDA kernel in `csrc/coattn.cu`
 (K2's grid spans the direction), K3 is `csrc/coattn_bwd.cu`, K4
-`csrc/coattn_ring.cu` (its float blocks are K1's device code:
-`csrc/attend_wgmma.cuh` for bf16, `csrc/attend_tf32.cuh` for fp32,
-`csrc/attend_tile.cuh` for other bf16 widths); K3 and the fp32 block share
-the 3xTF32 tensor-core primitives of `csrc/tf32x3.cuh`. Their source notes
-give the bounds and the designs. This module binds them with `ctypes`,
-holds their plain PyTorch versions, and dispatches on where the tensors
-lie: CPU tensors take the plain versions, CUDA tensors launch the kernels
-or raise.
+`csrc/coattn_ring.cu`. K1, K2 and K4 share their blocks, chosen by dtype
+and width (`csrc/blocks.cuh`, `attend_body`): `csrc/attend_wgmma.cuh` for
+bf16, `csrc/attend_tf32.cuh` for fp32, `csrc/attend_s8.cuh` for int8 rings,
+`csrc/attend_tile.cuh` for other bf16 widths and `csrc/attend_wide.cuh`
+for every other width; K3 and the fp32 block share the 3xTF32 tensor-core
+primitives of `csrc/tf32x3.cuh`, and K3 has a general pass of its own for
+other widths (`attend_bwd_body`). Every width C >= 1 the JAX package runs
+has a kernel. Their source notes give the bounds and the designs. This
+module binds them with `ctypes`, holds their plain PyTorch versions, and
+dispatches on where the tensors lie: CPU tensors take the plain versions,
+CUDA tensors launch the kernels or raise.
 
 The gradients are `torch.autograd.Function`s, as the JAX package's are
 `custom_vjp`s: `coattention_one` is K1 forward and K3 backward, and
@@ -34,29 +37,37 @@ from dcnet_tpu_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _RING_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-K3_MAX_C = 512  # csrc/coattn_bwd.cu holds its accumulators for C <= 512
-FP32_MAX_C = 512  # the fp32 block (csrc/attend_tf32.cuh) likewise
-# int8 ring logits are integer sums of at most 127^2 C; fp32 holds them
-# exactly (in any summation order) while 127^2 C < 2^24
-INT8_RING_MAX_C = 1040
 INT8_SCALE = 127.0
+# the WMMA block's shared memory (csrc/attend_tile.cuh) holds bf16 widths up
+# to 672 within a block's 232,448 bytes; 688 would need 235,776
+TILE_MAX_C = 672
 
 
 def attend_body(dtype: torch.dtype, c: int) -> str:
-    """Which block K1, K2 and K4 launch for inputs of `dtype` with C
-    channels, for records and tests: "wgmma" (csrc/attend_wgmma.cuh: bf16,
-    C % 128 == 0, C <= 512, every configuration the repository runs),
-    "tf32x3" (csrc/attend_tf32.cuh: fp32, C % 16 == 0, C <= 512, every fp32
-    width the port launches), "block" (csrc/attend_tile.cuh: WMMA for
-    other bf16 widths; K4's int8 block for int8 rings) or "none" (fp32
-    wider than 512: the wrappers refuse it). The C entry points make the
-    choice, by shape, never as a fallback (`dcnet_coattn_block`, which the
-    card-only tests hold this against)."""
-    if dtype == torch.bfloat16 and c % 128 == 0 and 128 <= c <= 512:
-        return "wgmma"
+    """Which block K1, K2 and K4 launch for inputs of `dtype` (int8: K4's
+    rings) with C channels, for records and tests: "wgmma"
+    (csrc/attend_wgmma.cuh: bf16, C % 128 == 0, C <= 512, every bf16
+    configuration the repository runs), "tf32x3" (csrc/attend_tf32.cuh:
+    fp32, C % 16 == 0, C <= 512), "wgmma_s8" (csrc/attend_s8.cuh: int8
+    rings, C % 128 == 0, C <= 512), "block" (csrc/attend_tile.cuh: WMMA for
+    other bf16 widths with C % 16 == 0, C <= 672) or "wide" (the general
+    block of csrc/attend_wide.cuh, every other width). The C entry points
+    make the choice (`csrc/blocks.cuh`, `dcnet_coattn_block`, which the
+    card-only tests hold this against), by shape, never as a fallback."""
+    whole = c % 128 == 0 and 128 <= c <= 512
+    if dtype == torch.bfloat16:
+        return "wgmma" if whole else (
+            "block" if c % 16 == 0 and 16 <= c <= TILE_MAX_C else "wide")
     if dtype == torch.float32:
-        return "tf32x3" if c % 16 == 0 and 16 <= c <= FP32_MAX_C else "none"
-    return "block"
+        return "tf32x3" if c % 16 == 0 and 16 <= c <= 512 else "wide"
+    return "wgmma_s8" if whole else "wide"
+
+
+def attend_bwd_body(c: int) -> str:
+    """Which pass K3 launches at width C: "tf32x3" (the 3xTF32 passes of
+    csrc/coattn_bwd.cu, C % 16 == 0, C <= 512) or "wide" (its general pass,
+    every other width)."""
+    return "tf32x3" if c % 16 == 0 and 16 <= c <= 512 else "wide"
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -126,8 +137,8 @@ def ring_attend_plain(ring: torch.Tensor, temperature: float, center_t: int,
     """The plain version of K4, the TPU kernel's body on full rows. ring:
     (B, S, P, C) -> (B, S-1, P, C), the center frame attended to each
     reference in temporal order. Float rings follow `attend_plain`'s dtype
-    rules. int8 rings: logits are the int8 products summed exactly (fp32 of
-    integers below 2^24) times T/127²; kv is dequantised as
+    rules. int8 rings: logits are the int8 products summed exactly and
+    rounded once to fp32, times T/127²; kv is dequantised as
     bf16(bf16(kv) * bf16(1/127)); the weights are rounded to bf16 and the PV
     product sums in fp32. Output in the ring's dtype (bf16 for int8)."""
     b, s, p, c = ring.shape
@@ -135,10 +146,9 @@ def ring_attend_plain(ring: torch.Tensor, temperature: float, center_t: int,
     cen = ring[:, cs:cs + 1]                          # (B, 1, P, C)
     refs = torch.stack([ring[:, r] for r in rs], dim=1)  # (B, R, P, C), no index tensor
     if ring.dtype == torch.int8:
-        if c > INT8_RING_MAX_C:
-            raise ValueError(f"int8 ring logits are exact in fp32 for C <= "
-                             f"{INT8_RING_MAX_C}, got C={c}")
-        logits = (torch.matmul(cen.float(), refs.float().transpose(2, 3))
+        # the integer products summed exactly (float64 holds 127² C), then
+        # rounded to fp32 once, as XLA's astype rounds the int32 sums
+        logits = (torch.matmul(cen.double(), refs.double().transpose(2, 3)).float()
                   * (temperature / (INT8_SCALE * INT8_SCALE)))
         scale = torch.tensor(1.0 / INT8_SCALE, dtype=torch.bfloat16)
         kvf = (refs.to(torch.bfloat16) * scale).float()
@@ -176,6 +186,8 @@ def _bwd_lib() -> ctypes.CDLL:
             + [ctypes.c_longlong] * 3
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.dcnet_coattn_attend_bwd.restype = ctypes.c_int
+        lib.dcnet_coattn_bwd_block.argtypes = [ctypes.c_int]
+        lib.dcnet_coattn_bwd_block.restype = ctypes.c_int
         lib.dcnet_coattn_bwd_error_string.argtypes = [ctypes.c_int]
         lib.dcnet_coattn_bwd_error_string.restype = ctypes.c_char_p
         lib._dcnet_bound = True
@@ -196,11 +208,12 @@ def _ring_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(**xs: torch.Tensor) -> None:
+def _check(body: str, **xs: torch.Tensor) -> None:
     """The kernels' input rules: one CUDA device, float32 or bfloat16 (all
-    the same), one (B, P, C) shape with C % 16 == 0 (float32: C <= 512),
-    rows contiguous and 16-byte aligned, any batch stride (a frame sliced
-    out of a clip)."""
+    the same), one (B, P, C) shape, C >= 1, B <= 65535, rows contiguous
+    (row stride C), any batch stride (a frame sliced out of a clip); rows
+    16-byte aligned for every block but the general one (`body` "wide"),
+    whose loads are one element wide."""
     (n0, x0), *_ = xs.items()
     if any(x.device.type != "cuda" or x.device != x0.device for x in xs.values()):
         raise ValueError(f"coattention kernel needs {', '.join(xs)} on one "
@@ -215,26 +228,23 @@ def _check(**xs: torch.Tensor) -> None:
                          f"(B, P, C) shape, got "
                          f"{', '.join(str(tuple(x.shape)) for x in xs.values())}")
     b, p, c = x0.shape
-    if c % 16 or b > 65535:
-        raise ValueError(f"coattention kernel needs C % 16 == 0 and "
-                         f"B <= 65535, got B={b}, C={c}")
-    if x0.dtype == torch.float32 and c > FP32_MAX_C:
-        raise ValueError(f"coattention kernel needs C <= {FP32_MAX_C} in "
-                         f"float32, got C={c}")
+    if c < 1 or b > 65535:
+        raise ValueError(f"coattention kernel needs C >= 1 and B <= 65535, "
+                         f"got B={b}, C={c}")
     for name, x in xs.items():
-        if not _rows_ok(x):
+        if not _rows_ok(x, aligned=body != "wide"):
             raise ValueError(f"coattention kernel needs {name} rows "
-                             f"contiguous and 16-byte aligned per batch row, "
-                             f"got strides {x.stride()}")
+                             f"contiguous (and, on the {body} block, 16-byte "
+                             f"aligned per batch row), got strides {x.stride()}")
 
 
-def _rows_ok(x: torch.Tensor) -> bool:
-    """The kernels' layout rule for a (B, P, C) tensor: rows contiguous and
-    16-byte aligned per batch row, any batch stride."""
+def _rows_ok(x: torch.Tensor, aligned: bool = True) -> bool:
+    """The kernels' layout rule for a (B, P, C) tensor: rows contiguous,
+    any batch stride; with `aligned`, 16-byte aligned per batch row."""
     p, c = x.shape[1], x.shape[2]
-    return (x.stride(2) == 1 and (p == 1 or x.stride(1) == c)
-            and x.data_ptr() % 16 == 0
-            and (x.stride(0) * x.element_size()) % 16 == 0)
+    contiguous = x.stride(2) == 1 and (p == 1 or x.stride(1) == c)
+    return contiguous and (not aligned or (
+        x.data_ptr() % 16 == 0 and (x.stride(0) * x.element_size()) % 16 == 0))
 
 
 def _on_cpu(*xs: torch.Tensor) -> bool:
@@ -245,7 +255,7 @@ def _launch_attend(q: torch.Tensor, kv: torch.Tensor, temperature: float,
                    pair: bool):
     """One launch of csrc/coattn.cu: K1 (out = attend(q, kv)) or, with
     `pair`, K2 (also out2 = attend(kv, q)). Counts nothing."""
-    _check(q=q, kv=kv)
+    _check(attend_body(q.dtype, q.shape[-1]), q=q, kv=kv)
     lib = _lib()
     b, p, c = q.shape
     out = torch.empty((b, p, c), dtype=q.dtype, device=q.device)
@@ -277,11 +287,8 @@ def attend_bwd(q: torch.Tensor, kv: torch.Tensor, temperature: float,
     launch the kernel (two grids, one count) or raise."""
     if _on_cpu(q, kv, g):
         return attend_bwd_plain(q, kv, temperature, g)
-    _check(q=q, kv=kv, g=g)
+    _check(attend_bwd_body(q.shape[-1]), q=q, kv=kv, g=g)
     b, p, c = q.shape
-    if c > K3_MAX_C:
-        raise ValueError(f"coattention backward kernel needs C <= {K3_MAX_C}, "
-                         f"got C={c}")
     lib = _bwd_lib()
     dq = torch.empty((b, p, c), dtype=q.dtype, device=q.device)
     dkv = torch.empty_like(dq)
@@ -383,31 +390,26 @@ def coattention_pair_fused(f1: torch.Tensor, f2: torch.Tensor,
 
 def _check_ring(ring: torch.Tensor) -> None:
     """K4's input rules: a CUDA (B, S, P, C) ring in float32, bfloat16 or
-    int8 with S >= 2, C % 16 == 0 (float32: C <= 512, int8: C <= 1040),
-    rows of C contiguous, 16-byte aligned frames (any batch and slot
-    stride)."""
+    int8 with S >= 2, C >= 1, rows of C contiguous; frames 16-byte aligned
+    (any batch and slot stride) for every block but the general one."""
     if ring.device.type != "cuda":
         raise ValueError(f"ring kernel needs the ring on a CUDA device, got "
                          f"{ring.device}")
     if ring.dtype not in _RING_DTYPE_CODE:
         raise TypeError(f"ring kernel takes float32, bfloat16 or int8 rings, "
                         f"got {ring.dtype}")
-    if ring.dim() != 4 or ring.shape[1] < 2:
-        raise ValueError(f"ring kernel needs a (B, S, P, C) ring with S >= 2, "
-                         f"got {tuple(ring.shape)}")
+    if ring.dim() != 4 or ring.shape[1] < 2 or ring.shape[3] < 1:
+        raise ValueError(f"ring kernel needs a (B, S, P, C) ring with S >= 2 "
+                         f"and C >= 1, got {tuple(ring.shape)}")
     b, s, p, c = ring.shape
-    if c % 16 or (ring.dtype == torch.int8 and c > INT8_RING_MAX_C) or (
-            ring.dtype == torch.float32 and c > FP32_MAX_C):
-        raise ValueError(f"ring kernel needs C % 16 == 0 (and C <= "
-                         f"{FP32_MAX_C} for float32, {INT8_RING_MAX_C} for "
-                         f"int8), got C={c}")
     size = ring.element_size()
+    aligned = (ring.data_ptr() % 16 == 0 and (ring.stride(0) * size) % 16 == 0
+               and (ring.stride(1) * size) % 16 == 0)
     if not (ring.stride(3) == 1 and (p == 1 or ring.stride(2) == c)
-            and ring.data_ptr() % 16 == 0
-            and (ring.stride(0) * size) % 16 == 0
-            and (ring.stride(1) * size) % 16 == 0):
-        raise ValueError(f"ring kernel needs rows contiguous and frames "
-                         f"16-byte aligned, got strides {ring.stride()}")
+            and (aligned or attend_body(ring.dtype, c) == "wide")):
+        raise ValueError(f"ring kernel needs rows contiguous (and, but on the "
+                         f"general block, frames 16-byte aligned), got strides "
+                         f"{ring.stride()}")
 
 
 def coattention_ring(ring: torch.Tensor, temperature: float, center_t: int,

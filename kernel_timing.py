@@ -2,12 +2,14 @@
 
 `chip_smoke.py` times its kernels with `device_ms` (one replay of a CUDA
 graph of the calls: device time) and `cuda_ms` (calls enqueued from the
-host: a call's time). Run as a script, this module times the fp32
-co-attention kernels K1 (B=8), K2 (B=16) and K4 (B=120 at P=1024, 8 at
-P=169) and the backward K3 in fp32 and bf16 (B=16), C=512, with the bf16
-K1 at P=1024 as a control, in two checkouts of the repository with both
-timers, in turns (other, this, this, other), each run in its own process
-importing its checkout's `dcnet_tpu_torch`:
+host: a call's time). Run as a script, this module times the
+co-attention kernels at C=512: K4 on int8 rings (B=120 at P=1024, 8 at
+P=169), the fp32 K1 (B=8), K2 (B=16) and K4 (B=120 at P=1024, 8 at P=169),
+the backward K3 in fp32 and bf16 (B=16), and as controls the bf16 K1
+(B=8) and K4 (B=120) at P=1024 and the location Gram K5 (B=8, P=1344,
+fp32), in two checkouts of the repository with both timers, in turns
+(other, this, this, other), each run in its own process importing its
+checkout's `dcnet_tpu_torch`:
 
     python3 kernel_timing.py OTHER_CHECKOUT      # needs one CUDA card
 
@@ -86,25 +88,32 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
 
 T, C, S, CENTER, SLOT = 10.0, 512, 5, 2, 2
 MAIN_P = (64, 256, 1024, 169)
-CASES = ([("K1", torch.float32, 8, p) for p in MAIN_P]
+CASES = ([("K4", torch.int8, 120 if p == 1024 else 8, p) for p in (1024, 169)]
+         + [("K1", torch.float32, 8, p) for p in MAIN_P]
          + [("K2", torch.float32, 16, p) for p in MAIN_P]
          + [("K4", torch.float32, 120 if p == 1024 else 8, p) for p in (1024, 169)]
          + [("K3", dt, 16, p) for dt in (torch.float32, torch.bfloat16) for p in MAIN_P]
-         + [("K1", torch.bfloat16, 8, 1024)])
+         + [("K1", torch.bfloat16, 8, 1024), ("K4", torch.bfloat16, 120, 1024),
+            ("K5", torch.float32, 8, 1344)])
 
 
-def time_cases() -> dict:
-    """Both timers on every case of CASES, with this process's
-    `dcnet_tpu_torch` (the checkout first on sys.path)."""
-    from dcnet_tpu_torch.kernels import coattn
+def time_cases(kernels=()) -> dict:
+    """Both timers on every case of CASES (of the named `kernels`, if any),
+    with this process's `dcnet_tpu_torch` (the checkout first on sys.path)."""
+    from dcnet_tpu_torch.kernels import coattn, locgram
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     out = []
     for name, dtype, b, p in CASES:
-        def rows(*shape):
-            x = torch.randn(*shape, generator=gen)
-            return torch.nn.functional.normalize(x, dim=-1).to(dev, dtype)
+        if kernels and name not in kernels:
+            continue
+
+        def rows(*shape, dtype=dtype):
+            x = torch.nn.functional.normalize(torch.randn(*shape, generator=gen), dim=-1)
+            if dtype == torch.int8:  # as the serving engine quantises its rings
+                return torch.clamp(torch.round(x * 127.0), -127, 127).to(dev, dtype)
+            return x.to(dev, dtype)
 
         if name == "K1":
             q, kv = rows(b, p, C), rows(b, p, C)
@@ -122,6 +131,12 @@ def time_cases() -> dict:
             g = torch.randn(b, p, C, generator=gen).to(dev, dtype)
             fn = functools.partial(coattn.attend_bwd, q, kv, T, g)
             iters = 5 if p >= 1024 else 20
+        elif name == "K5":
+            w = torch.randn(p, C, generator=gen).to(dev)
+            bias = (0.1 * torch.randn(C, generator=gen)).to(dev)
+            fn = functools.partial(locgram.fused_loc_gram, rows(b, p, 8),
+                                   rows(b, p, dtype=torch.float32), w, bias)
+            iters = 20
         else:
             ring = rows(b, S, p, C)
             fn = functools.partial(coattn.coattention_ring, ring, T, CENTER, SLOT)
@@ -137,21 +152,25 @@ def main(argv=None) -> int:
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--worker", action="store_true",
                     help="time the checkout `other` in this process")
+    ap.add_argument("--kernels", default="",
+                    help="comma-separated kernels to time (K1-K5; default all)")
     args = ap.parse_args(argv)
+    only = [k for k in args.kernels.split(",") if k]
     if not torch.cuda.is_available():
         print("kernel_timing: torch.cuda.is_available() is False; this "
               "script times kernels on a CUDA card", file=sys.stderr)
         return 2
     if args.worker:
         sys.path.insert(0, os.path.abspath(args.other))
-        print(json.dumps(time_cases()), flush=True)
+        print(json.dumps(time_cases(only)), flush=True)
         return 0
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
     for label, root in (("other", args.other), ("this", here), ("this", here),
                         ("other", args.other)):
         res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                              root], capture_output=True, text=True, timeout=900)
+                              "--kernels", ",".join(only), root],
+                             capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             print(res.stderr[-4000:], file=sys.stderr)
             return res.returncode

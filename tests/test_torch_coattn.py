@@ -67,6 +67,26 @@ def test_plain_bf16_dtype_rules_match_pallas():
     assert np.mean(got != want) <= 0.02
 
 
+@pytest.mark.parametrize("c", [24, 1056])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_at_any_width(c, dtype):
+    """Widths off every configured path: C = 24 (not a multiple of 16) and
+    C = 1056 (past every tensor-core block), which the card runs on the
+    general block. fp32 at the fp32 limits; bf16 within one bf16 step of the
+    output plus 1e-6 (both sides round the same fp32 values)."""
+    q, kv = _pair(2, 32, c, seed=c)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    kv /= np.linalg.norm(kv, axis=-1, keepdims=True)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(jax_one(jnp.asarray(q).astype(jd), jnp.asarray(kv).astype(jd),
+                              10.0, True).astype(jnp.float32))
+    got = coattn.coattention_one(torch.from_numpy(q).to(td),
+                                 torch.from_numpy(kv).to(td), 10.0)
+    assert got.dtype == td and got.shape == (2, 32, c)
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == "float32" else dict(rtol=2 ** -7, atol=1e-6)
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+
+
 def test_strided_batch_input():
     """A frame sliced out of a (B, n, P, C) clip (batch stride n*P*C) gives
     the same result as its contiguous copy."""
@@ -101,13 +121,25 @@ def test_non_cpu_tensors_never_take_the_plain_version():
 @pytest.mark.parametrize("dtype,c,body", [
     ("bfloat16", 512, "wgmma"), ("bfloat16", 256, "wgmma"), ("bfloat16", 128, "wgmma"),
     ("bfloat16", 384, "wgmma"), ("bfloat16", 80, "block"), ("bfloat16", 64, "block"),
-    ("bfloat16", 640, "block"), ("float32", 512, "tf32x3"), ("int8", 512, "block"),
+    ("bfloat16", 640, "block"), ("float32", 512, "tf32x3"), ("int8", 512, "wgmma_s8"),
     ("float32", 16, "tf32x3"), ("float32", 80, "tf32x3"), ("float32", 256, "tf32x3"),
-    ("float32", 528, "none")])
+    ("float32", 528, "wide"), ("int8", 128, "wgmma_s8"), ("int8", 384, "wgmma_s8"),
+    ("int8", 24, "wide"), ("int8", 64, "wide"), ("int8", 1056, "wide"),
+    ("float32", 24, "wide"), ("float32", 1024, "wide"), ("bfloat16", 24, "wide"),
+    ("bfloat16", 672, "block"), ("bfloat16", 688, "wide"), ("bfloat16", 1024, "wide")])
 def test_block_is_chosen_by_shape(dtype, c, body):
     """K1, K2 and K4 launch the wgmma block for bf16 with C % 128 == 0 and
     C <= 512 (every configuration the repository runs), the 3xTF32 block
-    for fp32 with C % 16 == 0 and C <= 512 (every fp32 width the port
-    launches), the WMMA / int8 blocks otherwise: a rule of dtype and width
-    alone."""
+    for fp32 with C % 16 == 0 and C <= 512, the wgmma s8 block for int8
+    rings with C % 128 == 0 and C <= 512, the WMMA block for other bf16
+    widths its shared memory holds (C % 16 == 0, C <= 672), and the general
+    block at every other width: a rule of dtype and width alone."""
     assert coattn.attend_body(getattr(torch, dtype), c) == body
+
+
+@pytest.mark.parametrize("c,body", [(16, "tf32x3"), (512, "tf32x3"), (24, "wide"),
+                                    (528, "wide"), (1024, "wide")])
+def test_backward_pass_is_chosen_by_width(c, body):
+    """K3 takes its 3xTF32 passes at C % 16 == 0, C <= 512, and its general
+    pass at every other width, in either dtype."""
+    assert coattn.attend_bwd_body(c) == body

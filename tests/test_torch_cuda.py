@@ -297,12 +297,13 @@ def test_bn_train_on_card_matches_its_cpu_branch(card, dtype, momentum):
 
 
 def test_kernel_refuses_what_it_cannot_take(card):
-    """It raises instead of falling back to the plain version."""
+    """It raises instead of falling back to the plain version: on dtype,
+    device and layout. Widths it takes all (C=24, 528 in K1, K2 and K3)."""
     q = torch.zeros(2, 64, 32, device=card)
     kernels.reset_launches()
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         coattn.coattention_one(q.half(), q.half(), 10.0)
-    with pytest.raises(ValueError, match="C % 16"):
+    with pytest.raises(ValueError, match="contiguous"):
         coattn.coattention_one(q[..., :24], q[..., :24], 10.0)
     with pytest.raises(ValueError, match="contiguous"):
         coattn.coattention_one(q.transpose(1, 2), q.transpose(1, 2), 10.0)
@@ -312,14 +313,209 @@ def test_kernel_refuses_what_it_cannot_take(card):
         coattn.coattention_fused(q, q.cpu(), 10.0)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         coattn.attend_bwd(q, q, 10.0, q.bfloat16())
-    with pytest.raises(ValueError, match="C <= 512"):
-        wide = torch.zeros(1, 16, 528, device=card)
-        coattn.attend_bwd(wide, wide, 10.0, wide)
-    with pytest.raises(ValueError, match="C <= 512"):
-        coattn.coattention_one(wide, wide, 10.0)
-    with pytest.raises(ValueError, match="C <= 512"):
-        coattn.coattention_ring(torch.zeros(1, 5, 16, 528, device=card), 10.0, 2)
     assert set(kernels.LAUNCHES.values()) == {0}
+    gen = torch.Generator().manual_seed(15)
+    for c in (24, 528):
+        x, y, g = _bwd_inputs(gen, 2, 64, c, torch.float32, card)
+        got = [coattn.coattention_one(x, y, 10.0)]
+        got += list(coattn.attend_bwd(x, y, 10.0, g))
+        with torch.no_grad():
+            got += list(coattn.coattention_fused(x, y, 10.0))
+        want = [coattn.attend_plain(x, y, 10.0),
+                *coattn.attend_bwd_plain(x, y, 10.0, g),
+                coattn.attend_plain(x, y, 10.0), coattn.attend_plain(y, x, 10.0)]
+        torch.cuda.synchronize()
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, **TOL[torch.float32])
+    assert kernels.LAUNCHES["coattn_attend"] == 2
+    assert kernels.LAUNCHES["coattn_attend_bwd"] == 2
+    assert kernels.LAUNCHES["coattn_pair"] == 2
+
+
+# Widths off every configured path: not a multiple of 16, just past the
+# tensor-core blocks' 512, twice 512 (the general block and K3's general
+# pass); int8 rings also past 1040, where 127² C passes 2^24.
+WIDTHS = (24, 528, 1024)
+
+
+def _close(got, want, dt, tol=None):
+    """got within dt's limits (`tol`, K1's by default) of want, and the
+    relative l2 limit."""
+    torch.testing.assert_close(got.float(), want.float(), **(tol or TOL)[dt])
+    assert _rel(got, want) <= REL_TOL[dt]
+
+
+def _rejected(want, wrong, dt):
+    """Zeros and `wrong` (the result at T=1) fail the relative limit."""
+    assert _rel(torch.zeros_like(want), want) > REL_TOL[dt]
+    assert _rel(wrong, want) > REL_TOL[dt]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", WIDTHS)
+def test_forward_kernels_take_every_width(card, dtype, c):
+    """K1 (contiguous and batch-strided frames), K2 and K4 (float rings,
+    rotated slots) at widths off every configured path, ragged and whole P,
+    against their plain versions at today's limits; the limits reject
+    zeros and T=1. bf16 at 528 runs the WMMA block, the rest the general
+    block."""
+    dt = getattr(torch, dtype)
+    assert coattn.attend_body(dt, c) == ("block" if (dtype, c) == ("bfloat16", 528)
+                                         else "wide")
+    gen = torch.Generator().manual_seed(16 + c)
+    for p in (64, 169):
+        clip = _rows(gen, 2, 5, p, c).to(card, dt)
+        q, kv = clip[:, 2], clip[:, 0]
+        want = coattn.attend_plain(q, kv, 10.0)
+        for got in (coattn.coattention_one(q, kv, 10.0),
+                    coattn.coattention_one(q.contiguous(), kv.contiguous(), 10.0)):
+            torch.cuda.synchronize()
+            _close(got, want, dt)
+        _rejected(want, coattn.attend_plain(q, kv, 1.0), dt)
+        with torch.no_grad():
+            o1, o2 = coattn.coattention_fused(q, kv, 10.0)
+        torch.cuda.synchronize()
+        _close(o1, want, dt)
+        _close(o2, coattn.attend_plain(kv, q, 10.0), dt)
+        for slot in (None, 1):
+            got = coattn.coattention_ring(clip, 10.0, 2, newest_slot=slot)
+            want = coattn.ring_attend_plain(clip, 10.0, 2, newest_slot=slot)
+            torch.cuda.synchronize()
+            assert got.dtype == dt and got.shape == (2, 4, p, c)
+            _close(got, want, dt)
+            _rejected(want, coattn.ring_attend_plain(clip, 1.0, 2, slot), dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", WIDTHS)
+def test_bwd_kernel_takes_every_width(card, dtype, c):
+    """K3's general pass (every width here) against its plain version at
+    K3's limits, ragged and whole P, on batch-strided frames; the limits
+    reject zeros and T=1."""
+    dt = getattr(torch, dtype)
+    assert coattn.attend_bwd_body(c) == "wide"
+    gen = torch.Generator().manual_seed(17 + c)
+    for p in (64, 169):
+        clip = _rows(gen, 2, 2, p, c).to(card, dt)
+        g = torch.randn(2, p, c, generator=gen).to(card, dt)
+        got = coattn.attend_bwd(clip[:, 0], clip[:, 1], 10.0, g)
+        want = coattn.attend_bwd_plain(clip[:, 0], clip[:, 1], 10.0, g)
+        wrong = coattn.attend_bwd_plain(clip[:, 0], clip[:, 1], 1.0, g)
+        torch.cuda.synchronize()
+        for a, w, bad in zip(got, want, wrong):
+            assert a.dtype == dt and a.shape == (2, p, c)
+            _close(a, w, dt, BWD_TOL)
+            _rejected(w, bad, dt)
+
+
+@pytest.mark.parametrize("c", WIDTHS + (1056,))
+def test_int8_ring_takes_every_width(card, c):
+    """K4 on int8 rings at widths off every configured path (the general
+    block), ragged and whole P, rotated slots, at the bf16 output's limits;
+    a slot-blind kernel, zeros and T=1 fail them."""
+    assert coattn.attend_body(torch.int8, c) == "wide"
+    gen = torch.Generator().manual_seed(18 + c)
+    for p in (64, 169):
+        ring = _int8_ring(gen, 2, 5, p, c).to(card)
+        for slot in (None, 0, 3):
+            got = coattn.coattention_ring(ring, 10.0, 2, newest_slot=slot)
+            want = coattn.ring_attend_plain(ring, 10.0, 2, newest_slot=slot)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.bfloat16 and got.shape == (2, 4, p, c)
+            _close(got, want, torch.bfloat16)
+            _rejected(want, coattn.ring_attend_plain(ring, 1.0, 2, slot), torch.bfloat16)
+            if slot == 0:
+                blind = coattn.ring_attend_plain(ring, 10.0, 2)
+                assert _rel(blind, want) > REL_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("c", [128, 256, 384, 512])
+def test_int8_wgmma_block_matches_plain_at_every_slot(card, c):
+    """The int8 block (wgmma s8 logits, bf16 wgmma PV on a dequantised copy,
+    TMA) at every slot of a 5-frame ring, P 64, 169 and (C = 512) 1024,
+    against its plain version at the bf16 output's limits; a slot-blind
+    kernel fails them. The C entry point picks this block (code 4)."""
+    assert coattn.attend_body(torch.int8, c) == "wgmma_s8"
+    assert coattn._lib().dcnet_coattn_block(2, c) == 4
+    gen = torch.Generator().manual_seed(19 + c)
+    for p in ((64, 169, 1024) if c == 512 else (64, 169)):
+        ring = _int8_ring(gen, 2, 5, p, c).to(card)
+        for slot in (None, 0, 1, 2, 3, 4):
+            got = coattn.coattention_ring(ring, 10.0, 2, newest_slot=slot)
+            want = coattn.ring_attend_plain(ring, 10.0, 2, newest_slot=slot)
+            torch.cuda.synchronize()
+            _close(got, want, torch.bfloat16)
+            if slot not in (None, 4):
+                blind = coattn.ring_attend_plain(ring, 10.0, 2)
+                assert _rel(blind, want) > REL_TOL[torch.bfloat16]
+        _rejected(want, coattn.ring_attend_plain(ring, 1.0, 2, 4), torch.bfloat16)
+
+
+def _deterministic_negatives(generator, pos_idx, num_items, neg_n):
+    """The neg_n items after the positive, cyclically: the same negatives
+    on the card and on the CPU."""
+    steps = torch.arange(1, neg_n + 1, device=pos_idx.device)
+    return (pos_idx.long()[..., None] + steps) % num_items
+
+
+def _plain_launch(q, kv, t, pair):
+    """The kernels' plain versions in `coattn._launch_attend`'s place."""
+    if pair:
+        return coattn.attend_plain(q, kv, t), coattn.attend_plain(kv, q, t)
+    return coattn.attend_plain(q, kv, t)
+
+
+@pytest.mark.parametrize("c", [24, 1024])
+def test_train_step_at_any_width(card, c, monkeypatch):
+    """A k=2 train step of a mini model at emb_size 24 and 1024 (K2 on the
+    general block, K3's general pass), from the same weights and clips
+    (dropout 0, the same negatives). bf16: K2 once and K3 twice per scale,
+    and the losses within rtol 1e-3 of the same card step with the
+    kernels' plain versions in their place. fp32: the losses within rtol
+    1e-3 of the same step on the CPU. (A bf16 step on the card and on the
+    CPU differ by 0.4-2% in these losses at every width, 64 and 512
+    included, whose blocks this width work leaves alone: bf16 rounding in
+    the convolutions and BatchNorms, not the co-attention.)"""
+    from dcnet_tpu_torch.config import DCNetConfig
+    from dcnet_tpu_torch.models.darknet import mini_backbone_defs
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.ops import correspondence
+    from dcnet_tpu_torch.train.state import create_train_state
+    from dcnet_tpu_torch.train.step import train_step
+    from dcnet_tpu_torch.weights import seeded_init_
+
+    monkeypatch.setattr(correspondence, "_sample_negatives_excluding",
+                        _deterministic_negatives)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    gen = torch.Generator().manual_seed(20)
+    batch = {"images": torch.rand(4, 64, 64, 3, generator=gen),
+             "word_ids": torch.randint(1, 50, (4, 20), generator=gen),
+             "bbox": torch.tensor([[4.0, 6.0, 40.0, 50.0]] * 4)}
+
+    def losses(dtype, dev, plain=False):
+        cfg = DCNetConfig(image_size=64, corpus_size=50, emb_size=c, lstm_hidden=c,
+                          word_embedding_size=64, n_frames_train=2, compute_dtype=dtype,
+                          jemb_dropout=0.0, input_dropout=0.0)
+        model = seeded_init_(DCNet(cfg, backbone_defs=mini_backbone_defs(), device=dev),
+                             seed=0)
+        with monkeypatch.context() as m:
+            if plain:
+                m.setattr(coattn, "_launch_attend", _plain_launch)
+                m.setattr(coattn, "attend_bwd", coattn.attend_bwd_plain)
+            kernels.reset_launches()
+            metrics = train_step(create_train_state(model, cfg), batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        return {k: float(v) for k, v in metrics.items() if k.startswith("loss")}, launches
+
+    for dtype, other in (("bfloat16", (card, True)), ("float32", (torch.device("cpu"), False))):
+        got, launches = losses(dtype, card)
+        assert launches == {"coattn_attend": 0, "coattn_pair": 3, "coattn_attend_bwd": 6,
+                            "coattn_ring": 0, "loc_gram": 0}
+        want, _ = losses(dtype, *other)
+        for k, w in want.items():
+            assert abs(got[k] - w) <= 1e-3 * abs(w), (dtype, k, got[k], w)
 
 
 def _int8_ring(gen, *shape):
@@ -378,7 +574,7 @@ def test_ring_kernel_refuses_what_it_cannot_take(card):
         coattn.coattention_ring(ring.cpu(), 10.0, 2)
     with pytest.raises(TypeError, match="int8"):
         coattn.coattention_ring(ring.half(), 10.0, 2)
-    with pytest.raises(ValueError, match="C % 16"):
+    with pytest.raises(ValueError, match="contiguous"):
         coattn.coattention_ring(ring[..., :24], 10.0, 2)
     with pytest.raises(ValueError, match="must lie in"):
         coattn.coattention_ring(ring, 10.0, 2, newest_slot=5)
@@ -386,6 +582,16 @@ def test_ring_kernel_refuses_what_it_cannot_take(card):
     coattn.coattention_ring_fused(ring.reshape(2, 5, 8, 8, 32))
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["coattn_ring"] == 1
+    # a width it once refused (C % 16 != 0), in each ring dtype
+    gen = torch.Generator().manual_seed(21)
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        narrow = (_int8_ring(gen, 2, 5, 64, 24) if dt == torch.int8
+                  else _rows(gen, 2, 5, 64, 24).to(dt)).to(card)
+        got = coattn.coattention_ring(narrow, 10.0, 2, newest_slot=1)
+        want = coattn.ring_attend_plain(narrow, 10.0, 2, newest_slot=1)
+        torch.cuda.synchronize()
+        _close(got, want, want.dtype)
+    assert kernels.LAUNCHES["coattn_ring"] == 4
 
 
 @pytest.mark.parametrize("multiref", [False, True])
@@ -415,7 +621,7 @@ def test_serving_tick_launches(card, multiref):
     assert all(torch.isfinite(x).all() for x in (fused, raw, score))
 
 
-_BLOCK_CODE = {"block": 0, "wgmma": 1, "tf32x3": 2, "none": -1}
+_BLOCK_CODE = {"block": 0, "wgmma": 1, "tf32x3": 2, "wide": 3, "wgmma_s8": 4}
 
 
 @pytest.mark.parametrize("dtype,c,body", [
@@ -432,7 +638,8 @@ def test_block_chosen_by_shape(card, dtype, c, body):
     dt = getattr(torch, dtype)
     assert coattn.attend_body(dt, c) == body
     assert coattn._lib().dcnet_coattn_block(coattn._DTYPE_CODE[dt], c) == _BLOCK_CODE[body]
-    assert coattn._lib().dcnet_coattn_block(0, 528) == -1  # fp32 past 512: none
+    assert coattn._lib().dcnet_coattn_block(0, 528) == 3  # fp32 past 512: general
+    assert coattn._bwd_lib().dcnet_coattn_bwd_block(528) == 3
     gen = torch.Generator().manual_seed(10)
     for p in (64, 169, 256):
         q = _rows(gen, 3, p, c).to(card, dt)

@@ -97,10 +97,34 @@ def test_ring_is_k1_per_reference():
             torch.testing.assert_close(out[:, r], want, rtol=0, atol=0)
 
 
-def test_int8_plain_refuses_inexact_widths():
-    ring = torch.zeros(1, 3, 4, 1056, dtype=torch.int8)
-    with pytest.raises(ValueError, match="C <= 1040"):
-        coattn.ring_attend_plain(ring, T, 1)
+@pytest.mark.parametrize("dtype,c", [("float32", 24), ("bfloat16", 24), ("int8", 24),
+                                     ("float32", 1056), ("bfloat16", 1056)])
+def test_ring_matches_jax_at_any_width(dtype, c):
+    """Widths off every configured path (the card's general block): C = 24
+    and C = 1056, each ring dtype, at a rotated slot."""
+    if dtype == "int8":
+        ring = _normalized_int8(11, 1, 3, 4, 4, c)
+        got = _port(ring, 1, 0)
+        want = _jax(ring, 1, 0)
+    else:
+        ring = _ring(11, 1, 3, 4, 4, c, scale=1.0 / np.sqrt(c))
+        jd = None if dtype == "float32" else jnp.bfloat16
+        got = _port(ring, 1, 0, None if jd is None else torch.bfloat16)
+        want = _jax(ring, 1, 0, jd)
+    assert got.shape == (1, 2, 4, 4, c)
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+
+
+def test_int8_ring_matches_jax_past_1040():
+    """int8 rings at C = 1056, past the width where every int32 logit
+    (|logit| <= 127² C) is an integer fp32 holds exactly: the plain version
+    sums the integer products exactly and rounds once to fp32, as the TPU
+    body's int32 sums and astype do, and refuses no width."""
+    ring = _normalized_int8(12, 1, 3, 4, 4, 1056)
+    got = _port(ring, 1, None)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), _jax(ring, 1, None), **BF16_TOL)
 
 
 @pytest.mark.parametrize("slot,center", [(5, 2), (-1, 2), (0, 5)])

@@ -110,6 +110,30 @@ def test_bwd_plain_bf16_matches_pallas_kernel():
         assert np.mean(x != w) <= 0.02
 
 
+@pytest.mark.parametrize("c", [24, 1056])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pair_and_bwd_plain_match_pallas_at_any_width(c, dtype):
+    """K2 forward and K3 at widths off every configured path (the card's
+    general block and general backward pass): C = 24 and C = 1056, against
+    the Pallas kernels in interpret mode. fp32 at the fp32 limits; bf16
+    within one bf16 step of the output plus 1e-6 (each side rounds fp32
+    values once)."""
+    f1, f2, g1, _ = _arrays(c, 2, 32, c, scale=1.0 / np.sqrt(c))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    j = [jnp.asarray(x).astype(jd) for x in (f1, f2, g1)]
+    t = [torch.from_numpy(x).to(td) for x in (f1, f2, g1)]
+    tol = TOL if dtype == "float32" else dict(rtol=2 ** -7, atol=1e-6)
+    want = list(jax_fused(j[0], j[1], 10.0, True))
+    want += list(jax_attend_bwd(j[0], j[1], 10.0, j[2], interpret=True))
+    with torch.no_grad():
+        got = list(coattn.coattention_fused(t[0], t[1], 10.0))
+    got += list(coattn.attend_bwd(t[0], t[1], 10.0, t[2]))
+    for x, w in zip(got, want):
+        assert x.dtype == td and x.shape == (2, 32, c)
+        np.testing.assert_allclose(x.float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)), **tol)
+
+
 def test_bf16_backward_is_not_the_autograd_of_the_rounded_forward():
     """The backward uses the unrounded fp32 softmax: in bf16 it differs from
     autograd through `attend_plain` (whose weights are rounded to bf16),
