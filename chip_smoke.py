@@ -22,14 +22,18 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      timed beside the plain version, one PyTorch library call and the
      card's bound: K1 (co-attention; fp32 on the 3xTF32 block at C=512 and
      80, bf16 at C=512 and 256 on the wgmma block, at C=80 on the WMMA
-     block), K2 (the pair), K3 (the backward, 3xTF32),
+     block), K2 (the pair), K3 (the backward, 3xTF32; fp32 against the
+     plain version in float64, at limits that add the summands' size;
+     zeros, T=1 and a K3 that skips a streamed tile are shown to fail them),
      K4 (the ring: fp32, bf16 and int8 rings at every slot, int8 on the
      wgmma s8 block; zeros, T=1 and a kernel that ignores the slot are shown
-     to fail the limits) and K5 (the fused location Gram, fp32 and bf16 ce,
-     at P=1344 and the ragged 3549, timed beside the rank-8 route; zeros, a
-     dropped obj and a dropped bias are shown to fail the limits). K5 runs
-     on no path. Then K1-K4 at widths no configuration runs and the JAX
-     package takes (C = 24, 528, 1024; int8 rings also 1056; P = 169 and
+     to fail the limits) and K5 (the fused location Gram by the rank-E
+     algorithm, fp32 ce against the plain version in float64 and bf16 ce
+     against the plain version, at P=1344 and the ragged 3549, E 1, 8 and
+     17, C 6, 512 and 1028, each call repeated for equal bytes, timed beside
+     the rank-8 route; zeros, a dropped obj and a dropped bias are shown to
+     fail the limits). K5 runs on no path. Then K1-K4 at widths no
+     configuration runs and the JAX package takes (C = 24, 528, 1024; int8 rings also 1056; P = 169 and
      1024) in every dtype: the general block, the WMMA block for bf16 at
      528, K3's general pass.
   4. slice   -- the full-width 256 px model (YOLOv3 backbone from a seeded
@@ -49,9 +53,9 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      (losses) and against a float64 step on the CPU (BN running
      statistics; each module's gradient, within twice the CPU fp32 step's
      distance, a limit shown to reject a K3 that drops T from dq); K2 and
-     K3 are held against their
-     plain versions on the model's own inputs and upstream gradients in
-     each compute dtype; train_step is timed in float32 and bfloat16.
+     K3 are held on the model's own inputs and upstream gradients in each
+     compute dtype (fp32 K3 against float64, with the plain fp32 version's
+     share of the limits); train_step is timed in float32 and bfloat16.
   6. serving -- the same full-width model, cast for serving, in bf16 serves
      120 streams through GroundingEngine: with coattn_multiref (float rings,
      a query swap on a third of the streams mid-run; launches per tick K4 3,
@@ -119,15 +123,30 @@ RAGGED_P = 169                    # the /32 scale at 416 px
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
        torch.bfloat16: dict(rtol=1e-2, atol=2e-4)}
 REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # ||got-want||/||want||
-# K3 against its plain version. Both compute in fp32 from the same inputs
-# and round once to the input dtype; in bf16 they may differ by one bf16
-# step of the output (2^-7 relative) where the fp32 summation order tips the
-# rounding, plus fp32 noise near zero. K2's backward adds two K3 outputs in
-# the input dtype: each term and the sum may each be one step off, so its
-# bf16 limit adds 2^-7 (|term 1| + |term 2|). Zeros and T=1 fail these
-# limits (checked per case).
-BWD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
-           torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+# K3 in bf16 against its plain version. Both compute in fp32 from the same
+# inputs and round once to bf16; they may differ by one bf16 step of the
+# output (2^-7 relative) where the fp32 summation order tips the rounding,
+# plus fp32 noise near zero. K2's backward adds two K3 outputs in the input
+# dtype: each term and the sum may each be one step off, so its bf16 limit
+# adds 2^-7 (|term 1| + |term 2|). Zeros and T=1 fail these limits
+# (checked per case).
+BWD_TOL = {torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
+# K3 in fp32 against its plain version in float64 (`k3_exact`). An fp32 sum
+# errs in proportion to the size of its summands, not of the sum: where
+# large terms cancel, two correct fp32 results differ by more than
+# rtol |want| (one of five full runs failed a limit of 1e-5 + 1e-4 |want|
+# against the fp32 plain version). So the limit adds `terms` times the
+# summands' size, computed in float64 from the same inputs (the fp32
+# counterpart of the bf16 checks' 2^-7 |term|):
+#     dq:  T (|dS| |kv|)          dkv:  T (|dS|ᵀ |q|) + |W|ᵀ |g|
+# beside a relative-l2 limit. The plain fp32 version on the card's inputs
+# sits at or under a tenth of every limit (its share is recorded and held,
+# `K3_PLAIN_SHARE`); zeros, T=1 and a K3 that leaves one streamed tile of 16
+# rows out of its sums fail them (checked per case).
+K3_F64_TOL = dict(rtol=1e-4, atol=1e-5, terms=1e-4, rel=1e-4)
+K3_PLAIN_SHARE = 0.1
+K3_DROPPED_ROWS = 16
+K3_TOL = {torch.float32: K3_F64_TOL, **BWD_TOL}  # for the records
 _BUILD_SUBDIR = os.path.join(build.BUILD_DIR, "smoke")
 
 
@@ -163,6 +182,80 @@ def rejects(want, wrong_t, dtype, tol=None, terms=()) -> bool:
     """The limits reject zeros and the result at T=1."""
     return not (agreement(torch.zeros_like(want), want, dtype, tol, terms)[0]
                 or agreement(wrong_t, want, dtype, tol, terms)[0])
+
+
+def _k3_float64(q, kv, t: float, g):
+    """float64 copies of q, kv and g, with W = softmax(T q kvᵀ) and
+    dS = W (dW - rowsum(dW W)), dW = g kvᵀ, of K3's sums."""
+    q64, kv64, g64 = (x.double() for x in (q, kv, g))
+    w = torch.softmax(torch.matmul(q64, kv64.transpose(1, 2)) * t, dim=-1)
+    dw = torch.matmul(g64, kv64.transpose(1, 2))
+    return q64, kv64, g64, w, w * (dw - torch.sum(dw * w, dim=-1, keepdim=True))
+
+
+def k3_exact(q, kv, t: float, g):
+    """fp32 K3's reference: ((dq, dkv) of `attend_bwd_plain` on float64
+    copies of q, kv and g, (the sizes of their summands)), all float64:
+    dq's T (|dS| |kv|) and dkv's T (|dS|ᵀ |q|) + |W|ᵀ |g|."""
+    q64, kv64, g64, w, ds = _k3_float64(q, kv, t, g)
+    want = k_coattn.attend_bwd_plain(q64, kv64, t, g64)
+    terms = (t * torch.matmul(ds.abs(), kv64.abs()),
+             t * torch.matmul(ds.abs().transpose(1, 2), q64.abs())
+             + torch.matmul(w.transpose(1, 2), g64.abs()))
+    return want, terms
+
+
+def k3_dropped_tile(q, kv, t: float, g, rows: int = K3_DROPPED_ROWS):
+    """A wrong K3 for the limits to reject, in float64: one streamed tile
+    of `rows` rows (from the middle of P) left out of each of K3's sums,
+    the kv rows out of dq = T dS kv and the q and g rows out of
+    dkv = T dSᵀ q + Wᵀ g, as a kernel whose loop skipped a tile would."""
+    q64, kv64, g64, w, ds = _k3_float64(q, kv, t, g)
+    p = q.shape[1]
+    keep = torch.ones(p, dtype=torch.float64, device=q.device)
+    start = (p // 2) // rows * rows
+    keep[start:start + rows] = 0.0
+    dq = t * torch.matmul(ds * keep, kv64)
+    dkv = (t * torch.matmul((ds * keep[:, None]).transpose(1, 2), q64)
+           + torch.matmul((w * keep[:, None]).transpose(1, 2), g64))
+    return dq, dkv
+
+
+def k3_agreement(got, want, terms, tol=K3_F64_TOL):
+    """(ok, max |got - want|, relative l2, share) of an fp32 K3 output
+    against its float64 reference at `tol`: |got - want| <= atol +
+    rtol |want| + terms * (summands' size) everywhere and relative l2 <=
+    rel. `share` is the largest fraction of a limit used, over the
+    elementwise limit and the relative-l2 one."""
+    d = (got.double() - want).abs()
+    limit = tol["atol"] + tol["rtol"] * want.abs() + tol["terms"] * terms
+    rel = (d.norm() / want.norm()).item()
+    share = max((d / limit).max().item(), rel / tol["rel"])
+    return share <= 1.0, d.max().item(), rel, share
+
+
+def k3_check(got, q, kv, t: float, g) -> dict:
+    """fp32 K3's (dq, dkv) `got` against its float64 reference on the same
+    inputs: the kernel's agreement, the plain fp32 version's share of the
+    limits (at most K3_PLAIN_SHARE: limits fp32 arithmetic meets), and
+    whether the limits reject zeros, T=1 and the dropped tile, each output
+    on its own."""
+    want, terms = k3_exact(q, kv, t, g)
+    plain = k_coattn.attend_bwd_plain(q, kv, t, g)
+    wrong = {"zeros": [torch.zeros_like(w) for w in want],
+             "T1": k_coattn.attend_bwd_plain(*(x.double() for x in (q, kv)), 1.0,
+                                             g.double()),
+             "dropped_tile": k3_dropped_tile(q, kv, t, g)}
+    res = [k3_agreement(a, w, m) for a, w, m in zip(got, want, terms)]
+    plain_share = max(k3_agreement(a, w, m)[3] for a, w, m in zip(plain, want, terms))
+    rej = {k: all(not k3_agreement(x, w, m)[0] for x, w, m in zip(v, want, terms))
+           for k, v in wrong.items()}
+    return {"ok": all(r[0] for r in res) and plain_share <= K3_PLAIN_SHARE
+            and all(rej.values()),
+            "max_abs_err": max(r[1] for r in res), "rel_err": max(r[2] for r in res),
+            "share_of_limit": max(r[3] for r in res),
+            "plain_fp32_share_of_limit": plain_share, "limits_reject": rej,
+            "want": want, "terms": terms}
 
 
 def bound(ops: float, nbytes: float, peak_flops: float):
@@ -317,12 +410,12 @@ def _rows(gen, *shape):
 
 def _record(name, dtype, b, p, c, err, rel, serr, tol, rej, ok, k_ms, p_ms,
             l_ms, library_call, backends, bound_ms, bound_by, timer, body=None,
-            call_ms=None) -> dict:
+            call_ms=None, extra=None) -> dict:
     rec = {"phase": "kernel", "name": name,
            "dtype": str(dtype).replace("torch.", ""),
            "B": b, "P": p, "C": c, "T": TEMPERATURE, "body": body,
            "max_abs_err": err, "rel_err": rel, "max_abs_err_strided": serr,
-           "tol": {**tol[dtype], "rel": REL_TOL[dtype]},
+           "tol": {"rel": REL_TOL[dtype], **tol[dtype]}, **(extra or {}),
            "limits_reject_zeros_and_T1": rej, "ok": ok,
            "timer": timer, "ms": k_ms, "call_ms": call_ms, "plain_ms": p_ms,
            "library_ms": l_ms, "library_call": library_call,
@@ -455,11 +548,29 @@ def kernel_cases_k2(dev, gen, shapes=None) -> list:
     return cases
 
 
+def _k3_held(q, kv, g, dtype):
+    """K3 on (q, kv, g) at its limits: fp32 against float64 (`k3_check`),
+    bf16 against the plain version (BWD_TOL). Returns ([(ok, max err, rel)
+    per output], the limits reject the wrong answers, the fp32 record)."""
+    got = k_coattn.attend_bwd(q, kv, TEMPERATURE, g)
+    if dtype == torch.float32:
+        rec = k3_check(got, q, kv, TEMPERATURE, g)
+        del rec["want"], rec["terms"]
+        return [(rec["ok"], rec["max_abs_err"], rec["rel_err"])], all(
+            rec["limits_reject"].values()), rec
+    want = k_coattn.attend_bwd_plain(q, kv, TEMPERATURE, g)
+    wrong = k_coattn.attend_bwd_plain(q, kv, 1.0, g)
+    torch.cuda.synchronize()
+    return ([agreement(a, w, dtype, BWD_TOL) for a, w in zip(got, want)],
+            all(rejects(w, x, dtype, BWD_TOL) for w, x in zip(want, wrong)), None)
+
+
 def kernel_cases_k3(dev, gen, shapes=None) -> list:
-    """K3 (dq, dkv) against its plain version at the train step's batch
-    (B=16), on l2-normalized q, kv and a unit-normal upstream gradient, and
-    on batch-strided inputs (frames and gradients sliced out of clips);
-    `shapes` ((dtype, B, P, C), ...) in their place."""
+    """K3 (dq, dkv) at the train step's batch (B=16), on l2-normalized q,
+    kv and a unit-normal upstream gradient, and on batch-strided inputs
+    (frames and gradients sliced out of clips): fp32 against float64 at
+    K3_F64_TOL, bf16 against its plain version; `shapes` ((dtype, B, P,
+    C), ...) in their place."""
     if shapes is None:
         shapes = [(dtype, TRAIN_B, p, KERNEL_C) for dtype in (torch.float32, torch.bfloat16)
                   for p in MAIN_P + (RAGGED_P,)]
@@ -468,19 +579,11 @@ def kernel_cases_k3(dev, gen, shapes=None) -> list:
         q = _rows(gen, b, p, c).to(dev, dtype)
         kv = _rows(gen, b, p, c).to(dev, dtype)
         g = torch.randn(b, p, c, generator=gen).to(dev, dtype)
-        got = k_coattn.attend_bwd(q, kv, TEMPERATURE, g)
-        want = k_coattn.attend_bwd_plain(q, kv, TEMPERATURE, g)
-        wrong = k_coattn.attend_bwd_plain(q, kv, 1.0, g)
-        torch.cuda.synchronize()
-        checks = [agreement(a, w, dtype, BWD_TOL) for a, w in zip(got, want)]
-        rej = all(rejects(w, x, dtype, BWD_TOL) for w, x in zip(want, wrong))
+        checks, rej, f64 = _k3_held(q, kv, g, dtype)
         clip = _rows(gen, b, 2, p, c).to(dev, dtype)
         gclip = torch.randn(b, 2, p, c, generator=gen).to(dev, dtype)
-        sgot = k_coattn.attend_bwd(clip[:, 0], clip[:, 1], TEMPERATURE, gclip[:, 1])
-        swant = k_coattn.attend_bwd_plain(clip[:, 0], clip[:, 1], TEMPERATURE,
-                                          gclip[:, 1])
-        torch.cuda.synchronize()
-        schecks = [agreement(a, w, dtype, BWD_TOL) for a, w in zip(sgot, swant)]
+        schecks, srej, _ = _k3_held(clip[:, 0], clip[:, 1], gclip[:, 1], dtype)
+        rej = rej and srej
         ok = all(x[0] for x in checks + schecks) and rej
         iters = _iters(k_coattn.attend_bwd_body(c), p, 5, 20)
         k_ms = device_ms(lambda: k_coattn.attend_bwd(q, kv, TEMPERATURE, g), iters)
@@ -503,12 +606,15 @@ def kernel_cases_k3(dev, gen, shapes=None) -> list:
         cases.append(_record(
             "coattn_attend_bwd", dtype, b, p, c,
             max(x[1] for x in checks), max(x[2] for x in checks),
-            max(x[1] for x in schecks), BWD_TOL, rej, ok, k_ms, p_ms, l_ms,
+            max(x[1] for x in schecks), K3_TOL, rej, ok, k_ms, p_ms, l_ms,
             "torch.autograd.grad through F.scaled_dot_product_attention("
             "q, kv, kv, scale=T), (B, 1, P, C): dq and dkv = dk + dv "
             "(device time of forward and backward less the forward's)",
             backends, *attend_bwd_bound(b, p, c, dtype), timer="device",
-            body=k_coattn.attend_bwd_body(c), call_ms=call_ms))
+            body=k_coattn.attend_bwd_body(c), call_ms=call_ms, extra=f64 and {
+                "vs": "float64", "share_of_limit": f64["share_of_limit"],
+                "plain_fp32_share_of_limit": f64["plain_fp32_share_of_limit"],
+                "limits_reject": f64["limits_reject"]}))
     return cases
 
 
@@ -622,15 +728,23 @@ def kernel_cases_k4(dev, gen, shapes=None) -> list:
     return cases
 
 
-# K5: P = all_positions at 256 px (the model's) and at 416 px (ragged)
+# K5: P = all_positions at 256 px (the model's) and at 416 px (ragged);
+# (B, P, E, C), timed: the eval request, the JAX bench's offline batch, the
+# ragged P; then E and C that no configuration runs and the JAX function
+# takes: one coordinate, one past a chunk of 16, a width under one 16-byte
+# vector and one past 1024 (C % 8 != 0 in bf16)
 LOC_P, LOC_P_RAGGED, LOC_E = 1344, 3549, 8
-LOC_CASES = ((8, LOC_P), (64, LOC_P), (2, LOC_P_RAGGED))
-# K5 against its plain version: both sum fp32 products of the same values in
-# other orders (relative ~1e-6 on outputs of order 0.1-1); a bf16 output is
-# one rounding of those sums, so an element may be one bf16 step apart
-# (2^-7 relative). Zeros, a kernel that drops obj and one that drops the
-# bias (about a third of the outputs' size here) fail these limits (checked
-# per case).
+LOC_CASES = ((8, LOC_P, LOC_E, 512), (64, LOC_P, LOC_E, 512),
+             (2, LOC_P_RAGGED, LOC_E, 512), (8, LOC_P, 1, 512), (8, LOC_P, 17, 512),
+             (8, LOC_P, LOC_E, 6), (8, LOC_P, LOC_E, 1028))
+# K5 against its plain version (the TPU kernel's Gram algorithm): fp32
+# against the plain version on float64 copies of the inputs, where the
+# rank-E kernel's fp32 sums sit ~1e-6 (relative) from the exact outputs of
+# order 0.1-1; bf16 against the plain version on the same inputs (fp32
+# sums, one rounding): an element may be one bf16 step apart (2^-7
+# relative) where the summation order tips the rounding. Zeros, a kernel
+# that drops obj and one that drops the bias (about a third of the outputs'
+# size here) fail these limits (checked per case).
 K5_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
           torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
 # K5 against the trunk's rank-8 route in fp32: one function, two summation
@@ -675,41 +789,57 @@ def _random_dense_bn_relu(gen, p: int, c: int, dtype, dev):
     return mod
 
 
+def loc_gram_reference(ce, obj, w, b):
+    """What K5 is held against: `loc_gram_plain` on float64 copies of the
+    inputs for fp32 ce (float64 out), on the inputs as they are for bf16
+    ce (fp32 sums, bf16 out)."""
+    if ce.dtype == torch.float32:
+        ce, obj, w, b = (x.double() for x in (ce, obj, w, b))
+    return k_locgram.loc_gram_plain(ce, obj, w, b)
+
+
+def loc_gram_held(got, ce, obj, w, b) -> tuple:
+    """(ok, max |got - want|, relative l2, {wrong answer: rejected}) of K5's
+    output against `loc_gram_reference` at K5_TOL; the wrong answers are
+    zeros, the function without obj and without the bias."""
+    want = loc_gram_reference(ce, obj, w, b)
+    ok, err, rel = agreement(got, want, ce.dtype, K5_TOL)
+    wrong = {"zeros": torch.zeros_like(want),
+             "obj_dropped": loc_gram_reference(ce, torch.ones_like(obj), w, b),
+             "bias_dropped": loc_gram_reference(ce, obj, w, torch.zeros_like(b))}
+    rej = {k: not agreement(v, want, ce.dtype, K5_TOL)[0] for k, v in wrong.items()}
+    return ok, err, rel, rej
+
+
 def kernel_cases_k5(dev, gen) -> list:
-    """K5 against its plain version, ce in fp32 and bf16, at LOC_CASES with
-    C=512, E=8: w and b are `fold_dense_bn` of a random DenseBNReLU, ce unit
-    rows, obj an l2-normalised map. Timed beside the plain version and the
-    trunk's rank-8 route (`DenseBNReLU(None, gram_factors=...)`, eval mode,
-    in ce's dtype: a different algorithm, about P/(2E) = 84x fewer
-    operations, and no single PyTorch call, so no library time); in fp32
-    the route's output is held at its limits too. Returns the records and
-    the launches of the checked calls, counted without CUDA graphs (a
-    captured call would count once and run at every replay), so the timing
-    calls do not count."""
+    """K5 against its reference (`loc_gram_held`), ce in fp32 and bf16, at
+    LOC_CASES: w and b are `fold_dense_bn` of a random DenseBNReLU, ce unit
+    rows, obj an l2-normalised map; a second call must give the same bytes.
+    Timed beside the plain version and the trunk's rank-8 route
+    (`DenseBNReLU(None, gram_factors=...)`, eval mode, in ce's dtype: the
+    same factorisation by PyTorch calls, so no single library call and no
+    library time); in fp32 the route's output is held at its limits too.
+    Returns the records and the launches of the checked calls, counted
+    without CUDA graphs (a captured call would count once and run at every
+    replay), so the timing calls do not count."""
     cases, launches = [], 0
-    c = KERNEL_C
     for dtype in (torch.float32, torch.bfloat16):
-        for b, p in LOC_CASES:
+        for b, p, e, c in LOC_CASES:
             mod = _random_dense_bn_relu(gen, p, c, dtype, dev)
             w, bias = k_locgram.fold_dense_bn(mod)
-            ce = _rows(gen, b, p, LOC_E).to(dev, dtype)
+            ce = _rows(gen, b, p, e).to(dev, dtype)
             obj = _rows(gen, b, p).to(dev)
             kernels.reset_launches()
             got = k_locgram.fused_loc_gram(ce, obj, w, bias)
+            again = k_locgram.fused_loc_gram(ce, obj, w, bias)
             launches += kernels.LAUNCHES["loc_gram"]
-            want = k_locgram.loc_gram_plain(ce, obj, w, bias)
             with torch.no_grad():
                 route = mod(None, gram_factors=(ce, obj)).reshape(b, p, c)
             torch.cuda.synchronize()
-            ok, err, rel = agreement(got, want, dtype, K5_TOL)
-            wrong = {"zeros": torch.zeros_like(want),
-                     "obj_dropped": k_locgram.loc_gram_plain(
-                         ce, torch.ones_like(obj), w, bias),
-                     "bias_dropped": k_locgram.loc_gram_plain(
-                         ce, obj, w, torch.zeros_like(bias))}
-            rej = {k: not agreement(v, want, dtype, K5_TOL)[0] for k, v in wrong.items()}
+            same_bytes = torch.equal(got.view(torch.int16), again.view(torch.int16))
+            ok, err, rel, rej = loc_gram_held(got, ce, obj, w, bias)
             r_ok, r_err, r_rel = route_agreement(got, route)
-            iters = 5 if b * p > 20000 else 20
+            iters = 5 if b * p * c > 10_000_000 else 20
             k_ms = device_ms(lambda: k_locgram.fused_loc_gram(ce, obj, w, bias), iters)
             call_ms = cuda_ms(lambda: k_locgram.fused_loc_gram(ce, obj, w, bias), iters)
             p_ms = device_ms(lambda: k_locgram.loc_gram_plain(ce, obj, w, bias), iters)
@@ -721,9 +851,10 @@ def kernel_cases_k5(dev, gen) -> list:
             r_ms = device_ms(run_route, iters)
             rec = {"phase": "kernel", "name": "loc_gram",
                    "dtype": str(dtype).replace("torch.", ""), "B": b, "P": p,
-                   "C": c, "E": LOC_E, "max_abs_err": err, "rel_err": rel,
+                   "C": c, "E": e, "max_abs_err": err, "rel_err": rel,
+                   "vs": "float64" if dtype == torch.float32 else "plain",
                    "tol": {**K5_TOL[dtype], "rel": REL_TOL[dtype]},
-                   "limits_reject": rej,
+                   "limits_reject": rej, "bitwise_repeat": same_bytes,
                    "rank8_route": {"max_abs_err": r_err, "rel_err": r_rel,
                                    "held": dtype == torch.float32,
                                    "tol": {"rtol": ROUTE_RTOL,
@@ -733,14 +864,15 @@ def kernel_cases_k5(dev, gen) -> list:
                    "plain_ms": p_ms, "library_ms": None,
                    "library_call": "none: no single PyTorch call computes it",
                    "rank8_route_ms": r_ms, "library_backends": []}
-            rec["bound_ms"], rec["bound_by"] = loc_gram_bound(b, p, LOC_E, c, dtype)
-            rec["ok"] = ok and all(rej.values()) and (r_ok or dtype != torch.float32)
+            rec["bound_ms"], rec["bound_by"] = loc_gram_bound(b, p, e, c, dtype)
+            rec["ok"] = (ok and all(rej.values()) and same_bytes
+                         and (r_ok or dtype != torch.float32))
             emit(rec)
             if not rec["ok"]:
-                raise AssertionError(f"loc_gram disagrees with its plain version "
+                raise AssertionError(f"loc_gram disagrees with its reference "
                                      f"or the rank-8 route: {rec}")
             cases.append(rec)
-            del mod, ce, obj, got, want, route, wrong
+            del mod, ce, obj, got, again, route
     return cases, launches
 
 
@@ -945,7 +1077,8 @@ def check_k5_on_model(model, images, ids, n_frame) -> dict:
     `loc_text_embedding(None, gram_factors=...)` receives, with
     `fold_dense_bn(loc_text_embedding)`, against that route's own output
     (the rank-8 factorisation, eval mode) at the route limits, and against
-    K5's plain version at its limits. Resets the launch counts."""
+    K5's plain version on float64 copies at its limits. Resets the launch
+    counts."""
     lte = model.loc_text_embedding
     seen = {}
     forward = lte.forward
@@ -966,11 +1099,10 @@ def check_k5_on_model(model, images, ids, n_frame) -> dict:
     w, b = k_locgram.fold_dense_bn(lte)
     got = k_locgram.fused_loc_gram(ce, obj, w, b)
     route = seen["out"].reshape(got.shape)
-    plain = k_locgram.loc_gram_plain(ce, obj, w, b)
     torch.cuda.synchronize()
     kernels.reset_launches()
     r_ok, r_err, r_rel = route_agreement(got, route)
-    ok, err, rel = agreement(got, plain, ce.dtype, K5_TOL)
+    ok, err, rel, _ = loc_gram_held(got, ce, obj, w, b)
     rec = {"shape": {"B": ce.shape[0], "P": ce.shape[1], "E": ce.shape[2],
                      "C": w.shape[1], "dtype": str(ce.dtype).replace("torch.", "")},
            "vs_rank8_route": {"max_abs_err": r_err, "rel_err": r_rel,
@@ -978,8 +1110,8 @@ def check_k5_on_model(model, images, ids, n_frame) -> dict:
                               "tol": {"rtol": ROUTE_RTOL,
                                       "atol_of_max": ROUTE_ATOL_REL,
                                       "rel": ROUTE_REL}},
-           "vs_plain": {"max_abs_err": err, "rel_err": rel,
-                        "tol": {**K5_TOL[ce.dtype], "rel": REL_TOL[ce.dtype]}},
+           "vs_plain_float64": {"max_abs_err": err, "rel_err": rel,
+                                "tol": {**K5_TOL[ce.dtype], "rel": REL_TOL[ce.dtype]}},
            "relu_zero_share": (route == 0).float().mean().item()}
     if not (r_ok and ok):
         raise AssertionError(f"K5 disagrees on the model's own inputs: {rec}")
@@ -1188,7 +1320,10 @@ def check_k2_k3_on_model(state, batch) -> dict:
     version on the features the model hands it, and K3 (and K2's backward)
     on those features and the upstream gradients the real loss sends back
     (captured with tensor hooks, rescaled to unit RMS: K3 is linear in g),
-    at each scale, in the model's compute dtype."""
+    at each scale, in the model's compute dtype: fp32 K3 and K2's backward
+    against float64 (`k3_check`, K3_F64_TOL, with the plain fp32 version's
+    share of the limits and the wrong answers they reject), bf16 against
+    the plain version (BWD_TOL)."""
     import dcnet_tpu_torch.models.dcnet as dcnet_mod
     from dcnet_tpu_torch.train.step import train_step
 
@@ -1210,6 +1345,8 @@ def check_k2_k3_on_model(state, batch) -> dict:
     finally:
         dcnet_mod.coattention_pair_fused = pair
     worst = {"k2": [0.0, 0.0], "k3": [0.0, 0.0], "k2_bwd": [0.0, 0.0]}
+    f64 = {"share_of_limit": 0.0, "plain_fp32_share_of_limit": 0.0,
+           "limits_reject": {}}
     ok = len(captured) == 3
 
     def note(key, res):
@@ -1228,6 +1365,21 @@ def check_k2_k3_on_model(state, batch) -> dict:
         note("k2", agreement(o2, k_coattn.attend_plain(f2, f1, t), dtype))
         got1 = k_coattn.attend_bwd(f1, f2, t, k_coattn._rows_contiguous(g1))
         got2 = k_coattn.attend_bwd(f2, f1, t, k_coattn._rows_contiguous(g2))
+        if dtype == torch.float32:
+            held = [k3_check(got1, f1, f2, t, g1), k3_check(got2, f2, f1, t, g2)]
+            for r in held:
+                note("k3", (r["ok"], r["max_abs_err"], r["rel_err"]))
+                f64["share_of_limit"] = max(f64["share_of_limit"], r["share_of_limit"])
+                f64["plain_fp32_share_of_limit"] = max(
+                    f64["plain_fp32_share_of_limit"], r["plain_fp32_share_of_limit"])
+                for k, v in r["limits_reject"].items():
+                    f64["limits_reject"][k] = f64["limits_reject"].get(k, True) and v
+            (want1, terms1), (want2, terms2) = ((r["want"], r["terms"]) for r in held)
+            for i, j in ((0, 1), (1, 0)):  # df1 = dq1 + dkv2, df2 = dkv1 + dq2
+                note("k2_bwd", k3_agreement(got1[i] + got2[j], want1[i] + want2[j],
+                                            terms1[i] + terms2[j])[:3])
+            del held, want1, want2, terms1, terms2
+            continue
         want1 = k_coattn.attend_bwd_plain(f1, f2, t, g1)
         want2 = k_coattn.attend_bwd_plain(f2, f1, t, g2)
         for a, x in zip(got1 + got2, want1 + want2):
@@ -1238,13 +1390,17 @@ def check_k2_k3_on_model(state, batch) -> dict:
                                  BWD_TOL, terms=(want1[1], want2[0])))
     torch.cuda.synchronize()
     kernels.reset_launches()  # comparison launches do not count
+    res = {"scales": len(captured),
+           **{f"{k}_max_abs_err": v[0] for k, v in worst.items()},
+           **{f"{k}_rel_err": v[1] for k, v in worst.items()},
+           "g": "captured upstream gradient, rescaled to unit RMS"}
+    if dtype == torch.float32:
+        res["k3_vs_float64"] = {**f64, "tol": K3_F64_TOL,
+                                "plain_share_at_most": K3_PLAIN_SHARE}
     if not ok:
-        raise AssertionError(f"K2/K3 disagree with their plain versions on the "
-                             f"model's inputs ({dtype}): {worst}")
-    return {"scales": len(captured),
-            **{f"{k}_max_abs_err": v[0] for k, v in worst.items()},
-            **{f"{k}_rel_err": v[1] for k, v in worst.items()},
-            "g": "captured upstream gradient, rescaled to unit RMS"}
+        raise AssertionError(f"K2/K3 disagree with their references on the "
+                             f"model's inputs ({dtype}): {res}")
+    return res
 
 
 def phase_train(dev, profile_dir=None) -> dict:
@@ -1659,7 +1815,8 @@ def _headline(name: str, case: dict) -> bool:
     for K1's eval request, B=16 for the train step's K2 and K3, B=120
     streams for K4); K5 at B=8, P=1344, fp32 ce (the fp32 eval trunk's)."""
     if name == "loc_gram":
-        return case["B"] == 8 and case["P"] == LOC_P and case["dtype"] == "float32"
+        return (case["B"] == 8 and case["P"] == LOC_P and case["E"] == LOC_E
+                and case["C"] == KERNEL_C and case["dtype"] == "float32")
     return (case["P"] == max(MAIN_P) and case["C"] == KERNEL_C
             and case["dtype"] == "bfloat16")
 
@@ -1686,7 +1843,7 @@ def kernels_line(cases: list, launches: dict) -> dict:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "bodies": sorted({c["body"] for c in mine if c.get("body")}),
-            "cases": [{k: c.get(k) for k in ("dtype", "B", "P", "C", "body",
+            "cases": [{k: c.get(k) for k in ("dtype", "B", "P", "C", "E", "body",
                                              "max_abs_err", "rel_err", "ms",
                                              "call_ms", "plain_ms", "library_ms",
                                              "rank8_route_ms", "bound_ms",

@@ -201,22 +201,52 @@ __device__ __forceinline__ void scores(const T* a1, const T* a2, const T* b1,
 
 // acc (16 x own channels) += A B for the 16 streamed rows of a tile: A from
 // the accumulator tiles a[2] (16 x 16), B the streamed rows at `b` (the
-// warp's first channel). kSmallB: B has a small part (fp32 inputs).
+// warp's first channel). B has a small part for fp32 inputs.
+//
+// The tensor cores add each product to the fp32 accumulator they are given
+// and truncate the sum. Chained over the whole stream (three passes, two
+// 8-steps, P / 16 tiles: 384 products at P = 1024) that drifts: fp32 K3 sat
+// 1.44e-5 (relative) from float64, the plain fp32 version 6.4e-7. So for
+// fp32 inputs the tile's products are summed from zero and added to acc by
+// an fp32 add (round to nearest): the truncation then acts on one tile's
+// sum. bf16 inputs keep the chained sum; the extra adds cost bf16 K3 15%
+// (3.13 -> 3.61 ms at B = 16, P = 1024, C = 512 on the H100), and the bf16
+// output's rounding is far above the drift.
 template <typename T>
 __device__ __forceinline__ void accumulate(float (&acc)[kMaxOwn][4],
                                            const float (&a)[2][4], const T* b,
                                            int ld, int count) {
   const int lane = threadIdx.x % 32;
+  if constexpr (kExact<T>) {
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    FragA fa;
-    acc_to_a(fa, a[k]);
+    for (int k = 0; k < 2; ++k) {
+      FragA fa;
+      acc_to_a(fa, a[k]);
+#pragma unroll
+      for (int i = 0; i < kMaxOwn; ++i) {
+        if (i < count) {
+          FragB fb;
+          load_b_n(fb, b + 8 * k * ld + 8 * i, ld, lane);
+          mma3<true, false>(acc[i], fa, fb);
+        }
+      }
+    }
+  } else {
+    FragA fa[2];
+    acc_to_a(fa[0], a[0]);
+    acc_to_a(fa[1], a[1]);
 #pragma unroll
     for (int i = 0; i < kMaxOwn; ++i) {
       if (i < count) {
-        FragB fb;
-        load_b_n(fb, b + 8 * k * ld + 8 * i, ld, lane);
-        mma3<true, !kExact<T>>(acc[i], fa, fb);
+        float tile[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          FragB fb;
+          load_b_n(fb, b + 8 * k * ld + 8 * i, ld, lane);
+          mma3<true, true>(tile, fa[k], fb);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] += tile[j];
       }
     }
   }

@@ -2,12 +2,17 @@
 
 The port of `dcnet_tpu/ops/pallas/locgram.py::fused_loc_gram` (and its
 `fold_dense_bn`). The CUDA kernel is `csrc/locgram.cu`, whose source note
-gives the bound and the design. The JAX package never calls the TPU kernel:
-`DCNet._trunk` computes the same function through the exact rank-8
-factorisation (`DenseBNReLU(None, gram_factors=...)`), and so does the
-port, so no path of the port runs K5 either; `chip_smoke.py` launches it in
-its kernel phase and holds it against that route on the model's own inputs.
-CPU tensors take `loc_gram_plain`; CUDA tensors launch the kernel or raise.
+gives the bound and the design: the exact rank-E factorisation
+`ReLU(ce (ceᵀ (obj ∘ W)) + b)` in two launches (the (E, C) factor, then
+the expansion), for any B <= 65535 and P, E, C >= 1. `loc_gram_plain`
+keeps the TPU kernel's own algorithm (the Gram, then its product with W),
+so it checks the kernel by another route. The JAX package never calls the
+TPU kernel: `DCNet._trunk` computes the same function through the exact
+rank-8 factorisation (`DenseBNReLU(None, gram_factors=...)`), and so does
+the port, so no path of the port runs K5 either; `chip_smoke.py` launches
+it in its kernel phase and holds it against that route on the model's own
+inputs. CPU tensors take `loc_gram_plain`; CUDA tensors launch the kernel
+or raise.
 """
 
 from __future__ import annotations
@@ -22,7 +27,6 @@ from dcnet_tpu_torch import kernels
 from dcnet_tpu_torch.kernels import build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_E = 16  # csrc/locgram.cu keeps E <= 16 coordinates of a row in shared memory
 
 
 def loc_gram_plain(ce: torch.Tensor, obj: torch.Tensor, w: torch.Tensor,
@@ -52,7 +56,7 @@ def fold_dense_bn(module: nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
 def _lib() -> ctypes.CDLL:
     lib = build.load("locgram")
     if not getattr(lib, "_dcnet_bound", False):
-        lib.dcnet_loc_gram.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        lib.dcnet_loc_gram.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                                        + [ctypes.c_void_p])
         lib.dcnet_loc_gram.restype = ctypes.c_int
         lib.dcnet_loc_gram_error_string.argtypes = [ctypes.c_int]
@@ -64,8 +68,9 @@ def _lib() -> ctypes.CDLL:
 def _check(ce: torch.Tensor, obj: torch.Tensor, w: torch.Tensor,
            b: torch.Tensor) -> None:
     """The kernel's input rules: one CUDA device; ce float32 or bfloat16,
-    obj, w and b float32; ce (B, P, E) with E <= 16, obj (B, P), w (P, C)
-    with C % 4 == 0, b (C,); all contiguous."""
+    obj, w and b float32; ce (B, P, E), obj (B, P), w (P, C), b (C,), with
+    B <= 65535 and B * E <= 64 * 65535 (grid dimensions) and P, E, C >= 1;
+    all contiguous."""
     xs = {"ce": ce, "obj": obj, "w": w, "b": b}
     if any(x.device.type != "cuda" or x.device != ce.device for x in xs.values()):
         raise ValueError(f"loc-gram kernel needs ce, obj, w and b on one CUDA "
@@ -84,9 +89,10 @@ def _check(ce: torch.Tensor, obj: torch.Tensor, w: torch.Tensor,
     if tuple(obj.shape) != (bsz, p) or w.shape[0] != p or tuple(b.shape) != (c,):
         raise ValueError(f"loc-gram kernel shapes disagree: ce {tuple(ce.shape)}, "
                          f"obj {tuple(obj.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)}")
-    if e > MAX_E or c % 4 or bsz > 65535:
-        raise ValueError(f"loc-gram kernel needs E <= {MAX_E}, C % 4 == 0 and "
-                         f"B <= 65535, got B={bsz}, E={e}, C={c}")
+    if bsz > 65535 or bsz * e > 64 * 65535 or min(bsz, p, e, c) < 1:
+        raise ValueError(f"loc-gram kernel needs 1 <= B <= 65535, B * E <= "
+                         f"64 * 65535 and P, E, C >= 1, got B={bsz}, P={p}, "
+                         f"E={e}, C={c}")
     for name, x in xs.items():
         if not x.is_contiguous():
             raise ValueError(f"loc-gram kernel needs {name} contiguous, got "
@@ -97,8 +103,9 @@ def fused_loc_gram(ce: torch.Tensor, obj: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor) -> torch.Tensor:
     """`ReLU((ce ceᵀ ∘ obj[:, None, :]) w + b)`: ce (B, P, E), obj (B, P),
     w (P, C) BN-folded, b (C,) -> (B, P, C) in ce's dtype. CPU tensors take
-    `loc_gram_plain`; CUDA tensors launch the kernel (on the current
-    stream) or raise."""
+    `loc_gram_plain`; CUDA tensors launch the kernel (its two passes on the
+    current stream, with an fp32 (B, E, C) workspace for the factor) or
+    raise."""
     if all(x.device.type == "cpu" for x in (ce, obj, w, b)):
         return loc_gram_plain(ce, obj, w, b)
     _check(ce, obj, w, b)
@@ -106,11 +113,12 @@ def fused_loc_gram(ce: torch.Tensor, obj: torch.Tensor, w: torch.Tensor,
     c = w.shape[1]
     lib = _lib()
     out = torch.empty((bsz, p, c), dtype=ce.dtype, device=ce.device)
+    factor = torch.empty((bsz, e, c), dtype=torch.float32, device=ce.device)
     with torch.cuda.device(ce.device):
         stream = torch.cuda.current_stream(ce.device).cuda_stream
         err = lib.dcnet_loc_gram(ce.data_ptr(), obj.data_ptr(), w.data_ptr(),
-                                 b.data_ptr(), out.data_ptr(), bsz, p, e, c,
-                                 _DTYPE_CODE[ce.dtype], stream)
+                                 b.data_ptr(), out.data_ptr(), factor.data_ptr(),
+                                 bsz, p, e, c, _DTYPE_CODE[ce.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"loc-gram kernel launch failed (B={bsz}, P={p}, E={e}, C={c}, "

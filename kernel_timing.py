@@ -5,11 +5,13 @@ graph of the calls: device time) and `cuda_ms` (calls enqueued from the
 host: a call's time). Run as a script, this module times the
 co-attention kernels at C=512: K4 on int8 rings (B=120 at P=1024, 8 at
 P=169), the fp32 K1 (B=8), K2 (B=16) and K4 (B=120 at P=1024, 8 at P=169),
-the backward K3 in fp32 and bf16 (B=16), and as controls the bf16 K1
-(B=8) and K4 (B=120) at P=1024 and the location Gram K5 (B=8, P=1344,
-fp32), in two checkouts of the repository with both timers, in turns
-(other, this, this, other), each run in its own process importing its
-checkout's `dcnet_tpu_torch`:
+the backward K3 in fp32 and bf16 (B=16), the bf16 K1 (B=8) and K4
+(B=120) at P=1024, and the location Gram K5 (fp32 ce, E=8: B=8 and 64 at
+P=1344, B=2 at P=3549; beside its plain version and the trunk's rank-8
+route, device time, and each of its kernels' device time by
+torch.profiler), in two checkouts of the repository with both timers,
+in turns (other, this, this, other), each run in its own process importing
+its checkout's `dcnet_tpu_torch`:
 
     python3 kernel_timing.py OTHER_CHECKOUT      # needs one CUDA card
 
@@ -86,6 +88,22 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def kernel_ms(fn, iters: int = 10) -> dict:
+    """Mean device milliseconds per call of each kernel fn() launches, by
+    name, from torch.profiler over `iters` calls after one warm-up call
+    (for a kernel of several launches, the share of each)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            .split("(")[0][:60]: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
 T, C, S, CENTER, SLOT = 10.0, 512, 5, 2, 2
 MAIN_P = (64, 256, 1024, 169)
 CASES = ([("K4", torch.int8, 120 if p == 1024 else 8, p) for p in (1024, 169)]
@@ -93,14 +111,15 @@ CASES = ([("K4", torch.int8, 120 if p == 1024 else 8, p) for p in (1024, 169)]
          + [("K2", torch.float32, 16, p) for p in MAIN_P]
          + [("K4", torch.float32, 120 if p == 1024 else 8, p) for p in (1024, 169)]
          + [("K3", dt, 16, p) for dt in (torch.float32, torch.bfloat16) for p in MAIN_P]
-         + [("K1", torch.bfloat16, 8, 1024), ("K4", torch.bfloat16, 120, 1024),
-            ("K5", torch.float32, 8, 1344)])
+         + [("K1", torch.bfloat16, 8, 1024), ("K4", torch.bfloat16, 120, 1024)]
+         + [("K5", torch.float32, b, p) for b, p in ((8, 1344), (64, 1344), (2, 3549))])
 
 
 def time_cases(kernels=()) -> dict:
     """Both timers on every case of CASES (of the named `kernels`, if any),
     with this process's `dcnet_tpu_torch` (the checkout first on sys.path)."""
     from dcnet_tpu_torch.kernels import coattn, locgram
+    from dcnet_tpu_torch.models.heads import DenseBNReLU
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
@@ -108,6 +127,7 @@ def time_cases(kernels=()) -> dict:
     for name, dtype, b, p in CASES:
         if kernels and name not in kernels:
             continue
+        extra = {}
 
         def rows(*shape, dtype=dtype):
             x = torch.nn.functional.normalize(torch.randn(*shape, generator=gen), dim=-1)
@@ -131,19 +151,30 @@ def time_cases(kernels=()) -> dict:
             g = torch.randn(b, p, C, generator=gen).to(dev, dtype)
             fn = functools.partial(coattn.attend_bwd, q, kv, T, g)
             iters = 5 if p >= 1024 else 20
-        elif name == "K5":
-            w = torch.randn(p, C, generator=gen).to(dev)
-            bias = (0.1 * torch.randn(C, generator=gen)).to(dev)
-            fn = functools.partial(locgram.fused_loc_gram, rows(b, p, 8),
-                                   rows(b, p, dtype=torch.float32), w, bias)
-            iters = 20
+        elif name == "K5":  # a location-branch DenseBNReLU, folded
+            mod = DenseBNReLU(p, C, dtype=dtype, device=dev).eval()
+            with torch.no_grad():
+                mod[0].weight.copy_(torch.randn(C, p, generator=gen))
+                mod[0].bias.copy_(0.1 * torch.randn(C, generator=gen))
+            w, bias = locgram.fold_dense_bn(mod)
+            ce, obj = rows(b, p, 8), rows(b, p, dtype=torch.float32)
+            fn = functools.partial(locgram.fused_loc_gram, ce, obj, w, bias)
+            iters = 5 if b * p > 20000 else 20
+
+            def route(mod=mod, ce=ce, obj=obj):
+                with torch.no_grad():
+                    mod(None, gram_factors=(ce, obj))
+            extra = {"plain_device_ms": device_ms(functools.partial(
+                locgram.loc_gram_plain, ce, obj, w, bias), iters),
+                     "route_device_ms": device_ms(route, iters),
+                     "kernels_ms": kernel_ms(fn)}
         else:
             ring = rows(b, S, p, C)
             fn = functools.partial(coattn.coattention_ring, ring, T, CENTER, SLOT)
             iters = 3 if b * p > 100000 else 30
         out.append({"kernel": name, "dtype": str(dtype).replace("torch.", ""),
                     "B": b, "P": p, "C": C, "device_ms": device_ms(fn, iters),
-                    "call_ms": cuda_ms(fn, iters)})
+                    "call_ms": cuda_ms(fn, iters), **extra})
     return {"source": coattn.__file__, "cases": out}
 
 
@@ -182,7 +213,9 @@ def main(argv=None) -> int:
         row = {k: case[k] for k in ("kernel", "dtype", "B", "P", "C")}
         for label in ("other", "this"):
             mine = [r["cases"][i] for r in runs if r["checkout"] == label]
-            row[label] = {t: [c[t] for c in mine] for t in ("device_ms", "call_ms")}
+            row[label] = {t: [c[t] for c in mine] for t in (
+                "device_ms", "call_ms", "plain_device_ms", "route_device_ms",
+                "kernels_ms") if t in case}
         summary.append(row)
     print(json.dumps({"summary": summary, "timers": TIMERS}), flush=True)
     return 0

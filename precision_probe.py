@@ -4,8 +4,9 @@
         K3 (the co-attention backward) in fp32 at the train step's shapes
         (B=16, C=512, P=169 and 1024) against the plain version in float64,
         beside the plain version in fp32; then `chip_smoke.py`'s check of
-        K2 and K3 on the full-width model's own inputs, repeated on
-        `--runs` batches, each run's worst errors or its failure.
+        K2 and K3 on the full-width model's own inputs (fp32 K3 against
+        float64, `k3_check`), repeated on `--runs` batches, each run's
+        worst errors, shares of the limits, or its failure.
     python3 precision_probe.py train-losses [--widths 24,64,512,1024]
         One k=2 train step of a mini model per width and dtype (bf16,
         fp32): the card with the kernels, the card with the kernels' plain

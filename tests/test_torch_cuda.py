@@ -19,6 +19,7 @@ import copy
 import pytest
 import torch
 
+import chip_smoke
 from dcnet_tpu_torch import kernels
 from dcnet_tpu_torch.kernels import coattn, locgram
 
@@ -658,21 +659,37 @@ def test_block_chosen_by_shape(card, dtype, c, body):
             assert _rel(a, w) <= REL_TOL[dt]
 
 
-# K5 against its plain version: both sum fp32 products of the same values in
-# other orders (relative ~1e-6 on outputs of order 0.1-1); bf16 outputs are
-# one rounding of those sums, so an element may be one bf16 step apart
-# (2^-7 relative). A dropped bias (0.1 of the outputs) or obj, or zeros,
-# fail these limits.
+# K5 against `chip_smoke.loc_gram_reference`: fp32 ce against the plain
+# version (the TPU kernel's Gram algorithm) on float64 copies, where the
+# rank-E kernel's fp32 sums sit ~1e-6 (relative) from the exact outputs;
+# bf16 ce against the plain version on the same inputs (fp32 sums, one
+# rounding), where an element may be one bf16 step apart (2^-7 relative). A
+# dropped bias (0.1 of the outputs) or obj, or zeros, fail these limits.
 K5_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
           torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
 
 
-def _loc_gram_inputs(gen, b, p, c, dt, card):
-    ce = _rows(gen, b, p, 8).to(card, dt)
+def _loc_gram_inputs(gen, b, p, c, dt, card, e=8):
+    ce = _rows(gen, b, p, e).to(card, dt)
     obj = _rows(gen, b, p).to(card)
     w = torch.randn(p, c, generator=gen).to(card)
     bias = (0.1 * torch.randn(c, generator=gen)).to(card)
     return ce, obj, w, bias
+
+
+def _assert_loc_gram_held(got, ce, obj, w, bias):
+    dt = ce.dtype
+    want = chip_smoke.loc_gram_reference(ce, obj, w, bias)
+    assert got.dtype == dt and got.shape == want.shape
+    torch.testing.assert_close(got.double(), want.double(), **K5_TOL[dt])
+    if not want.any():  # a tiny shape whose every output the ReLU zeroes
+        assert not got.any()
+        return
+    assert _rel(got, want) <= REL_TOL[dt]
+    for wrong in (torch.zeros_like(want),
+                  chip_smoke.loc_gram_reference(ce, obj, w, torch.zeros_like(bias)),
+                  chip_smoke.loc_gram_reference(ce, torch.ones_like(obj), w, bias)):
+        assert _rel(wrong, want) > REL_TOL[dt]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -682,18 +699,47 @@ def test_loc_gram_matches_plain_on_card(card, dtype):
     for p in (84, 1344, 3549):
         ce, obj, w, bias = _loc_gram_inputs(gen, 2, p, 512, dt, card)
         got = locgram.fused_loc_gram(ce, obj, w, bias)
-        want = locgram.loc_gram_plain(ce, obj, w, bias)
         torch.cuda.synchronize()
-        assert got.dtype == dt and got.shape == (2, p, 512)
-        torch.testing.assert_close(got.float(), want.float(), **K5_TOL[dt])
-        assert _rel(got, want) <= REL_TOL[dt]
-        for wrong in (torch.zeros_like(want),
-                      locgram.loc_gram_plain(ce, obj, w, torch.zeros_like(bias)),
-                      locgram.loc_gram_plain(ce, torch.ones_like(obj), w, bias)):
-            assert _rel(wrong, want) > REL_TOL[dt]
+        _assert_loc_gram_held(got, ce, obj, w, bias)
+
+
+# (B, P, E, C): every value of B {1, 8, 64}, P {1, 63, 1344, 3549}, E {1, 8,
+# 17} and C {1, 6, 512, 1028} at least once, the configured shape, ragged
+# row tiles and column chunks, E past one chunk of 16, widths with no
+# 16-byte vector (C % 4 != 0; bf16 also C = 1028)
+LOC_GRAM_SHAPES = [(1, 1, 1, 1), (1, 63, 17, 6), (8, 63, 8, 1028), (8, 1344, 8, 512),
+                   (8, 1344, 1, 6), (8, 1344, 17, 1028), (64, 1344, 8, 512),
+                   (64, 63, 17, 1), (2, 3549, 8, 512), (1, 3549, 1, 1028)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", LOC_GRAM_SHAPES, ids=lambda s: "B{}-P{}-E{}-C{}".format(*s))
+def test_loc_gram_takes_every_shape(card, dtype, shape):
+    """The rank-E kernel at any B, P, E and C against its reference."""
+    b, p, e, c = shape
+    gen = torch.Generator().manual_seed(15)
+    ce, obj, w, bias = _loc_gram_inputs(gen, b, p, c, getattr(torch, dtype), card, e)
+    got = locgram.fused_loc_gram(ce, obj, w, bias)
+    torch.cuda.synchronize()
+    _assert_loc_gram_held(got, ce, obj, w, bias)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_loc_gram_is_bitwise_repeatable(card, dtype):
+    """Two calls give the same bytes: every sum runs in an order fixed by
+    the shapes (no atomics)."""
+    gen = torch.Generator().manual_seed(16)
+    for b, p, e, c in ((8, 1344, 8, 512), (2, 3549, 17, 1028)):
+        args = _loc_gram_inputs(gen, b, p, c, getattr(torch, dtype), card, e)
+        one, two = locgram.fused_loc_gram(*args), locgram.fused_loc_gram(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(one.view(torch.int16), two.view(torch.int16))
 
 
 def test_loc_gram_refuses_what_it_cannot_take(card):
+    """The refusals that remain (device, dtype, shape agreement, layout);
+    E = 17 and a width that is not a multiple of 4 launch and are held
+    against the reference."""
     gen = torch.Generator().manual_seed(12)
     ce, obj, w, bias = _loc_gram_inputs(gen, 2, 84, 64, torch.float32, card)
     kernels.reset_launches()
@@ -703,16 +749,47 @@ def test_loc_gram_refuses_what_it_cannot_take(card):
         locgram.fused_loc_gram(ce.half(), obj, w, bias)
     with pytest.raises(TypeError, match="float32"):
         locgram.fused_loc_gram(ce, obj.bfloat16(), w, bias)
-    with pytest.raises(ValueError, match="E <= 16"):
-        locgram.fused_loc_gram(torch.zeros(2, 84, 17, device=card), obj, w, bias)
-    with pytest.raises(ValueError, match="C % 4"):
-        locgram.fused_loc_gram(ce, obj, w[:, :62].contiguous(), bias[:62])
     with pytest.raises(ValueError, match="contiguous"):
         locgram.fused_loc_gram(ce, obj, w.t().contiguous().t(), bias)
     with pytest.raises(ValueError, match="disagree"):
         locgram.fused_loc_gram(ce, obj[:, :80], w, bias)
+    with pytest.raises(ValueError, match="B <= 65535"):
+        locgram.fused_loc_gram(torch.zeros(65536, 1, 1, device=card),
+                               torch.zeros(65536, 1, device=card), w[:1], bias)
     assert set(kernels.LAUNCHES.values()) == {0}
-    locgram.fused_loc_gram(ce, obj, w, bias)
-    locgram.fused_loc_gram(ce.bfloat16(), obj, w, bias)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["loc_gram"] == 2
+    ce17 = _rows(gen, 2, 84, 17).to(card)
+    for args in ((ce17, obj, w, bias), (ce, obj, w[:, :62].contiguous(), bias[:62]),
+                 (ce, obj, w, bias), (ce.bfloat16(), obj, w, bias)):
+        got = locgram.fused_loc_gram(*args)
+        torch.cuda.synchronize()
+        _assert_loc_gram_held(got, *args)
+    assert kernels.LAUNCHES["loc_gram"] == 4
+
+
+def test_k3_fp32_matches_float64_on_train_step_inputs(card):
+    """fp32 K3 on the inputs and upstream gradients a k=2 train step of a
+    mini model (emb 512) hands it, against the plain version in float64 at
+    `chip_smoke.py`'s limits (K3_F64_TOL); the plain fp32 version sits at
+    or under a tenth of them, and they reject zeros, T=1 and a K3 that
+    skips a streamed tile (`chip_smoke.check_k2_k3_on_model` raises
+    otherwise)."""
+    from dcnet_tpu_torch.config import DCNetConfig
+    from dcnet_tpu_torch.models.darknet import mini_backbone_defs
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.train.state import create_train_state
+    from dcnet_tpu_torch.weights import seeded_init_
+
+    cfg = DCNetConfig(image_size=64, corpus_size=50, emb_size=512, lstm_hidden=512,
+                      word_embedding_size=64, n_frames_train=2)
+    model = seeded_init_(DCNet(cfg, backbone_defs=mini_backbone_defs(), device=card),
+                         seed=0)
+    gen = torch.Generator().manual_seed(21)
+    batch = {"images": torch.rand(8, 64, 64, 3, generator=gen).to(card),
+             "word_ids": torch.randint(1, 50, (8, 20), generator=gen).to(card),
+             "bbox": torch.tensor([[4.0, 6.0, 40.0, 50.0]] * 8).to(card)}
+    res = chip_smoke.check_k2_k3_on_model(create_train_state(model, cfg), batch)
+    held = res["k3_vs_float64"]
+    assert res["scales"] == 3
+    assert held["share_of_limit"] <= 1.0
+    assert held["plain_fp32_share_of_limit"] <= chip_smoke.K3_PLAIN_SHARE
+    assert held["limits_reject"] == {"zeros": True, "T1": True, "dropped_tile": True}

@@ -7,7 +7,8 @@ with those folded weights against both packages' rank-8 route,
 model computes.
 
 Tolerances. Against the Pallas kernel, the tests' own: rtol 1e-4 / atol
-1e-5 at P=84, rtol 1e-3 / atol 1e-3 at P=1344 (the kernel's row tiling,
+1e-5 at P=84 (E = 8, and E 3 / 17 with C 6 / 1028, shapes the card's
+kernel takes), rtol 1e-3 / atol 1e-3 at P=1344 (the kernel's row tiling,
 C=64). `fold_dense_bn`: rtol 1e-6 / atol 1e-7, one fp32 rounding of each
 side's product and sum. Against the rank-8 route: the same function summed
 in another order (P-term Gram rows against E-term factors, then P-term
@@ -51,6 +52,20 @@ def test_plain_matches_pallas_kernel(b, p, c, w_scale, tol):
     assert got.shape == (b, p, c) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, **tol)
     assert kernels.LAUNCHES["loc_gram"] == 0  # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("e", [3, 17])
+@pytest.mark.parametrize("c", [6, 1028])
+def test_plain_matches_pallas_kernel_at_any_e_and_c(e, c):
+    """E and C that the card's rank-E kernel now takes (E past one chunk of
+    16 coordinates, C with no 16-byte vector), at P = 84."""
+    ce, obj, w, bias = _inputs(2, 2, 84, e, c, 0.1)
+    want = np.asarray(jax_fused_loc_gram(jnp.asarray(ce), jnp.asarray(obj),
+                                         jnp.asarray(w), jnp.asarray(bias),
+                                         interpret=True))
+    got = locgram.fused_loc_gram(*(torch.from_numpy(x) for x in (ce, obj, w, bias)))
+    assert got.shape == (2, 84, c)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
 
 
 def test_plain_keeps_ce_dtype_and_sums_in_fp32():
