@@ -4,10 +4,14 @@
     python3 chip_smoke.py --profile DIR   # and torch.profiler tables of
                                           # eval_clip, train_step and a
                                           # serving tick
+    python3 chip_smoke.py --cli-pace      # device and build phases, then
+                                          # only the eval CLI's pace over
+                                          # longer splits (phase_cli_pace)
 
 Phases, each printing JSON lines, any failure exiting non-zero:
   1. device  -- the card (nvidia-smi name and power limit), torch/CUDA
-     versions; TF32 is switched off for matmuls and cuDNN convolutions.
+     versions, the image decoders installed (cv2, PIL, torchvision); TF32
+     is switched off for matmuls and cuDNN convolutions.
   2. build   -- compiles every kernel from `dcnet_tpu_torch/csrc/` with nvcc,
      one process per source, all started together; prints ptxas's register
      and spill lines (and the spill bytes per library), and the counts of
@@ -65,7 +69,24 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      after n_frame ticks; K4 against its plain version on the engine's own
      rings in each ring dtype, and K1 on the default path's rings at 120
      streams; s/tick, predictions/s and peak GiB per mode.
-Then the `kernels` line, the nvidia-smi line, and as the last line
+  7. cli     -- the port's eval CLIs called in-process on the card, with
+     the split, the caches and ./logs under a temporary directory: the
+     full-width model (Darknet-53 from a seeded `.weights` file through
+     --backbone_weights, 256 px, --lstm, emb/hidden 512, 5-frame windows,
+     batch 8) over a synthetic test split written first in .npy frames
+     (4 videos x 9 frames, 16 windows), in fp32 and bf16, standard
+     (`eval_clip`: K1 12 a call) and --stream_eval (`eval_features`: K1 12
+     a call), whose acc@0.5 must equal the standard eval's (1e-6) and mIoU
+     lie within 2e-3; the fp32 --cache held against the same CLI on the
+     CPU (equal top-k order, scores rtol 1e-4 / atol 1e-5, boxes 1e-3 px);
+     cli/post_process.py on that cache against --post_process;
+     cli/eval_single.py (DCNet.single_image) on the card against the CPU;
+     the committed tiny lock (tests/locks/converge32tiny.npz, --resume) over
+     10 rows of the data/synthetic32 split regenerated in .npy frames, card
+     against CPU, mIoU > 0.05. Wall time and clips/s per run (set-up
+     dominates at 16 windows), and the host data path's time alone.
+Then the `kernels` line (K1's launches per path), the nvidia-smi line, and
+as the last line
 `{"ok": true, "device": {...}}`.
 """
 
@@ -293,6 +314,19 @@ def attend_bwd_bound(b: int, p: int, c: int, dtype: torch.dtype):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _decoders() -> dict:
+    """The image decoders this machine has (version, or None): the port
+    reads .npy frames with numpy and decodes other files through cv2."""
+    import importlib
+    found = {}
+    for name in ("cv2", "PIL", "torchvision"):
+        try:
+            found[name] = getattr(importlib.import_module(name), "__version__", "?")
+        except ImportError:
+            found[name] = None
+    return found
+
+
 def phase_device(dev) -> dict:
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -302,7 +336,8 @@ def phase_device(dev) -> dict:
             "count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "python": sys.version.split()[0],
-            "tf32": "off for matmuls and cuDNN convolutions (all phases)"}
+            "tf32": "off for matmuls and cuDNN convolutions (all phases)",
+            "decoders": _decoders()}
     emit(info)
     return info
 
@@ -1792,6 +1827,506 @@ def profile_call(fn, out_dir, tag) -> dict:
                     for us, k, n in rows[:12]]}
 
 
+# --- phase 7: the eval CLIs ---------------------------------------------------
+
+CLI_VIDEOS, CLI_FRAMES = 4, 9     # 4 windows a video at k=5: 16 windows
+CLI_K = 5
+CLI_WIDTH = ["--size", "256", "--emb_size", "512", "--lstm_hidden", "512"]
+LOCK_ROWS = 10                    # the rows the JAX package's lock tests use
+CLI_ACC_TOL, CLI_MIOU_TOL = 1e-6, 2e-3   # tests/test_cli.py's limits
+CACHE_TOL = dict(rtol=1e-4, atol=1e-5)   # cache scores, card against CPU
+CACHE_BOX_ATOL = 1e-3                    # cache boxes, px
+
+
+def _cli_output(main, argv, rows=None, platform=None) -> tuple:
+    """Run a CLI `main` in-process: (stdout text, wall seconds). `rows`
+    keeps the first rows of the split (the JAX package's lock tests patch
+    `build_dataset` the same way); `platform` sets DCNET_PLATFORM."""
+    import contextlib
+    import io
+    from dcnet_tpu_torch.cli import common, eval_single, test as cli_test
+
+    build = common.build_dataset
+
+    def limited(*a, **k):
+        ds, corpus = build(*a, **k)
+        ds.chunks = ds.chunks[:rows]
+        return ds, corpus
+
+    saved_env = os.environ.get("DCNET_PLATFORM")
+    mods = (common, cli_test, eval_single)
+    try:
+        if rows is not None:
+            for m in mods:
+                m.build_dataset = limited
+        if platform is not None:
+            os.environ["DCNET_PLATFORM"] = platform
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            main(argv)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        return out.getvalue(), time.perf_counter() - t0
+    finally:
+        for m in mods:
+            m.build_dataset = build
+        if saved_env is None:
+            os.environ.pop("DCNET_PLATFORM", None)
+        else:
+            os.environ["DCNET_PLATFORM"] = saved_env
+
+
+def cli_metrics(text: str, prefix: str = "") -> tuple:
+    """(acc, miou) of a CLI's `acc,miou` line, or of its `post_process:`
+    line with prefix='post_process:'."""
+    for line in text.strip().splitlines():
+        if line.startswith(prefix) and ("post_process" in line) == bool(prefix):
+            acc, miou = line[len(prefix):].strip().split(",")
+            return float(acc), float(miou)
+    raise AssertionError(f"no {prefix or 'acc,miou'} line in {text!r}")
+
+
+def _close(a: tuple, b: tuple, what: str) -> dict:
+    ok = abs(a[0] - b[0]) <= CLI_ACC_TOL and abs(a[1] - b[1]) <= CLI_MIOU_TOL
+    if not ok:
+        raise AssertionError(f"{what}: {a} against {b} (acc {CLI_ACC_TOL}, "
+                             f"miou {CLI_MIOU_TOL})")
+    return {"got": a, "want": b, "acc_tol": CLI_ACC_TOL, "miou_tol": CLI_MIOU_TOL}
+
+
+class _K1PerCall:
+    """K1 launches per `eval_clip` and per `eval_features` call, counted by
+    wrapping the two methods of the class for the duration of the phase
+    (`eval_clip` calls `eval_features`: each call counts its own)."""
+
+    def __init__(self):
+        from dcnet_tpu_torch.models.dcnet import DCNet
+        self.cls = DCNet
+        self.orig = {n: getattr(DCNet, n) for n in ("eval_clip", "eval_features")}
+        self.calls = {n: [] for n in self.orig}
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            def wrapped(model, *a, _fn=fn, _name=name, **k):
+                before = kernels.LAUNCHES["coattn_attend"]
+                out = _fn(model, *a, **k)
+                self.calls[_name].append(kernels.LAUNCHES["coattn_attend"] - before)
+                return out
+            setattr(self.cls, name, functools.wraps(fn)(wrapped))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.cls, name, fn)
+
+    def take(self) -> dict:
+        out = {n: list(v) for n, v in self.calls.items()}
+        for v in self.calls.values():
+            v.clear()
+        return out
+
+
+def _expect_per_call(calls: dict, method: str, what: str) -> None:
+    per = calls[method]
+    if not per or any(n != 12 for n in per):
+        raise AssertionError(f"{what}: K1 launches per {method} call {per}, "
+                             f"expected 12 each (4 references x 3 scales)")
+
+
+def _tie_runs(scores: np.ndarray) -> list:
+    """A row's ranks grouped into runs of ties: neighbours whose scores lie
+    within the sum of their score limits (CACHE_TOL), so either side may
+    rank them the other way round."""
+    lim = CACHE_TOL["atol"] + CACHE_TOL["rtol"] * np.abs(scores)
+    runs, start = [], 0
+    for i in range(1, len(scores) + 1):
+        if i == len(scores) or scores[i - 1] - scores[i] > lim[i - 1] + lim[i]:
+            runs.append(range(start, i))
+            start = i
+    return runs
+
+
+def cache_agreement(got, want) -> dict:
+    """A temporal cache (the arrays of `cache.npz`) held against a
+    reference run's: every score within CACHE_TOL of the reference's at the
+    same rank, every box within CACHE_BOX_ATOL px of the reference's at the
+    same rank, the ground truth, geometry and video ids equal. Only
+    candidates whose reference scores tie within the score limits may trade
+    ranks: inside such a run each box must match a distinct reference box
+    of the run. A row's last run (the one that holds the k-th rank) may
+    hold one box that matches none: one candidate the reference ranked just
+    below k, tied with its k-th (its score still within the limit), which
+    pushed one of the reference's tied boxes out of the top k. Ranks inside
+    a tie are interchangeable, so that box may stand at any rank of the
+    run."""
+    gs, ws = np.asarray(got["scores"]), np.asarray(want["scores"])
+    gb, wb = np.asarray(got["boxes"]), np.asarray(want["boxes"])
+    lim = CACHE_TOL["atol"] + CACHE_TOL["rtol"] * np.abs(ws)
+    scores_ok = gs.shape == ws.shape and bool(np.all(np.abs(gs - ws) <= lim))
+    traded, bad_rows = [], []
+    if gb.shape == wb.shape and scores_ok:
+        for r in range(ws.shape[0]):
+            for run in _tie_runs(ws[r]):
+                idx = list(run)
+                free = list(idx)
+                unseen = 1 if idx[-1] == ws.shape[1] - 1 else 0
+                for i in idx:
+                    hit = [j for j in free if np.abs(gb[r, i] - wb[r, j]).max() <= CACHE_BOX_ATOL]
+                    if hit:
+                        free.remove(hit[0])
+                        if hit[0] != i:
+                            traded.append({"row": r, "rank": i, "reference_rank": hit[0],
+                                           "scores": ws[r, idx].tolist()})
+                    elif unseen:
+                        unseen -= 1
+                        traded.append({"row": r, "rank": i, "reference_rank": None,
+                                       "scores": ws[r, idx].tolist()})
+                    else:
+                        bad_rows.append({"row": r, "rank": i, "got_box": gb[r, i].tolist(),
+                                         "want_box": wb[r, i].tolist(),
+                                         "got_scores": gs[r].tolist(),
+                                         "want_scores": ws[r].tolist()})
+    same = {k: bool(np.array_equal(got[k], want[k]))
+            for k in ("gt_boxes", "ratios", "dws", "dhs", "video_ids")}
+    box_err = float(np.abs(gb - wb).max()) if gb.shape == wb.shape else None
+    ok = scores_ok and gb.shape == wb.shape and not bad_rows and all(same.values())
+    return {"ok": ok, "rows": int(ws.shape[0]), "topk": int(ws.shape[1]),
+            "max_abs_score_err": float(np.abs(gs - ws).max()) if scores_ok else None,
+            "scores_ok": scores_ok, "max_abs_box_err_px_same_rank": box_err,
+            "ranks_traded_in_ties": traded, "mismatched": bad_rows[:4],
+            "geometry_equal": same, **CACHE_TOL, "box_atol_px": CACHE_BOX_ATOL}
+
+
+def _cache_held(card_npz: str, cpu_npz: str) -> dict:
+    """The card's fp32 cache.npz against the CPU run's (`cache_agreement`)."""
+    got, want = np.load(card_npz, allow_pickle=True), np.load(cpu_npz, allow_pickle=True)
+    if set(got.files) != set(want.files):
+        raise AssertionError(f"cache keys {got.files} against {want.files}")
+    rec = cache_agreement(got, want)
+    if not rec["ok"]:
+        raise AssertionError(f"the card's cache differs from the CPU's: {rec}")
+    return rec
+
+
+def phase_cli(dev) -> dict:
+    """The port's eval CLIs in-process on the card (see the module doc)."""
+    import shutil
+    import tempfile
+    from dcnet_tpu_torch.cli import eval_single, post_process, test as cli_test
+    from dcnet_tpu_torch.data.synthetic import generate_synthetic_vid
+    from dcnet_tpu_torch.data.vid import VIDDataset
+    from dcnet_tpu_torch.data.synthetic import build_synthetic_corpus
+    from dcnet_tpu_torch.models.darknet import random_darknet_weights_file
+
+    work = tempfile.mkdtemp(prefix="dcnet_cli_")
+    cwd = os.getcwd()
+    os.chdir(work)  # setup_logging writes ./logs
+    try:
+        full_root = os.path.join(work, "full")
+        generate_synthetic_vid(os.path.join(full_root, "synthetic"), "test",
+                               num_videos=CLI_VIDEOS, frames_per_video=CLI_FRAMES,
+                               seed=13, frame_format="npy")
+        lock_root = os.path.join(work, "lock")
+        generate_synthetic_vid(os.path.join(lock_root, "synthetic"), "test",
+                               num_videos=32, frames_per_video=8, seed=13,
+                               frame_format="npy")
+        darknet = os.path.join(work, "backbone_seed0.weights")
+        random_darknet_weights_file(_defs(), darknet, seed=0)
+        frames_before = sorted(os.listdir(os.path.join(full_root, "synthetic", "frames")))
+
+        # the host data path alone: one pass over the split, no model
+        ds = VIDDataset(os.path.join(full_root, "synthetic", "VID_video_level_test.json"),
+                        build_synthetic_corpus(), split="test",
+                        imsize=int(CLI_WIDTH[CLI_WIDTH.index("--size") + 1]),
+                        num_frame_k=CLI_K, testmode=True,
+                        image_root=os.path.join(full_root, "synthetic"))
+        windows = len(ds)
+        t0 = time.perf_counter()
+        for i in range(windows):
+            ds[i]
+        host_data_s = time.perf_counter() - t0
+
+        full = ["--synthetic", "--lstm"] + CLI_WIDTH + ["--num_frame_k", str(CLI_K),
+                "--batch_size", "8", "--seed", "13", "--split_root", full_root,
+                "--backbone_weights", darknet, "--savename", "cli"]
+        # the model's set-up alone (seeded weights, the Darknet file spliced)
+        from dcnet_tpu_torch.cli import common as cli_common
+        args = cli_test.parser().parse_args(full)
+        t0 = time.perf_counter()
+        cli_common.splice_backbone_weights(args, cli_common.build_model(
+            args, cli_common.config_from_args(args, len(build_synthetic_corpus())), dev))
+        torch.cuda.synchronize()
+        model_setup_s = time.perf_counter() - t0
+
+        runs, checks = {}, {}
+        kernels.reset_launches()
+        with _K1PerCall() as k1:
+            for dt in ("fp32", "bf16"):
+                dtf = ["--bf16"] if dt == "bf16" else []
+                cache = ["--cache_dir", os.path.join(work, "cache", dt)]
+                text, s = _cli_output(cli_test.main, full + dtf + cache + [
+                    "--cache", "--post_process"])
+                calls = k1.take()
+                _expect_per_call(calls, "eval_clip", f"{dt} standard eval")
+                runs[f"{dt}_standard"] = {"output": text.strip().splitlines(),
+                                          "wall_s": s, "clips_per_s": windows / s,
+                                          "k1_per_eval_clip": calls["eval_clip"]}
+                text_s, s = _cli_output(cli_test.main, full + dtf + [
+                    "--stream_eval", "--post_process"])
+                calls = k1.take()
+                if calls["eval_clip"]:
+                    raise AssertionError("--stream_eval called eval_clip")
+                _expect_per_call(calls, "eval_features", f"{dt} stream eval")
+                runs[f"{dt}_stream"] = {"output": text_s.strip().splitlines(),
+                                        "wall_s": s, "clips_per_s": windows / s,
+                                        "k1_per_eval_features": calls["eval_features"]}
+                checks[f"{dt}_stream_equals_standard"] = _close(
+                    cli_metrics(text_s), cli_metrics(text), f"{dt} stream against standard")
+                for out in (text, text_s):
+                    if not all(np.isfinite(cli_metrics(out))):
+                        raise AssertionError(f"{dt}: metrics not finite: {out!r}")
+            launches = dict(kernels.LAUNCHES)
+        if launches["coattn_attend"] == 0:
+            raise AssertionError(f"the CLI path never launched K1: {launches}")
+
+        # post_process.py on the fp32 cache prints what --post_process did
+        fp32_cache = ["--cache_dir", os.path.join(work, "cache", "fp32"),
+                      "--savename", "cli", "--num_frame_k", str(CLI_K), "--size", "256"]
+        text_pp, _ = _cli_output(post_process.main, fp32_cache)
+        checks["post_process_cli_equals_test_cli"] = _close(
+            cli_metrics(text_pp), cli_metrics("\n".join(runs["fp32_standard"]["output"]),
+                                              "post_process:"), "post_process.py")
+
+        # the CPU reference run of the fp32 cache (TF32 is off on the card)
+        cpu_dir = os.path.join(work, "cache", "cpu")
+        text_cpu, cpu_s = _cli_output(cli_test.main, full + [
+            "--cache_dir", cpu_dir, "--cache", "--workers", "0"], platform="cpu")
+        checks["fp32_cache_card_equals_cpu"] = _cache_held(
+            os.path.join(work, "cache", "fp32", "cli", "cache.npz"),
+            os.path.join(cpu_dir, "cli", "cache.npz"))
+        checks["fp32_cache_card_equals_cpu"]["cpu_s"] = cpu_s
+        checks["fp32_metrics_card_equals_cpu"] = _close(
+            cli_metrics("\n".join(runs["fp32_standard"]["output"])),
+            cli_metrics(text_cpu), "fp32 standard eval, card against CPU")
+
+        # eval_single (DCNet.single_image: no kernel) on the card and the CPU
+        single = full + ["--workers", "0"]
+        text_1, s = _cli_output(eval_single.main, single)
+        runs["single_fp32"] = {"output": text_1.strip().splitlines(), "wall_s": s}
+        text_1c, _ = _cli_output(eval_single.main, single, platform="cpu")
+        checks["eval_single_card_equals_cpu"] = _close(
+            cli_metrics(text_1), cli_metrics(text_1c), "eval_single, card against CPU")
+        if sorted(os.listdir(os.path.join(full_root, "synthetic", "frames"))) != frames_before:
+            raise AssertionError("a CLI wrote frames into the split it read")
+
+        # trained weights: the committed tiny lock, 10 rows, card and CPU
+        lock = ["--synthetic", "--lstm", "--mini", "--size", "64", "--emb_size", "256",
+                "--lstm_hidden", "256", "--num_frame_k", str(CLI_K), "--batch_size", "4",
+                "--seed", "13", "--split_root", lock_root, "--workers", "0",
+                "--resume", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                         "tests", "locks", "converge32tiny.npz"),
+                "--savename", "lock"]
+        text_l, s = _cli_output(cli_test.main, lock, rows=LOCK_ROWS)
+        text_ls, _ = _cli_output(cli_test.main, lock + ["--stream_eval"], rows=LOCK_ROWS)
+        text_lc, _ = _cli_output(cli_test.main, lock, rows=LOCK_ROWS, platform="cpu")
+        lock_card, lock_cpu = cli_metrics(text_l), cli_metrics(text_lc)
+        checks["lock_card_equals_cpu"] = _close(lock_card, lock_cpu, "lock, card against CPU")
+        checks["lock_stream_equals_standard"] = _close(
+            cli_metrics(text_ls), lock_card, "lock, stream against standard")
+        if not lock_card[1] > 0.05:
+            raise AssertionError(f"the lock grounds nothing on the card: {lock_card}")
+        runs["lock_fp32"] = {"rows": LOCK_ROWS, "output": text_l.strip().splitlines(),
+                             "stream_output": text_ls.strip().splitlines(),
+                             "cpu_output": text_lc.strip().splitlines(), "wall_s": s}
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+    rec = {"phase": "cli", "model": "YOLOv3/Darknet-53 + BiLSTM, 256 px, emb 512, "
+           "hidden 512, 5-frame windows, batch 8 (cli/test.py; eval_single on "
+           "single frames); lock: mini defs, 64 px, emb/hidden 256",
+           "weights": "backbone: random_darknet_weights_file(seed=0) through "
+                      "--backbone_weights; rest: seeded_init_(seed=13); lock: "
+                      "tests/locks/converge32tiny.npz through --resume",
+           "data": f"synthetic test split, {CLI_VIDEOS} videos x {CLI_FRAMES} frames "
+                   f"(.npy, seed 13): {windows} windows; lock: data/synthetic32 "
+                   f"test split regenerated from seed 13 in .npy frames, first {LOCK_ROWS} rows",
+           "windows": windows, "host_data_s": host_data_s,
+           "model_setup_s": model_setup_s,
+           "launches": launches, "launches_per_call": 12,
+           "runs": runs, "checks": checks,
+           "kind": torch.cuda.get_device_name(dev), "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    return rec
+
+
+# --- --cli-pace: the CLI's pace over longer splits ----------------------------
+
+PACE_SPLITS = (  # frame height, width, videos; 20 frames a video, 16 windows
+    (320, 480, 24),     # the synthetic generator's frames: 384 windows
+    (720, 1280, 8),     # a 720p frame, as most of ImageNet VID's: 128 windows
+)
+PACE_FRAMES, PACE_WORKERS = 20, 8
+_PACE_DS = None
+
+
+def _pace_worker_init(dataset) -> None:
+    global _PACE_DS
+    _PACE_DS = dataset
+
+
+def _pace_worker_get(idx: int):
+    return _PACE_DS[idx]
+
+
+def _process_batches(dataset, batch_size, drop_last=False, num_workers=0, **_):
+    """The decode pool the CLI does not use, for the comparison: the batches
+    of `data.vid.batch_iterator` (in order, not shuffled, one shard)
+    decoded by `num_workers` worker processes. The caller holds threads and
+    a CUDA context, so it is never forked: the workers fork from
+    multiprocessing's fork server, which imports the data module once, and
+    the dataset is pickled to each."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(["dcnet_tpu_torch.data.vid"])
+    n = len(dataset)
+    with ProcessPoolExecutor(num_workers, mp_context=ctx, initializer=_pace_worker_init,
+                             initargs=(dataset,)) as pool:
+        for start in range(0, n, batch_size):
+            idxs = list(range(start, min(start + batch_size, n)))
+            if len(idxs) < batch_size and drop_last:
+                break
+            items = list(pool.map(_pace_worker_get, idxs, chunksize=1))
+            yield {k: (np.stack([it[k] for it in items])
+                       if isinstance(items[0][k], np.ndarray) else [it[k] for it in items])
+                   for k in items[0]}
+
+
+class _EvalLoop:
+    """The eval loop of one cli/test.py run: the host time it began (the
+    first `batch_iterator` or `_stream_eval` call, after the model is
+    built), and the card's busy time in it, summed from torch.profiler's
+    device activities (kernels and copies; the profiler starts with the
+    loop, so set-up is not counted)."""
+
+    def __init__(self, cli_test):
+        self.mod, self.t0, self.prof = cli_test, None, None
+        self.orig = {n: getattr(cli_test, n) for n in ("batch_iterator", "_stream_eval")}
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+        for name, fn in self.orig.items():
+            def started(*a, _fn=fn, **k):
+                if self.t0 is None:
+                    torch.cuda.synchronize()
+                    self.prof = profile(activities=[ProfilerActivity.CUDA])
+                    self.prof.start()
+                    self.t0 = time.perf_counter()
+                return _fn(*a, **k)
+            setattr(self.mod, name, started)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
+
+    def finish(self) -> tuple:
+        """(loop seconds, device-busy seconds), the run synchronised."""
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - self.t0
+        self.prof.stop()
+        busy_us = sum(e.self_device_time_total for e in self.prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        return loop_s, busy_us / 1e6
+
+
+def phase_cli_pace(dev) -> dict:
+    """The full-width standard and stream evals of cli/test.py over longer
+    synthetic splits (PACE_SPLITS, .npy frames), fp32 and bf16; the
+    standard eval's frames decoded serially (--workers 0), by the CLI's
+    --workers threads and by worker processes (`_process_batches`). Per
+    run: the wall time (set-up included), the eval loop's time and clips/s,
+    the card's busy time in the loop (torch.profiler) and its share of the
+    loop; per split the serial read + letterbox + normalize time of one
+    frame. Every decode of a split must print the same metrics."""
+    import shutil
+    import tempfile
+    from dcnet_tpu_torch.cli import test as cli_test
+    from dcnet_tpu_torch.data import transforms as T
+    from dcnet_tpu_torch.data.synthetic import generate_synthetic_vid
+    from dcnet_tpu_torch.data.vid import read_image
+    from dcnet_tpu_torch.models.darknet import random_darknet_weights_file
+
+    work = tempfile.mkdtemp(prefix="dcnet_pace_")
+    cwd = os.getcwd()
+    os.chdir(work)  # setup_logging writes ./logs
+    splits = []
+    try:
+        darknet = os.path.join(work, "backbone_seed0.weights")
+        random_darknet_weights_file(_defs(), darknet, seed=0)
+        for h, w, videos in PACE_SPLITS:
+            root = os.path.join(work, f"{h}x{w}")
+            generate_synthetic_vid(os.path.join(root, "synthetic"), "test",
+                                   num_videos=videos, frames_per_video=PACE_FRAMES,
+                                   height=h, width=w, seed=13, frame_format="npy")
+            frames_dir = os.path.join(root, "synthetic", "frames")
+            names = sorted(os.listdir(frames_dir))[:40]
+            t0 = time.perf_counter()
+            for name in names:
+                T.normalize_image(T.letterbox(read_image(os.path.join(frames_dir, name)),
+                                              256)[0])
+            frame_ms = 1e3 * (time.perf_counter() - t0) / len(names)
+            windows = videos * (PACE_FRAMES - CLI_K + 1)
+            argv = ["--synthetic", "--lstm"] + CLI_WIDTH + [
+                "--num_frame_k", str(CLI_K), "--batch_size", "8", "--seed", "13",
+                "--split_root", root, "--backbone_weights", darknet, "--savename", "pace"]
+            runs = {}
+            for dt in ("fp32", "bf16"):
+                dtf = ["--bf16"] if dt == "bf16" else []
+                modes = (("serial", ["--workers", "0"], None),
+                         ("workers", ["--workers", str(PACE_WORKERS)], None),
+                         ("processes", ["--workers", str(PACE_WORKERS)], _process_batches),
+                         ("stream", ["--stream_eval"], None))
+                for mode, extra, batches in modes:
+                    saved = cli_test.batch_iterator
+                    if batches is not None:
+                        cli_test.batch_iterator = batches
+                    try:
+                        with _EvalLoop(cli_test) as loop:
+                            text, wall = _cli_output(cli_test.main, argv + dtf + extra)
+                            loop_s, busy_s = loop.finish()
+                    finally:
+                        cli_test.batch_iterator = saved
+                    metrics = cli_metrics(text)
+                    runs[f"{dt}_{mode}"] = {
+                        "metrics": metrics, "wall_s": wall, "eval_s": loop_s,
+                        "clips_per_s": windows / loop_s, "device_busy_s": busy_s,
+                        "device_busy_share": busy_s / loop_s}
+                    emit({"phase": "cli_pace", "frames": f"{h}x{w}", "run": f"{dt}_{mode}",
+                          **runs[f"{dt}_{mode}"]})
+                want = runs[f"{dt}_serial"]["metrics"]
+                for mode in ("workers", "processes"):
+                    if runs[f"{dt}_{mode}"]["metrics"] != want:
+                        raise AssertionError(f"{h}x{w} {dt}: {mode} decode printed "
+                                             f"{runs[f'{dt}_{mode}']['metrics']}, serial {want}")
+                _close(runs[f"{dt}_stream"]["metrics"], want, f"{h}x{w} {dt} stream")
+            splits.append({"frames": f"{h}x{w}", "videos": videos,
+                           "frames_per_video": PACE_FRAMES, "windows": windows,
+                           "letterbox_ms_per_frame": frame_ms, "runs": runs})
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    rec = {"phase": "cli_pace", "workers": PACE_WORKERS, "cpu_count": os.cpu_count(),
+           "model": "as the cli phase: Darknet-53 + BiLSTM, 256 px, emb/hidden 512, "
+                    "5-frame windows, batch 8",
+           "splits": splits, "kind": torch.cuda.get_device_name(dev),
+           "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    return rec
+
+
 KERNELS = (  # name, path it runs on, source, the TPU kernel it replaces
     ("coattn_attend", "eval", "dcnet_tpu_torch/csrc/coattn.cu",
      "dcnet_tpu/ops/pallas/coattn.py:52 (_attend; body _attend_kernel :40)"),
@@ -1821,11 +2356,13 @@ def _headline(name: str, case: dict) -> bool:
             and case["dtype"] == "bfloat16")
 
 
-def kernels_line(cases: list, launches: dict) -> dict:
+def kernels_line(cases: list, launches: dict, by_path=None) -> dict:
     """One entry per kernel: headline numbers (`_headline`), every case
     under `cases`. `launches` are the counts of the path each kernel runs
     on (eval for K1, train for K2 and K3, serving for K4); K5 runs on no
-    path (`"path": null`) and reports its kernel-phase launches. Each
+    path (`"path": null`) and reports its kernel-phase launches.
+    `by_path` adds, per kernel, its counts on every path that runs it (K1:
+    eval and the CLIs), each path driven with the counts at 0. Each
     entry's "timer" names what its "ms", "plain_ms" and "library_ms"
     measure (`TIMERS`)."""
     out = []
@@ -1837,6 +2374,8 @@ def kernels_line(cases: list, launches: dict) -> dict:
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "path": path, "launches": launches[name],
+            "launches_by_path": (by_path or {}).get(
+                name, {path: launches[name]} if path else {}),
             "shape": {"B": head["B"], "P": head["P"], "C": head["C"],
                       "dtype": head["dtype"]},
             "max_abs_err": worst, "timer": head["timer"], "ms": head["ms"],
@@ -1858,6 +2397,9 @@ def main(argv=None) -> int:
                     help="directory for torch.profiler tables of one "
                          "eval_clip and one train_step per dtype and one "
                          "serving tick per mode")
+    ap.add_argument("--cli-pace", action="store_true",
+                    help="only time the eval CLI over longer splits, by "
+                         "decode path (after the device and build phases)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1866,10 +2408,16 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     info = phase_device(dev)
     phase_build()
+    if args.cli_pace:
+        phase_cli_pace(dev)
+        return 0
     cases, k5_launches = phase_kernel(dev)
     eval_launches = phase_slice(dev, profile_dir=args.profile)["launches"]
     train_launches = phase_train(dev, profile_dir=args.profile)["launches"]
     serving_launches = phase_serving(dev, profile_dir=args.profile)["launches"]
+    cli_launches = phase_cli(dev)["launches"]
+    if not cli_launches["coattn_attend"]:
+        raise AssertionError(f"K1 never launched on the CLI path: {cli_launches}")
     on_paths = {"coattn_attend": eval_launches["coattn_attend"],
                 "coattn_pair": train_launches["coattn_pair"],
                 "coattn_attend_bwd": train_launches["coattn_attend_bwd"],
@@ -1879,7 +2427,9 @@ def main(argv=None) -> int:
     if not k5_launches:
         raise AssertionError("K5 never launched in the kernel phase")
     launches = {**on_paths, "loc_gram": k5_launches}
-    emit(kernels_line(cases, launches))
+    emit(kernels_line(cases, launches,
+                      by_path={"coattn_attend": {"eval": eval_launches["coattn_attend"],
+                                                 "cli": cli_launches["coattn_attend"]}}))
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

@@ -30,6 +30,13 @@ def default_device() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def not_ported(option: str, where: str) -> NotImplementedError:
+    """The error an option of the JAX package that the port does not run
+    yet raises; `where` names its ROADMAP item."""
+    return NotImplementedError(
+        f"{option} is not ported to dcnet_tpu_torch yet ({where})")
+
+
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """`device` as a torch.device; None means `default_device()`."""
     return default_device() if device is None else torch.device(device)

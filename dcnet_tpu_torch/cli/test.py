@@ -1,0 +1,260 @@
+"""Video-level evaluation and the temporal cache: the port of
+`dcnet_tpu/cli/test.py`.
+
+The standard eval recomputes every window: `eval_clip` on each n-frame clip
+(kernel K1: 12 launches a call), `decode_best`, inverse letterbox, IoU
+against the center frame's box. `--stream_eval` runs the backbone once per
+frame and `eval_features` over the windows (12 K1 launches a call).
+`--cache` writes the top-k cache as one `cache.npz` (the JAX package's
+keys), `--ref_cache_format` also the reference's per-frame `.pth` files,
+and `--post_process` fuses the cache per video and scores the fused boxes.
+Prints `acc,miou` and, with `--post_process`, `post_process: acc,miou`.
+
+Example (data-free, on the CPU):
+    DCNET_PLATFORM=cpu python -m dcnet_tpu_torch.cli.test --synthetic \\
+        --lstm --mini --size 64 --num_frame_k 5 --post_process
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from dcnet_tpu_torch import not_ported
+from dcnet_tpu_torch.cli.common import (
+    base_parser, build_dataset, build_model, check_ported, cli_device,
+    config_from_args, restore_weights, setup_logging, splice_backbone_weights)
+from dcnet_tpu_torch.data.vid import batch_iterator, prefetch_to_device
+from dcnet_tpu_torch.data import transforms as T
+from dcnet_tpu_torch.eval.metrics import AverageMeter
+from dcnet_tpu_torch.eval.temporal import FrameCache, build_frame_cache, fuse_per_video
+from dcnet_tpu_torch.ops.boxes import bbox_iou
+from dcnet_tpu_torch.ops.decode import decode_best, inverse_letterbox
+
+
+def parser():
+    p = base_parser("dcnet_tpu_torch video-level evaluation")
+    p.add_argument("--cache", action="store_true",
+                   help="write the temporal top-k cache")
+    p.add_argument("--post_process", action="store_true",
+                   help="run temporal fusion over the cache")
+    p.add_argument("--topk", default=5, type=int)
+    p.add_argument("--cache_dir", default="./cache", type=str)
+    p.add_argument("--ref_cache_format", action="store_true",
+                   help="with --cache, also write the reference's per-frame "
+                        ".pth files")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard the clip batch over all cards (one card: no-op)")
+    p.add_argument("--save_plot", action="store_true",
+                   help="write qualitative JPEGs (needs cv2)")
+    p.add_argument("--stream_eval", action="store_true",
+                   help="run the backbone once per frame and reuse its "
+                        "features across the overlapping windows")
+    p.add_argument("--quant", action="store_true")
+    p.add_argument("--calib_frames", default=32, type=int)
+    p.add_argument("--quant_params", default="", type=str)
+    p.add_argument("--quant_trunk", action="store_true")
+    p.add_argument("--coattn_batch_refs", action="store_true")
+    p.add_argument("--coattn_int8", action="store_true")
+    p.add_argument("--no_split_corr", action="store_true",
+                   help="disable the split corr_conv center-half hoisting "
+                        "(cfg.split_corr_conv)")
+    return p
+
+
+def _check_options(args, device: torch.device) -> None:
+    check_ported(args)
+    for flag in ("quant", "quant_trunk", "coattn_int8", "coattn_batch_refs"):
+        if getattr(args, flag):
+            raise not_ported(f"--{flag}", "ROADMAP queue A, item 9")
+    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise not_ported("--data_parallel over more than one card",
+                         "ROADMAP queue A, item 12")
+    if args.stream_eval and (args.cache or args.ref_cache_format):
+        raise ValueError("--cache is written by the standard eval; run it "
+                         "without --stream_eval")
+
+
+def _cat(rows) -> FrameCache:
+    return FrameCache(*(torch.cat([getattr(c, f) for c in rows])
+                        for f in FrameCache._fields))
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    if args.num_frame_k == 2:
+        args.num_frame_k = 5  # the test default
+    args.test = True
+    if args.savename == "default":
+        args.savename = f"model_{args.dataset}_batch{args.batch_size}"
+    device = cli_device()
+    _check_options(args, device)
+    setup_logging(args.savename, test=True)
+
+    ds, corpus = build_dataset(args, "test", testmode=True)
+    cfg = config_from_args(args, corpus_size=len(corpus))
+    if args.no_split_corr:
+        cfg = cfg.replace(split_corr_conv=False)
+    model = splice_backbone_weights(args, build_model(args, cfg, device))
+    if args.resume:
+        restore_weights(args.resume, model)
+
+    if args.stream_eval:
+        return _stream_eval(args, ds, cfg, model)
+
+    k = args.num_frame_k
+    center = k // 2
+    size = cfg.image_size
+    acc, miou = AverageMeter(), AverageMeter()
+    cache_rows, vid_rows, gt_rows, path_rows = [], [], [], []
+    batches = prefetch_to_device(
+        batch_iterator(ds, args.batch_size, drop_last=False,
+                       num_workers=args.workers), device)
+    for batch in batches:
+        images = batch["images"].reshape(-1, *batch["images"].shape[2:])
+        out = model.eval_clip(images, batch["word_ids"][:, center], n_frame=k)
+        bbox = torch.clamp(batch["bbox"][:, center], 0, size - 1)
+        dec = decode_best(out.outbox, cfg)
+        ratio, dw, dh = (batch[n][:, center] for n in ("ratio", "dw", "dh"))
+        ow, oh = (size - 2 * dw) / ratio, (size - 2 * dh) / ratio
+        pred = inverse_letterbox(dec.boxes[:, 0], ratio, dw, dh, ow, oh)
+        gt = inverse_letterbox(bbox, ratio, dw, dh, ow, oh)
+        iou = bbox_iou(pred, gt).cpu().numpy()
+        n = iou.shape[0]
+        acc.update(float((iou > 0.5).mean()), n)
+        miou.update(float(iou.mean()), n)
+
+        if args.save_plot:
+            from dcnet_tpu_torch.eval.visualize import save_grounding_results
+            phrases = [p[center] for p in batch.get("phrases", [])] or [""]
+            save_grounding_results(
+                dec.boxes[:, 0].cpu().numpy(), bbox.cpu().numpy(),
+                batch["images"][:, center].cpu().numpy(), phrases, "test",
+                acc.count - n, save_path=f"./visulizations/{args.savename}/")
+
+        if args.cache or args.post_process:
+            cache_rows.append(build_frame_cache(out.outbox, out.corr_feat,
+                                                args.topk, cfg))
+            vid_rows.append(batch["video_id"].cpu().numpy().astype(np.int32))
+            host = [x.cpu().numpy() for x in (bbox, ratio, dw, dh)]
+            for ii in range(n):
+                gt_rows.append((host[0][ii], float(host[1][ii]),
+                                float(host[2][ii]), float(host[3][ii])))
+                path_rows.append(batch["paths"][ii][center])
+
+    print(f"{acc.avg:.6f},{miou.avg:.6f}")
+
+    if args.cache and cache_rows:
+        from dcnet_tpu_torch.cli.post_process import save_cache_npz
+        full = _cat(cache_rows)
+        save_cache_npz(
+            os.path.join(args.cache_dir, args.savename, "cache.npz"), full,
+            np.stack([g[0] for g in gt_rows]),
+            np.asarray([g[1] for g in gt_rows], np.float32),
+            np.asarray([g[2] for g in gt_rows], np.float32),
+            np.asarray([g[3] for g in gt_rows], np.float32),
+            video_ids=np.concatenate(vid_rows))
+        if args.ref_cache_format:
+            from dcnet_tpu_torch.eval.ref_cache import write_reference_cache
+            geo = torch.tensor([g[1:] for g in gt_rows], dtype=torch.float32,
+                               device=full.boxes.device)
+            r, dw_a, dh_a = (geo[:, i:i + 1] for i in range(3))
+            orig = inverse_letterbox(full.boxes, r, dw_a, dh_a,
+                                     (size - 2 * dw_a) / r, (size - 2 * dh_a) / r)
+            write_reference_cache(os.path.join(args.cache_dir, args.savename),
+                                  path_rows, FrameCache(orig, full.scores, full.feats))
+
+    if args.post_process and cache_rows:
+        fused = fuse_per_video(_cat(cache_rows), np.concatenate(vid_rows), ref_frames=k)
+        _print_fused(fused, gt_rows, size, gt_in_letterbox=True)
+    return acc.avg
+
+
+def _print_fused(fused: torch.Tensor, gt_rows, size: int, gt_in_letterbox: bool) -> None:
+    """Score fused boxes row by row against (gt box, ratio, dw, dh) and
+    print the `post_process:` line. The gt box is letterboxed (standard
+    eval) or already in original coordinates (stream eval)."""
+    acc, miou = AverageMeter(), AverageMeter()
+    for t, (gt_box, ratio, dw, dh) in enumerate(gt_rows):
+        geo = [torch.tensor(v, dtype=torch.float32, device=fused.device)
+               for v in (ratio, dw, dh, (size - 2 * dw) / ratio, (size - 2 * dh) / ratio)]
+        pred = inverse_letterbox(fused[t], *geo)
+        gt = torch.as_tensor(np.asarray(gt_box), dtype=torch.float32, device=fused.device)
+        if gt_in_letterbox:
+            gt = inverse_letterbox(gt, *geo)
+        iou = float(bbox_iou(pred[None], gt[None])[0])
+        acc.update(float(iou > 0.5))
+        miou.update(iou)
+    print(f"post_process: {acc.avg:.6f},{miou.avg:.6f}")
+
+
+def _stream_eval(args, ds, cfg, model):
+    """Feature-cached video eval: the backbone runs once per frame and the
+    overlapping windows reuse its mapped features through `eval_features`,
+    which consumes the features `eval_clip` would compute."""
+    k = args.num_frame_k
+    center = k // 2
+    cb = max(args.batch_size, 1)   # trunk batch (centers)
+    fb = cb * k                    # backbone batch (frames)
+    dev = model.device
+    size = cfg.image_size
+
+    by_video = {}
+    for row in ds.chunks:
+        by_video.setdefault(row[3], []).append(row)
+
+    acc, miou = AverageMeter(), AverageMeter()
+    cache_rows, vid_rows, fused_gt = [], [], []
+    for vid, rows in by_video.items():
+        # rows are consecutive windows: the first window's frames, then the
+        # last frame of each later window
+        paths = list(rows[0][0]) + [r[0][-1] for r in rows[1:]]
+        imgs, metas = [], []
+        for p in paths:  # decode once per frame
+            img, ratio, dw, dh = T.letterbox(ds._read_image(p), ds.imsize)
+            imgs.append(T.normalize_image(img).astype(np.float32))
+            metas.append((ratio, dw, dh))
+        frames = torch.from_numpy(np.stack(imgs))
+        parts = [model.extract_features(frames[s:s + fb].to(dev))
+                 for s in range(0, frames.shape[0], fb)]
+        feats = [torch.cat([p[i] for p in parts]) for i in range(3)]
+
+        n_centers = len(rows)
+        win = torch.arange(n_centers)[:, None] + torch.arange(k)[None]  # (N, k)
+        ids = torch.from_numpy(np.stack([ds._tokenize(r[2][center].lower())[0]
+                                         for r in rows]).astype(np.int64))
+        gts = np.stack([np.asarray(r[1][center], np.float64) for r in rows])
+
+        for s0 in range(0, n_centers, cb):
+            sel = win[s0:s0 + cb].to(dev)
+            n = sel.shape[0]
+            per_frame = [f[sel] for f in feats]          # (n, k, g, g, C)
+            out = model.eval_features(per_frame, ids[s0:s0 + cb].to(dev))
+            dec = decode_best(out.outbox, cfg)
+            for j in range(n):
+                ratio, dw, dh = metas[s0 + j + center]
+                geo = [torch.tensor(v, dtype=torch.float32, device=dev) for v in
+                       (ratio, dw, dh, (size - 2 * dw) / ratio, (size - 2 * dh) / ratio)]
+                pred = inverse_letterbox(dec.boxes[j, 0], *geo)
+                gt = torch.as_tensor(gts[s0 + j], dtype=torch.float32, device=dev)
+                iou = float(bbox_iou(pred[None], gt[None])[0])
+                acc.update(float(iou > 0.5))
+                miou.update(iou)
+                fused_gt.append((gts[s0 + j], ratio, dw, dh))
+            if args.post_process:
+                cache_rows.append(build_frame_cache(out.outbox, out.corr_feat,
+                                                    args.topk, cfg))
+                vid_rows.append(np.full((n,), vid, np.int32))
+
+    print(f"{acc.avg:.6f},{miou.avg:.6f}")
+
+    if args.post_process and cache_rows:
+        fused = fuse_per_video(_cat(cache_rows), np.concatenate(vid_rows), ref_frames=k)
+        _print_fused(fused, fused_gt, size, gt_in_letterbox=False)
+    return acc.avg
+
+
+if __name__ == "__main__":
+    main()

@@ -18,9 +18,10 @@ Public layouts follow the JAX package: images NHWC (B*n, H, W, 3), per-frame
 features (B, n, h, w, C), outbox (B, 3, 5, g, g). The correspondence stage
 also reads the serving engine's rotating feature rings (`newest_slot`, int8
 rings dequantised on read) and, with `cfg.coattn_multiref`, co-attends the
-center to every reference in one launch of kernel K4 per scale. The
-single-image baseline and the other opt-in co-attention variants are later
-slices (ROADMAP queue A).
+center to every reference in one launch of kernel K4 per scale.
+`single_image` is the correspondence-free baseline: the trunk on the mapped
+features of single images, no co-attention and no kernel. The other opt-in
+co-attention variants are later slices (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dcnet_tpu_torch import DeviceLike, resolve_device, resolve_dtype
+from dcnet_tpu_torch import not_ported as _not_ported
 from dcnet_tpu_torch.config import DCNetConfig
 from dcnet_tpu_torch.kernels.coattn import (
     coattention_center_fused, coattention_pair_fused, coattention_ring_fused,
@@ -65,11 +67,6 @@ class EvalOutputs(NamedTuple):
     loc_score: List[torch.Tensor]   # per scale (B, g, g)
     corr_feat: List[torch.Tensor]   # per scale (B, g, g, C)
     only_obj: List[torch.Tensor]    # per scale (B, g, g) raw objectness
-
-
-def _not_ported(option: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to dcnet_tpu_torch yet ({where})")
 
 
 class DCNet(nn.Module):
@@ -382,3 +379,22 @@ class DCNet(nn.Module):
         b = fvisu[0].shape[0] // n_frame
         per_frame = [f.reshape(b, n_frame, *f.shape[1:]) for f in fvisu]
         return self.eval_features(per_frame, word_ids)
+
+    # ------------------------------------------------------------------
+    # correspondence-free baseline: single image
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def single_image(self, images, word_ids) -> EvalOutputs:
+        """The semantic-attention baseline: fusion and subject/location
+        attention on the mapped features of each image, where the full model
+        uses the correspondence features. images: NHWC (B, H, W, 3);
+        word_ids (B, L)."""
+        fvisu = self.extract_features(images)
+        word_ids = torch.as_tensor(word_ids, device=self.device)
+        flang, context, embedded = self._language(word_ids)
+        outbox, sim_score, loc_score, only_obj, _ = self._trunk(
+            fvisu, flang, context, embedded, word_ids)
+        return EvalOutputs(outbox=outbox, sim_score=sim_score,
+                           loc_score=loc_score, corr_feat=fvisu,
+                           only_obj=only_obj)

@@ -1,5 +1,6 @@
-"""Weights for the port: the JAX-checkpoint bridge, strict loading, seeded
-random init and Darknet backbone splicing.
+"""Weights for the port: the JAX-checkpoint bridge, the committed lock
+`.npz` files, strict loading, seeded random init and Darknet backbone
+splicing.
 
 `state_dict_from_jax` is the port's own numpy-only copy of the key map and
 layout transposes of `dcnet_tpu/train/checkpoint.py` (export direction):
@@ -13,6 +14,7 @@ reference state_dict the port's modules are named after.
 
 from __future__ import annotations
 
+import json
 import math
 import re
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
@@ -197,3 +199,32 @@ def splice_darknet_weights(model: nn.Module, path: str) -> None:
             raise KeyError(f"{k} from {path} is not a parameter of the model")
         full[k] = v
     load_into(model, full)
+
+
+def read_lock_npz(path: str) -> Tuple[Dict[str, Any], Dict[str, Any], Dict[str, Any]]:
+    """A lock `.npz` (the layout `tools/lock_pack.py` packs: '/'-joined
+    `params/...` and `bstats/...` keys in float16, JSON `__meta__`) ->
+    (params, batch_stats, meta), the trees nested and in float32, read with
+    numpy alone."""
+    z = np.load(path)
+    meta = json.loads(str(z["__meta__"])) if "__meta__" in z.files else {}
+    if meta.get("bert"):
+        raise NotImplementedError(
+            f"{path} is a BERT lock; the BERT text encoder is not ported to "
+            "dcnet_tpu_torch yet (ROADMAP queue A, item 10)")
+    trees: Dict[str, Dict[str, Any]] = {"params": {}, "bstats": {}}
+    for key in z.files:
+        kind, _, rest = key.partition("/")
+        if kind not in trees:
+            continue
+        node, parts = trees[kind], rest.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = z[key].astype(np.float32)
+    return trees["params"], trees["bstats"], meta
+
+
+def load_lock_into(model: nn.Module, path: str, light: bool = False):
+    """Load a lock `.npz` into a port model, strictly."""
+    params, batch_stats, _ = read_lock_npz(path)
+    return load_into(model, state_dict_from_jax(params, batch_stats, light=light))

@@ -4,9 +4,12 @@ of the summands) and K5 against the plain version on float64 copies
 (`loc_gram_held`). Each must accept the plain fp32 version, which is what
 fp32 arithmetic gives, and reject the wrong answers it is shown against on
 the card: zeros, T=1 and a K3 that skips a streamed tile of 16 rows; zeros,
-a dropped obj and a dropped bias for K5.
+a dropped obj and a dropped bias for K5. Also the cli phase's hold of the
+card's temporal cache against the CPU's (`cache_agreement`): ranks may
+trade only inside runs of tied scores.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -100,3 +103,75 @@ def test_k5_hold_in_bf16_is_one_bf16_step_of_the_plain_version(k5_inputs):
     ok, _, _, rej = chip_smoke.loc_gram_held(got, ce16, obj, w, b)
     assert ok and all(rej.values())
     assert chip_smoke.loc_gram_reference(ce16, obj, w, b).dtype == torch.bfloat16
+
+
+def _cache(seed=0, rows=3, k=5):
+    rng = np.random.default_rng(seed)
+    scores = -np.sort(-rng.random((rows, k)).astype(np.float32), axis=1)
+    return {"scores": scores, "boxes": (rng.random((rows, k, 4)) * 200).astype(np.float32),
+            "gt_boxes": rng.random((rows, 4)).astype(np.float32),
+            "ratios": np.full(rows, 0.5, np.float32), "dws": np.zeros(rows, np.float32),
+            "dhs": np.full(rows, 42.0, np.float32), "video_ids": np.arange(rows, dtype=np.int32)}
+
+
+def _copy(c):
+    return {k: v.copy() for k, v in c.items()}
+
+
+def test_cache_agreement_accepts_fp32_noise_and_tied_ranks():
+    want = _cache()
+    got = _copy(want)
+    got["scores"] *= 1 + 5e-5
+    got["boxes"] += 5e-4
+    assert chip_smoke.cache_agreement(got, want)["ok"]
+    # ranks 1 and 2 tie within the limits: either order is right
+    want["scores"][0, 2] = want["scores"][0, 1] - 1e-5
+    got = _copy(want)
+    got["boxes"][0, [1, 2]] = want["boxes"][0, [2, 1]]
+    res = chip_smoke.cache_agreement(got, want)
+    assert res["ok"] and len(res["ranks_traded_in_ties"]) == 2
+    # the last rank may hold a candidate the reference ranked below k
+    got = _copy(want)
+    got["boxes"][1, 4] += 8.0
+    assert chip_smoke.cache_agreement(got, want)["ok"]
+    # in a tail tie it may stand at any of the run's ranks, the reference's
+    # tied boxes moving down one
+    want["scores"][1, 3] = want["scores"][1, 4] + 1e-5
+    got = _copy(want)
+    got["boxes"][1, 3] += 8.0
+    got["boxes"][1, 4] = want["boxes"][1, 3]
+    res = chip_smoke.cache_agreement(got, want)
+    assert res["ok"] and [t["reference_rank"] for t in res["ranks_traded_in_ties"]
+                          if t["row"] == 1] == [None, 3]
+
+
+@pytest.mark.parametrize("wrong", ["untied_swap", "box_px", "score", "geometry",
+                                   "tied_five_all_unseen", "tail_two_unseen",
+                                   "unseen_inside_top"])
+def test_cache_agreement_rejects_wrong_caches(wrong):
+    want = _cache(1)
+    want["scores"][0] = [0.9, 0.7, 0.5, 0.3, 0.1]
+    got = _copy(want)
+    if wrong == "tied_five_all_unseen":
+        # five scores tied within 4e-5: still only one unseen candidate
+        want["scores"][2] = 0.5 - np.arange(5, dtype=np.float32) * 1e-5
+        got = _copy(want)
+        got["boxes"][2] += 50.0
+    elif wrong == "tail_two_unseen":
+        want["scores"][2, 3] = want["scores"][2, 4] + 1e-5
+        got = _copy(want)
+        got["boxes"][2, [3, 4]] += 8.0
+    elif wrong == "unseen_inside_top":
+        # a tie that does not reach rank k admits no unseen candidate
+        want["scores"][0] = [0.9, 0.7, 0.69999, 0.3, 0.1]
+        got = _copy(want)
+        got["boxes"][0, 2] += 8.0
+    elif wrong == "untied_swap":
+        got["boxes"][0, [0, 1]] = want["boxes"][0, [1, 0]]
+    elif wrong == "box_px":
+        got["boxes"][2, 1, 0] += 2e-3
+    elif wrong == "score":
+        got["scores"][1, 3] += 1e-3
+    else:
+        got["dws"][0] = 0.5
+    assert not chip_smoke.cache_agreement(got, want)["ok"]

@@ -34,6 +34,8 @@ def _run(code, cwd=REPO):
 
 def test_importing_the_port_loads_no_jax():
     mods = _port_modules() + ["chip_smoke", "kernel_timing"]
+    assert {"dcnet_tpu_torch.cli.test", "dcnet_tpu_torch.data.vid",
+            "dcnet_tpu_torch.eval.ref_cache"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -41,6 +43,33 @@ def test_importing_the_port_loads_no_jax():
             "sys.exit(1 if bad else 0)\n")
     out = _run(code)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_importing_the_cli_data_and_eval_modules_loads_no_cv2():
+    """cv2 is imported only where a frame is decoded or drawn."""
+    mods = [m for m in _port_modules()
+            if m.split(".")[1:2] in (["cli"], ["data"], ["eval"])]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cv2', 'jax', 'dcnet_tpu'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    out = _run(code)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("cli", ["test", "eval_single", "post_process"])
+def test_cli_main_raises_without_cuda(cli, tmp_path, monkeypatch):
+    """Without DCNET_PLATFORM=cpu a CLI runs on the card, and raises where
+    there is none."""
+    import importlib
+    main = importlib.import_module(f"dcnet_tpu_torch.cli.{cli}").main
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("DCNET_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--synthetic", "--lstm", "--mini", "--size", "64"])
+    assert os.listdir(tmp_path) == []  # no logs, no data written
 
 
 def test_sources_import_no_jax():
