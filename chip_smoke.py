@@ -20,7 +20,12 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      operand (HMMA or HGMMA ... TF32) in coattn, coattn_bwd and coattn_ring
      (cuobjdump -sass), failing if any is 0; and in the kernel functions of
      K4's int8 block alone, integer wgmma (IGMMA) for the logits, HGMMA for
-     PV and UTMALDG, failing if one is 0 or any IMMA is there.
+     PV and UTMALDG, failing if one is 0 or any IMMA is there; and the
+     int8 mma.sync products (IMMA) of K6's three libraries (int8, bf16 and
+     fp32 inputs), failing at 0. The SASS dumps run in parallel; K6's
+     libraries, the slowest to build, build and are dumped in the
+     background while the kernel phase runs K1-K5; that phase waits for
+     them (and checks them) before K6's cases.
   3. kernel  -- each kernel against its plain PyTorch version on the card at
      the main paths' shapes (plus a ragged P and batch-strided inputs),
      timed beside the plain version, one PyTorch library call and the
@@ -39,7 +44,16 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      fail the limits). K5 runs on no path. Then K1-K4 at widths no
      configuration runs and the JAX package takes (C = 24, 528, 1024; int8 rings also 1056; P = 169 and
      1024) in every dtype: the general block, the WMMA block for bf16 at
-     528, K3's general pass.
+     528, K3's general pass. Then K6 (the int8 convolution, no TPU
+     kernel): every distinct conv shape of the YOLOv3 backbone on 8 frames
+     of 256 px and the trunk's at P=1024, in every epilogue mode (int32,
+     fp32 / bf16 with leaky, the int8 chain, the trunk's BN + ReLU, float
+     inputs quantized on load), bitwise against its plain version; a
+     dropped k-tile and a two-rounding scale are shown to fail that check;
+     timed in bf16 out beside the plain version (at the headline shape),
+     torch._int_mm (1x1) and cuDNN's bf16 convolution of the shape (a
+     point of reference). The int8 and serving_int8 phases hold K6 again
+     at the path's own shapes and modes (`HeldK6`).
   4. slice   -- the full-width 256 px model (YOLOv3 backbone from a seeded
      Darknet `.weights` file, the rest from a seeded torch.Generator)
      answers batches of 5-frame clips through eval_clip -> decode_best; the
@@ -49,6 +63,15 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      compute dtype, K5 (with the folded loc_text_embedding) against the
      trunk's rank-8 route on the coord_emb and obj_map of one fp32
      eval_clip, and eval_clip is timed in float32 and bfloat16.
+  4b. int8  -- the same model in bf16, its backbone quantized and its
+     trunk calibrated on 20 seeded frames (`ops.quant`), answers requests
+     through `quant_eval_clip` with the int8 chain (K6 per live conv and
+     trunk conv, K1 12 a call) and with --coattn_int8 / --coattn_batch_refs
+     (K1 0); every K6 call of those requests is held bitwise against its
+     plain version on the same tensors (`HeldK6`); fp32 copies with the
+     trunk PTQ on the card and the CPU agree (outbox atol 1e-2, decoded
+     index equal, each trunk conv bitwise on the card's inputs); each
+     timed at 64 clips beside the float bf16 eval_clip.
   5. train   -- the same full-width model trains with the RMSprop recipe on
      synthetic k=2 clips (a colored box moving over noise) through
      train_epoch (launches checked: per step K2 3, K3 6, K1 0; losses
@@ -69,6 +92,12 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      after n_frame ticks; K4 against its plain version on the engine's own
      rings in each ring dtype, and K1 on the default path's rings at 120
      streams; s/tick, predictions/s and peak GiB per mode.
+  6b. serving_int8 -- the same engine after `quantize()` (int8 backbone
+     and trunk): 12 ticks at 120 streams in each mode, launches per tick
+     checked, every K6 call of the last tick held bitwise against its
+     plain version (`HeldK6`), timed; 4 fp32 streams card against CPU per
+     tick: the int8 backbone alone boxes and scores 1e-3; with the trunk
+     PTQ the decoded cell, box and score (`serve_cells_held`).
   7. cli     -- the port's eval CLIs called in-process on the card, with
      the split, the caches and ./logs under a temporary directory: the
      full-width model (Darknet-53 from a seeded `.weights` file through
@@ -83,9 +112,13 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      cli/eval_single.py (DCNet.single_image) on the card against the CPU;
      the committed tiny lock (tests/locks/converge32tiny.npz, --resume) over
      10 rows of the data/synthetic32 split regenerated in .npy frames, card
-     against CPU, mIoU > 0.05. Wall time and clips/s per run (set-up
-     dominates at 16 windows), and the host data path's time alone.
-Then the `kernels` line (K1's launches per path), the nvidia-smi line, and
+     against CPU, mIoU > 0.05; on the lock, --quant, --quant --quant_trunk,
+     --coattn_int8 and --coattn_batch_refs card against CPU (acc 1e-6,
+     mIoU 2e-3) and each within mIoU 0.03 / acc 0.11 of float. Wall time
+     and clips/s per run (set-up dominates at 16 windows), and the host
+     data path's time alone.
+Then the seconds of each phase, the `kernels` line (K1's launches per
+path), the nvidia-smi line, and
 as the last line
 `{"ok": true, "device": {...}}`.
 """
@@ -93,6 +126,7 @@ as the last line
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import functools
 import json
 import os
@@ -115,6 +149,7 @@ except ImportError as e:  # run outside a checkout of the repository
 from dcnet_tpu_torch import kernels
 from dcnet_tpu_torch.kernels import build
 from dcnet_tpu_torch.kernels import coattn as k_coattn
+from dcnet_tpu_torch.kernels import conv_s8 as k_conv
 from dcnet_tpu_torch.kernels import locgram as k_locgram
 from dcnet_tpu_torch.ops import correspondence
 
@@ -342,12 +377,14 @@ def phase_device(dev) -> dict:
     return info
 
 
-SOURCES = ("coattn", "coattn_bwd", "coattn_ring", "locgram")
+K15_SOURCES = ("coattn", "coattn_bwd", "coattn_ring", "locgram")
+K6_SOURCES = tuple(k_conv.SOURCES.values())
 # TF32_MMA: tensor-core instructions with a TF32 operand (HMMA.1688.F32.TF32
-# of mma.sync, or HGMMA ... TF32)
+# of mma.sync, or HGMMA ... TF32); IMMA: K6's int8 mma.sync products
 SASS_COUNTED = {"coattn": ("HGMMA", "UTMALDG", "TF32_MMA"),
                 "coattn_ring": ("HGMMA", "UTMALDG", "TF32_MMA"),
-                "coattn_bwd": ("TF32_MMA",)}
+                "coattn_bwd": ("TF32_MMA",),
+                **{name: ("IMMA",) for name in k_conv.SOURCES.values()}}
 
 
 def _has_op(line: str, op: str) -> bool:
@@ -356,9 +393,11 @@ def _has_op(line: str, op: str) -> bool:
     return f" {op}" in line or f"\t{op}" in line
 
 
+@functools.lru_cache(maxsize=None)
 def _sass(name: str) -> list:
     """The lines of `cuobjdump -sass` (the toolkit's, beside nvcc) on the
-    built library of `csrc/<name>.cu`."""
+    built library of `csrc/<name>.cu`, dumped once (each dump takes
+    seconds)."""
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     out = subprocess.run([tool, "-sass", build.build([name])[name]],
                          capture_output=True, text=True, timeout=300)
@@ -387,35 +426,79 @@ def spill_bytes(log: str) -> int:
     return sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", log))
 
 
-def phase_build() -> None:
+def _print_build_lines(names) -> None:
+    for name in names:
+        for line in build.BUILD_LOG.get(name, "").splitlines():
+            if any(k in line for k in ("registers", "spill", "error", "wgmma",
+                                       "setmaxnreg", "Performance")):
+                print(f"[nvcc {name}] {line.strip()}", flush=True)
+
+
+def phase_build() -> concurrent.futures.Future:
+    """Builds K1-K5's libraries and checks their SASS; K6's three, the
+    slowest, start at the same moment in a background thread, whose future
+    is returned for `finish_k6_build`."""
     t0 = time.perf_counter()
-    build.build(SOURCES)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    k6 = pool.submit(_build_and_dump, K6_SOURCES)
+    pool.shutdown(wait=False)
+    build.build(K15_SOURCES)
     k_coattn._lib()
     k_coattn._bwd_lib()
     k_coattn._ring_lib()
     k_locgram._lib()
     seconds = time.perf_counter() - t0
-    for name, log in build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if any(k in line for k in ("registers", "spill", "error", "wgmma",
-                                       "setmaxnreg", "Performance")):
-                print(f"[nvcc {name}] {line.strip()}", flush=True)
-    sass = {n: sass_counts(n, ops) for n, ops in SASS_COUNTED.items()}
+    _print_build_lines(K15_SOURCES)
+    counted = [n for n in K15_SOURCES if n in SASS_COUNTED]
+    with concurrent.futures.ThreadPoolExecutor(len(counted)) as dumps:
+        list(dumps.map(_sass, counted))
+    sass = {n: sass_counts(n, ops) for n, ops in SASS_COUNTED.items() if n in K15_SOURCES}
     # K4's int8 block: integer wgmma (IGMMA) for the logits, bf16 wgmma
     # (HGMMA) for PV, TMA loads, and no mma.sync integer product (IMMA)
     s8 = sass_counts("coattn_ring", ("IGMMA", "HGMMA", "UTMALDG", "IMMA"),
                      function="ring_s8_kernel")
-    emit({"phase": "build", "kernels": list(SOURCES),
+    emit({"phase": "build", "kernels": list(K15_SOURCES),
           "seconds": round(seconds, 3),
-          "nvcc_seconds": {k: round(v, 3) for k, v in build.BUILD_SECONDS.items()},
+          "nvcc_seconds": {k: round(build.BUILD_SECONDS[k], 3) for k in K15_SOURCES
+                           if k in build.BUILD_SECONDS},
           "sass_instructions": sass, "sass_int8_block": s8,
-          "spill_bytes": {k: spill_bytes(v) for k, v in build.BUILD_LOG.items()}})
+          "spill_bytes": {k: spill_bytes(build.BUILD_LOG[k]) for k in K15_SOURCES
+                          if k in build.BUILD_LOG}})
     if not all(v > 0 for counts in sass.values() for v in counts.values()):
         raise AssertionError(f"the co-attention libraries lack wgmma, TMA or "
                              f"TF32 tensor-core instructions: {sass}")
     if not (s8["IGMMA"] and s8["HGMMA"] and s8["UTMALDG"]) or s8["IMMA"]:
         raise AssertionError(f"K4's int8 block is not on wgmma s8 + bf16 "
                              f"wgmma + TMA alone: {s8}")
+    return k6
+
+
+def _build_and_dump(names) -> None:
+    """Builds the named sources and dumps their SASS (`_sass`), one after
+    the other: the background job of `phase_build`."""
+    build.build(names)
+    for name in names:
+        _sass(name)
+
+
+def finish_k6_build(k6: concurrent.futures.Future) -> None:
+    """Waits for K6's background build (re-raising its failure), loads its
+    three libraries and fails unless each holds int8 mma.sync products."""
+    t0 = time.perf_counter()
+    k6.result()
+    for dtype in k_conv.SOURCES:
+        k_conv._lib(dtype)
+    _print_build_lines(K6_SOURCES)
+    sass = {n: sass_counts(n, SASS_COUNTED[n]) for n in K6_SOURCES}
+    emit({"phase": "build", "kernels": list(K6_SOURCES), "built_in_background": True,
+          "waited_s": round(time.perf_counter() - t0, 3),
+          "nvcc_seconds": {k: round(build.BUILD_SECONDS[k], 3) for k in K6_SOURCES
+                           if k in build.BUILD_SECONDS},
+          "sass_instructions": sass,
+          "spill_bytes": {k: spill_bytes(build.BUILD_LOG[k]) for k in K6_SOURCES
+                          if k in build.BUILD_LOG}})
+    if not all(v > 0 for counts in sass.values() for v in counts.values()):
+        raise AssertionError(f"K6's libraries lack int8 tensor-core instructions: {sass}")
 
 
 def _sdpa_backends(q, kv):
@@ -911,10 +994,275 @@ def kernel_cases_k5(dev, gen) -> list:
     return cases, launches
 
 
-def phase_kernel(dev):
-    """K1-K5 against their plain versions on the card; returns the case
-    records and K5's launches (K5 runs on no path: its count is that of
-    the kernel phase's checked calls, one a case)."""
+# K6, the int8 convolution: every distinct conv shape of the full-width
+# backbone on 8 frames of 256 px (`ops.quant.conv_shapes`) and the trunk's
+# at P=1024 (8 x 32 x 32: corr_conv 1024 -> 512 and its 512 -> 512 halves,
+# the fcn's 1032 -> 512, 3x3 512 -> 512, 1x1 512 -> 512 and 512 -> 256, the
+# /8 mapping 256 -> 512); as (k, stride, pad, Ci, Co, input side). Each in
+# every epilogue mode, held bitwise against the plain version. Timed in
+# bf16 out (the eval headline's activations). The paths' own calls (40
+# frames a request, 120 a tick, their real scales) are held by `HeldK6`.
+K6_FRAMES = 8
+K6_TRUNK = ((1, 1, 0, 1024, 512, 32), (1, 1, 0, 512, 512, 32), (1, 1, 0, 1032, 512, 32),
+            (3, 1, 1, 512, 512, 32), (1, 1, 0, 512, 256, 32), (1, 1, 0, 256, 512, 32))
+K6_HEADLINE = (3, 1, 1, 256, 512, 16)   # the /16 residual blocks' 3x3 (8 of them)
+K6_DROPPED_BYTES = 64                   # one k-tile of the reduction
+
+
+def k6_shapes() -> list:
+    """(group, (k, stride, pad, Ci, Co, side)) of the kernel phase's K6 cases."""
+    from dcnet_tpu_torch.ops.quant import conv_shapes
+    full = sorted({c[1:] for c in conv_shapes(_defs(), 256)})
+    return [("backbone", c) for c in full] + [("trunk", c) for c in K6_TRUNK]
+
+
+def conv_bound(n: int, k: int, stride: int, pad: int, ci: int, co: int, side: int,
+               out_dtype: torch.dtype, epilogue: bool = True, in_bytes: int = 1):
+    """K6: 2 N Ho Wo k^2 Ci Co operations at the int8 rate (1,979 TOP/s);
+    x (`in_bytes` an element), w (and the fp32 scale and bias) read once,
+    the output written once."""
+    ho = (side + 2 * pad - k) // stride + 1
+    nbytes = (n * side * side * ci * in_bytes + co * k * k * ci
+              + (8 * co if epilogue else 0) + n * ho * ho * co * itemsize(out_dtype))
+    return bound(2.0 * n * ho * ho * k * k * ci * co, nbytes, PEAK_FLOPS[torch.int8])
+
+
+def _k6_modes(gen, co: int, dev, x, w, stride: int, pad: int, xf) -> dict:
+    """K6's modes on the path: raw int32 (the split corr_conv's shared
+    half), fp32 and bf16 out with the backbone's leaky, the int8 chain's
+    requantization (inv_out puts the largest |y| at code 100, so the codes
+    span the int8 range), the trunk's two affines + ReLU; and a float input
+    quantized on load: bf16 x * in_inv to bf16 out (the backbone's convs
+    after a shortcut or route), fp32 x / in_scale with the trunk's
+    epilogue. `x` is int8 and `xf` a bf16 map of the same shape."""
+    scale = (torch.rand(co, generator=gen) * 1e-4).to(dev)
+    bias = torch.randn(co, generator=gen).to(dev)
+    s2 = (1 + 0.1 * torch.randn(co, generator=gen)).to(dev)
+    b2 = torch.randn(co, generator=gen).to(dev)
+    affine = dict(scale=scale, bias=bias)
+    y = k_conv.conv_s8_plain(x, w, stride, pad, **affine, act="leaky",
+                             out_dtype=torch.float32)
+    inv = float(np.float32(100.0 / max(y.abs().max().item(), 1e-30)))
+    in_inv = float(np.float32(100.0 / xf.float().abs().max().item()))
+    in_scale = torch.tensor(1.0 / 100.0, device=dev) * xf.float().abs().max()
+    return {"int32": {},
+            "float32": dict(affine, act="leaky", out_dtype=torch.float32),
+            "bfloat16": dict(affine, act="leaky", out_dtype=torch.bfloat16),
+            "int8": dict(affine, act="leaky", out_dtype=torch.int8, inv_out=inv),
+            "trunk_bf16": dict(affine, scale2=s2, bias2=b2, act="relu",
+                               out_dtype=torch.bfloat16),
+            "bf16_in": dict(affine, act="leaky", out_dtype=torch.bfloat16, in_inv=in_inv),
+            "fp32_in_trunk": dict(affine, scale2=s2, bias2=b2, act="relu",
+                                  out_dtype=torch.float32, in_scale=in_scale)}
+
+
+def _k6_input(mode: str, x, xf):
+    """The input a K6 mode reads: the bf16 map, its fp32 copy or the codes."""
+    if mode == "bf16_in":
+        return xf
+    return xf.float() if mode == "fp32_in_trunk" else x
+
+
+def k6_sums(xq, w, stride: int, pad: int) -> tuple:
+    """The plain int32 sums of the int8 input xq, and those a faulty K6
+    would give by leaving one k-tile of the reduction (K6_DROPPED_BYTES of
+    k^2 Ci, from its middle) out."""
+    kdim = w[0].numel()
+    start = (kdim // 2) // K6_DROPPED_BYTES * K6_DROPPED_BYTES
+    w_drop = w.reshape(w.shape[0], -1).clone()
+    w_drop[:, start:start + K6_DROPPED_BYTES] = 0
+    return (k_conv.conv_s8_acc_plain(xq, w, stride, pad),
+            k_conv.conv_s8_acc_plain(xq, w_drop.reshape(w.shape), stride, pad))
+
+
+def k6_wrong(acc, acc_dropped, epi: dict) -> dict:
+    """What a faulty K6 would return, from `k6_sums`: the sums with a
+    k-tile dropped, and (with an epilogue) the scale applied as a multiply
+    and an add, two roundings."""
+    out = {"dropped_k_tile": k_conv.epilogue_plain(acc_dropped, **epi)}
+    if epi.get("scale") is not None:
+        y = acc.float() * epi["scale"] + epi["bias"]
+        if epi.get("scale2") is not None:
+            y = y * epi["scale2"] + epi["bias2"]
+        out["two_roundings"] = _epilogue_from_float(y, epi)
+    return out
+
+
+def _epilogue_from_float(y: torch.Tensor, epi: dict) -> torch.Tensor:
+    """K6's activation and output steps on fp32 values y."""
+    if epi.get("act") == "relu":
+        y = torch.where(y > 0, y, torch.zeros_like(y))
+    elif epi.get("act") == "leaky":
+        y = torch.where(y >= 0, y, y * 0.1)
+    if epi["out_dtype"] == torch.int8:
+        return torch.clamp(torch.round(y * epi["inv_out"]), -127, 127).to(torch.int8)
+    return y.to(epi["out_dtype"])
+
+
+def kernel_cases_k6(dev, gen) -> list:
+    """K6 against its plain version, bitwise, at every shape of `k6_shapes`
+    in every mode of `_k6_modes`; the check shown to reject a dropped
+    k-tile in every mode and two roundings in fp32 out (in bf16 and int8
+    out most one-unit fp32 differences round away: reported). Timed in
+    bf16 out beside the card's bound, torch._int_mm (1x1 stride-1 shapes
+    it takes: int32 out, no epilogue; the library call), cuDNN's bf16
+    convolution of the same shape (a point of reference, not the same
+    function) and, at the headline shape, the plain version. The timed
+    call reads bf16 activations and quantizes them on load, as the path's
+    convs after a shortcut or route do."""
+    cases = []
+    for group, (k, stride, pad, ci, co, side) in k6_shapes():
+        t0 = time.perf_counter()
+        x = torch.randint(-127, 128, (K6_FRAMES, side, side, ci), generator=gen,
+                          dtype=torch.int8).to(dev)
+        w = torch.randint(-127, 128, (co, k, k, ci), generator=gen,
+                          dtype=torch.int8).to(dev)
+        xf = torch.randn(K6_FRAMES, side, side, ci, generator=gen).to(dev, torch.bfloat16)
+        modes, equal, rejects = _k6_modes(gen, co, dev, x, w, stride, pad, xf), {}, {}
+        sums = {}  # the plain version's steps, its sums once per quantized input
+        for mode, epi in modes.items():
+            xin = _k6_input(mode, x, xf)
+            got = k_conv.conv_s8(xin, w, stride, pad, **epi)
+            out_epi = {a: v for a, v in epi.items() if a not in ("in_inv", "in_scale")}
+            key = "int8" if xin is x else mode
+            if key not in sums:
+                xq = k_conv.quantize_plain(xin, epi.get("in_inv"), epi.get("in_scale"))
+                sums[key] = k6_sums(xq, w, stride, pad)
+            want = k_conv.epilogue_plain(sums[key][0], **out_epi)
+            torch.cuda.synchronize()
+            equal[mode] = bool(torch.equal(got, want))
+            rejects[mode] = {name: not torch.equal(wrong, want)
+                             for name, wrong in k6_wrong(*sums[key], out_epi).items()}
+        ok = (all(equal.values()) and all(r["dropped_k_tile"] for r in rejects.values())
+              and rejects["float32"]["two_roundings"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        # timed: bf16 activations quantized on load to bf16 out (the path's)
+        epi, x_in = modes["bf16_in"], xf
+        big = K6_FRAMES * side * side * k * k * ci * co > 2e10
+        iters = 5 if big else 20
+        headline = group == "backbone" and (k, stride, pad, ci, co, side) == K6_HEADLINE
+        k_ms = device_ms(lambda: k_conv.conv_s8(x_in, w, stride, pad, **epi), iters)
+        call_ms = (cuda_ms(lambda: k_conv.conv_s8(x_in, w, stride, pad, **epi), iters)
+                   if headline else None)
+        int32_ms = device_ms(lambda: k_conv.conv_s8(x, w, stride, pad), iters)
+        p_ms = (device_ms(lambda: k_conv.conv_s8_plain(x_in, w, stride, pad, **epi), 5)
+                if headline else None)
+        lib_ms = None
+        if k == 1 and stride == 1:
+            a2, b2 = x.reshape(-1, ci), w.reshape(co, ci).t()
+            try:
+                torch._int_mm(a2, b2)
+                lib_ms = device_ms(lambda: torch._int_mm(a2, b2), iters)
+            except RuntimeError:
+                lib_ms = None   # _int_mm wants K and N multiples of 8
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+        wb = w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        t2 = time.perf_counter()
+        cudnn_ms = device_ms(lambda: torch.nn.functional.conv2d(xb, wb, None, stride, pad),
+                             iters)
+        t3 = time.perf_counter()
+        ho = (side + 2 * pad - k) // stride + 1
+        rec = {"phase": "kernel", "name": "conv_s8", "group": group, "dtype": "bfloat16",
+               "B": K6_FRAMES, "P": side * side, "C": ci, "k": k, "stride": stride,
+               "Ci": ci, "Co": co, "side": side, "out_side": ho,
+               "vec": k_conv.conv_vec(ci, x, w), "bitwise_equal": equal,
+               "limits_reject": rejects, "max_abs_err": 0.0 if ok else None, "ok": ok,
+               "timer": "device", "ms": k_ms, "call_ms": call_ms, "int32_ms": int32_ms,
+               "plain_ms": p_ms, "library_ms": lib_ms,
+               "library_call": "torch._int_mm(x (M, Ci), w (Ci, Co)): int32, no epilogue"
+                               if lib_ms is not None else None,
+               "cudnn_bf16_conv_ms": cudnn_ms,
+               "cudnn_bf16_conv": "F.conv2d in bf16 of the same shape: a point of "
+                                  "reference, not the same function",
+               "seconds": {"inputs_and_checks": round(t1 - t0, 3),
+                           "k6_plain_int_mm_timing": round(t2 - t1, 3),
+                           "cudnn_timing": round(t3 - t2, 3)}}
+        rec["bound_ms"], rec["bound_by"] = conv_bound(
+            K6_FRAMES, k, stride, pad, ci, co, side, torch.bfloat16, in_bytes=2)
+        rec["int32_bound_ms"], _ = conv_bound(K6_FRAMES, k, stride, pad, ci, co, side,
+                                              torch.int32, epilogue=False)
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"K6 disagrees with its plain version or its check "
+                                 f"misses a fault: {rec}")
+        cases.append(rec)
+        del x, xf, w, xb, wb
+    return cases
+
+
+def k6_mode(x: torch.Tensor, kw: dict) -> str:
+    """A K6 call's mode in words: its input (type and quantization), the
+    epilogue's steps and the output type."""
+    names = {torch.int8: "int8", torch.bfloat16: "bf16", torch.float32: "fp32",
+             torch.int32: "int32"}
+    src = names[x.dtype] + ("*in_inv" if kw.get("in_inv") is not None else
+                            "/in_scale" if kw.get("in_scale") is not None else "")
+    steps = [src]
+    if kw.get("addend") is not None:
+        rep = kw.get("addend_rep", 1)
+        steps.append("+addend" + (f" x{rep}" if rep > 1 else ""))
+    if kw.get("scale") is not None:
+        steps.append("fma" + (" fma" if kw.get("scale2") is not None else ""))
+    if kw.get("act"):
+        steps.append(kw["act"])
+    return " ".join(steps) + " -> " + names[kw.get("out_dtype", torch.int32)]
+
+
+class HeldK6:
+    """Holds every K6 call a path makes against its plain version on the
+    same tensors on the card, bitwise, as each call returns: inside the
+    `with`, `conv_s8` is replaced where the path calls it (`models.heads`,
+    the trunk; `ops.quant`, the backbone) by a wrapper that launches the
+    kernel as before and, while `active`, computes `conv_s8_plain` beside
+    it. The plain computations launch no kernel, so the path's counts are
+    those of its own calls. `summary` fails on any difference or on no
+    held call, and gives the calls by mode and the distinct shapes."""
+
+    def __init__(self):
+        self.active, self.calls, self.modes, self.shapes, self.bad = True, 0, {}, set(), []
+
+    def __enter__(self):
+        from dcnet_tpu_torch.models import heads
+        from dcnet_tpu_torch.ops import quant
+        self._saved = [(mod, mod.conv_s8) for mod in (heads, quant)]
+        for mod, _ in self._saved:
+            mod.conv_s8 = self._call
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        for mod, fn in self._saved:
+            mod.conv_s8 = fn
+        return False
+
+    def _call(self, x, w, stride: int = 1, pad: int = 0, **kw):
+        out = k_conv.conv_s8(x, w, stride, pad, **kw)
+        if self.active:
+            want = k_conv.conv_s8_plain(x, w, stride, pad, **kw)
+            mode = k6_mode(x, kw)
+            self.calls += 1
+            self.modes[mode] = self.modes.get(mode, 0) + 1
+            self.shapes.add((tuple(x.shape), tuple(w.shape), stride, pad))
+            if not torch.equal(out, want):
+                self.bad.append({"mode": mode, "x": list(x.shape), "w": list(w.shape),
+                                 "stride": stride, "pad": pad,
+                                 "max_abs_err": (out.double() - want.double()).abs().max().item()})
+        return out
+
+    def summary(self, what: str) -> dict:
+        if self.bad or not self.calls:
+            raise AssertionError(f"{what}: K6 differs from its plain version on the path's "
+                                 f"own calls ({len(self.bad)} of {self.calls}): {self.bad[:5]}")
+        return {"calls": self.calls, "distinct_shapes": len(self.shapes),
+                "modes": dict(sorted(self.modes.items())), "bitwise_equal": True}
+
+
+def phase_kernel(dev, k6_build: concurrent.futures.Future):
+    """K1-K6 against their plain versions on the card (K6 once its
+    background build is done, `finish_k6_build`); returns the case records
+    and K5's launches (K5 runs on no path: its count is that of the kernel
+    phase's checked calls, one a case)."""
     gen = torch.Generator(device="cpu").manual_seed(0)
     cases = (kernel_cases_k1(dev, gen) + kernel_cases_k2(dev, gen)
              + kernel_cases_k3(dev, gen) + kernel_cases_k4(dev, gen))
@@ -926,6 +1274,8 @@ def phase_kernel(dev):
               + kernel_cases_k4(dev, gen, _width_shapes(KERNEL_B, (torch.int8,),
                                                         ANY_WIDTHS_INT8)))
     k5_cases, k5_launches = kernel_cases_k5(dev, gen)
+    finish_k6_build(k6_build)
+    cases += kernel_cases_k6(dev, gen)
     kernels.reset_launches()  # the comparison launches above do not count
     return cases + k5_cases, k5_launches
 
@@ -1073,6 +1423,255 @@ def phase_slice(dev, profile_dir=None) -> dict:
            "timing": timing, "kind": torch.cuda.get_device_name(dev),
            "nvidia_smi": nvidia_smi()}
     emit(rec)
+    return rec
+
+
+# --- the int8 eval path ------------------------------------------------------
+
+INT8_CALIB_CLIPS = 4              # 20 calibration frames, the trunk on them
+INT8_PARITY_CLIPS = 1
+INT8_PARITY_TICKS = 5             # the quantized engine, card against CPU
+# The int8 eval, card against CPU in fp32 (TF32 off), the same qparams and
+# trunk scales. The int8 backbone is bitwise on both (K6 equals its plain
+# version). With the trunk PTQ each trunk conv quantizes its input again,
+# and inputs that differ by a few units in the last place (K1's 3xTF32
+# against the plain fp32 softmax, other reduction orders) land on the other
+# side of a rounding boundary for a few codes: one code moves a conv output
+# by s_in s_w |w| ~ 1e-3 here, so the limit is atol 1e-2 (the first chip
+# run saw 27 of 1,920 outbox elements past 1e-3, the largest 2.3e-3); each
+# trunk conv on the card's own inputs is bitwise equal to the CPU's, and the
+# decoded indices are equal in both.
+INT8_PARITY_TOL = dict(rtol=0.0, atol=1e-2)
+
+
+def int8_parity(card, cpu, cfg, tol: dict) -> dict:
+    """The card's outputs against the CPU's at `tol`, decoded indices equal."""
+    from dcnet_tpu_torch.ops.decode import decode_best
+    err = max((g.cpu() - r).abs().max().item() for g, r in zip(card.outbox, cpu.outbox))
+    past = sum(int(((g.cpu() - r).abs() > 1e-3).sum()) for g, r in zip(card.outbox, cpu.outbox))
+    for g, r in zip(card.outbox, cpu.outbox):
+        torch.testing.assert_close(g.cpu(), r, **tol)
+    got, want = decode_best(card.outbox, cfg), decode_best(cpu.outbox, cfg)
+    same_idx = all(torch.equal(getattr(got, f).cpu(), getattr(want, f))
+                   for f in ("best_n", "gi", "gj", "scale"))
+    if not same_idx:
+        raise AssertionError("int8 decoded boxes differ between the card and the CPU")
+    return {"max_abs_outbox_err": err, "outbox_elements_past_1e-3": past,
+            "elements": sum(g.numel() for g in card.outbox), **tol,
+            "same_decoded_index": same_idx}
+
+
+class _capture_trunk_convs:
+    """Record every trunk ConvBNReLU call's input and output (the int8
+    modes) of `model`, by forward hooks, until close() (which returns
+    [(module name, input, output)])."""
+
+    def __init__(self, model):
+        from dcnet_tpu_torch.ops.quant import _trunk_convs
+        names = {id(m): n for n, m in model.named_modules()}
+        self.calls, self.handles = [], []
+        for mod in _trunk_convs(model).values():
+            self.handles.append(mod.register_forward_hook(
+                lambda m, args, out: self.calls.append((names[id(m)], args[0], out))))
+
+    def close(self) -> list:
+        for h in self.handles:
+            h.remove()
+        return self.calls
+
+
+def _to(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(v, dev) for v in x)
+    return x
+
+
+def _trunk_convs_on_cpu(cpu_model, calls: list) -> dict:
+    """Each trunk int8 conv of the CPU model on the card's own inputs
+    against the card's output: bitwise (K6 and its plain version, the
+    same quantization arithmetic)."""
+    mods = dict(cpu_model.named_modules())
+    bad = []
+    for name, x, out in calls:
+        want = mods[name](_to(x, torch.device("cpu")))
+        got = _to(out, torch.device("cpu"))
+        pairs = zip(got, want) if isinstance(want, list) else [(got, want)]
+        if not all(torch.equal(g, w) for g, w in pairs):
+            bad.append(name)
+    if bad or not calls:
+        raise AssertionError(f"trunk int8 convs differ between the card and the CPU on "
+                             f"the card's inputs: {bad} of {len(calls)} calls")
+    return {"calls": len(calls), "bitwise_equal": True}
+
+
+def trunk_k6_per_call(cfg, references: int = 4) -> int:
+    """K6 launches of the int8 trunk per eval_features call: mapping_visu
+    3; corr_conv per scale 1 + R with the split list, 2 with stacked
+    references (coattn_batch_refs), R without the split; the fcn 4 (light
+    1) per scale."""
+    if not cfg.split_corr_conv:
+        corr = references
+    else:
+        corr = 2 if (cfg.coattn_batch_refs or cfg.coattn_multiref) else 1 + references
+    return 3 + 3 * corr + 3 * (1 if cfg.light else 4)
+
+
+def backbone_k6_per_call() -> int:
+    """K6 launches of the int8 backbone a call: one per live conv."""
+    from dcnet_tpu_torch.ops.quant import conv_layer_ids, live_layers
+    live = live_layers(_defs())
+    return sum(1 for i in conv_layer_ids(_defs()) if i in live)
+
+
+def _to_cpu(qparams: dict) -> dict:
+    return {i: {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in d.items()}
+            for i, d in qparams.items()}
+
+
+def phase_int8(dev, profile_dir=None) -> dict:
+    """The int8 eval path on the card: the full-width model in bf16 with
+    seeded weights, its backbone quantized on a seeded calibration batch
+    (`quantize_model_backbone`) and its trunk calibrated on a float
+    eval_clip of the same clips (`calibrate_trunk`), as the JAX eval bench
+    does; then `quant_eval_clip` with the int8 chain (the JAX eval
+    headline), and the --coattn_int8 and --coattn_batch_refs variants.
+    Launches per call checked; fp32 copies on the card and the CPU (TF32
+    off) agree; each variant timed at 64 clips beside the float bf16
+    eval_clip of the same weights."""
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.ops import quant as Q
+    from dcnet_tpu_torch.ops.decode import decode_best
+
+    cfg = full_width_config().replace(compute_dtype="bfloat16")
+    size, n_frame = cfg.image_size, 5
+    model, defs, setup_s = seeded_model(cfg, dev)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(8)
+
+    def request(clips):
+        images = rng.rand(clips * n_frame, size, size, 3).astype(np.float32)
+        ids = rng.randint(1, cfg.corpus_size, (clips, cfg.query_len))
+        ids[:, 12:] *= rng.rand(clips, cfg.query_len - 12) < 0.5  # padding
+        return torch.from_numpy(images).to(dev), torch.from_numpy(ids).to(dev)
+
+    t0 = time.perf_counter()
+    calib_images, calib_ids = request(INT8_CALIB_CLIPS)
+    qparams = Q.quantize_model_backbone(model, calib_images)
+    scales = Q.calibrate_trunk(model, lambda m: m.eval_clip(calib_images, calib_ids,
+                                                              n_frame=n_frame))
+    Q.trunk_quant_variant(model, "int8")
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    base = model.cfg
+    variants = {"int8_chain": (dict(), True), "coattn_int8": (dict(coattn_int8_logits=True), True),
+                "coattn_batch_refs": (dict(coattn_batch_refs=True), True)}
+    bb = backbone_k6_per_call()
+
+    def run(name, images, ids):
+        over, chain = variants[name]
+        model.cfg = base.replace(**over)
+        try:
+            return Q.quant_eval_clip(model, qparams, images, ids, n_frame, int8_chain=chain)
+        finally:
+            model.cfg = base
+
+    # --- the main path: 3 requests of 8 clips, then each variant once; every
+    # K6 call held against its plain version on its own tensors -----------
+    kernels.reset_launches()
+    per_call, answers, held = {}, [], HeldK6()
+    for name in ["int8_chain"] * 3 + ["coattn_int8", "coattn_batch_refs"]:
+        images, ids = request(8)
+        before = dict(kernels.LAUNCHES)
+        with held:
+            out = run(name, images, ids)
+        dec = decode_best(out.outbox, cfg)
+        torch.cuda.synchronize()
+        got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        want = {"conv_s8": bb + trunk_k6_per_call(base.replace(**variants[name][0])),
+                "coattn_attend": 12 if name == "int8_chain" else 0}
+        if any(got[k] != want.get(k, 0) for k in got):
+            raise AssertionError(f"int8 {name}: launches {got}, expected {want}")
+        per_call.setdefault(name, []).append(got)
+        for s_, ob in enumerate(out.outbox):
+            g = cfg.grids[s_]
+            if tuple(ob.shape) != (8, 3, 5, g, g) or not torch.isfinite(ob).all():
+                raise AssertionError(f"int8 {name}: outbox[{s_}] bad {tuple(ob.shape)}")
+        answers.append(dec.boxes[:, 0].cpu())
+    launches = dict(kernels.LAUNCHES)
+    held_on_path = held.summary("int8 eval")
+
+    # --- fp32 copies with the trunk PTQ on the card and the CPU, the same
+    # qparams and scales (the int8 backbone's calls are among the held) ----
+    images, ids = request(INT8_PARITY_CLIPS)
+    cfg32 = base.replace(compute_dtype="float32", trunk_quant="int8")
+    outs = {}
+    for role, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        m = DCNet(cfg32, backbone_defs=defs, device=where)
+        m.load_state_dict({k: v.to(where) for k, v in weights.items()})
+        Q.set_trunk_scales(m, scales)
+        q = qparams if role == "card" else _to_cpu(qparams)
+        hooks = _capture_trunk_convs(m) if role == "card" else None
+        t1 = time.perf_counter()
+        outs[role] = Q.quant_eval_clip(m, q, images.to(where), ids.to(where),
+                                       n_frame, int8_chain=True)
+        seconds = time.perf_counter() - t1
+        if hooks is not None:
+            captured = hooks.close()
+        else:
+            stages = _trunk_convs_on_cpu(m, captured)
+        del m
+    parity = int8_parity(outs["card"], outs["cpu"], cfg32, INT8_PARITY_TOL)
+    parity.update(cpu_s=seconds, trunk_convs_on_card_inputs=stages)
+    kernels.reset_launches()
+
+    # --- 64 clips: each int8 variant and the float bf16 eval_clip -----------
+    float_model = DCNet(cfg, backbone_defs=defs, device=dev)
+    float_model.load_state_dict(weights)
+    images, ids = request(TIMING_CLIPS)
+    timing = {}
+    calls = {name: (lambda name=name: run(name, images, ids)) for name in variants}
+    calls["float_bf16_eval_clip"] = lambda: float_model.eval_clip(images, ids, n_frame=n_frame)
+    for name, fn in calls.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(2):
+            decode_best(fn().outbox, cfg)
+        torch.cuda.synchronize()
+        iters = 5
+        t1 = time.perf_counter()
+        for _ in range(iters):
+            dec = decode_best(fn().outbox, cfg)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t1) / iters
+        if not torch.isfinite(dec.boxes).all():
+            raise AssertionError(f"int8 timing {name}: boxes not finite")
+        timing[name] = {"clips": TIMING_CLIPS, "s_per_call": dt,
+                        "clips_per_s": TIMING_CLIPS / dt,
+                        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        if profile_dir:
+            try:  # a diagnostic: a profiler that cannot trace is reported
+                timing[name]["profile"] = profile_call(fn, profile_dir, f"int8_{name}")
+            except Exception as e:  # noqa: BLE001
+                timing[name]["profile"] = {"error": repr(e)[:300]}
+    kernels.reset_launches()
+    rec = {"phase": "int8", "model": "YOLOv3/Darknet-53 + BiLSTM, 256 px, emb 512, "
+           "hidden 512, corpus 1000, 5-frame clips, split corr_conv, bf16 activations, "
+           "int8 backbone (68 live convs) + trunk PTQ (trunk_quant=int8)",
+           "weights": "backbone: random_darknet_weights_file(seed=0); rest: "
+                      "seeded_init_(seed=0)",
+           "calibration": f"{INT8_CALIB_CLIPS * n_frame} uniform frames (seed 8): the "
+                          f"backbone by quantize_model_backbone, the trunk by "
+                          f"calibrate_trunk over a float eval_clip of them",
+           "setup_s": setup_s, "calib_s": calib_s, "launches": launches,
+           "launches_per_call": {k: v[0] for k, v in per_call.items()},
+           "k6_held_on_path": held_on_path,
+           "cpu_parity": {"clips": INT8_PARITY_CLIPS, "dtype": "float32",
+                          "trunk": "int8", **parity},
+           "timing": timing, "kind": torch.cuda.get_device_name(dev),
+           "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    del model, float_model
     return rec
 
 
@@ -1465,7 +2064,8 @@ def phase_train(dev, profile_dir=None) -> dict:
     epoch_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     want = {"coattn_attend": 0, "coattn_pair": 3 * TRAIN_STEPS,
-            "coattn_attend_bwd": 6 * TRAIN_STEPS, "coattn_ring": 0, "loc_gram": 0}
+            "coattn_attend_bwd": 6 * TRAIN_STEPS, "coattn_ring": 0, "loc_gram": 0,
+            "conv_s8": 0}
     if launches != want:
         raise AssertionError(f"train_epoch launches {launches}, expected {want}")
     if not all(np.isfinite(v) for v in averages.values()):
@@ -1799,6 +2399,244 @@ def phase_serving(dev, profile_dir=None) -> dict:
     return rec
 
 
+class DecodeTaps:
+    """Inside the `with`, records each `decode_best` call of the serving
+    engine: per stream the whole raw output `outbox` (every scale's (3, 5,
+    g, g) flattened), the argmax cell `idx`, the top two conf values
+    `top2`, the cell's `scale`, its `box` and `score` (on the CPU)."""
+
+    def __enter__(self):
+        from dcnet_tpu_torch.serving import engine
+        self._mod, self._real, self.taps = engine, engine.decode_best, []
+        engine.decode_best = self._call
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._mod.decode_best = self._real
+        return False
+
+    def _call(self, outbox, cfg):
+        from dcnet_tpu_torch.ops.decode import flatten_conf
+        dec = self._real(outbox, cfg)
+        conf = flatten_conf(outbox).float()
+        self.taps.append({"outbox": torch.cat([o.reshape(o.shape[0], -1).float()
+                                               for o in outbox], dim=1).cpu(),
+                          "idx": torch.argmax(conf, dim=1).cpu(),
+                          "top2": torch.topk(conf, 2, dim=1).values.cpu(),
+                          "scale": dec.scale[:, 0].cpu(), "box": dec.boxes[:, 0].cpu(),
+                          "score": dec.score[:, 0].cpu()})
+        return dec
+
+
+def serve_cells_held(card: list, cpu: list, strides, score_tol: float,
+                     box_atol: float) -> dict:
+    """The raw predictions of the card and the CPU, tick by tick (`DecodeTaps`
+    records): every raw output (conf and box logits of every cell) within
+    score_tol, as the int8 eval holds its outbox; each stream's score
+    within score_tol; its decoded cell equal
+    wherever the CPU's top two conf values differ by more than score_tol
+    (a near tie, where the cell may move: exempt and counted); where the
+    cells agree, the box within what score_tol on the raw outputs allows,
+    score_tol (stride / 4 + 0.51 max(w, h)) + box_atol px per coordinate
+    (the centre moves by at most a quarter of the logit's change times the
+    stride, each edge by half the size's change, exp(score_tol) - 1 < 1.02
+    score_tol of the size)."""
+    stats = {"stream_ticks": 0, "cells_equal": 0, "near_ties": 0, "cells_moved": 0,
+             "max_outbox_err": 0.0, "max_score_err": 0.0, "max_box_err": 0.0,
+             "max_box_share_of_limit": 0.0, "score_tol": score_tol, "box_atol": box_atol}
+    bad = []
+    for t, (g, w) in enumerate(zip(card, cpu)):
+        out_err = (g["outbox"] - w["outbox"]).abs().amax(dim=1)
+        stats["max_outbox_err"] = max(stats["max_outbox_err"], float(out_err.max()))
+        for i in torch.nonzero(out_err > score_tol).flatten().tolist():
+            bad.append(f"tick {t} stream {i}: raw outputs {out_err[i]:.3g} apart")
+        score_err = (g["score"] - w["score"]).abs()
+        tie = (w["top2"][:, 0] - w["top2"][:, 1]) <= score_tol
+        same = g["idx"] == w["idx"]
+        stride = torch.tensor([float(strides[int(s_)]) for s_ in w["scale"]])
+        size = (w["box"][:, 2:] - w["box"][:, :2]).abs().amax(dim=1)
+        limit = score_tol * (stride / 4 + 0.51 * size) + box_atol
+        box_err = (g["box"] - w["box"]).abs().amax(dim=1)
+        for i in range(len(score_err)):
+            if score_err[i] > score_tol:
+                bad.append(f"tick {t} stream {i}: scores {score_err[i]:.3g} apart")
+            if not same[i] and not tie[i]:
+                bad.append(f"tick {t} stream {i}: another cell, the CPU's top two "
+                           f"{float(w['top2'][i, 0] - w['top2'][i, 1]):.3g} apart")
+            if same[i] and box_err[i] > limit[i]:
+                bad.append(f"tick {t} stream {i}: boxes {box_err[i]:.3g} px apart "
+                           f"(limit {limit[i]:.3g})")
+        stats["stream_ticks"] += len(score_err)
+        stats["cells_equal"] += int(same.sum())
+        stats["near_ties"] += int(tie.sum())
+        stats["cells_moved"] += int((~same).sum())
+        stats["max_score_err"] = max(stats["max_score_err"], float(score_err.max()))
+        if same.any():
+            stats["max_box_err"] = max(stats["max_box_err"], float(box_err[same].max()))
+            stats["max_box_share_of_limit"] = max(stats["max_box_share_of_limit"],
+                                                  float((box_err / limit)[same].max()))
+    if not card or len(card) != len(cpu):
+        bad.append(f"{len(card)} card ticks against {len(cpu)} CPU ticks")
+    return {"ok": not bad, "failures": bad[:10], **stats}
+
+
+def phase_serving_int8(dev, profile_dir=None) -> dict:
+    """The quantized serving tick: the serving phase's model and streams,
+    `GroundingEngine.quantize()` on 16 of the streams' frames and one
+    phrase (the JAX serving bench's calibration; int8 backbone and trunk,
+    no int8 chain), then 12 ticks at 120 streams in each mode (multiref
+    with int8 rings, multiref with float rings, the K1 path), launches per
+    tick checked (K6: the live backbone convs + the no-split trunk's),
+    every K6 call of each mode's last tick held against its plain version
+    (`HeldK6`), each mode timed as the serving phase times its ticks; 4
+    fp32 streams on the card against the same quantized engine on the CPU
+    per tick: with the int8 backbone alone boxes and scores within
+    SERVE_TOL; with the trunk PTQ too the raw predictions by
+    `serve_cells_held` and the trunk convs bitwise on the card's own
+    inputs."""
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.ops import quant as Q
+    from dcnet_tpu_torch.serving.engine import GroundingEngine, cast_params_for_serving
+
+    cfg = serving_config(compute_dtype="bfloat16", coattn_multiref=True)
+    size, n = cfg.image_size, SERVE_STREAMS
+    model, defs, setup_s = seeded_model(cfg, dev)
+    cast_params_for_serving(model)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(3)
+    ids = _phrases(rng, cfg, n).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def frames_at(_t):
+        return torch.rand((n, size, size, 3), generator=gen, device=dev)
+
+    t0 = time.perf_counter()
+    calib = frames_at(0)[:16]
+    ring_eng = GroundingEngine(model, n, int8_rings=True).quantize(calib, ids[:1])
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    k1_model = DCNet(cfg.replace(coattn_multiref=False, trunk_quant="int8"),
+                     backbone_defs=defs, device=dev)
+    k1_model.load_state_dict(weights)
+    Q.set_trunk_scales(k1_model, ring_eng.trunk_scales)
+    engines = {"multiref_int8_rings": ring_eng,
+               "multiref": GroundingEngine(model, n),
+               "k1": GroundingEngine(k1_model, n)}
+    for name in ("multiref", "k1"):
+        engines[name].qparams = ring_eng.qparams
+    k6 = backbone_k6_per_call() + trunk_k6_per_call(model.cfg)
+    want = {"multiref_int8_rings": {"conv_s8": k6, "coattn_ring": 3},
+            "multiref": {"conv_s8": k6, "coattn_ring": 3},
+            "k1": {"conv_s8": k6, "coattn_attend": 12}}
+    launches, timing, held_on_path = {}, {}, {}
+    for name, eng in engines.items():
+        kernels.reset_launches()
+        held = HeldK6()
+
+        def frames_held(t):  # hold the K6 calls of the last tick
+            held.active = t == SERVE_TICKS - 1
+            return frames_at(t)
+
+        with held:
+            state, per_tick, outs = _serve(eng, ids, SERVE_TICKS, frames_held)
+        held_on_path[name] = held.summary(f"quantized serving, {name}")
+        _expect_launches(per_tick, want[name], f"quantized serving, {name}")
+        _finite(outs, f"quantized serving, {name}")
+        launches[name] = dict(kernels.LAUNCHES)
+        frames = frames_at(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for _ in range(WARMUP_TICKS):
+            state, *_ = eng.step(state, frames)
+        chains = []
+        for _ in range(TIMED_CHAINS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(CHAIN_TICKS):
+                state, fused, raw, score = eng.step(state, frames)
+            torch.cuda.synchronize()
+            chains.append((time.perf_counter() - t1) / CHAIN_TICKS)
+        med = float(np.median(chains))
+        timing[name] = {"streams": n, "s_per_tick": med, "s_per_tick_chains": chains,
+                        "predictions_per_s": n / med,
+                        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        if profile_dir:
+            try:  # a diagnostic: a profiler that cannot trace is reported
+                timing[name]["profile"] = profile_call(
+                    lambda: eng.step(state, frames), profile_dir,
+                    f"serving_tick_{name}_int8_bf16")
+            except Exception as e:  # noqa: BLE001
+                timing[name]["profile"] = {"error": repr(e)[:300]}
+        del state
+    kernels.reset_launches()
+
+    # --- 4 fp32 streams: the quantized engine on the card and on the CPU -----
+    # the int8 backbone alone (trunk=False): bitwise on both sides, the rest
+    # float, so boxes and scores within SERVE_TOL; with the trunk PTQ the raw
+    # predictions by `serve_cells_held` (code flips, see INT8_PARITY_TOL) and
+    # each trunk conv of the card's last tick bitwise equal to the CPU's on
+    # its inputs
+    cfg32 = serving_config(compute_dtype="float32", coattn_multiref=True)
+    prng = np.random.RandomState(4)
+    pframes = prng.rand(INT8_PARITY_TICKS, PARITY_STREAMS, size, size, 3).astype(np.float32)
+    pids = _phrases(prng, cfg32, PARITY_STREAMS)
+    parity = {}
+    for trunk in (False, True):
+        card_model = DCNet(cfg32, backbone_defs=defs, device=dev)
+        card_model.load_state_dict(weights)
+        card = GroundingEngine(card_model, PARITY_STREAMS, int8_rings=True).quantize(
+            torch.from_numpy(pframes[:4].reshape(-1, size, size, 3)).to(dev), pids[:1],
+            trunk=trunk)
+        cpu_model = DCNet(card_model.cfg, backbone_defs=defs, device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in card_model.state_dict().items()})
+        if trunk:
+            Q.set_trunk_scales(cpu_model, card.trunk_scales)
+        cpu = GroundingEngine(cpu_model, PARITY_STREAMS, int8_rings=True)
+        cpu.qparams = _to_cpu(card.qparams)
+        states = {"card": card.init_state(pids), "cpu": cpu.init_state(pids)}
+        worst, taps, t1 = 0.0, {"card": [], "cpu": []}, time.perf_counter()
+        for t in range(INT8_PARITY_TICKS):
+            hooks = (_capture_trunk_convs(card_model) if trunk and t == INT8_PARITY_TICKS - 1
+                     else None)
+            got = {}
+            for role, eng in (("card", card), ("cpu", cpu)):
+                with DecodeTaps() as tap:
+                    states[role], *o = eng.step(states[role], torch.from_numpy(pframes[t]))
+                taps[role] += tap.taps
+                got[role] = [x.cpu() for x in o]
+            if hooks is not None:
+                stages = _trunk_convs_on_cpu(cpu_model, hooks.close())
+            if not trunk:
+                for a, b in zip(got["card"], got["cpu"]):
+                    torch.testing.assert_close(a, b, **SERVE_TOL)
+                    worst = max(worst, (a - b).abs().max().item())
+        key = "int8_backbone_and_trunk" if trunk else "int8_backbone"
+        if trunk:
+            parity[key] = serve_cells_held(taps["card"], taps["cpu"], cfg32.strides,
+                                           INT8_PARITY_TOL["atol"], SERVE_TOL["atol"])
+            if not parity[key]["ok"]:
+                raise AssertionError(f"quantized serving with the trunk PTQ, card against "
+                                     f"CPU: {parity[key]}")
+            parity[key].update(trunk_convs_on_card_inputs=stages,
+                               not_held="the fused boxes (the top-k cache window)")
+        else:
+            parity[key] = {"max_abs_err": worst, "tol": SERVE_TOL,
+                           "held": "fused and raw boxes and scores"}
+        parity[key]["seconds"] = time.perf_counter() - t1
+        del card, cpu, card_model, cpu_model, states
+    parity.update(streams=PARITY_STREAMS, ticks=INT8_PARITY_TICKS, mode="multiref_int8_rings")
+    kernels.reset_launches()
+    rec = {"phase": "serving_int8", "model": "the serving phase's, quantize()d: int8 "
+           "backbone (68 live convs) and trunk, no int8 chain, bf16",
+           "setup_s": setup_s, "quantize_s": quantize_s, "streams": n,
+           "ticks": SERVE_TICKS, "launches": launches,
+           "launches_per_tick": want, "k6_held_on_path": held_on_path,
+           "cpu_parity": parity, "timing": timing,
+           "kind": torch.cuda.get_device_name(dev), "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    return rec
+
+
 def profile_call(fn, out_dir, tag) -> dict:
     """torch.profiler over one call of fn: device time by kernel (top
     entries), summed kernel time, the host wall time of the call and their
@@ -1834,6 +2672,7 @@ CLI_K = 5
 CLI_WIDTH = ["--size", "256", "--emb_size", "512", "--lstm_hidden", "512"]
 LOCK_ROWS = 10                    # the rows the JAX package's lock tests use
 CLI_ACC_TOL, CLI_MIOU_TOL = 1e-6, 2e-3   # tests/test_cli.py's limits
+INT8_ACC_TOL, INT8_MIOU_TOL = 0.11, 0.03 # int8 against float, tests/test_cli.py:84-107
 CACHE_TOL = dict(rtol=1e-4, atol=1e-5)   # cache scores, card against CPU
 CACHE_BOX_ATOL = 1e-3                    # cache boxes, px
 
@@ -2139,6 +2978,34 @@ def phase_cli(dev) -> dict:
         runs["lock_fp32"] = {"rows": LOCK_ROWS, "output": text_l.strip().splitlines(),
                              "stream_output": text_ls.strip().splitlines(),
                              "cpu_output": text_lc.strip().splitlines(), "wall_s": s}
+
+        # the int8 CLI on the lock, card and CPU: equal metrics, each within
+        # the JAX package's limits of float (tests/test_cli.py:84-107)
+        k6_before = kernels.LAUNCHES["conv_s8"]
+        for name, extra in (("quant", ["--quant"]),
+                            ("quant_trunk", ["--quant", "--quant_trunk"]),
+                            ("coattn_int8", ["--coattn_int8"]),
+                            ("coattn_batch_refs", ["--coattn_batch_refs"])):
+            text_q, s_q = _cli_output(cli_test.main, lock + extra, rows=LOCK_ROWS)
+            text_qc, _ = _cli_output(cli_test.main, lock + extra, rows=LOCK_ROWS,
+                                     platform="cpu")
+            got_q, float_q = cli_metrics(text_q), cli_metrics(
+                text_ls if name.startswith("quant") else text_l)
+            checks[f"lock_{name}_card_equals_cpu"] = _close(
+                got_q, cli_metrics(text_qc), f"lock {name}, card against CPU")
+            near = (abs(got_q[1] - float_q[1]) < INT8_MIOU_TOL
+                    and abs(got_q[0] - float_q[0]) < INT8_ACC_TOL)
+            checks[f"lock_{name}_near_float"] = {"got": got_q, "float": float_q,
+                                                 "miou_tol": INT8_MIOU_TOL,
+                                                 "acc_tol": INT8_ACC_TOL, "ok": near}
+            if not near:
+                raise AssertionError(f"lock {name}: {got_q} against float {float_q}")
+            runs[f"lock_{name}"] = {"output": text_q.strip().splitlines(),
+                                    "cpu_output": text_qc.strip().splitlines(), "wall_s": s_q}
+        k6_cli = kernels.LAUNCHES["conv_s8"] - k6_before
+        if not k6_cli:
+            raise AssertionError("the int8 CLI runs never launched K6")
+        launches["conv_s8"] = k6_cli
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
@@ -2342,16 +3209,24 @@ KERNELS = (  # name, path it runs on, source, the TPU kernel it replaces
     ("loc_gram", None, "dcnet_tpu_torch/csrc/locgram.cu",
      "dcnet_tpu/ops/pallas/locgram.py:49 (fused_loc_gram; body _kernel :35; "
      "fold_dense_bn :91)"),
+    ("conv_s8", "int8_eval", "dcnet_tpu_torch/csrc/conv_s8.cuh",
+     "none: no TPU kernel; the JAX package's int8 conv is XLA's "
+     "lax.conv_general_dilated(int8, int8, preferred_element_type=int32), "
+     "dcnet_tpu/ops/quant.py:224-227 and dcnet_tpu/models/heads.py:93-96, :121-132"),
 )
 
 
 def _headline(name: str, case: dict) -> bool:
     """The case a kernel's entry reports: K1-K4 at P=1024, C=512, bf16 (B=8
     for K1's eval request, B=16 for the train step's K2 and K3, B=120
-    streams for K4); K5 at B=8, P=1344, fp32 ce (the fp32 eval trunk's)."""
+    streams for K4); K5 at B=8, P=1344, fp32 ce (the fp32 eval trunk's);
+    K6 at K6_HEADLINE on 8 frames, bf16 out."""
     if name == "loc_gram":
         return (case["B"] == 8 and case["P"] == LOC_P and case["E"] == LOC_E
                 and case["C"] == KERNEL_C and case["dtype"] == "float32")
+    if name == "conv_s8":
+        return (case["group"] == "backbone" and (case["k"], case["stride"], 1, case["Ci"],
+                                                 case["Co"], case["side"]) == K6_HEADLINE)
     return (case["P"] == max(MAIN_P) and case["C"] == KERNEL_C
             and case["dtype"] == "bfloat16")
 
@@ -2370,23 +3245,26 @@ def kernels_line(cases: list, launches: dict, by_path=None) -> dict:
         mine = [c for c in cases if c["name"] == name]
         head = next(c for c in mine if _headline(name, c))
         worst = max(c["max_abs_err"] for c in mine
-                    if c["dtype"] == head["dtype"] and c["C"] == head["C"])
+                    if c["dtype"] == head["dtype"] and (c["C"] == head["C"]
+                                                        or name == "conv_s8"))
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "path": path, "launches": launches[name],
             "launches_by_path": (by_path or {}).get(
                 name, {path: launches[name]} if path else {}),
-            "shape": {"B": head["B"], "P": head["P"], "C": head["C"],
-                      "dtype": head["dtype"]},
+            "shape": {k: head[k] for k in ("B", "P", "C", "k", "stride", "Ci", "Co",
+                                           "side", "dtype") if k in head},
             "max_abs_err": worst, "timer": head["timer"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "bodies": sorted({c["body"] for c in mine if c.get("body")}),
-            "cases": [{k: c.get(k) for k in ("dtype", "B", "P", "C", "E", "body",
-                                             "max_abs_err", "rel_err", "ms",
-                                             "call_ms", "plain_ms", "library_ms",
-                                             "rank8_route_ms", "bound_ms",
-                                             "bound_by", "library_backends")}
+            "cases": [{k: c.get(k) for k in (
+                ("group", "k", "stride", "Ci", "Co", "side", "vec", "max_abs_err", "ms",
+                 "int32_ms", "plain_ms", "library_ms", "cudnn_bf16_conv_ms", "bound_ms",
+                 "int32_bound_ms", "bound_by") if name == "conv_s8" else
+                ("dtype", "B", "P", "C", "E", "body", "max_abs_err", "rel_err", "ms",
+                 "call_ms", "plain_ms", "library_ms", "rank8_route_ms", "bound_ms",
+                 "bound_by", "library_backends"))}
                       for c in mine]})
     return {"kernels": out, "timers": TIMERS}
 
@@ -2406,30 +3284,51 @@ def main(argv=None) -> int:
               "drives the port on a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    info = phase_device(dev)
-    phase_build()
+    seconds = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    info = timed("device", phase_device, dev)
+    k6_build = timed("build", phase_build)
     if args.cli_pace:
+        finish_k6_build(k6_build)
         phase_cli_pace(dev)
         return 0
-    cases, k5_launches = phase_kernel(dev)
-    eval_launches = phase_slice(dev, profile_dir=args.profile)["launches"]
-    train_launches = phase_train(dev, profile_dir=args.profile)["launches"]
-    serving_launches = phase_serving(dev, profile_dir=args.profile)["launches"]
-    cli_launches = phase_cli(dev)["launches"]
+    cases, k5_launches = timed("kernel", phase_kernel, dev, k6_build)
+    prof = dict(profile_dir=args.profile)
+    eval_launches = timed("slice", phase_slice, dev, **prof)["launches"]
+    int8_launches = timed("int8", phase_int8, dev, **prof)["launches"]
+    train_launches = timed("train", phase_train, dev, **prof)["launches"]
+    serving_launches = timed("serving", phase_serving, dev, **prof)["launches"]
+    serving_int8 = timed("serving_int8", phase_serving_int8, dev, **prof)["launches"]
+    cli_launches = timed("cli", phase_cli, dev)["launches"]
+    emit({"phase": "seconds", **seconds})
     if not cli_launches["coattn_attend"]:
         raise AssertionError(f"K1 never launched on the CLI path: {cli_launches}")
     on_paths = {"coattn_attend": eval_launches["coattn_attend"],
                 "coattn_pair": train_launches["coattn_pair"],
                 "coattn_attend_bwd": train_launches["coattn_attend_bwd"],
-                "coattn_ring": serving_launches["coattn_ring"]}
+                "coattn_ring": serving_launches["coattn_ring"],
+                "conv_s8": int8_launches["conv_s8"]}
     if not all(on_paths.values()):
         raise AssertionError(f"a kernel of the paths never launched: {on_paths}")
     if not k5_launches:
         raise AssertionError("K5 never launched in the kernel phase")
     launches = {**on_paths, "loc_gram": k5_launches}
-    emit(kernels_line(cases, launches,
-                      by_path={"coattn_attend": {"eval": eval_launches["coattn_attend"],
-                                                 "cli": cli_launches["coattn_attend"]}}))
+    emit(kernels_line(cases, launches, by_path={
+        "coattn_attend": {"eval": eval_launches["coattn_attend"],
+                          "int8_eval": int8_launches["coattn_attend"],
+                          "cli": cli_launches["coattn_attend"],
+                          "int8_serving_k1": serving_int8["k1"]["coattn_attend"]},
+        "coattn_ring": {"serving": serving_launches["coattn_ring"],
+                        "int8_serving_multiref": serving_int8["multiref"]["coattn_ring"]},
+        "conv_s8": {"int8_eval": int8_launches["conv_s8"],
+                    **{f"int8_serving_{k}": v["conv_s8"] for k, v in serving_int8.items()},
+                    "int8_cli": cli_launches["conv_s8"]}}))
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

@@ -8,6 +8,12 @@ frame and `eval_features` over the windows (12 K1 launches a call).
 `--cache` writes the top-k cache as one `cache.npz` (the JAX package's
 keys), `--ref_cache_format` also the reference's per-frame `.pth` files,
 and `--post_process` fuses the cache per video and scores the fused boxes.
+`--quant` runs the stream eval on the int8 backbone (`ops/quant.py`, kernel
+K6), calibrated on the first `--calib_frames` distinct frames of the split
+or read from `--quant_params` (written there when the file is missing);
+`--quant_trunk` also runs the trunk convs in int8, calibrated on a float
+`eval_clip` of the first clip. `--coattn_batch_refs` and `--coattn_int8`
+select the batched-reference and int8-logit co-attention (einsums, no K1).
 Prints `acc,miou` and, with `--post_process`, `post_process: acc,miou`.
 
 Example (data-free, on the CPU):
@@ -52,12 +58,23 @@ def parser():
     p.add_argument("--stream_eval", action="store_true",
                    help="run the backbone once per frame and reuse its "
                         "features across the overlapping windows")
-    p.add_argument("--quant", action="store_true")
-    p.add_argument("--calib_frames", default=32, type=int)
-    p.add_argument("--quant_params", default="", type=str)
-    p.add_argument("--quant_trunk", action="store_true")
-    p.add_argument("--coattn_batch_refs", action="store_true")
-    p.add_argument("--coattn_int8", action="store_true")
+    p.add_argument("--quant", action="store_true",
+                   help="int8 post-training-quantized backbone, calibrated "
+                        "on the first frames of the split; implies "
+                        "--stream_eval")
+    p.add_argument("--calib_frames", default=32, type=int,
+                   help="calibration frames for --quant")
+    p.add_argument("--quant_params", default="", type=str,
+                   help="with --quant: read the int8 backbone from this .npz "
+                        "if it exists, else calibrate and write it there")
+    p.add_argument("--quant_trunk", action="store_true",
+                   help="with --quant: also the trunk convs in int8 "
+                        "(cfg.trunk_quant)")
+    p.add_argument("--coattn_batch_refs", action="store_true",
+                   help="every reference frame in one batched co-attention "
+                        "einsum (cfg.coattn_batch_refs)")
+    p.add_argument("--coattn_int8", action="store_true",
+                   help="int8 co-attention logits (cfg.coattn_int8_logits)")
     p.add_argument("--no_split_corr", action="store_true",
                    help="disable the split corr_conv center-half hoisting "
                         "(cfg.split_corr_conv)")
@@ -66,9 +83,6 @@ def parser():
 
 def _check_options(args, device: torch.device) -> None:
     check_ported(args)
-    for flag in ("quant", "quant_trunk", "coattn_int8", "coattn_batch_refs"):
-        if getattr(args, flag):
-            raise not_ported(f"--{flag}", "ROADMAP queue A, item 9")
     if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
         raise not_ported("--data_parallel over more than one card",
                          "ROADMAP queue A, item 12")
@@ -84,6 +98,8 @@ def _cat(rows) -> FrameCache:
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    if args.quant:
+        args.stream_eval = True
     if args.num_frame_k == 2:
         args.num_frame_k = 5  # the test default
     args.test = True
@@ -95,8 +111,9 @@ def main(argv=None):
 
     ds, corpus = build_dataset(args, "test", testmode=True)
     cfg = config_from_args(args, corpus_size=len(corpus))
-    if args.no_split_corr:
-        cfg = cfg.replace(split_corr_conv=False)
+    cfg = cfg.replace(coattn_batch_refs=args.coattn_batch_refs,
+                      coattn_int8_logits=args.coattn_int8,
+                      split_corr_conv=not args.no_split_corr)
     model = splice_backbone_weights(args, build_model(args, cfg, device))
     if args.resume:
         restore_weights(args.resume, model)
@@ -190,16 +207,64 @@ def _print_fused(fused: torch.Tensor, gt_rows, size: int, gt_in_letterbox: bool)
     print(f"post_process: {acc.avg:.6f},{miou.avg:.6f}")
 
 
+def _calibration_frames(ds, n: int) -> np.ndarray:
+    """The first `n` distinct frames of the split, letterboxed and
+    normalized as the eval feeds them: (n, S, S, 3) fp32."""
+    seen = []
+    for row in ds.chunks:
+        for p in row[0]:
+            if p not in seen:
+                seen.append(p)
+            if len(seen) >= n:
+                break
+        if len(seen) >= n:
+            break
+    return np.stack([T.normalize_image(T.letterbox(ds._read_image(p), ds.imsize)[0])
+                     .astype(np.float32) for p in seen])
+
+
+def _quantize(args, ds, model, k: int):
+    """--quant: the int8 backbone's qparams (read from --quant_params, or
+    calibrated on the split's first frames and written there), and with
+    --quant_trunk the trunk convs calibrated on a float eval_clip of the
+    first clip and switched to int8. Returns the qparams."""
+    from dcnet_tpu_torch.ops import quant as Q
+    dev = model.device
+    if args.quant_params and os.path.exists(args.quant_params):
+        qparams = Q.load_qparams(args.quant_params, device=dev)
+    else:
+        calib = torch.from_numpy(_calibration_frames(ds, args.calib_frames))
+        qparams = Q.quantize_model_backbone(model, calib.to(dev))
+        if args.quant_params:
+            Q.save_qparams(args.quant_params, qparams)
+    if args.quant_trunk:
+        s0 = ds[0]
+        images = torch.from_numpy(np.asarray(s0["images"], np.float32)).to(dev)
+        ids = torch.from_numpy(np.asarray(s0["word_ids"][k // 2:k // 2 + 1])).to(dev)
+        Q.calibrate_trunk(model, lambda m: m.eval_clip(images, ids, n_frame=k))
+        Q.trunk_quant_variant(model, "int8")
+    return qparams
+
+
 def _stream_eval(args, ds, cfg, model):
     """Feature-cached video eval: the backbone runs once per frame and the
     overlapping windows reuse its mapped features through `eval_features`,
-    which consumes the features `eval_clip` would compute."""
+    which consumes the features `eval_clip` would compute. With --quant the
+    backbone is the int8 one (`_quantize`)."""
     k = args.num_frame_k
     center = k // 2
     cb = max(args.batch_size, 1)   # trunk batch (centers)
     fb = cb * k                    # backbone batch (frames)
     dev = model.device
     size = cfg.image_size
+    if args.quant:
+        from dcnet_tpu_torch.ops.quant import quant_extract_features
+        qparams = _quantize(args, ds, model, k)
+
+        def extract(frames):
+            return quant_extract_features(model, qparams, frames)
+    else:
+        extract = model.extract_features
 
     by_video = {}
     for row in ds.chunks:
@@ -217,7 +282,7 @@ def _stream_eval(args, ds, cfg, model):
             imgs.append(T.normalize_image(img).astype(np.float32))
             metas.append((ratio, dw, dh))
         frames = torch.from_numpy(np.stack(imgs))
-        parts = [model.extract_features(frames[s:s + fb].to(dev))
+        parts = [extract(frames[s:s + fb].to(dev))
                  for s in range(0, frames.shape[0], fb)]
         feats = [torch.cat([p[i] for p in parts]) for i in range(3)]
 

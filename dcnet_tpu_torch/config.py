@@ -96,10 +96,10 @@ class DCNetConfig:
     legacy_anchor_typo: bool = False
     compute_dtype: str = "float32"  # or "bfloat16"
     split_corr_conv: bool = True    # corr_conv computes the center half once
-    coattn_batch_refs: bool = False   # not ported yet (ROADMAP queue A, 9)
+    coattn_batch_refs: bool = False   # every reference in one batched einsum
     coattn_multiref: bool = False     # center vs every reference in one K4 launch
-    coattn_int8_logits: bool = False  # not ported yet (ROADMAP queue A, 9)
-    trunk_quant: str = "off"          # not ported yet (ROADMAP queue A, 9)
+    coattn_int8_logits: bool = False  # int8 QK logits, static scale 1/127
+    trunk_quant: str = "off"          # trunk convs: off | calib | int8 (PTQ)
     remat_backbone: bool = False      # not ported yet (ROADMAP queue A, 6)
     tp_internals: bool = False        # not ported yet (ROADMAP queue A, 12)
 

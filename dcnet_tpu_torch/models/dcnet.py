@@ -20,8 +20,13 @@ also reads the serving engine's rotating feature rings (`newest_slot`, int8
 rings dequantised on read) and, with `cfg.coattn_multiref`, co-attends the
 center to every reference in one launch of kernel K4 per scale.
 `single_image` is the correspondence-free baseline: the trunk on the mapped
-features of single images, no co-attention and no kernel. The other opt-in
-co-attention variants are later slices (ROADMAP queue A).
+features of single images, no co-attention. The eval path's opt-in variants
+follow the JAX package: `cfg.coattn_batch_refs` attends to every reference
+in one batched einsum and keeps them stacked through the split corr_conv,
+`cfg.coattn_int8_logits` takes the co-attention logits from int8 codes
+(both torch products, no kernel, as in JAX), and `cfg.trunk_quant` sets the
+int8 mode of mapping_visu, corr_conv and the fusion FCNs' ConvBNReLUs
+(static-scale PTQ through kernel K6; `ops/quant.py` calibrates it).
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ from dcnet_tpu_torch.models.heads import (
     ConvBNReLU, DenseBNReLU, MappingLang, build_fusion_fcn, fusion_fcn,
     l2_normalize, tile_language)
 from dcnet_tpu_torch.models.lstm import BiLSTMEncoder
+from dcnet_tpu_torch.ops.coattention import (
+    coattention_center, coattention_center_batched)
 from dcnet_tpu_torch.ops.coords import generate_coord
 from dcnet_tpu_torch.ops.correspondence import (
     ContrastiveSamples, crossmodal_pairs, interframe_pairs)
@@ -81,11 +88,8 @@ class DCNet(nn.Module):
         super().__init__()
         if not cfg.use_lstm:
             raise _not_ported("the BERT text encoder", "ROADMAP queue A, item 10")
-        if cfg.trunk_quant != "off" or cfg.coattn_int8_logits:
-            raise _not_ported("int8 trunk / co-attention logits",
-                              "ROADMAP queue A, item 9")
-        if cfg.coattn_batch_refs:
-            raise _not_ported("coattn_batch_refs", "ROADMAP queue A, item 9")
+        if cfg.trunk_quant not in ("off", "calib", "int8"):
+            raise ValueError(f"trunk_quant is off, calib or int8, not {cfg.trunk_quant!r}")
         if cfg.remat_backbone:
             raise _not_ported("remat_backbone", "ROADMAP queue A, item 6")
         if cfg.tp_internals:
@@ -107,18 +111,20 @@ class DCNet(nn.Module):
         self.loc_embedding = DenseBNReLU(8, 8, dtype=dt, device=device)
         self.loc_text_embedding = DenseBNReLU(
             cfg.all_positions, emb, dtype=dt, device=device)
+        q = cfg.trunk_quant
         self.mapping_visu = nn.ModuleList(
-            ConvBNReLU(c, emb, 1, dtype=dt, device=device) for c in captured)
+            ConvBNReLU(c, emb, 1, dtype=dt, quant=q, device=device) for c in captured)
         self.mapping_lang = MappingLang(textdim, emb, cfg.jemb_dropout,
                                         dtype=dt, device=device)
         self.corr_conv = nn.ModuleList(
-            nn.Sequential(ConvBNReLU(2 * emb, emb, 1, dtype=dt, device=device))
+            nn.Sequential(ConvBNReLU(2 * emb, emb, 1, dtype=dt, quant=q,
+                                     device=device))
             for _ in range(3))
         # Conv1d word-patch smoothing of the cross-modal pairs (training)
         self.feature_map = nn.Sequential(nn.Conv1d(
             cfg.query_len, cfg.query_len, 3, padding=1, device=device))
         fcns = [build_fusion_fcn(2 * emb + 8, emb, cfg.light, dtype=dt,
-                                 device=device) for _ in range(3)]
+                                 quant=q, device=device) for _ in range(3)]
         self.fcn_emb = nn.ModuleList(f[0] for f in fcns)
         self.fcn_out = nn.ModuleList(f[1] for f in fcns)
         self.to(memory_format=torch.channels_last)
@@ -171,9 +177,12 @@ class DCNet(nn.Module):
         """Center-vs-each-reference co-attention + corr_conv, l2-normalised
         and averaged over the references. per_frame: per scale
         (B, n_frame, h, w, C), float or int8; see `eval_features` for
-        `newest_slot`. Without cfg.coattn_multiref the center attends to
-        each reference through K1; with it, one K4 launch per scale reads
-        every reference off the ring in place and returns them stacked."""
+        `newest_slot`. With cfg.coattn_multiref one K4 launch per scale
+        reads every reference off the ring in place and returns them
+        stacked; with cfg.coattn_batch_refs one batched einsum does, and
+        with cfg.coattn_int8_logits (alone) one einsum per reference on
+        int8 logits; otherwise the center attends to each reference
+        through K1."""
         cfg = self.cfg
         n_frame = per_frame[0].shape[1]
         center = n_frame // 2 if center is None else center
@@ -187,6 +196,16 @@ class DCNet(nn.Module):
                 atts = coattention_ring_fused(
                     ring, cfg.coattn_temperature, center_t=center,
                     newest_slot=newest_slot).to(cen.dtype)
+            elif cfg.coattn_batch_refs:  # stacked, one product over all refs
+                refs = torch.stack([self._dequantize(ring[:, j]) for j in ref_slots],
+                                   dim=1)
+                atts = coattention_center_batched(
+                    cen, refs, cfg.coattn_temperature,
+                    int8_logits=cfg.coattn_int8_logits)
+            elif cfg.coattn_int8_logits:
+                atts = [coattention_center(cen, self._dequantize(ring[:, j]),
+                                           cfg.coattn_temperature, int8_logits=True)
+                        for j in ref_slots]
             else:
                 atts = [coattention_center_fused(cen, self._dequantize(ring[:, j]),
                                                  cfg.coattn_temperature)
@@ -195,7 +214,7 @@ class DCNet(nn.Module):
             if cfg.split_corr_conv:  # center half of the 1x1 contraction once
                 cfs = conv((cen, atts))
             else:
-                if cfg.coattn_multiref:
+                if isinstance(atts, torch.Tensor):
                     atts = list(atts.unbind(1))
                 cfs = [conv(torch.cat([cen, a], dim=-1)) for a in atts]
             if isinstance(cfs, list):

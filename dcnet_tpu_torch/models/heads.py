@@ -8,8 +8,9 @@ reference names (`conv`/`bn`, `0`/`1` of a Linear+BatchNorm1d pair), so the
 reference state_dict loads as it is. BN math runs in fp32 and activations
 are stored in the module's compute dtype, as in the JAX package; each
 forward takes `train`, which normalises with batch statistics and moves the
-running ones with flax's rule (`bn_train`) and turns dropout on. The int8
-QuantConv2D modes are not ported yet (ROADMAP queue A, item 9).
+running ones with flax's rule (`bn_train`) and turns dropout on. ConvBNReLU
+carries the static-scale int8 modes of the JAX package's QuantConv2D
+(`quant`: "calib" records its input's abs-max, "int8" runs kernel K6).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dcnet_tpu_torch.config import ANCHORS_PER_SCALE, BOX_ATTRS
+from dcnet_tpu_torch.kernels.conv_s8 import conv_s8
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -128,29 +130,49 @@ class ConvBNReLU(nn.Module):
     its single concat shape, so checkpoints are unaffected. Returns a list
     of R outputs for a split input, or one stacked (B, R, H, W, F) output
     when the parts come stacked as one (B, R, H, W, C) tensor (eval BN and
-    the activation act per channel, whatever the rank)."""
+    the activation act per channel, whatever the rank).
+
+    `quant` (cfg.trunk_quant, eval only) is the JAX package's QuantConv2D
+    mode: "calib" runs the float path and raises `act_max`, the running
+    abs-max of every input piece; "int8" quantises the weights per output
+    channel (s_w = max|w| / 127) and the input per tensor with the static
+    scale s_in = act_max / 127, sums in int32 (kernel K6) and dequantises
+    by s_in s_w into the BatchNorm. `act_max` is a buffer outside the
+    state_dict, as the JAX package keeps it outside `params`."""
 
     def __init__(self, in_ch: int, features: int, kernel: int = 1,
                  stride: int = 1, leaky: bool = False, relu: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, quant: str = "off",
+                 device=None):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, features, kernel, stride,
                               (kernel - 1) // 2, bias=False, device=device)
         self.bn = nn.BatchNorm2d(features, eps=1e-5, momentum=0.999,
                                  device=device)
         self.leaky, self.relu, self.dtype = leaky, relu, dtype
+        self.quant = quant
+        self.register_buffer("act_max", torch.zeros((), device=device),
+                             persistent=False)
+        self._int8_cache = None   # (stamp, pinned sources, constants): _int8_consts
 
     def forward(self, x: Union[torch.Tensor, Tuple[torch.Tensor, Sequence[torch.Tensor]]],
                 train: bool = False) -> Union[torch.Tensor, List[torch.Tensor]]:
         """`train` normalises with batch statistics and moves the running
-        ones (`bn_train`); the split input is eval-only."""
-        if isinstance(x, tuple):
-            shared, parts = x
+        ones (`bn_train`) and runs in float; the split input is eval-only."""
+        split = isinstance(x, tuple)
+        if split:
             if train:
                 raise ValueError("split-input ConvBNReLU is an eval-path "
                                  "optimization")
             if self.conv.kernel_size != (1, 1) or self.conv.stride != (1, 1):
                 raise ValueError("split-input ConvBNReLU is 1x1/stride-1 only")
+        mode = "off" if train else self.quant
+        if mode == "calib":
+            self._record(x)
+        elif mode == "int8":
+            return self._int8(x)
+        if split:
+            shared, parts = x
             w = self.conv.weight.to(self.dtype).flatten(1)
             c_s = shared.shape[-1]
             y_s = F.linear(shared.to(self.dtype), w[:, :c_s])
@@ -163,6 +185,88 @@ class ConvBNReLU(nn.Module):
         y = conv_nhwc(x.to(self.dtype), self.conv.weight, None,
                       self.conv.stride[0], self.conv.padding[0])
         return _act(batch_norm(y, self.bn, train), self.leaky, self.relu)
+
+    @torch.no_grad()
+    def _record(self, x) -> None:
+        """act_max = max(act_max, max |piece|) over the input's pieces."""
+        if isinstance(x, tuple):
+            shared, parts = x
+            pieces = [shared, parts] if isinstance(parts, torch.Tensor) \
+                else [shared, *parts]
+        else:
+            pieces = [x]
+        m = torch.stack([p.float().abs().amax() for p in pieces]).amax()
+        self.act_max.copy_(torch.maximum(self.act_max, m))
+
+    def _int8_consts(self, c_s: Optional[int] = None):
+        """The int8 mode's constants, with the JAX package's arithmetic: s_w,
+        s_in and the weight quantisation in fp32 with true divisions (by
+        device tensors: CUDA divides by a host scalar as a multiply by its
+        reciprocal); the weights in K6's (O, k, k, I) layout, and split at
+        `c_s` input channels for the split input; the epilogue's vectors.
+        They are made once and kept until the weights, the BatchNorm
+        statistics or act_max change: each source's storage and version
+        counter stamp the cache, which pins the sources, so no storage
+        address is reused while it is cached."""
+        bn = self.bn
+        srcs = (self.conv.weight, bn.weight, bn.bias, bn.running_mean,
+                bn.running_var, self.act_max)
+        stamp = None if any(t.is_inference() for t in srcs) else \
+            tuple((t.data_ptr(), t._version) for t in srcs)
+        cache = self._int8_cache
+        if stamp is None or cache is None or cache[0] != stamp:
+            dev = self.conv.weight.device
+            w32 = self.conv.weight.float()
+            s_w = torch.clamp(w32.abs().amax(dim=(1, 2, 3)), min=1e-12) / \
+                torch.tensor(127.0, device=dev)
+            s_in = torch.clamp(self.act_max, min=1e-12) / torch.tensor(127.0, device=dev)
+            wq = torch.clamp(torch.round(w32 / s_w[:, None, None, None]), -127, 127
+                             ).to(torch.int8).permute(0, 2, 3, 1).contiguous()  # (O, k, k, I)
+            mul = ((1.0 / (bn.running_var.float() + bn.eps).double().sqrt()).float()
+                   * bn.weight.float())
+            epi = dict(scale=s_in * s_w, bias=-bn.running_mean.float(), scale2=mul,
+                       bias2=bn.bias.float(),
+                       act="leaky" if self.leaky else ("relu" if self.relu else None),
+                       out_dtype=self.dtype, in_scale=s_in)
+            cache = (stamp, tuple(t.detach() for t in srcs), {"wq": wq, "epi": epi})
+            self._int8_cache = None if stamp is None else cache
+        consts = cache[2]
+        if c_s is not None and c_s not in consts:
+            wq = consts["wq"]
+            consts[c_s] = (wq[..., :c_s].contiguous(), wq[..., c_s:].contiguous())
+        return consts
+
+    @torch.no_grad()
+    def _int8(self, x):
+        """The int8 mode on the constants of `_int8_consts`: K6 quantizes
+        the input as it gathers it, clamp(round(x / s_in)), sums in int32,
+        then in its epilogue dequantises and applies the BatchNorm as XLA's
+        CPU backend contracts `acc * (s_in s_w)` -> `(y - mean) * mul +
+        beta`: fma(acc, s, -mean), then fma(., mul, beta); ReLU / leaky;
+        the compute dtype. The split input quantises both halves with the
+        one (concat-calibrated) scale and adds the shared half's int32 sums
+        in the epilogue."""
+        if self.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"the int8 trunk writes float32 or bfloat16, not {self.dtype}")
+        if self.leaky and self.dtype != torch.float32:
+            raise ValueError("the int8 trunk's leaky activation runs in fp32 only")
+        if not isinstance(x, tuple):
+            consts = self._int8_consts()
+            return conv_s8(x.contiguous(), consts["wq"], self.conv.stride[0],
+                           self.conv.padding[0], **consts["epi"])
+        shared, parts = x
+        c_s = shared.shape[-1]
+        consts = self._int8_consts(c_s)
+        epi, (w_s, w_p) = consts["epi"], consts[c_s]
+        y_s = conv_s8(shared.contiguous(), w_s, in_scale=epi["in_scale"])  # int32 (B, H, W, F)
+        hw = shared.shape[1] * shared.shape[2]
+        if isinstance(parts, torch.Tensor):  # stacked (B, R, H, W, C)
+            b, r = parts.shape[:2]
+            y = conv_s8(parts.reshape(b * r, *parts.shape[2:]).contiguous(),
+                        w_p, addend=y_s, addend_hw=hw, addend_rep=r, **epi)
+            return y.reshape(b, r, *y.shape[1:])
+        return [conv_s8(p.contiguous(), w_p, addend=y_s, addend_hw=hw, **epi)
+                for p in parts]
 
 
 class DenseBNReLU(nn.Sequential):
@@ -223,14 +327,15 @@ class MappingLang(nn.Sequential):
 
 
 def build_fusion_fcn(in_ch: int, emb_size: int, light: bool = False,
-                     dtype: torch.dtype = torch.float32, device=None
-                     ) -> Tuple[nn.Sequential, nn.Sequential]:
+                     dtype: torch.dtype = torch.float32, quant: str = "off",
+                     device=None) -> Tuple[nn.Sequential, nn.Sequential]:
     """One scale's (fcn_emb, fcn_out) pair in the reference layout.
     full: emb = 1x1, 3x3, 1x1 ConvBNReLU; out = 1x1 ConvBNReLU (emb->emb/2)
     + plain 1x1 conv to 15 channels. light: emb = one 1x1 ConvBNReLU;
-    out = the plain 1x1 conv."""
+    out = the plain 1x1 conv. `quant` is every ConvBNReLU's int8 mode (the
+    plain head conv stays float, as in the JAX package)."""
     def cbr(i, o, k):
-        return ConvBNReLU(i, o, k, dtype=dtype, device=device)
+        return ConvBNReLU(i, o, k, dtype=dtype, quant=quant, device=device)
 
     n_out = ANCHORS_PER_SCALE * BOX_ATTRS
     if light:

@@ -21,8 +21,10 @@ in the offline pipeline.
 What stands in for JAX: buffer donation becomes in-place ring writes
 (`donate_state=True` may overwrite the input state's rings; False leaves
 them intact), and the rotating slot is a host integer carried in the state,
-so a tick reads no device scalar. The int8 backbone (`quantize()`,
-`int8_chain`), the device mesh and XLA compiler options are not carried
+so a tick reads no device scalar. `quantize()` switches the per-frame
+backbone to the int8 path (`ops/quant.py`, kernel K6; `int8_chain` keeps
+sole-consumer activations in int8) and, by default, the trunk convs to
+static-scale int8. The device mesh and XLA compiler options are not carried
 (ROADMAP).
 """
 
@@ -63,9 +65,6 @@ class GroundingEngine:
                  donate_state: bool = True, rotate_rings: bool = True,
                  int8_rings: bool = False, int8_chain: bool = False,
                  compiler_options=None):
-        if int8_chain:
-            raise _not_ported("int8_chain (the int8 backbone)",
-                              "ROADMAP queue A, item 9")
         if mesh is not None:
             raise _not_ported("a device mesh", "ROADMAP queue A, item 12")
         if compiler_options:
@@ -80,16 +79,60 @@ class GroundingEngine:
         self.donate_state = donate_state
         self.rotate_rings = rotate_rings
         self.int8_rings = int8_rings
+        # int8_chain: sole-consumer backbone activations stay int8 between
+        # convs (requantized in K6's epilogue); it acts after quantize()
+        self.int8_chain = int8_chain
         self.state_dtype = model.dtype
         self.ring_dtype = torch.int8 if int8_rings else model.dtype
+        self.qparams = None       # the int8 backbone, after quantize()
+        self.trunk_scales = None  # the trunk convs' calibrated abs-max
 
     @property
     def device(self) -> torch.device:
         return self.model.device
 
-    def quantize(self, *args, **kwargs) -> "GroundingEngine":
-        raise _not_ported("quantize() (the int8 backbone and trunk)",
-                          "ROADMAP queue A, item 9")
+    @torch.no_grad()
+    def quantize(self, calib_frames, calib_word_ids=None,
+                 trunk: bool = True) -> "GroundingEngine":
+        """Switch the per-frame backbone to the int8 path: activation
+        scales calibrated on `calib_frames` (M, H, W, 3), representative
+        stream frames. With `trunk` the trunk convs (mapping_visu,
+        corr_conv, fcn) also run static-scale int8, calibrated in one
+        `map_features` + `eval_features` pass over the int8 backbone's raw
+        outputs of the first n_frame frames (the features the served step
+        sees) with `calib_word_ids[:1]` (ones by default). The model's
+        trunk mode is switched in place. Call after
+        `cast_params_for_serving`. Returns the engine."""
+        from dcnet_tpu_torch.ops import quant as Q
+        model = self.model
+        frames = torch.as_tensor(calib_frames, device=self.device)
+        self.qparams = Q.quantize_model_backbone(model, frames)
+        if trunk:
+            n_frame = self.n_frame
+            if frames.shape[0] < n_frame:
+                raise ValueError(f"trunk calibration needs >= n_frame={n_frame} "
+                                 f"frames, got {frames.shape[0]}")
+            if calib_word_ids is None:
+                calib_word_ids = torch.ones((1, self.cfg.query_len), dtype=torch.long)
+            wid = torch.as_tensor(calib_word_ids, device=self.device)[:1]
+            raw = Q.backbone_apply_int8(Q.model_layer_defs(model), self.qparams,
+                                        frames[:n_frame], act_dtype=model.dtype)
+
+            def calib_path(mdl):
+                feats = mdl.map_features(raw)
+                per_frame = [f.reshape(1, n_frame, *f.shape[1:]) for f in feats]
+                return mdl.eval_features(per_frame, wid)
+
+            self.trunk_scales = Q.calibrate_trunk(model, calib_path)
+            Q.trunk_quant_variant(model, "int8")
+        return self
+
+    def _extract(self, frames: torch.Tensor):
+        if self.qparams is not None:
+            from dcnet_tpu_torch.ops import quant as Q
+            return Q.quant_extract_features(self.model, self.qparams, frames,
+                                            int8_chain=self.int8_chain)
+        return self.model.extract_features(frames)
 
     @torch.no_grad()
     def init_state(self, word_ids) -> StreamState:
@@ -156,8 +199,8 @@ class GroundingEngine:
         model, cfg = self.model, self.cfg
         frames = torch.as_tensor(frames, device=self.device)
 
-        # 1. the backbone, only on the new frames
-        new_feats = model.extract_features(frames)
+        # 1. the backbone, only on the new frames (int8 after quantize())
+        new_feats = self._extract(frames)
         if self.int8_rings:
             new_feats = [torch.clamp(torch.round(f.float() * 127.0), -127, 127
                                      ).to(torch.int8) for f in new_feats]

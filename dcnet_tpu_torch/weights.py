@@ -41,6 +41,31 @@ def _conv1d(v: np.ndarray) -> np.ndarray:
 Spec = Tuple[str, Tuple[str, ...], Optional[Callable[[np.ndarray], np.ndarray]]]
 
 
+def conv_bn_relu_paths(light: bool) -> Dict[str, Tuple[str, ...]]:
+    """The trunk's ConvBNReLUs: the port's module name -> its path in the
+    JAX trees (mapping_visu, corr_conv, the fusion FCNs' emb / out stacks)."""
+    table: Dict[str, Tuple[str, ...]] = {}
+    for s in range(3):
+        table[f"mapping_visu.{s}"] = (f"mapping_visu_{s}",)
+        table[f"corr_conv.{s}.0"] = (f"corr_conv_{s}",)
+    for s in range(3):
+        fcn = f"fcn_{s}"
+        for j in range(1 if light else 3):
+            table[f"fcn_emb.{s}.{j}"] = (fcn, f"emb{j}")
+        if not light:
+            table[f"fcn_out.{s}.0"] = (fcn, "out0")
+    return table
+
+
+def trunk_scale_keys(light: bool = False) -> Dict[str, str]:
+    """The port's int8 trunk convs -> the keys of their calibrated input
+    abs-max in the JAX package's 'quant' collection, flattened with '/' as
+    `dcnet_tpu.ops.quant.save_trunk_scales` writes them
+    ("mapping_visu_0/conv/act_max", "fcn_1/emb2/conv/act_max", ...)."""
+    return {name: "/".join(path + ("conv", "act_max"))
+            for name, path in conv_bn_relu_paths(light).items()}
+
+
 def _key_map(params: Mapping[str, Any], light: bool) -> Dict[str, Spec]:
     """reference key -> ('params' | 'stats', path in the JAX tree, layout fn)."""
     table: Dict[str, Spec] = {}
@@ -95,10 +120,9 @@ def _key_map(params: Mapping[str, Any], light: bool) -> Dict[str, Spec]:
     dense_bn("loc_text_embedding.0", "loc_text_embedding.1",
              ("loc_text_embedding",))
 
-    # mapping modules
-    for s in range(3):
-        cbr(f"mapping_visu.{s}", (f"mapping_visu_{s}",))
-        cbr(f"corr_conv.{s}.0", (f"corr_conv_{s}",))
+    # mapping modules, corr_conv and the fusion FCNs' ConvBNReLUs
+    for name, path in conv_bn_relu_paths(light).items():
+        cbr(name, path)
     dense_bn("mapping_lang.0", "mapping_lang.1", ("mapping_lang", "l0"))
     dense_bn("mapping_lang.4", "mapping_lang.5", ("mapping_lang", "l1"))
 
@@ -106,17 +130,10 @@ def _key_map(params: Mapping[str, Any], light: bool) -> Dict[str, Spec]:
     table["feature_map.0.weight"] = ("params", ("feature_map", "kernel"), _conv1d)
     table["feature_map.0.bias"] = ("params", ("feature_map", "bias"), None)
 
-    # fusion FCN + box head
+    # box head (the plain 1x1 conv after the fusion FCN)
     for s in range(3):
         fcn = f"fcn_{s}"
-        if light:
-            cbr(f"fcn_emb.{s}.0", (fcn, "emb0"))
-            plain_out = f"fcn_out.{s}.0"
-        else:
-            for j in range(3):
-                cbr(f"fcn_emb.{s}.{j}", (fcn, f"emb{j}"))
-            cbr(f"fcn_out.{s}.0", (fcn, "out0"))
-            plain_out = f"fcn_out.{s}.1"
+        plain_out = f"fcn_out.{s}.0" if light else f"fcn_out.{s}.1"
         table[f"{plain_out}.weight"] = ("params", (fcn, "out1", "kernel"), _conv2d)
         table[f"{plain_out}.bias"] = ("params", (fcn, "out1", "bias"), None)
     return table

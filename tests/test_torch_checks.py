@@ -6,7 +6,10 @@ fp32 arithmetic gives, and reject the wrong answers it is shown against on
 the card: zeros, T=1 and a K3 that skips a streamed tile of 16 rows; zeros,
 a dropped obj and a dropped bias for K5. Also the cli phase's hold of the
 card's temporal cache against the CPU's (`cache_agreement`): ranks may
-trade only inside runs of tied scores.
+trade only inside runs of tied scores. And the int8 phases' holds: every
+K6 call of a path against its plain version (`HeldK6`, on a mini int8
+model here), and the quantized tick's raw outputs, cells and boxes card
+against CPU (`serve_cells_held` on the records of `DecodeTaps`).
 """
 
 import numpy as np
@@ -175,3 +178,119 @@ def test_cache_agreement_rejects_wrong_caches(wrong):
     else:
         got["dws"][0] = 0.5
     assert not chip_smoke.cache_agreement(got, want)["ok"]
+
+
+# --- K6 held on the path's own calls, and the quantized serving hold --------
+
+def _int8_mini_model(**over):
+    """The mini-defs DCNet on the CPU with seeded weights, its backbone
+    quantized and its trunk calibrated and switched to int8."""
+    from dcnet_tpu_torch.config import DCNetConfig
+    from dcnet_tpu_torch.models.darknet import mini_backbone_defs
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.ops import quant
+    from dcnet_tpu_torch.weights import seeded_init_
+    cfg = DCNetConfig(image_size=64, corpus_size=50, emb_size=64, lstm_hidden=64,
+                      word_embedding_size=64, **over)
+    model = DCNet(cfg, backbone_defs=mini_backbone_defs(), device="cpu")
+    seeded_init_(model)
+    rng = np.random.RandomState(2)
+    images = torch.from_numpy(rng.rand(10, 64, 64, 3).astype(np.float32))
+    ids = torch.from_numpy(rng.randint(1, 50, (2, 20)))
+    qparams = quant.quantize_model_backbone(model, images)
+    quant.calibrate_trunk(model, lambda m: m.eval_clip(images, ids, n_frame=5))
+    quant.trunk_quant_variant(model, "int8")
+    return model, qparams, images, ids
+
+
+@pytest.mark.parametrize("batch_refs", [False, True])
+def test_held_k6_holds_every_call_of_the_int8_path(batch_refs):
+    """HeldK6 wraps the path's K6 calls (backbone and trunk), counts them by
+    mode, restores the callers on exit, and fails on a wrong output."""
+    from dcnet_tpu_torch.kernels import conv_s8 as k_conv
+    from dcnet_tpu_torch.models import heads
+    from dcnet_tpu_torch.ops import quant
+    model, qparams, images, ids = _int8_mini_model(coattn_batch_refs=batch_refs)
+    held = chip_smoke.HeldK6()
+    with held:
+        quant.quant_eval_clip(model, qparams, images, ids, 5, int8_chain=True)
+    assert heads.conv_s8 is k_conv.conv_s8 and quant.conv_s8 is k_conv.conv_s8
+    res = held.summary("mini int8 eval")
+    modes = res["modes"]
+    assert res["calls"] == sum(modes.values()) > 0 and res["bitwise_equal"]
+    assert any(m.endswith("-> int8") for m in modes)              # the int8 chain
+    assert any(m.startswith("fp32/in_scale") for m in modes)      # the trunk's input
+    addend = [m for m in modes if "+addend" in m]
+    assert addend and all(("x4" in m) == batch_refs for m in addend)
+    real = k_conv.conv_s8
+
+    def off_by_one(*a, **kw):
+        out = real(*a, **kw)
+        return out + 1 if out.dtype == torch.int32 else out
+
+    wrong = chip_smoke.HeldK6()
+    k_conv.conv_s8 = off_by_one
+    try:
+        with wrong:
+            quant.quant_eval_clip(model, qparams, images, ids, 5, int8_chain=True)
+    finally:
+        k_conv.conv_s8 = real
+    with pytest.raises(AssertionError, match="differs from its plain version"):
+        wrong.summary("mini int8 eval, a faulty K6")
+
+
+def _taps(idx, top2, box, score, scale=0, outbox=0.0):
+    n = len(idx)
+    return {"outbox": torch.full((n, 6), outbox),
+            "idx": torch.tensor(idx), "top2": torch.tensor(top2, dtype=torch.float32),
+            "scale": torch.full((n,), scale), "box": torch.tensor(box, dtype=torch.float32),
+            "score": torch.tensor(score, dtype=torch.float32)}
+
+
+def test_serve_cells_held_accepts_noise_and_near_ties_and_rejects_the_rest():
+    strides, tol, atol = (32, 16, 8), 1e-2, 1e-3
+    box = [[10.0, 10.0, 110.0, 60.0], [0.0, 0.0, 40.0, 40.0]]
+    cpu = [_taps([5, 7], [[2.0, 1.0], [1.0, 0.995]], box, [2.0, 1.0])]
+    # within the limits: scores 4e-3 apart, a near tie (gap 5e-3) moved, box
+    # of the shared cell 0.4 px apart (limit 1e-2 (8 + 51) + 1e-3 = 0.591)
+    near = [[10.4, 10.0, 110.0, 60.0], [50.0, 50.0, 60.0, 60.0]]
+    res = chip_smoke.serve_cells_held([_taps([5, 9], [[2.004, 1.0], [1.0, 0.99]], near,
+                                             [2.004, 0.996], outbox=0.009)],
+                                      cpu, strides, tol, atol)
+    assert res["ok"], res
+    assert (res["near_ties"], res["cells_moved"], res["cells_equal"]) == (1, 1, 1)
+    assert 0.6 < res["max_box_share_of_limit"] < 0.7
+    wrongs = {
+        "cell moved without a tie": _taps([6, 7], [[2.0, 1.0], [1.0, 0.995]], box, [2.0, 1.0]),
+        "box past its limit": _taps([5, 7], [[2.0, 1.0], [1.0, 0.995]],
+                                    [[10.7, 10.0, 110.0, 60.0], box[1]], [2.0, 1.0]),
+        "score past the limit": _taps([5, 7], [[2.02, 1.0], [1.0, 0.995]], box, [2.02, 1.0]),
+        "raw outputs past the limit": _taps([5, 7], [[2.0, 1.0], [1.0, 0.995]], box,
+                                            [2.0, 1.0], outbox=0.011),
+    }
+    for name, got in wrongs.items():
+        assert not chip_smoke.serve_cells_held([got], cpu, strides, tol, atol)["ok"], name
+    assert not chip_smoke.serve_cells_held([], [], strides, tol, atol)["ok"]
+
+
+def test_decode_taps_record_the_engines_decodes():
+    """DecodeTaps sees the serving engine's decode of each tick: the cell
+    and box it records are those the step returns."""
+    from dcnet_tpu_torch.serving import engine
+    model, qparams, _, ids = _int8_mini_model(coattn_multiref=True)
+    eng = engine.GroundingEngine(model, 2)
+    eng.qparams = qparams
+    state = eng.init_state(ids)
+    frames = torch.from_numpy(np.random.RandomState(3).rand(2, 64, 64, 3).astype(np.float32))
+    real = engine.decode_best
+    with chip_smoke.DecodeTaps() as tap:
+        state, fused, raw, score = eng.step(state, frames)
+    assert engine.decode_best is real and len(tap.taps) == 1
+    t = tap.taps[0]
+    assert torch.equal(t["box"], raw) and torch.equal(t["score"], score)
+    assert t["top2"].shape == (2, 2) and torch.all(t["top2"][:, 0] >= t["top2"][:, 1])
+    grids = model.cfg.grids
+    assert t["outbox"].shape == (2, 3 * 5 * sum(g * g for g in grids))
+    conf = torch.cat([c.reshape(2, 3, 5, -1)[:, :, 4].reshape(2, -1) for c in
+                      torch.split(t["outbox"], [15 * g * g for g in grids], dim=1)], dim=1)
+    assert torch.equal(conf.amax(dim=1), t["top2"][:, 0])

@@ -13,7 +13,11 @@ limits of the JAX package's own lock tests) for the standard eval,
 `cli/eval_single.py`; the `--cache` arrays match with equal top-k order,
 scores within rtol 1e-4 / atol 1e-5 and boxes within 1e-3 px. Also
 `DCNet.single_image` against JAX's on mini defs in fp32, and each option the
-port does not run yet raises.
+port does not run yet raises. The int8 CLI: `--quant --quant_params` on a
+file the JAX package's `--quant` wrote gives its acc (1e-6) and mIoU
+(2e-3); the port's own `--quant`, `--quant --quant_trunk`, `--coattn_int8`
+and `--coattn_batch_refs` stay within the JAX package's limits of float
+(`tests/test_cli.py`: mIoU 0.03, acc 0.11).
 """
 
 import contextlib
@@ -178,6 +182,62 @@ def test_cli_metrics_match_jax(runs, run, prefix):
     assert abs(miou - jmiou) < MIOU_TOL, (run, prefix, miou, jmiou)
 
 
+@pytest.fixture(scope="module")
+def quant_runs(runs, tmp_path_factory):
+    """The int8 CLI runs: the JAX package's --quant writing its qparams,
+    the port's --quant reading that file; the port's own calibration with
+    and without --quant_trunk; the port's --coattn_int8 and
+    --coattn_batch_refs."""
+    work = tmp_path_factory.mktemp("quant")
+    root = str(work / "synthetic")
+    generate_synthetic_vid(root, "test", num_videos=32, frames_per_video=8, seed=13)
+    common = ["--synthetic", "--lstm", "--mini", "--size", "64",
+              "--emb_size", "256", "--lstm_hidden", "256", "--seed", "13",
+              "--num_frame_k", "5", "--batch_size", "5", "--workers", "0",
+              "--split_root", str(work), "--resume", LOCK, "--calib_frames", "16"]
+    qfile = str(work / "jax_qparams.npz")
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(work)
+        mp.setenv("DCNET_PLATFORM", "cpu")
+        jbuild = _limited(_jax_build_dataset(root))
+        mp.setattr(jtest, "build_dataset", jbuild)
+        mp.setattr(jcommon, "build_dataset", jbuild)
+        mp.setattr(jtest, "create_train_state", _jax_template)
+        mp.setattr(jtest, "restore_checkpoint", _jax_restore)
+        pbuild = _limited(pcommon.build_dataset)
+        for mod in (ptest, pcommon):
+            mp.setattr(mod, "build_dataset", pbuild)
+        with jax.default_matmul_precision("highest"):
+            out["jax_quant"] = _run(jtest.main, common + ["--quant", "--quant_params", qfile])
+        assert os.path.exists(qfile)
+        out["port_jax_file"] = _run(ptest.main, common + ["--quant", "--quant_params", qfile])
+        out["port_quant"] = _run(ptest.main, common + ["--quant"])
+        out["port_quant_trunk"] = _run(ptest.main, common + ["--quant", "--quant_trunk"])
+        out["port_coattn_int8"] = _run(ptest.main, common + ["--coattn_int8"])
+        out["port_coattn_batch_refs"] = _run(ptest.main, common + ["--coattn_batch_refs"])
+    return out
+
+
+def test_quant_cli_with_jax_qparams_matches_jax(quant_runs):
+    """--quant --quant_params <the JAX package's file>: acc equal and mIoU
+    within 2e-3 of the JAX package's int8 CLI."""
+    jacc, jmiou = _metrics(quant_runs["jax_quant"])
+    acc, miou = _metrics(quant_runs["port_jax_file"])
+    assert abs(acc - jacc) < ACC_TOL and abs(miou - jmiou) < MIOU_TOL, (acc, miou, jacc, jmiou)
+
+
+@pytest.mark.parametrize("run", ["port_quant", "port_quant_trunk", "port_coattn_int8",
+                                 "port_coattn_batch_refs"])
+def test_quant_cli_close_to_float(runs, quant_runs, run):
+    """The port's own int8 runs stay within the JAX package's limits of its
+    float eval on the lock (`tests/test_cli.py`: mIoU 0.03, acc 0.11)."""
+    facc, fmiou = _metrics(runs["port"]["stream" if "quant" in run else "standard"])
+    acc, miou = _metrics(quant_runs[run])
+    assert fmiou > 0.05
+    assert abs(miou - fmiou) < 0.03 and abs(acc - facc) < 0.11, (run, acc, miou, facc, fmiou)
+
+
 def test_lock_grounds_through_the_port(runs):
     """Trained weights ground something (the JAX package's own check), and
     stream eval reproduces the standard eval."""
@@ -235,9 +295,17 @@ def test_single_image_matches_jax():
     (["--quant"], "9"), (["--quant_trunk"], "9"), (["--coattn_int8"], "9"),
     (["--coattn_batch_refs"], "9"), ([], "10")])
 def test_unported_cli_options_raise(tmp_path, monkeypatch, argv, item):
+    """The BERT encoder (item 10) is still refused; the int8 options of
+    item 9 are ported and pass the option check (their runs are
+    `test_quant_cli_*`)."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("DCNET_PLATFORM", "cpu")
     lstm = ["--lstm"] if item != "10" else []
+    if item == "9":
+        args = ptest.parser().parse_args(["--synthetic", "--mini", "--size", "64"]
+                                         + lstm + argv)
+        ptest._check_options(args, torch.device("cpu"))
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         ptest.main(["--synthetic", "--mini", "--size", "64"] + lstm + argv)
     if item == "10":

@@ -1,5 +1,6 @@
 """The CUDA kernels on the card (K1, the pair K2, the backward K3, the ring
-kernel K4 and the location Gram K5), against their plain PyTorch versions,
+kernel K4, the location Gram K5 and the int8 convolution K6), against their
+plain PyTorch versions,
 the launches of one train step and of serving ticks, and train-mode
 BatchNorm's card branch against its CPU branch.
 
@@ -11,7 +12,8 @@ only PyTorch is installed:
 Without a CUDA card every test here skips: the kernels are CUDA C++ with no
 CPU mode (their plain versions are held against the JAX package in
 `tests/test_torch_coattn.py`, `tests/test_torch_train_kernels.py`,
-`tests/test_torch_ring.py` and `tests/test_torch_locgram.py`).
+`tests/test_torch_ring.py`, `tests/test_torch_locgram.py` and
+`tests/test_torch_quant.py`).
 """
 
 import copy
@@ -21,7 +23,7 @@ import torch
 
 import chip_smoke
 from dcnet_tpu_torch import kernels
-from dcnet_tpu_torch.kernels import coattn, locgram
+from dcnet_tpu_torch.kernels import coattn, conv_s8, locgram
 
 pytestmark = pytest.mark.cuda
 # On l2-normalised rows (C=512) an output element is about 0.044/sqrt(P),
@@ -237,9 +239,9 @@ def test_train_step_launches(card, k):
     metrics = train_step(state, batch)
     torch.cuda.synchronize()
     want = ({"coattn_attend": 0, "coattn_pair": 3, "coattn_attend_bwd": 6,
-             "coattn_ring": 0, "loc_gram": 0} if k == 2 else
+             "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0} if k == 2 else
             {"coattn_attend": 3, "coattn_pair": 0, "coattn_attend_bwd": 3,
-             "coattn_ring": 0, "loc_gram": 0})
+             "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0})
     assert kernels.LAUNCHES == want
     assert all(torch.isfinite(v) for v in metrics.values())
 
@@ -793,3 +795,152 @@ def test_k3_fp32_matches_float64_on_train_step_inputs(card):
     assert held["share_of_limit"] <= 1.0
     assert held["plain_fp32_share_of_limit"] <= chip_smoke.K3_PLAIN_SHARE
     assert held["limits_reject"] == {"zeros": True, "T1": True, "dropped_tile": True}
+
+
+# K6: (k, stride, Ci, Co, H, W): every gather width (Ci % 16 == 0: 16
+# bytes; Ci % 4 == 0: 4; else single bytes), Co past a 64-column tile and
+# odd, rows past a 128-row tile, strides 1 and 2
+CONV_CASES = ((3, 1, 3, 32, 17, 19), (3, 2, 32, 64, 16, 16), (1, 1, 64, 255, 9, 7),
+              (3, 1, 40, 24, 8, 8), (1, 1, 1032, 512, 6, 6), (3, 2, 5, 17, 11, 13),
+              (3, 1, 512, 96, 5, 5), (1, 1, 8, 1, 33, 1))
+
+
+def _conv_inputs(gen, k, ci, co, h, w, n=2):
+    x = torch.randint(-127, 128, (n, h, w, ci), generator=gen, dtype=torch.int8)
+    wt = torch.randint(-127, 128, (co, k, k, ci), generator=gen, dtype=torch.int8)
+    scale = torch.rand(co, generator=gen) * 1e-4
+    bias = torch.randn(co, generator=gen)
+    return x, wt, scale, bias
+
+
+def _conv_epilogues(gen, co, inv):
+    """Each epilogue mode of K6, as keyword arguments."""
+    s2, b2 = 1 + 0.1 * torch.randn(co, generator=gen), torch.randn(co, generator=gen)
+    return {"int32": {},
+            "fp32_leaky": dict(act="leaky", out_dtype=torch.float32),
+            "bf16": dict(out_dtype=torch.bfloat16),
+            "int8": dict(act="leaky", out_dtype=torch.int8, inv_out=inv),
+            "bn_relu": dict(scale2=s2, bias2=b2, act="relu", out_dtype=torch.bfloat16)}
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: "k{}s{}-ci{}-co{}-{}x{}".format(*c))
+def test_conv_s8_equals_plain_bitwise(card, case):
+    """Every epilogue mode bitwise equal to the plain version (exact int32
+    sums; the FMAs emulated exactly)."""
+    k, stride, ci, co, h, w = case
+    gen = torch.Generator().manual_seed(ci * 1000 + co)
+    x, wt, scale, bias = _conv_inputs(gen, k, ci, co, h, w)
+    for name, epi in _conv_epilogues(gen, co, 2.0 / (127 * 127 * k * k)).items():
+        if name != "int32":
+            epi = dict(epi, scale=scale, bias=bias)
+        want = conv_s8.conv_s8(x, wt, stride, (k - 1) // 2, **epi)
+        got = conv_s8.conv_s8(x.to(card), wt.to(card),
+                              stride, (k - 1) // 2,
+                              **{a: v.to(card) if isinstance(v, torch.Tensor) else v
+                                 for a, v in epi.items()})
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert torch.equal(got.cpu(), want), (name, (got.cpu().float() - want.float()).abs().max())
+    assert conv_s8.conv_vec(ci, x, wt) == (16 if ci % 16 == 0 else 4 if ci % 4 == 0 else 1)
+
+
+def test_conv_s8_addend_and_stacked_rows(card):
+    """The split corr_conv's int32 addend, read once for R stacked parts."""
+    gen = torch.Generator().manual_seed(7)
+    b, r, h, w, ci, co = 3, 4, 5, 6, 64, 80
+    x, wt, scale, bias = _conv_inputs(gen, 1, ci, co, h, w, n=b * r)
+    addend = torch.randint(-10 ** 6, 10 ** 6, (b, h, w, co), generator=gen, dtype=torch.int32)
+    epi = dict(scale=scale, bias=bias, out_dtype=torch.float32, addend=addend,
+               addend_hw=h * w, addend_rep=r)
+    want = conv_s8.conv_s8(x, wt, **epi)
+    got = conv_s8.conv_s8(x.to(card), wt.to(card),
+                          **{a: v.to(card) if isinstance(v, torch.Tensor) else v
+                             for a, v in epi.items()})
+    assert torch.equal(got.cpu(), want)
+    raw = conv_s8.conv_s8_acc_plain(x, wt).reshape(b, r, h, w, co) + addend[:, None]
+    torch.testing.assert_close(want.reshape(b, r, h, w, co),
+                               conv_s8.fma32(raw.float(), scale, bias), rtol=0, atol=0)
+
+
+def test_conv_s8_takes_misaligned_inputs(card):
+    """A tensor whose data is not 16-byte aligned takes a narrower gather."""
+    gen = torch.Generator().manual_seed(3)
+    x, wt, _, _ = _conv_inputs(gen, 3, 32, 32, 8, 8)
+    big = torch.zeros(x.numel() + 4, dtype=torch.int8, device=card)
+    xa = big[4:].view(x.shape)
+    xa.copy_(x.to(card))
+    assert conv_s8.conv_vec(32, xa, wt.to(card)) == 4
+    kernels.reset_launches()
+    got = conv_s8.conv_s8(xa, wt.to(card), 1, 1)
+    assert kernels.LAUNCHES["conv_s8"] == 1
+    assert torch.equal(got.cpu(), conv_s8.conv_s8_acc_plain(x, wt, 1, 1))
+
+
+def test_conv_s8_refuses_what_it_cannot_take(card):
+    gen = torch.Generator().manual_seed(4)
+    x, wt, scale, bias = _conv_inputs(gen, 3, 16, 16, 8, 8)
+    xc, wc = x.to(card), wt.to(card)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="one CUDA device"):
+        conv_s8.conv_s8(xc, wt)
+    with pytest.raises(TypeError, match="int8"):
+        conv_s8.conv_s8(xc.half(), wc, in_inv=1.0)
+    with pytest.raises(ValueError, match="in_inv"):
+        conv_s8.conv_s8(xc.float(), wc)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_s8.conv_s8(xc.transpose(1, 2), wc)
+    with pytest.raises(ValueError, match="inv_out"):
+        conv_s8.conv_s8(xc, wc, scale=scale.to(card), bias=bias.to(card),
+                        out_dtype=torch.int8)
+    with pytest.raises(ValueError, match="scale"):
+        conv_s8.conv_s8(xc, wc, out_dtype=torch.float32)
+    assert kernels.LAUNCHES["conv_s8"] == 0
+
+
+def test_int8_backbone_on_card_equals_cpu(card):
+    """The int8 backbone (mini defs, 64 px) on the card equals the CPU's
+    bitwise in fp32 activations, with and without the int8 chain; one K6
+    launch per live conv."""
+    from dcnet_tpu_torch.config import DCNetConfig
+    from dcnet_tpu_torch.models.darknet import mini_backbone_defs
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.ops import quant
+    from dcnet_tpu_torch.weights import seeded_init_
+
+    cfg = DCNetConfig(image_size=64, corpus_size=50, emb_size=64, lstm_hidden=64,
+                      word_embedding_size=64)
+    model = seeded_init_(DCNet(cfg, backbone_defs=mini_backbone_defs(), device="cpu"))
+    images = torch.rand(6, 64, 64, 3, generator=torch.Generator().manual_seed(5))
+    qp = quant.quantize_model_backbone(model, images)
+    qp_card = {i: {k: v.to(card) if isinstance(v, torch.Tensor) else v for k, v in d.items()}
+               for i, d in qp.items()}
+    defs = model.visumodel.layer_defs
+    live = len([i for i in quant.conv_layer_ids(defs) if i in quant.live_layers(defs)])
+    for chain in (False, True):
+        want = quant.backbone_apply_int8(defs, qp, images, int8_chain=chain)
+        kernels.reset_launches()
+        got = quant.backbone_apply_int8(defs, qp_card, images.to(card), int8_chain=chain)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["conv_s8"] == live
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("case", CONV_CASES[:6], ids=lambda c: "k{}s{}-ci{}-co{}-{}x{}".format(*c))
+@pytest.mark.parametrize("xdtype", ["bfloat16", "float32"])
+def test_conv_s8_quantizes_float_inputs(card, case, xdtype):
+    """A float x quantized as K6 gathers it (x * in_inv, the backbone's; x /
+    in_scale, the trunk's) equals the plain version bitwise."""
+    k, stride, ci, co, h, w = case
+    gen = torch.Generator().manual_seed(ci + co)
+    _, wt, scale, bias = _conv_inputs(gen, k, ci, co, h, w)
+    xf = torch.randn(2, h, w, ci, generator=gen).to(getattr(torch, xdtype))
+    amax = xf.float().abs().max()
+    for quant in (dict(in_inv=float(100.0 / amax)), dict(in_scale=amax / 100.0)):
+        epi = dict(quant, scale=scale, bias=bias, act="leaky", out_dtype=torch.bfloat16)
+        want = conv_s8.conv_s8(xf, wt, stride, (k - 1) // 2, **epi)
+        got = conv_s8.conv_s8(xf.to(card), wt.to(card), stride, (k - 1) // 2,
+                              **{a: v.to(card) if isinstance(v, torch.Tensor) else v
+                                 for a, v in epi.items()})
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (list(quant), (got.cpu().float() - want.float()).abs().max())

@@ -35,7 +35,8 @@ def _run(code, cwd=REPO):
 def test_importing_the_port_loads_no_jax():
     mods = _port_modules() + ["chip_smoke", "kernel_timing"]
     assert {"dcnet_tpu_torch.cli.test", "dcnet_tpu_torch.data.vid",
-            "dcnet_tpu_torch.eval.ref_cache"} <= set(mods)
+            "dcnet_tpu_torch.eval.ref_cache", "dcnet_tpu_torch.ops.quant",
+            "dcnet_tpu_torch.kernels.conv_s8"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"

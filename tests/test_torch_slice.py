@@ -218,22 +218,38 @@ def test_bfloat16_eval_clip_matches_jax(pair, monkeypatch):
     dict(use_lstm=False), dict(trunk_quant="int8"),
     dict(coattn_batch_refs=True), dict(coattn_int8_logits=True)])
 def test_unported_options_raise(option):
+    """The BERT encoder still raises; the int8 trunk and the co-attention
+    variants are ported (held against JAX in tests/test_torch_quant.py):
+    the model builds and its eval_clip gives finite outputs."""
     cfg = DCNetConfig(**SMALL, **option)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DCNet(cfg, backbone_defs=mini_backbone_defs(), device="cpu")
+    if "use_lstm" in option:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            DCNet(cfg, backbone_defs=mini_backbone_defs(), device="cpu")
+        return
+    model = DCNet(cfg, backbone_defs=mini_backbone_defs(), device="cpu")
+    images, ids = clip_inputs()
+    out = model.eval_clip(torch.from_numpy(images), torch.from_numpy(ids))
+    assert all(torch.isfinite(ob).all() for ob in out.outbox)
 
 
 @pytest.mark.parametrize("option", [
     "int8_chain", "quantize", "mesh", "compiler_options"])
 def test_unported_engine_options_raise(option):
-    """The serving engine's int8 backbone (`int8_chain`, `quantize()`), its
-    device mesh and XLA compiler options are not carried."""
+    """The engine's device mesh and XLA compiler options are not carried;
+    its int8 backbone (`int8_chain`, `quantize()`) is ported and serves."""
     from dcnet_tpu_torch.serving.engine import GroundingEngine
     model = DCNet(DCNetConfig(**SMALL), backbone_defs=mini_backbone_defs(),
                   device="cpu")
     kw = {"int8_chain": dict(int8_chain=True), "quantize": {},
           "mesh": dict(mesh=object()),
           "compiler_options": dict(compiler_options={"opt": "1"})}[option]
+    if option in ("int8_chain", "quantize"):
+        rng = np.random.RandomState(0)
+        eng = GroundingEngine(model, n_streams=2, **kw).quantize(
+            rng.rand(5, 64, 64, 3).astype(np.float32))
+        state = eng.init_state(torch.ones((2, 20), dtype=torch.long))
+        state, fused, raw, score = eng.step(state, rng.rand(2, 64, 64, 3).astype(np.float32))
+        assert torch.isfinite(fused).all() and eng.qparams is not None
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
-        eng = GroundingEngine(model, n_streams=2, **kw)
-        eng.quantize(np.zeros((5, 64, 64, 3), np.float32))
+        GroundingEngine(model, n_streams=2, **kw)
