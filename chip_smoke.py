@@ -20,10 +20,12 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      operand (HMMA or HGMMA ... TF32) in coattn, coattn_bwd and coattn_ring
      (cuobjdump -sass), failing if any is 0; and in the kernel functions of
      K4's int8 block alone, integer wgmma (IGMMA) for the logits, HGMMA for
-     PV and UTMALDG, failing if one is 0 or any IMMA is there; and the
-     int8 mma.sync products (IMMA) of K6's three libraries (int8, bf16 and
-     fp32 inputs), failing at 0. The SASS dumps run in parallel; K6's
-     libraries, the slowest to build, build and are dumped in the
+     PV and UTMALDG, failing if one is 0 or any IMMA is there; and K6's
+     main route (conv_s8_tma) integer wgmma (IGMMA) and UTMALDG, failing at
+     0 or on any IMMA, and the int8 mma.sync products (IMMA) of its gather
+     route in the three per-type libraries (int8, bf16 and fp32 inputs),
+     failing at 0. The SASS dumps run in parallel; K6's four
+     libraries build and are dumped in the
      background while the kernel phase runs K1-K5; that phase waits for
      them (and checks them) before K6's cases.
   3. kernel  -- each kernel against its plain PyTorch version on the card at
@@ -378,13 +380,16 @@ def phase_device(dev) -> dict:
 
 
 K15_SOURCES = ("coattn", "coattn_bwd", "coattn_ring", "locgram")
-K6_SOURCES = tuple(k_conv.SOURCES.values())
+K6_SOURCES = k_conv.ALL_SOURCES
 # TF32_MMA: tensor-core instructions with a TF32 operand (HMMA.1688.F32.TF32
-# of mma.sync, or HGMMA ... TF32); IMMA: K6's int8 mma.sync products
+# of mma.sync, or HGMMA ... TF32); IGMMA and UTMALDG: K6's main route (wgmma
+# s8 on TMA tiles); IMMA: the int8 mma.sync products of K6's gather route,
+# which the three per-type libraries still build
 SASS_COUNTED = {"coattn": ("HGMMA", "UTMALDG", "TF32_MMA"),
                 "coattn_ring": ("HGMMA", "UTMALDG", "TF32_MMA"),
                 "coattn_bwd": ("TF32_MMA",),
-                **{name: ("IMMA",) for name in k_conv.SOURCES.values()}}
+                **{name: ("IMMA",) for name in k_conv.SOURCES.values()},
+                k_conv.TMA_SOURCE: ("IGMMA", "UTMALDG")}
 
 
 def _has_op(line: str, op: str) -> bool:
@@ -435,9 +440,9 @@ def _print_build_lines(names) -> None:
 
 
 def phase_build() -> concurrent.futures.Future:
-    """Builds K1-K5's libraries and checks their SASS; K6's three, the
-    slowest, start at the same moment in a background thread, whose future
-    is returned for `finish_k6_build`."""
+    """Builds K1-K5's libraries and checks their SASS; K6's four start at
+    the same moment in a background thread, whose future is returned for
+    `finish_k6_build`."""
     t0 = time.perf_counter()
     pool = concurrent.futures.ThreadPoolExecutor(1)
     k6 = pool.submit(_build_and_dump, K6_SOURCES)
@@ -483,11 +488,14 @@ def _build_and_dump(names) -> None:
 
 def finish_k6_build(k6: concurrent.futures.Future) -> None:
     """Waits for K6's background build (re-raising its failure), loads its
-    three libraries and fails unless each holds int8 mma.sync products."""
+    four libraries and fails unless the TMA route's holds integer wgmma
+    (IGMMA) and TMA loads (UTMALDG) and no mma.sync product (IMMA), and each
+    per-type library (the gather route) holds IMMA."""
     t0 = time.perf_counter()
     k6.result()
     for dtype in k_conv.SOURCES:
         k_conv._lib(dtype)
+    k_conv._tma_lib()
     _print_build_lines(K6_SOURCES)
     sass = {n: sass_counts(n, SASS_COUNTED[n]) for n in K6_SOURCES}
     emit({"phase": "build", "kernels": list(K6_SOURCES), "built_in_background": True,
@@ -497,8 +505,10 @@ def finish_k6_build(k6: concurrent.futures.Future) -> None:
           "sass_instructions": sass,
           "spill_bytes": {k: spill_bytes(build.BUILD_LOG[k]) for k in K6_SOURCES
                           if k in build.BUILD_LOG}})
-    if not all(v > 0 for counts in sass.values() for v in counts.values()):
-        raise AssertionError(f"K6's libraries lack int8 tensor-core instructions: {sass}")
+    tma_imma = sass_counts(k_conv.TMA_SOURCE, ("IMMA",))["IMMA"]
+    if not all(v > 0 for counts in sass.values() for v in counts.values()) or tma_imma:
+        raise AssertionError(f"K6's libraries lack int8 tensor-core instructions, or its "
+                             f"TMA route holds mma.sync ({tma_imma}): {sass}")
 
 
 def _sdpa_backends(q, kv):
@@ -1003,6 +1013,7 @@ def kernel_cases_k5(dev, gen) -> list:
 # bf16 out (the eval headline's activations). The paths' own calls (40
 # frames a request, 120 a tick, their real scales) are held by `HeldK6`.
 K6_FRAMES = 8
+K6_TICK_FRAMES = 120                    # the quantized tick's (120 streams)
 K6_TRUNK = ((1, 1, 0, 1024, 512, 32), (1, 1, 0, 512, 512, 32), (1, 1, 0, 1032, 512, 32),
             (3, 1, 1, 512, 512, 32), (1, 1, 0, 512, 256, 32), (1, 1, 0, 256, 512, 32))
 K6_HEADLINE = (3, 1, 1, 256, 512, 16)   # the /16 residual blocks' 3x3 (8 of them)
@@ -1063,23 +1074,36 @@ def _k6_input(mode: str, x, xf):
     return xf.float() if mode == "fp32_in_trunk" else x
 
 
-def k6_sums(xq, w, stride: int, pad: int) -> tuple:
-    """The plain int32 sums of the int8 input xq, and those a faulty K6
-    would give by leaving one k-tile of the reduction (K6_DROPPED_BYTES of
-    k^2 Ci, from its middle) out."""
+def k6_sums(xq, w, stride: int, pad: int, plan) -> tuple:
+    """The plain int32 sums of the int8 input xq, those a faulty K6 would
+    give by leaving one k-tile of the reduction (K6_DROPPED_BYTES of k^2 Ci,
+    from its middle) out, and, where the plan splits the reduction, those
+    of a K6 that drops split 1 (its (tap, channel box) iterations; None
+    without a split)."""
     kdim = w[0].numel()
     start = (kdim // 2) // K6_DROPPED_BYTES * K6_DROPPED_BYTES
     w_drop = w.reshape(w.shape[0], -1).clone()
     w_drop[:, start:start + K6_DROPPED_BYTES] = 0
+    split = None
+    if plan.route == "tma" and plan.splits > 1:
+        ci = w.shape[-1]
+        w_split = w.reshape(w.shape[0], -1, ci).clone()
+        for it in range(*plan.split_range(1)):
+            tap, cb = divmod(it, plan.cblocks)
+            w_split[:, tap, cb * plan.cbox:(cb + 1) * plan.cbox] = 0
+        split = k_conv.conv_s8_acc_plain(xq, w_split.reshape(w.shape), stride, pad)
     return (k_conv.conv_s8_acc_plain(xq, w, stride, pad),
-            k_conv.conv_s8_acc_plain(xq, w_drop.reshape(w.shape), stride, pad))
+            k_conv.conv_s8_acc_plain(xq, w_drop.reshape(w.shape), stride, pad), split)
 
 
-def k6_wrong(acc, acc_dropped, epi: dict) -> dict:
+def k6_wrong(acc, acc_dropped, acc_split, epi: dict) -> dict:
     """What a faulty K6 would return, from `k6_sums`: the sums with a
-    k-tile dropped, and (with an epilogue) the scale applied as a multiply
-    and an add, two roundings."""
+    k-tile dropped, with a split dropped (where the plan splits), and
+    (with an epilogue) the scale applied as a multiply and an add, two
+    roundings."""
     out = {"dropped_k_tile": k_conv.epilogue_plain(acc_dropped, **epi)}
+    if acc_split is not None:
+        out["dropped_split"] = k_conv.epilogue_plain(acc_split, **epi)
     if epi.get("scale") is not None:
         y = acc.float() * epi["scale"] + epi["bias"]
         if epi.get("scale2") is not None:
@@ -1099,18 +1123,78 @@ def _epilogue_from_float(y: torch.Tensor, epi: dict) -> torch.Tensor:
     return y.to(epi["out_dtype"])
 
 
+def _k6_plan_rec(plan) -> dict:
+    return {"route": plan.route, "why": plan.why, "bn": plan.bn, "splits": plan.splits,
+            "stages": plan.stages, "cbox": plan.cbox, "rect": [plan.bimg, plan.bh, plan.bw],
+            "quant_pass": plan.quant_x, "pad_w": plan.pad_w}
+
+
+def _k6_timing(dev, gdev, frames: int, k, stride, pad, ci, co, side, w, epi,
+               x=None, xf=None) -> dict:
+    """K6 at `frames` frames timed on the device: bf16 in quantized to bf16
+    out (the path's), int8 in to int32 out, the quantize pass alone, the
+    mma.sync kernel (the gather route) in both modes, torch._int_mm (1x1
+    stride 1) and cuDNN's bf16 convolution; with the bounds of both K6
+    calls."""
+    if x is None:
+        x = torch.randint(-127, 128, (frames, side, side, ci), generator=gdev,
+                          dtype=torch.int8, device=dev)
+        xf = torch.randn(frames, side, side, ci, generator=gdev, device=dev).to(torch.bfloat16)
+    plan = k_conv.plan_for(xf, w, stride, pad)
+    big = frames * side * side * k * k * ci * co > 2e10
+    iters = 5 if big else 20
+    rec = {"frames": frames,
+           "ms": device_ms(lambda: k_conv.conv_s8(xf, w, stride, pad, **epi), iters),
+           "int32_ms": device_ms(lambda: k_conv.conv_s8(x, w, stride, pad), iters),
+           "quant_ms": (device_ms(lambda: k_conv.quant_pass(xf, plan.cp, epi["in_inv"]), iters)
+                        if plan.route == "tma" else None)}
+    # the mma.sync kernel (the gather route) on the same int8 input, int32 out
+    gather = k_conv.ConvPlan("gather", "timed beside the plan's route", plan.ho, plan.wo)
+    rec["gather_int32_ms"] = device_ms(lambda: k_conv._conv_gather(
+        gather, x, w, stride, pad, (None,) * 4, None, 1, 1, torch.int32, None, None, None,
+        None), iters)
+    rec["gather_ms"] = device_ms(lambda: k_conv._conv_gather(
+        gather, xf, w, stride, pad, (epi["scale"], epi["bias"], None, None), None, 1, 1,
+        torch.bfloat16, None, epi["act"], epi["in_inv"], None), iters)
+    rec["library_ms"] = None
+    if k == 1 and stride == 1:
+        a2, b2 = x.reshape(-1, ci), w.reshape(co, ci).t()
+        try:
+            torch._int_mm(a2, b2)
+            rec["library_ms"] = device_ms(lambda: torch._int_mm(a2, b2), iters)
+        except RuntimeError:
+            pass   # _int_mm wants K and N multiples of 8
+    xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+    wb = w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    rec["cudnn_bf16_conv_ms"] = device_ms(
+        lambda: torch.nn.functional.conv2d(xb, wb, None, stride, pad), iters)
+    rec["bound_ms"], rec["bound_by"] = conv_bound(frames, k, stride, pad, ci, co, side,
+                                                  torch.bfloat16, in_bytes=2)
+    rec["int32_bound_ms"], _ = conv_bound(frames, k, stride, pad, ci, co, side, torch.int32,
+                                          epilogue=False)
+    rec["quant_bound_ms"] = (1e3 * frames * side * side * (2 * ci + plan.cp) / PEAK_BYTES
+                             if plan.route == "tma" else None)
+    del xb, wb
+    return rec
+
+
 def kernel_cases_k6(dev, gen) -> list:
     """K6 against its plain version, bitwise, at every shape of `k6_shapes`
     in every mode of `_k6_modes`; the check shown to reject a dropped
-    k-tile in every mode and two roundings in fp32 out (in bf16 and int8
-    out most one-unit fp32 differences round away: reported). Timed in
-    bf16 out beside the card's bound, torch._int_mm (1x1 stride-1 shapes
-    it takes: int32 out, no epilogue; the library call), cuDNN's bf16
-    convolution of the same shape (a point of reference, not the same
-    function) and, at the headline shape, the plain version. The timed
-    call reads bf16 activations and quantizes them on load, as the path's
-    convs after a shortcut or route do."""
+    k-tile in every mode, a dropped split where the plan splits the
+    reduction, and two roundings in fp32 out (in bf16 and int8 out most
+    one-unit fp32 differences round away: reported). Each case records the
+    plan's route (`conv_plan`). Timed at 8 and at 120 frames (a tick), bf16
+    in to bf16 out, beside the card's bound, int8 in to int32 out,
+    torch._int_mm (1x1 stride-1 shapes it takes: int32 out, no epilogue;
+    the library call), cuDNN's bf16 convolution of the same shape (a point
+    of reference, not the same function) and, at the headline shape and 8
+    frames, the plain version. The quantize pass (`conv_s8_quant`) is held
+    bitwise against its plain version and timed alone, as cases of its
+    own."""
     cases = []
+    gdev = torch.Generator(device=dev).manual_seed(6)
     for group, (k, stride, pad, ci, co, side) in k6_shapes():
         t0 = time.perf_counter()
         x = torch.randint(-127, 128, (K6_FRAMES, side, side, ci), generator=gen,
@@ -1119,76 +1203,105 @@ def kernel_cases_k6(dev, gen) -> list:
                           dtype=torch.int8).to(dev)
         xf = torch.randn(K6_FRAMES, side, side, ci, generator=gen).to(dev, torch.bfloat16)
         modes, equal, rejects = _k6_modes(gen, co, dev, x, w, stride, pad, xf), {}, {}
+        plan = k_conv.plan_for(x, w, stride, pad)
+        routes = {}
         sums = {}  # the plain version's steps, its sums once per quantized input
         for mode, epi in modes.items():
             xin = _k6_input(mode, x, xf)
+            routes[mode] = k_conv.plan_for(xin, w, stride, pad).route
             got = k_conv.conv_s8(xin, w, stride, pad, **epi)
             out_epi = {a: v for a, v in epi.items() if a not in ("in_inv", "in_scale")}
             key = "int8" if xin is x else mode
             if key not in sums:
                 xq = k_conv.quantize_plain(xin, epi.get("in_inv"), epi.get("in_scale"))
-                sums[key] = k6_sums(xq, w, stride, pad)
+                sums[key] = k6_sums(xq, w, stride, pad, plan)
             want = k_conv.epilogue_plain(sums[key][0], **out_epi)
             torch.cuda.synchronize()
             equal[mode] = bool(torch.equal(got, want))
             rejects[mode] = {name: not torch.equal(wrong, want)
                              for name, wrong in k6_wrong(*sums[key], out_epi).items()}
-        ok = (all(equal.values()) and all(r["dropped_k_tile"] for r in rejects.values())
+        ok = (all(equal.values())
+              and all(r["dropped_k_tile"] and r.get("dropped_split", True)
+                      for r in rejects.values())
               and rejects["float32"]["two_roundings"])
+        # the quantize pass (the TMA route's): bf16 x * in_inv (the timed
+        # input), fp32 x / in_scale
+        quant_eq = {}
+        for mode in ("bf16_in", "fp32_in_trunk") if plan.route == "tma" else ():
+            epi = modes[mode]
+            xin = _k6_input(mode, x, xf)
+            got_q = k_conv.quant_pass(xin, plan.cp, epi.get("in_inv"), epi.get("in_scale"))
+            want_q = k_conv.quant_pass_plain(xin, plan.cp, epi.get("in_inv"),
+                                             epi.get("in_scale"))
+            torch.cuda.synchronize()
+            quant_eq[mode] = bool(torch.equal(got_q, want_q))
+        if plan.pad_w:
+            quant_eq["int8_pad"] = bool(torch.equal(k_conv.quant_pass(x, plan.cp),
+                                                    k_conv.quant_pass_plain(x, plan.cp)))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        # timed: bf16 activations quantized on load to bf16 out (the path's)
-        epi, x_in = modes["bf16_in"], xf
-        big = K6_FRAMES * side * side * k * k * ci * co > 2e10
-        iters = 5 if big else 20
+        # timed: bf16 activations quantized to bf16 out (the path's)
+        epi = modes["bf16_in"]
         headline = group == "backbone" and (k, stride, pad, ci, co, side) == K6_HEADLINE
-        k_ms = device_ms(lambda: k_conv.conv_s8(x_in, w, stride, pad, **epi), iters)
-        call_ms = (cuda_ms(lambda: k_conv.conv_s8(x_in, w, stride, pad, **epi), iters)
+        timing = {K6_FRAMES: _k6_timing(dev, gdev, K6_FRAMES, k, stride, pad, ci, co, side,
+                                        w, epi, x, xf)}
+        call_ms = (cuda_ms(lambda: k_conv.conv_s8(xf, w, stride, pad, **epi), 20)
                    if headline else None)
-        int32_ms = device_ms(lambda: k_conv.conv_s8(x, w, stride, pad), iters)
-        p_ms = (device_ms(lambda: k_conv.conv_s8_plain(x_in, w, stride, pad, **epi), 5)
+        p_ms = (device_ms(lambda: k_conv.conv_s8_plain(xf, w, stride, pad, **epi), 5)
                 if headline else None)
-        lib_ms = None
-        if k == 1 and stride == 1:
-            a2, b2 = x.reshape(-1, ci), w.reshape(co, ci).t()
-            try:
-                torch._int_mm(a2, b2)
-                lib_ms = device_ms(lambda: torch._int_mm(a2, b2), iters)
-            except RuntimeError:
-                lib_ms = None   # _int_mm wants K and N multiples of 8
-        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
-        wb = w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last)
+        qp_ms = (device_ms(lambda: k_conv.quant_pass_plain(xf, plan.cp, epi["in_inv"]), 5)
+                 if plan.route == "tma" else None)
         t2 = time.perf_counter()
-        cudnn_ms = device_ms(lambda: torch.nn.functional.conv2d(xb, wb, None, stride, pad),
-                             iters)
+        timing[K6_TICK_FRAMES] = _k6_timing(dev, gdev, K6_TICK_FRAMES, k, stride, pad, ci, co,
+                                            side, w, epi)
         t3 = time.perf_counter()
+        head = timing[K6_FRAMES]
         ho = (side + 2 * pad - k) // stride + 1
         rec = {"phase": "kernel", "name": "conv_s8", "group": group, "dtype": "bfloat16",
                "B": K6_FRAMES, "P": side * side, "C": ci, "k": k, "stride": stride,
                "Ci": ci, "Co": co, "side": side, "out_side": ho,
+               "plan": _k6_plan_rec(plan), "routes": routes,
                "vec": k_conv.conv_vec(ci, x, w), "bitwise_equal": equal,
                "limits_reject": rejects, "max_abs_err": 0.0 if ok else None, "ok": ok,
-               "timer": "device", "ms": k_ms, "call_ms": call_ms, "int32_ms": int32_ms,
-               "plain_ms": p_ms, "library_ms": lib_ms,
+               "timer": "device", "ms": head["ms"], "call_ms": call_ms,
+               "int32_ms": head["int32_ms"], "gather_ms": head["gather_ms"],
+               "gather_int32_ms": head["gather_int32_ms"],
+               "plain_ms": p_ms,
+               "library_ms": head["library_ms"],
                "library_call": "torch._int_mm(x (M, Ci), w (Ci, Co)): int32, no epilogue"
-                               if lib_ms is not None else None,
-               "cudnn_bf16_conv_ms": cudnn_ms,
+                               if head["library_ms"] is not None else None,
+               "cudnn_bf16_conv_ms": head["cudnn_bf16_conv_ms"],
                "cudnn_bf16_conv": "F.conv2d in bf16 of the same shape: a point of "
                                   "reference, not the same function",
+               "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+               "int32_bound_ms": head["int32_bound_ms"],
+               f"at_{K6_TICK_FRAMES}": timing[K6_TICK_FRAMES],
                "seconds": {"inputs_and_checks": round(t1 - t0, 3),
-                           "k6_plain_int_mm_timing": round(t2 - t1, 3),
-                           "cudnn_timing": round(t3 - t2, 3)}}
-        rec["bound_ms"], rec["bound_by"] = conv_bound(
-            K6_FRAMES, k, stride, pad, ci, co, side, torch.bfloat16, in_bytes=2)
-        rec["int32_bound_ms"], _ = conv_bound(K6_FRAMES, k, stride, pad, ci, co, side,
-                                              torch.int32, epilogue=False)
+                           f"timing_{K6_FRAMES}": round(t2 - t1, 3),
+                           f"timing_{K6_TICK_FRAMES}": round(t3 - t2, 3)}}
         emit(rec)
-        if not ok:
+        if plan.route != "tma":  # no quantize pass on the gather route
+            if not ok:
+                raise AssertionError(f"K6 disagrees with its plain version or its check "
+                                     f"misses a fault: {rec}")
+            cases.append(rec)
+            del x, xf, w
+            continue
+        qrec = {"phase": "kernel", "name": "conv_s8_quant", "group": group,
+                "dtype": "bfloat16", "B": K6_FRAMES, "P": side * side, "C": ci, "k": k,
+                "stride": stride, "Ci": ci, "Co": co, "side": side, "cp": plan.cp,
+                "bitwise_equal": quant_eq, "ok": all(quant_eq.values()),
+                "max_abs_err": 0.0 if all(quant_eq.values()) else None, "timer": "device",
+                "ms": head["quant_ms"], "plain_ms": qp_ms, "library_ms": None,
+                "bound_ms": head["quant_bound_ms"], "bound_by": "bytes",
+                f"at_{K6_TICK_FRAMES}": {k_: timing[K6_TICK_FRAMES][k_]
+                                         for k_ in ("quant_ms", "quant_bound_ms")}}
+        emit(qrec)
+        if not ok or not qrec["ok"]:
             raise AssertionError(f"K6 disagrees with its plain version or its check "
-                                 f"misses a fault: {rec}")
-        cases.append(rec)
-        del x, xf, w, xb, wb
+                                 f"misses a fault: {rec} {qrec}")
+        cases += [rec, qrec]
+        del x, xf, w
     return cases
 
 
@@ -1217,11 +1330,17 @@ class HeldK6:
     the trunk; `ops.quant`, the backbone) by a wrapper that launches the
     kernel as before and, while `active`, computes `conv_s8_plain` beside
     it. The plain computations launch no kernel, so the path's counts are
-    those of its own calls. `summary` fails on any difference or on no
-    held call, and gives the calls by mode and the distinct shapes."""
+    those of its own calls. Every call, held or not, is planned
+    (`conv_plan`): the routes the plan picks, and the quantize passes it
+    asks for (`quant_passes`: x's, and w's where w keeps no padded copy
+    yet; to hold `conv_s8_quant`'s count against).
+    `summary` fails on any difference, on no held call, or on a route the
+    plan picked that no held call took, and gives the held calls by mode
+    and by route and the distinct shapes."""
 
     def __init__(self):
         self.active, self.calls, self.modes, self.shapes, self.bad = True, 0, {}, set(), []
+        self.routes_picked, self.routes_held, self.quant_passes = {}, {}, 0
 
     def __enter__(self):
         from dcnet_tpu_torch.models import heads
@@ -1237,25 +1356,36 @@ class HeldK6:
         return False
 
     def _call(self, x, w, stride: int = 1, pad: int = 0, **kw):
+        plan = k_conv.plan_for(x, w, stride, pad)
+        route = plan.route + (" after the quantize pass" if plan.quant_x else "")
+        self.routes_picked[route] = self.routes_picked.get(route, 0) + 1
+        if plan.route == "tma":
+            self.quant_passes += plan.quant_x + (plan.pad_w and k_conv.pad_w_due(w, plan.cp))
         out = k_conv.conv_s8(x, w, stride, pad, **kw)
         if self.active:
             want = k_conv.conv_s8_plain(x, w, stride, pad, **kw)
             mode = k6_mode(x, kw)
             self.calls += 1
             self.modes[mode] = self.modes.get(mode, 0) + 1
+            self.routes_held[route] = self.routes_held.get(route, 0) + 1
             self.shapes.add((tuple(x.shape), tuple(w.shape), stride, pad))
             if not torch.equal(out, want):
-                self.bad.append({"mode": mode, "x": list(x.shape), "w": list(w.shape),
-                                 "stride": stride, "pad": pad,
+                self.bad.append({"mode": mode, "route": route, "x": list(x.shape),
+                                 "w": list(w.shape), "stride": stride, "pad": pad,
                                  "max_abs_err": (out.double() - want.double()).abs().max().item()})
         return out
 
     def summary(self, what: str) -> dict:
-        if self.bad or not self.calls:
+        unheld = sorted(set(self.routes_picked) - set(self.routes_held))
+        if self.bad or not self.calls or unheld:
             raise AssertionError(f"{what}: K6 differs from its plain version on the path's "
-                                 f"own calls ({len(self.bad)} of {self.calls}): {self.bad[:5]}")
+                                 f"own calls ({len(self.bad)} of {self.calls}): {self.bad[:5]}"
+                                 f"; routes picked but never held: {unheld}")
         return {"calls": self.calls, "distinct_shapes": len(self.shapes),
-                "modes": dict(sorted(self.modes.items())), "bitwise_equal": True}
+                "modes": dict(sorted(self.modes.items())),
+                "routes_held": dict(sorted(self.routes_held.items())),
+                "routes_picked": dict(sorted(self.routes_picked.items())),
+                "quant_passes": self.quant_passes, "bitwise_equal": True}
 
 
 def phase_kernel(dev, k6_build: concurrent.futures.Future):
@@ -1583,14 +1713,15 @@ def phase_int8(dev, profile_dir=None) -> dict:
     per_call, answers, held = {}, [], HeldK6()
     for name in ["int8_chain"] * 3 + ["coattn_int8", "coattn_batch_refs"]:
         images, ids = request(8)
-        before = dict(kernels.LAUNCHES)
+        before, passes = dict(kernels.LAUNCHES), held.quant_passes
         with held:
             out = run(name, images, ids)
         dec = decode_best(out.outbox, cfg)
         torch.cuda.synchronize()
         got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
         want = {"conv_s8": bb + trunk_k6_per_call(base.replace(**variants[name][0])),
-                "coattn_attend": 12 if name == "int8_chain" else 0}
+                "coattn_attend": 12 if name == "int8_chain" else 0,
+                "conv_s8_quant": held.quant_passes - passes}
         if any(got[k] != want.get(k, 0) for k in got):
             raise AssertionError(f"int8 {name}: launches {got}, expected {want}")
         per_call.setdefault(name, []).append(got)
@@ -2065,7 +2196,7 @@ def phase_train(dev, profile_dir=None) -> dict:
     launches = dict(kernels.LAUNCHES)
     want = {"coattn_attend": 0, "coattn_pair": 3 * TRAIN_STEPS,
             "coattn_attend_bwd": 6 * TRAIN_STEPS, "coattn_ring": 0, "loc_gram": 0,
-            "conv_s8": 0}
+            "conv_s8": 0, "conv_s8_quant": 0}
     if launches != want:
         raise AssertionError(f"train_epoch launches {launches}, expected {want}")
     if not all(np.isfinite(v) for v in averages.values()):
@@ -2531,16 +2662,22 @@ def phase_serving_int8(dev, profile_dir=None) -> dict:
     launches, timing, held_on_path = {}, {}, {}
     for name, eng in engines.items():
         kernels.reset_launches()
-        held = HeldK6()
+        held, marks = HeldK6(), []
 
         def frames_held(t):  # hold the K6 calls of the last tick
             held.active = t == SERVE_TICKS - 1
+            marks.append(held.quant_passes)
             return frames_at(t)
 
         with held:
             state, per_tick, outs = _serve(eng, ids, SERVE_TICKS, frames_held)
         held_on_path[name] = held.summary(f"quantized serving, {name}")
-        _expect_launches(per_tick, want[name], f"quantized serving, {name}")
+        # each tick's quantize passes as its plans asked for them (a padded
+        # weight is kept from its first tick on); the last tick's recorded
+        marks.append(held.quant_passes)
+        for t, got in enumerate(per_tick):
+            want[name]["conv_s8_quant"] = marks[t + 1] - marks[t]
+            _expect_launches([got], want[name], f"quantized serving, {name}, tick {t}")
         _finite(outs, f"quantized serving, {name}")
         launches[name] = dict(kernels.LAUNCHES)
         frames = frames_at(0)
@@ -2981,7 +3118,7 @@ def phase_cli(dev) -> dict:
 
         # the int8 CLI on the lock, card and CPU: equal metrics, each within
         # the JAX package's limits of float (tests/test_cli.py:84-107)
-        k6_before = kernels.LAUNCHES["conv_s8"]
+        k6_before = {k: kernels.LAUNCHES[k] for k in ("conv_s8", "conv_s8_quant")}
         for name, extra in (("quant", ["--quant"]),
                             ("quant_trunk", ["--quant", "--quant_trunk"]),
                             ("coattn_int8", ["--coattn_int8"]),
@@ -3002,10 +3139,10 @@ def phase_cli(dev) -> dict:
                 raise AssertionError(f"lock {name}: {got_q} against float {float_q}")
             runs[f"lock_{name}"] = {"output": text_q.strip().splitlines(),
                                     "cpu_output": text_qc.strip().splitlines(), "wall_s": s_q}
-        k6_cli = kernels.LAUNCHES["conv_s8"] - k6_before
-        if not k6_cli:
+        k6_cli = {k: kernels.LAUNCHES[k] - v for k, v in k6_before.items()}
+        if not k6_cli["conv_s8"]:
             raise AssertionError("the int8 CLI runs never launched K6")
-        launches["conv_s8"] = k6_cli
+        launches.update(k6_cli)
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
@@ -3209,10 +3346,14 @@ KERNELS = (  # name, path it runs on, source, the TPU kernel it replaces
     ("loc_gram", None, "dcnet_tpu_torch/csrc/locgram.cu",
      "dcnet_tpu/ops/pallas/locgram.py:49 (fused_loc_gram; body _kernel :35; "
      "fold_dense_bn :91)"),
-    ("conv_s8", "int8_eval", "dcnet_tpu_torch/csrc/conv_s8.cuh",
+    ("conv_s8", "int8_eval", "dcnet_tpu_torch/csrc/conv_s8_tma.cuh",
      "none: no TPU kernel; the JAX package's int8 conv is XLA's "
      "lax.conv_general_dilated(int8, int8, preferred_element_type=int32), "
      "dcnet_tpu/ops/quant.py:224-227 and dcnet_tpu/models/heads.py:93-96, :121-132"),
+    ("conv_s8_quant", "int8_eval", "dcnet_tpu_torch/csrc/conv_s8.cuh",
+     "none: no TPU kernel; the JAX package's quantize step is XLA's "
+     "clip(round(x * inv), -127, 127).astype(int8), dcnet_tpu/ops/quant.py:229 "
+     "and dcnet_tpu/models/heads.py:121-132"),
 )
 
 
@@ -3224,7 +3365,7 @@ def _headline(name: str, case: dict) -> bool:
     if name == "loc_gram":
         return (case["B"] == 8 and case["P"] == LOC_P and case["E"] == LOC_E
                 and case["C"] == KERNEL_C and case["dtype"] == "float32")
-    if name == "conv_s8":
+    if name in ("conv_s8", "conv_s8_quant"):
         return (case["group"] == "backbone" and (case["k"], case["stride"], 1, case["Ci"],
                                                  case["Co"], case["side"]) == K6_HEADLINE)
     return (case["P"] == max(MAIN_P) and case["C"] == KERNEL_C
@@ -3246,7 +3387,7 @@ def kernels_line(cases: list, launches: dict, by_path=None) -> dict:
         head = next(c for c in mine if _headline(name, c))
         worst = max(c["max_abs_err"] for c in mine
                     if c["dtype"] == head["dtype"] and (c["C"] == head["C"]
-                                                        or name == "conv_s8"))
+                                                        or name.startswith("conv_s8")))
         out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "path": path, "launches": launches[name],
@@ -3259,9 +3400,13 @@ def kernels_line(cases: list, launches: dict, by_path=None) -> dict:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "bodies": sorted({c["body"] for c in mine if c.get("body")}),
             "cases": [{k: c.get(k) for k in (
-                ("group", "k", "stride", "Ci", "Co", "side", "vec", "max_abs_err", "ms",
-                 "int32_ms", "plain_ms", "library_ms", "cudnn_bf16_conv_ms", "bound_ms",
-                 "int32_bound_ms", "bound_by") if name == "conv_s8" else
+                ("group", "k", "stride", "Ci", "Co", "side", "plan", "max_abs_err", "ms",
+                 "int32_ms", "gather_ms", "gather_int32_ms", "plain_ms", "library_ms",
+                 "cudnn_bf16_conv_ms", "bound_ms",
+                 "int32_bound_ms", "bound_by", f"at_{K6_TICK_FRAMES}") if name == "conv_s8"
+                else ("group", "k", "stride", "Ci", "Co", "side", "cp", "max_abs_err", "ms",
+                      "plain_ms", "bound_ms", f"at_{K6_TICK_FRAMES}")
+                if name == "conv_s8_quant" else
                 ("dtype", "B", "P", "C", "E", "body", "max_abs_err", "rel_err", "ms",
                  "call_ms", "plain_ms", "library_ms", "rank8_route_ms", "bound_ms",
                  "bound_by", "library_backends"))}
@@ -3313,7 +3458,8 @@ def main(argv=None) -> int:
                 "coattn_pair": train_launches["coattn_pair"],
                 "coattn_attend_bwd": train_launches["coattn_attend_bwd"],
                 "coattn_ring": serving_launches["coattn_ring"],
-                "conv_s8": int8_launches["conv_s8"]}
+                "conv_s8": int8_launches["conv_s8"],
+                "conv_s8_quant": int8_launches["conv_s8_quant"]}
     if not all(on_paths.values()):
         raise AssertionError(f"a kernel of the paths never launched: {on_paths}")
     if not k5_launches:
@@ -3326,9 +3472,10 @@ def main(argv=None) -> int:
                           "int8_serving_k1": serving_int8["k1"]["coattn_attend"]},
         "coattn_ring": {"serving": serving_launches["coattn_ring"],
                         "int8_serving_multiref": serving_int8["multiref"]["coattn_ring"]},
-        "conv_s8": {"int8_eval": int8_launches["conv_s8"],
-                    **{f"int8_serving_{k}": v["conv_s8"] for k, v in serving_int8.items()},
-                    "int8_cli": cli_launches["conv_s8"]}}))
+        **{name: {"int8_eval": int8_launches[name],
+                  **{f"int8_serving_{k}": v[name] for k, v in serving_int8.items()},
+                  "int8_cli": cli_launches[name]}
+           for name in ("conv_s8", "conv_s8_quant")}}))
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

@@ -1,7 +1,11 @@
 // K6: the int8 convolution for Hopper (sm_90a), an NHWC implicit GEMM on
-// the int8 tensor cores with a fused epilogue. The kernel and its host
-// entry, templated on the input type; conv_s8.cu (int8 x), conv_s8_bf16.cu
-// and conv_s8_fp32.cu each export it for one type as a library of its own.
+// the int8 tensor cores with a fused epilogue. This header holds what K6's
+// routes share (the epilogue `finish`, the quantize step), the quantize
+// pass and the gather route with their host entries, templated on the
+// input type; conv_s8.cu (int8 x), conv_s8_bf16.cu and conv_s8_fp32.cu each
+// export them for one type as a library of its own. The main route, wgmma
+// s8 on TMA tiles, is conv_s8_tma.cuh (library conv_s8_tma.cu);
+// kernels/conv_s8.py::conv_plan picks the route by shape and alignment.
 //
 // No TPU kernel stands behind it: the JAX package runs its int8 convolutions
 // through XLA, lax.conv_general_dilated(int8, int8,
@@ -16,11 +20,10 @@
 // x (N, H, W, Ci) int8, w (Co, k, k, Ci) int8, any N, H, W, Ci, Co >= 1,
 // k in {1, 3} (any k the grid fits), stride s >= 1, pad p >= 0; taps outside
 // the image read zero. The sum is exact: |acc| <= 127^2 k^2 Ci < 2^31.
-// x may also be fp32 or bf16, quantized as it is gathered with the static
-// scale of the JAX package's quantize step: clamp(rint(x * inv), -127,
-// 127) (the backbone, `inv` a float) or clamp(rint(x / s), -127, 127) (the
-// trunk, `s` an fp32 on the device; an IEEE division), so no int8 copy of a
-// float activation is written.
+// x may also be fp32 or bf16, quantized with the static scale of the JAX
+// package's quantize step: clamp(rint(x * inv), -127, 127) (the backbone,
+// `inv` a float) or clamp(rint(x / s), -127, 127) (the trunk, `s` an fp32
+// on the device; an IEEE division).
 //
 // The epilogue, per output element, in this order (each step optional):
 //     acc += addend[arow, co]                int32; arow = (row / (R*HW))*HW
@@ -39,36 +42,41 @@
 // on the CPU. Split into a multiply and an add it would round twice and
 // move int8 codes downstream.
 //
-// Bound: 2 N Ho Wo k^2 Ci Co operations at the int8 tensor-core rate (1,979
-// TOP/s) against the bytes of x, w and the output (3.35 TB/s). The
-// backbone's 3x3 convolutions are bound by operations (~100-300 operations
-// a byte); its 1x1 and the thin first layer (Ci = 3) by bytes.
+// The quantize pass (`quant_pass_kernel`): x (rows, Ci) fp32 / bf16 / int8
+// into an int8 copy (rows, Cp), Cp = Ci rounded up to 16, the pad zero: the
+// TMA route's input where x is float (quantized once, not once for each
+// column block of the convolution: quantizing bf16 boxes inside the wgmma
+// kernel instead measured 1.09-2.4x slower, PERF.md section 6) or its
+// channels are not a multiple of 16 (w's too). Bound by bytes: rows (Ci size(x) + Cp) at 3.35 TB/s. 16 channels a
+// thread, 16-byte stores; loads of 16 values where the row's chunk is
+// whole and 16-byte aligned, single values otherwise.
 //
-// Design (a simple kernel that is right; wgmma s8 and TMA come later): a
-// block of 128 threads computes a 128 x 64 tile of the (N Ho Wo) x Co
+// The gather route (the mma.sync kernel, `conv_s8_kernel`): thin reductions
+// (Ci < 64 or k^2 Ci < 256, the first layer's 3 -> 32 among them), where
+// the TMA route measured slower, and the shapes the TMA route cannot take
+// (an int8 x or a w whose data is not 16-byte aligned and that needs no
+// padded copy; strides whose phase views overlap; k > 8).
+// A block of 128 threads computes a 128 x 64 tile of the (N Ho Wo) x Co
 // output over k-tiles of 64 bytes of the k^2 Ci reduction, three stages
 // deep in shared memory (46,080 B, static). Row r of the A tile is the
 // im2col row of output pixel m0 + r, gathered by thread r: 16-byte cp.async
 // where Ci % 16 == 0 (a chunk never crosses a tap), 4-byte cp.async where
-// Ci % 4 == 0, and single bytes through registers otherwise (Ci = 3 of the
-// first layer, odd widths); a float x is loaded at the same widths (16 or 4
-// values, or single values where Ci % 4 != 0) into registers and quantized
-// there as each tile is staged (loading it a k-tile ahead instead, at
-// 167-214 registers, paid only on grids of at most two blocks an SM and
-// made the build take minutes). Taps in the padding and
-// columns past k^2 Ci are zero-filled. The weight tile is 64 rows of w,
-// contiguous in k^2 Ci, with the same vector width. Four warps, 2 x 2, each
-// 64 x 32 outputs: 16 mma.sync.m16n8k32 s8 x s8 -> s32 a 32-byte step,
-// fragments read as 32-bit words from rows 80 bytes apart (no bank
-// conflicts). The epilogue writes the block's finished 128 x 64 tile into
-// the (then idle) pipeline's shared memory and copies it out row by row in
-// 16-byte vectors, so a warp's stores cover whole 128-byte lines.
+// Ci % 4 == 0, and single bytes through registers otherwise; a float x is
+// loaded at the same widths into registers and quantized there as each
+// tile is staged. Taps in the padding and columns past k^2 Ci are
+// zero-filled. The weight tile is 64 rows of w, contiguous in k^2 Ci, with
+// the same vector width. Four warps, 2 x 2, each 64 x 32 outputs: 16
+// mma.sync.m16n8k32 s8 x s8 -> s32 a 32-byte step, fragments read as 32-bit
+// words from rows 80 bytes apart (no bank conflicts). The epilogue writes
+// the block's finished 128 x 64 tile into the (then idle) pipeline's shared
+// memory and copies it out row by row in 16-byte vectors.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -300,20 +308,22 @@ __device__ __forceinline__ OUT zero() {
   }
 }
 
-// The epilogue of one output element (row, col inside the output).
+// The output row of the addend for output row `row`: the shared half's sum,
+// once for the R parts of a row.
+__device__ __forceinline__ long long addend_row(const Epilogue& ep, long long row) {
+  return (row / (ep.addend_rep * ep.addend_hw)) * ep.addend_hw + row % ep.addend_hw;
+}
+
+// The epilogue's float steps on a sum (the addend already added), with
+// column col's scale, bias, scale2, bias2 (read by the caller).
 template <typename OUT>
-__device__ __forceinline__ OUT finish(const Epilogue& ep, long long row, int col,
-                                      int co, int acc) {
-  if (ep.addend != nullptr) {
-    const long long arow =
-        (row / (ep.addend_rep * ep.addend_hw)) * ep.addend_hw + row % ep.addend_hw;
-    acc += ep.addend[arow * co + col];
-  }
+__device__ __forceinline__ OUT finish_acc(const Epilogue& ep, int acc, float scale,
+                                          float bias, float scale2, float bias2) {
   if constexpr (std::is_same_v<OUT, int32_t>) {
     return acc;
   } else {
-    float y = __fmaf_rn(__int2float_rn(acc), ep.scale[col], ep.bias[col]);
-    if (ep.scale2 != nullptr) y = __fmaf_rn(y, ep.scale2[col], ep.bias2[col]);
+    float y = __fmaf_rn(__int2float_rn(acc), scale, bias);
+    if (ep.scale2 != nullptr) y = __fmaf_rn(y, scale2, bias2);
     if (ep.act == kRelu) {
       y = y > 0.f ? y : 0.f;
     } else if (ep.act == kLeaky) {
@@ -327,6 +337,20 @@ __device__ __forceinline__ OUT finish(const Epilogue& ep, long long row, int col
       return static_cast<int8_t>(
           fminf(fmaxf(rintf(__fmul_rn(y, ep.inv_next)), -127.f), 127.f));
     }
+  }
+}
+
+// The epilogue of one output element (row, col inside the output).
+template <typename OUT>
+__device__ __forceinline__ OUT finish(const Epilogue& ep, long long row, int col,
+                                      int co, int acc) {
+  if (ep.addend != nullptr) acc += ep.addend[addend_row(ep, row) * co + col];
+  if constexpr (std::is_same_v<OUT, int32_t>) {
+    return acc;
+  } else {
+    const bool two = ep.scale2 != nullptr;
+    return finish_acc<OUT>(ep, acc, ep.scale[col], ep.bias[col], two ? ep.scale2[col] : 0.f,
+                           two ? ep.bias2[col] : 0.f);
   }
 }
 
@@ -492,6 +516,69 @@ int launch(const Conv& cv, const Epilogue& ep, dim3 grid, int vec, cudaStream_t 
 
 bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The quantize pass: x (rows, ci) of IN into out (rows, cp) int8, cp % 16
+// == 0, channels past ci zero; int8 x copied, a float x quantized
+// (`quantize`). One thread a 16-channel chunk, grid-stride.
+template <typename IN>
+__global__ void __launch_bounds__(256) quant_pass_kernel(const IN* x, int8_t* out,
+                                                         long long rows, int ci, int cp,
+                                                         int qmode, float inv,
+                                                         const float* scale) {
+  const float q = qmode == kQuantDiv ? *scale : inv;
+  const int chunks = cp / 16;
+  const long long total = rows * chunks;
+  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x; idx < total;
+       idx += (long long)gridDim.x * blockDim.x) {
+    const long long row = idx / chunks;
+    const int c0 = (int)(idx - row * chunks) * 16;
+    const IN* src = x + row * ci + c0;
+    alignas(16) int8_t v[16];
+    if (c0 + 16 <= ci && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+      if constexpr (std::is_same_v<IN, int8_t>) {
+        *reinterpret_cast<uint4*>(v) = __ldg(reinterpret_cast<const uint4*>(src));
+      } else {
+        alignas(16) uint32_t words[kChunkWords<16, IN>];
+        load_chunk<16, IN>(words, src);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) v[e] = quantize(chunk_value<IN>(words, e), qmode, q);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        if (c0 + e >= ci) {
+          v[e] = 0;
+        } else if constexpr (std::is_same_v<IN, int8_t>) {
+          v[e] = src[e];
+        } else {
+          v[e] = quantize(to_float(src[e]), qmode, q);
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(out + row * cp + c0) = *reinterpret_cast<const uint4*>(v);
+  }
+}
+
+// x (rows, ci) of the library's type (x_dtype as conv_s8_entry), qmode and
+// its scale as there (0 for an int8 x: a copy); out (rows, cp) int8,
+// 16-byte aligned, cp % 16 == 0, cp >= ci. Returns a cudaError_t code.
+template <typename IN>
+int quant_pass_entry(const void* x, int x_dtype, int qmode, float in_inv,
+                     const void* in_scale, void* out, long long rows, int ci, int cp,
+                     void* stream) {
+  constexpr int kXDtype = std::is_same_v<IN, int8_t> ? 0 : (std::is_same_v<IN, float> ? 1 : 2);
+  if (x_dtype != kXDtype || rows < 1 || ci < 1 || cp < ci || cp % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 || (x_dtype == 0) != (qmode == kQuantNone) ||
+      qmode < 0 || qmode > 2 || (qmode == kQuantDiv && in_scale == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long chunks = rows * (cp / 16);
+  const long long blocks = std::min<long long>((chunks + 255) / 256, 132LL * 16);
+  quant_pass_kernel<IN><<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const IN*>(x), static_cast<int8_t*>(out), rows, ci, cp, qmode, in_inv,
+      static_cast<const float*>(in_scale));
+  return (int)cudaGetLastError();
 }
 
 // x (N, H, W, Ci) contiguous: int8 (x_dtype 0), or float32 (1) / bfloat16

@@ -17,6 +17,13 @@ int dcnet_conv_s8(const void* x, int x_dtype, int qmode, float in_inv,
                          wd, ci, co, k, stride, pad, mode, act, vec, stream);
 }
 
+int dcnet_conv_s8_quant(const void* x, int x_dtype, int qmode, float in_inv,
+                        const void* in_scale, void* out, long long rows, int ci, int cp,
+                        void* stream) {
+  return quant_pass_entry<bf16>(x, x_dtype, qmode, in_inv, in_scale, out, rows, ci, cp,
+                              stream);
+}
+
 const char* dcnet_conv_s8_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

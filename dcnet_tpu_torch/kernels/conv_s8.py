@@ -4,16 +4,33 @@ No TPU kernel stands behind it: the JAX package runs its int8 convolutions
 through XLA (`lax.conv_general_dilated(int8, int8,
 preferred_element_type=int32)`, `dcnet_tpu/ops/quant.py:224-227` and
 `dcnet_tpu/models/heads.py:93-96`), and PyTorch has no int8 convolution on
-CUDA. The CUDA kernel is `csrc/conv_s8.cuh` (mma.sync s8 x s8 -> s32, its
-note gives the bound and the design), built as one library per input type
-(`csrc/conv_s8.cu`, `conv_s8_bf16.cu`, `conv_s8_fp32.cu`), in parallel. `conv_s8_plain` is the plain version:
+CUDA. Two CUDA routes compute it, chosen by `conv_plan` from the shape and
+the data's alignment, never as a fallback:
+
+- "tma" (`csrc/conv_s8_tma.cuh`, library `conv_s8_tma.cu`): wgmma s8 on TMA
+  tiles, split-K through a cluster's shared memory. It reads int8 x with
+  Ci % 16 == 0: a float x, or one whose channels need padding to 16, goes
+  first through the quantize pass (`csrc/conv_s8.cuh::quant_pass_kernel`,
+  counted as `conv_s8_quant`), and so does w where its channels are padded
+  (once for each version of w: the padded copy is kept on w).
+- "gather" (`csrc/conv_s8.cuh::conv_s8_kernel`, the first mma.sync kernel):
+  a thin reduction, Ci < 64 or k^2 Ci < 256 (the first layer's 3 -> 32,
+  the 3x3 32 -> 64s, the 1x1 64 -> 32 and 128 -> 64: there the TMA route's
+  few iterations a block leave it latency-bound, 1.3-3.8x slower than this
+  route on the card, PERF.md section 6), an int8 x or a w that is not 16-byte
+  aligned and needs no padded copy, a stride whose phase views would
+  overlap (an odd height at stride 2), more than 64 taps or 16 phase maps.
+
+The gather route and the pass are built as one library per input type
+(`csrc/conv_s8.cu`, `conv_s8_bf16.cu`, `conv_s8_fp32.cu`); the four build in
+parallel. `conv_s8_plain` is the plain version:
 the int32 sums as a float64 product of the im2col matrix with the weights
 (every partial sum an integer below 2^53, so exact in any order), then the
 same epilogue with each fused multiply-add emulated exactly (`fma32`). CPU
 tensors take it; CUDA tensors launch the kernel or raise.
 
-x may be int8, or fp32 / bf16 quantized as the kernel gathers it, with the
-JAX package's static-scale step: `clamp(round(x * in_inv), -127, 127)`
+x may be int8, or fp32 / bf16 quantized (by the pass, or as the gather
+route gathers it) with the JAX package's static-scale step: `clamp(round(x * in_inv), -127, 127)`
 (the backbone) or `clamp(round(x / in_scale), -127, 127)` (the trunk,
 `in_scale` an fp32 0-dim tensor on x's device, a true division).
 
@@ -32,7 +49,9 @@ move int8 codes away from the JAX package's.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +63,8 @@ _MODE = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2, torch.int8: 3}
 _X_DTYPE = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 SOURCES = {torch.int8: "conv_s8", torch.bfloat16: "conv_s8_bf16",
            torch.float32: "conv_s8_fp32"}   # x's dtype -> csrc/<name>.cu
+TMA_SOURCE = "conv_s8_tma"                  # the wgmma s8 + TMA route
+ALL_SOURCES = (*SOURCES.values(), TMA_SOURCE)
 _ACT = {None: 0, "relu": 1, "leaky": 2}
 
 
@@ -125,6 +146,14 @@ def quantize_plain(x: torch.Tensor, in_inv: Optional[float] = None,
     return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
 
 
+def quant_pass_plain(x: torch.Tensor, cp: int, in_inv: Optional[float] = None,
+                     in_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The quantize pass's plain version: `quantize_plain`, then zero
+    channels up to cp."""
+    q = quantize_plain(x, in_inv, in_scale)
+    return F.pad(q, (0, cp - x.shape[-1]))
+
+
 def conv_s8_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                   pad: int = 0, in_inv: Optional[float] = None,
                   in_scale: Optional[torch.Tensor] = None, **epilogue) -> torch.Tensor:
@@ -132,6 +161,174 @@ def conv_s8_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     `conv_s8_acc_plain`, then `epilogue_plain`."""
     xq = quantize_plain(x, in_inv, in_scale)
     return epilogue_plain(conv_s8_acc_plain(xq, w, stride, pad), **epilogue)
+
+
+# --- the plan: route, tiles, stages, split and tensor maps by shape --------
+
+SMS = 132                 # the H100 SXM's SMs: a wave is one block an SM
+SMEM_LIMIT = 232448       # shared memory a block may use
+TMA_ROWS = 128            # output pixels of a block (two warpgroups of 64)
+MAX_MAPS, MAX_TAPS, MAX_SPLITS, MAX_STAGES = 16, 64, 8, 8
+# the order of the plan array's fields, csrc/conv_s8_tma.cuh::tma::Field
+TMA_FIELDS = ("nmaps", "ntaps", "cbox", "bn", "wv", "hv", "nv", "bw",
+              "bh", "bimg", "tiles_w", "tiles_h", "tiles_n", "co", "cblocks", "kiters",
+              "splits", "stages", "smem", "b_dim0", "b_dim1", "b_stride1", "b_stride2")
+
+
+def _pow2_ceil(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """One convolution's route and, on the TMA route, everything the entry
+    encodes and launches (`conv_plan`)."""
+    route: str                      # "tma" or "gather"
+    why: str                        # the shape rule that chose it
+    ho: int
+    wo: int
+    cp: int = 0                     # channels of the int8 operands (Ci rounded up to 16)
+    quant_x: bool = False           # x goes through the quantize pass first
+    pad_w: bool = False             # w goes through it too (channels padded)
+    cbox: int = 0                   # channels (bytes) of a box and its swizzle: 64 or 128
+    bn: int = 0                     # output channels of a block
+    wv: int = 0                     # the output as the tiles see it: (nv, hv, wv)
+    hv: int = 0
+    nv: int = 0
+    bw: int = 0                     # a block's rectangle of output pixels
+    bh: int = 0
+    bimg: int = 0
+    tiles_w: int = 0
+    tiles_h: int = 0
+    tiles_n: int = 0
+    co: int = 0
+    cblocks: int = 0                # boxes of channels a tap
+    kiters: int = 0                 # (tap, channel box) iterations of the reduction
+    splits: int = 1
+    stages: int = 0
+    smem: int = 0
+    # x's phase maps: (byte offset of the view, dims (Cp, W', H', N), strides
+    # of dims 1..3 in bytes); the box is (cbox, bw, bh, bimg)
+    a_maps: Tuple = ()
+    taps: Tuple = ()                # per tap (r, c): (phase map, dw, dh)
+    b_dims: Tuple = ()              # w as (Cp, k k, Co), box (cbox, 1, bn)
+    b_strides: Tuple = ()
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return (self.tiles_w * self.tiles_h * self.tiles_n, -(-self.co // self.bn),
+                self.splits)
+
+    def split_range(self, split: int) -> Tuple[int, int]:
+        """The iterations [begin, end) split `split` sums, as the kernel
+        divides them."""
+        return (self.kiters * split // self.splits,
+                self.kiters * (split + 1) // self.splits)
+
+    def array(self) -> "ctypes.Array":
+        """The int64 plan array the entry reads: TMA_FIELDS, then 8 numbers a
+        phase map, then 3 a tap."""
+        fields = dict(nmaps=len(self.a_maps), ntaps=len(self.taps),
+                      b_dim0=self.b_dims[0], b_dim1=self.b_dims[1],
+                      b_stride1=self.b_strides[0], b_stride2=self.b_strides[1])
+        vals = [fields[f] if f in fields else getattr(self, f) for f in TMA_FIELDS]
+        for off, dims, strides in self.a_maps:
+            vals += [off, *dims, *strides]
+        for t in self.taps:
+            vals += list(t)
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _smem(stages: int, bn: int, cbox: int) -> int:
+    """Dynamic shared memory of a TMA block: the ring (or the staged int32
+    tile, the larger), 1 KB to align it, the mbarriers."""
+    ring = stages * (TMA_ROWS + bn) * cbox
+    return max(ring, TMA_ROWS * (bn + 4) * 4) + 1024 + 16 * stages
+
+
+@functools.lru_cache(maxsize=4096)
+def conv_plan(n: int, h: int, w: int, ci: int, co: int, k: int, stride: int, pad: int,
+              x_dtype: str = "int8", x_aligned: bool = True,
+              w_aligned: bool = True) -> ConvPlan:
+    """How K6 computes the convolution of x (n, h, w, ci) (`x_dtype` "int8",
+    "bfloat16" or "float32"; `x_aligned` / `w_aligned`: the data 16-byte
+    aligned) with w (co, k, k, ci), stride, pad: the route, and on the TMA
+    route the quantize pass, the tiles, the split, the stages and the
+    tensor maps (module doc, `csrc/conv_s8_tma.cuh`). A pure function of its
+    arguments."""
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    cp = -(-ci // 16) * 16
+    quant_x, pad_w = x_dtype != "int8" or cp != ci, cp != ci
+    flat = k == 1 and stride == 1 and pad == 0
+    rows = sorted({(r - pad) % stride for r in range(k)})
+    cols = sorted({(c - pad) % stride for c in range(k)})
+    hs = {rr: -(-(h - rr) // stride) for rr in rows}
+    ws = {cc: -(-(w - cc) // stride) for cc in cols}
+    if ci < 64 or k * k * ci < 256:
+        return ConvPlan("gather", "a thin reduction (Ci < 64 or k^2 Ci < 256)", ho, wo)
+    if not (x_aligned or quant_x) or not (w_aligned or pad_w):
+        return ConvPlan("gather", "an int8 operand not 16-byte aligned", ho, wo)
+    if k * k > MAX_TAPS or (not flat and len(rows) * len(cols) > MAX_MAPS):
+        return ConvPlan("gather", "more taps or phase maps than the kernel takes", ho, wo)
+    if not flat and any(v < 1 or v * stride > h for v in hs.values()):
+        return ConvPlan("gather", "a phase view of x past the image (odd side at the "
+                                  "stride)", ho, wo)
+    if not flat and any(v < 1 for v in ws.values()):
+        return ConvPlan("gather", "an empty phase view of x", ho, wo)
+    cbox = 64 if cp <= 64 else 128
+    cblocks = -(-cp // cbox)
+    if flat:
+        wv, hv, nv, bw, bh, bimg = n * ho * wo, 1, 1, TMA_ROWS, 1, 1
+        a_maps = ((0, (cp, n * h * w, 1, 1), (cp, n * h * w * cp, n * h * w * cp)),)
+        taps = ((0, 0, 0),)
+    else:
+        wv, hv, nv = wo, ho, n
+        bw = min(_pow2_ceil(wo), TMA_ROWS)
+        bh = min(_pow2_ceil(ho), TMA_ROWS // bw)
+        bimg = TMA_ROWS // (bw * bh)
+        a_maps = tuple(((rr * w + cc) * cp, (cp, ws[cc], hs[rr], n),
+                        (stride * cp, stride * w * cp, h * w * cp))
+                       for rr in rows for cc in cols)
+        taps = []
+        for r in range(k):
+            for c in range(k):
+                (qr, rr), (qc, cc) = divmod(r - pad, stride), divmod(c - pad, stride)
+                taps.append((rows.index(rr) * len(cols) + cols.index(cc), qc, qr))
+        taps = tuple(taps)
+    tiles_w, tiles_h, tiles_n = -(-wv // bw), -(-hv // bh), -(-nv // bimg)
+    mtiles = tiles_w * tiles_h * tiles_n
+    kiters = k * k * cblocks
+    # a block's columns: the widest of 256 / 128 / 64 that Co needs and that
+    # leaves a quarter wave of tiles, else 64; then split-K while the grid
+    # stays within a wave and each split keeps 4 iterations (the tiles and
+    # splits `kernel_timing.py --k6-plans` measured fastest, PERF.md section 6)
+    bn = 64
+    for cand in (256, 128):
+        if co > cand // 2 and mtiles * -(-co // cand) >= SMS // 4:
+            bn = cand
+            break
+    tiles = mtiles * -(-co // bn)
+    splits = 1
+    while (splits < MAX_SPLITS and tiles * splits * 2 <= SMS
+           and kiters >= 4 * splits * 2):
+        splits *= 2
+    stage = (TMA_ROWS + bn) * cbox
+    stages = max(2, min(MAX_STAGES, (SMEM_LIMIT - 1024 - 16 * MAX_STAGES) // stage))
+    return ConvPlan(
+        "tma", "wgmma s8 + TMA" + (" after the quantize pass" if quant_x else ""),
+        ho, wo, cp=cp, quant_x=quant_x, pad_w=pad_w, cbox=cbox, bn=bn,
+        wv=wv, hv=hv, nv=nv, bw=bw, bh=bh, bimg=bimg, tiles_w=tiles_w, tiles_h=tiles_h,
+        tiles_n=tiles_n, co=co, cblocks=cblocks, kiters=kiters, splits=splits,
+        stages=stages, smem=_smem(stages, bn, cbox), a_maps=a_maps, taps=taps,
+        b_dims=(cp, k * k, co), b_strides=(cp, k * k * cp))
+
+
+def plan_for(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int) -> ConvPlan:
+    """`conv_plan` for these tensors."""
+    n, h, wd, ci = x.shape
+    return conv_plan(n, h, wd, ci, w.shape[0], w.shape[1], stride, pad,
+                     str(x.dtype).replace("torch.", ""), x.data_ptr() % 16 == 0,
+                     w.data_ptr() % 16 == 0)
 
 
 def conv_vec(ci: int, x: torch.Tensor, w: torch.Tensor) -> int:
@@ -146,7 +343,8 @@ def conv_vec(ci: int, x: torch.Tensor, w: torch.Tensor) -> int:
 
 
 def _lib(x_dtype: torch.dtype = torch.int8) -> ctypes.CDLL:
-    """The library of K6 for inputs of `x_dtype`, built first if needed."""
+    """The library of K6's gather route and quantize pass for inputs of
+    `x_dtype`, built first if needed."""
     lib = build.load(SOURCES[x_dtype])
     if not getattr(lib, "_dcnet_bound", False):
         lib.dcnet_conv_s8.argtypes = (
@@ -154,10 +352,74 @@ def _lib(x_dtype: torch.dtype = torch.int8) -> ctypes.CDLL:
             + [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_float]
             + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         lib.dcnet_conv_s8.restype = ctypes.c_int
+        lib.dcnet_conv_s8_quant.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.dcnet_conv_s8_quant.restype = ctypes.c_int
         lib.dcnet_conv_s8_error_string.argtypes = [ctypes.c_int]
         lib.dcnet_conv_s8_error_string.restype = ctypes.c_char_p
         lib._dcnet_bound = True
     return lib
+
+
+def _tma_lib() -> ctypes.CDLL:
+    """The library of K6's TMA route, built first if needed."""
+    lib = build.load(TMA_SOURCE)
+    if not getattr(lib, "_dcnet_bound", False):
+        lib.dcnet_conv_s8_tma.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_float]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+        lib.dcnet_conv_s8_tma.restype = ctypes.c_int
+        lib.dcnet_conv_s8_tma_error_string.argtypes = [ctypes.c_int]
+        lib.dcnet_conv_s8_tma_error_string.restype = ctypes.c_char_p
+        lib._dcnet_bound = True
+    return lib
+
+
+def quant_pass(x: torch.Tensor, cp: int, in_inv: Optional[float] = None,
+               in_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The quantize pass on the card: x (..., Ci) contiguous, int8 (copied)
+    or fp32 / bf16 (quantized, `quantize_plain`), into an int8 (..., cp)
+    copy whose channels past Ci are zero. Counted as `conv_s8_quant`. A CPU
+    tensor takes `quant_pass_plain`."""
+    if x.device.type == "cpu":
+        return quant_pass_plain(x, cp, in_inv, in_scale)
+    ci = x.shape[-1]
+    out = torch.empty((*x.shape[:-1], cp), dtype=torch.int8, device=x.device)
+    lib = _lib(x.dtype)
+    qmode = 0 if x.dtype == torch.int8 else (1 if in_scale is None else 2)
+    with torch.cuda.device(x.device):
+        err = lib.dcnet_conv_s8_quant(
+            x.data_ptr(), _X_DTYPE[x.dtype], qmode,
+            float(in_inv) if in_inv is not None else 0.0,
+            None if in_scale is None else in_scale.data_ptr(), out.data_ptr(),
+            x.numel() // ci, ci, cp, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8 conv quantize pass failed (x {tuple(x.shape)} {x.dtype}, "
+                           f"cp {cp}): {lib.dcnet_conv_s8_error_string(err).decode()}")
+    kernels.LAUNCHES["conv_s8_quant"] += 1
+    return out
+
+
+def pad_w_due(w: torch.Tensor, cp: int) -> bool:
+    """Whether a TMA launch that pads w's channels to cp runs the quantize
+    pass on w: w holds no padded copy of its current version (an
+    inference tensor, which has no version counter, keeps none)."""
+    if w.is_inference():
+        return True
+    kept = getattr(w, "_k6_padded", None)
+    return kept is None or kept[0] != (w._version, cp)
+
+
+def _padded_w(w: torch.Tensor, cp: int) -> torch.Tensor:
+    """w with its channels zero-padded to cp by the quantize pass, made
+    once for each version of w and kept on w: a path's constant weights
+    are padded at their first call, not at every call."""
+    if w.is_inference():
+        return quant_pass(w, cp)
+    if pad_w_due(w, cp):
+        w._k6_padded = ((w._version, cp), quant_pass(w, cp))
+    return w._k6_padded[1]
 
 
 def _check(x, w, stride, pad, floats, addend, out_dtype, inv_out, in_inv,
@@ -233,29 +495,71 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1, pad: int = 0,
                              **epilogue)
     floats = (scale, bias, scale2, bias2)
     _check(x, w, stride, pad, floats, addend, out_dtype, inv_out, in_inv, in_scale)
+    plan = plan_for(x, w, stride, pad)
+    if plan.route == "tma":
+        return _conv_tma(plan, x, w, floats, addend, addend_hw, addend_rep, out_dtype,
+                         inv_out, act, in_inv, in_scale)
+    return _conv_gather(plan, x, w, stride, pad, floats, addend, addend_hw, addend_rep,
+                        out_dtype, inv_out, act, in_inv, in_scale)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _conv_tma(plan: ConvPlan, x, w, floats, addend, addend_hw, addend_rep, out_dtype,
+              inv_out, act, in_inv, in_scale, plan_array=None) -> torch.Tensor:
+    """The TMA route: the quantize pass where the plan asks for it, then
+    one launch of the wgmma kernel (`plan_array` replaces the plan's own
+    array: the tests hand it a map the CUDA driver refuses)."""
+    xq = quant_pass(x, plan.cp, in_inv, in_scale) if plan.quant_x else x
+    wq = _padded_w(w, plan.cp) if plan.pad_w else w
+    n = x.shape[0]
+    out = torch.empty((n, plan.ho, plan.wo, plan.co), dtype=out_dtype, device=x.device)
+    lib = _tma_lib()
+    with torch.cuda.device(x.device):
+        err = lib.dcnet_conv_s8_tma(
+            xq.data_ptr(), wq.data_ptr(), out.data_ptr(), *[_ptr(t) for t in floats],
+            _ptr(addend), addend_hw, addend_rep,
+            float(inv_out) if inv_out is not None else 0.0, _MODE[out_dtype], _ACT[act],
+            plan_array if plan_array is not None else _plan_array(plan),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"int8 conv kernel (tma route) launch failed (x {tuple(x.shape)} {x.dtype}, "
+            f"w {tuple(w.shape)}, {out_dtype}, bn {plan.bn}, splits {plan.splits}, "
+            f"stages {plan.stages}): {lib.dcnet_conv_s8_tma_error_string(err).decode()}")
+    kernels.LAUNCHES["conv_s8"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_array(plan: ConvPlan):
+    return plan.array()
+
+
+def _conv_gather(plan: ConvPlan, x, w, stride, pad, floats, addend, addend_hw,
+                 addend_rep, out_dtype, inv_out, act, in_inv, in_scale) -> torch.Tensor:
+    """The gather route: the mma.sync kernel, quantizing a float x as it
+    gathers it."""
     n, h, wd, ci = x.shape
     co, k = w.shape[0], w.shape[1]
-    ho, wo = (h + 2 * pad - k) // stride + 1, (wd + 2 * pad - k) // stride + 1
-    out = torch.empty((n, ho, wo, co), dtype=out_dtype, device=x.device)
+    out = torch.empty((n, plan.ho, plan.wo, co), dtype=out_dtype, device=x.device)
     vec = conv_vec(ci, x, w)
     lib = _lib(x.dtype)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         qmode = 0 if x.dtype == torch.int8 else (1 if in_scale is None else 2)
         err = lib.dcnet_conv_s8(
             x.data_ptr(), _X_DTYPE[x.dtype], qmode,
-            float(in_inv) if in_inv is not None else 0.0, ptr(in_scale),
-            w.data_ptr(), out.data_ptr(), *[ptr(t) for t in floats],
-            ptr(addend), addend_hw, addend_rep,
+            float(in_inv) if in_inv is not None else 0.0, _ptr(in_scale),
+            w.data_ptr(), out.data_ptr(), *[_ptr(t) for t in floats],
+            _ptr(addend), addend_hw, addend_rep,
             float(inv_out) if inv_out is not None else 0.0,
             n, h, wd, ci, co, k, stride, pad, _MODE[out_dtype], _ACT[act], vec, stream)
     if err != 0:
         raise RuntimeError(
-            f"int8 conv kernel launch failed (x {tuple(x.shape)} {x.dtype}, "
+            f"int8 conv kernel (gather route) launch failed (x {tuple(x.shape)} {x.dtype}, "
             f"w {tuple(w.shape)}, "
             f"stride {stride}, pad {pad}, {out_dtype}, vec {vec}): "
             f"{lib.dcnet_conv_s8_error_string(err).decode()}")

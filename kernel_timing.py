@@ -9,11 +9,14 @@ the backward K3 in fp32 and bf16 (B=16), the bf16 K1 (B=8) and K4
 (B=120) at P=1024, and the location Gram K5 (fp32 ce, E=8: B=8 and 64 at
 P=1344, B=2 at P=3549; beside its plain version and the trunk's rank-8
 route, device time, and each of its kernels' device time by
-torch.profiler), in two checkouts of the repository with both timers,
+torch.profiler), and the int8 convolution K6 at six shapes (`K6_SHAPES`)
+on 8 and 120 frames, bf16 in to bf16 out and int8 in to int32 out (each
+of its kernels' device time by torch.profiler), in two checkouts of the repository with both timers,
 in turns (other, this, this, other), each run in its own process importing
 its checkout's `dcnet_tpu_torch`:
 
     python3 kernel_timing.py OTHER_CHECKOUT      # needs one CUDA card
+    python3 kernel_timing.py . --k6-plans        # K6's tiles and splits
 
 Prints one JSON line per run and a summary line, each case's readings in
 both checkouts.
@@ -112,7 +115,15 @@ CASES = ([("K4", torch.int8, 120 if p == 1024 else 8, p) for p in (1024, 169)]
          + [("K4", torch.float32, 120 if p == 1024 else 8, p) for p in (1024, 169)]
          + [("K3", dt, 16, p) for dt in (torch.float32, torch.bfloat16) for p in MAIN_P]
          + [("K1", torch.bfloat16, 8, 1024), ("K4", torch.bfloat16, 120, 1024)]
-         + [("K5", torch.float32, b, p) for b, p in ((8, 1344), (64, 1344), (2, 3549))])
+         + [("K5", torch.float32, b, p) for b, p in ((8, 1344), (64, 1344), (2, 3549))]
+         # K6 (P: the input side; C: the shape below): bf16 in quantized, bf16
+         # out (the path's); int8 in, int32 out
+         + [("K6", dt, b, c) for c in range(6) for b in (8, 120)
+            for dt in (torch.bfloat16, torch.int8)])
+# K6's shapes: (k, stride, pad, Ci, Co, input side): the headline 3x3, the
+# /32 3x3 and 1x1, the trunk's 3x3, the first layer, a stride-2 3x3
+K6_SHAPES = ((3, 1, 1, 256, 512, 16), (3, 1, 1, 512, 1024, 8), (1, 1, 0, 1024, 512, 8),
+             (3, 1, 1, 512, 512, 32), (3, 1, 1, 3, 32, 256), (3, 2, 1, 256, 512, 32))
 
 
 def time_cases(kernels=()) -> dict:
@@ -168,6 +179,23 @@ def time_cases(kernels=()) -> dict:
                 locgram.loc_gram_plain, ce, obj, w, bias), iters),
                      "route_device_ms": device_ms(route, iters),
                      "kernels_ms": kernel_ms(fn)}
+        elif name == "K6":
+            from dcnet_tpu_torch.kernels import conv_s8
+            k, stride, pad, ci, co, side = K6_SHAPES[p]
+            w = torch.randint(-127, 128, (co, k, k, ci), generator=gen,
+                              dtype=torch.int8).to(dev)
+            if dtype == torch.int8:
+                x = torch.randint(-127, 128, (b, side, side, ci), generator=gen,
+                                  dtype=torch.int8).to(dev)
+                fn = functools.partial(conv_s8.conv_s8, x, w, stride, pad)
+            else:
+                x = torch.randn(b, side, side, ci, generator=gen).to(dev, dtype)
+                scale = torch.rand(co, generator=gen).to(dev) * 1e-4
+                fn = functools.partial(conv_s8.conv_s8, x, w, stride, pad, in_inv=30.0,
+                                       scale=scale, bias=scale, act="leaky",
+                                       out_dtype=torch.bfloat16)
+            iters = 5 if b * side * side * k * k * ci * co > 2e10 else 20
+            extra = {"shape": K6_SHAPES[p], "kernels_ms": kernel_ms(fn)}
         else:
             ring = rows(b, S, p, C)
             fn = functools.partial(coattn.coattention_ring, ring, T, CENTER, SLOT)
@@ -178,19 +206,66 @@ def time_cases(kernels=()) -> dict:
     return {"source": coattn.__file__, "cases": out}
 
 
+def time_k6_plans() -> list:
+    """K6's TMA route at K6_SHAPES on 8 and 120 frames, int8 in to int32
+    out, under other tiles and splits than `conv_plan` picks (the plan's
+    choice marked): device time of each variant, for tuning the plan."""
+    import dataclasses
+
+    from dcnet_tpu_torch.kernels import conv_s8
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = []
+    for shape in K6_SHAPES:
+        k, stride, pad, ci, co, side = shape
+        w = torch.randint(-127, 128, (co, k, k, ci), generator=gen, dtype=torch.int8,
+                          device=dev)
+        for b in (8, 120):
+            x = torch.randint(-127, 128, (b, side, side, ci), generator=gen,
+                              dtype=torch.int8, device=dev)
+            plan = conv_s8.plan_for(x, w, stride, pad)
+            if plan.route != "tma" or plan.quant_x:
+                continue
+            iters = 5 if b * side * side * k * k * ci * co > 2e10 else 20
+            seen = {}
+            for bn in (64, 128, 256):
+                for splits in (1, 2, 4, 8):
+                    if splits > plan.kiters:
+                        continue
+                    stage = (conv_s8.TMA_ROWS + bn) * plan.cbox
+                    stages = max(2, min(conv_s8.MAX_STAGES, (conv_s8.SMEM_LIMIT - 1024 - 128)
+                                        // stage))
+                    var = dataclasses.replace(plan, bn=bn, splits=splits, stages=stages,
+                                              smem=conv_s8._smem(stages, bn, plan.cbox))
+                    fn = functools.partial(conv_s8._conv_tma, var, x, w, (None,) * 4, None,
+                                           1, 1, torch.int32, None, None, None, None)
+                    seen[f"bn{bn}_s{splits}"] = device_ms(fn, iters)
+            out.append({"shape": shape, "B": b, "chosen": f"bn{plan.bn}_s{plan.splits}",
+                        "device_ms": seen})
+            print(json.dumps(out[-1]), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--worker", action="store_true",
                     help="time the checkout `other` in this process")
     ap.add_argument("--kernels", default="",
-                    help="comma-separated kernels to time (K1-K5; default all)")
+                    help="comma-separated kernels to time (K1-K6; default all)")
+    ap.add_argument("--k6-plans", action="store_true",
+                    help="time K6's TMA route under other tiles and splits "
+                         "(this checkout only; `other` is ignored)")
     args = ap.parse_args(argv)
     only = [k for k in args.kernels.split(",") if k]
     if not torch.cuda.is_available():
         print("kernel_timing: torch.cuda.is_available() is False; this "
               "script times kernels on a CUDA card", file=sys.stderr)
         return 2
+    if args.k6_plans:
+        time_k6_plans()
+        return 0
     if args.worker:
         sys.path.insert(0, os.path.abspath(args.other))
         print(json.dumps(time_cases(only)), flush=True)
@@ -210,7 +285,7 @@ def main(argv=None) -> int:
         runs.append(run)
     summary = []
     for i, case in enumerate(runs[0]["cases"]):
-        row = {k: case[k] for k in ("kernel", "dtype", "B", "P", "C")}
+        row = {k: case[k] for k in ("kernel", "dtype", "B", "P", "C", "shape") if k in case}
         for label in ("other", "this"):
             mine = [r["cases"][i] for r in runs if r["checkout"] == label]
             row[label] = {t: [c[t] for c in mine] for t in (

@@ -239,9 +239,9 @@ def test_train_step_launches(card, k):
     metrics = train_step(state, batch)
     torch.cuda.synchronize()
     want = ({"coattn_attend": 0, "coattn_pair": 3, "coattn_attend_bwd": 6,
-             "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0} if k == 2 else
+             "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0, "conv_s8_quant": 0} if k == 2 else
             {"coattn_attend": 3, "coattn_pair": 0, "coattn_attend_bwd": 3,
-             "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0})
+             "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0, "conv_s8_quant": 0})
     assert kernels.LAUNCHES == want
     assert all(torch.isfinite(v) for v in metrics.values())
 
@@ -515,7 +515,8 @@ def test_train_step_at_any_width(card, c, monkeypatch):
     for dtype, other in (("bfloat16", (card, True)), ("float32", (torch.device("cpu"), False))):
         got, launches = losses(dtype, card)
         assert launches == {"coattn_attend": 0, "coattn_pair": 3, "coattn_attend_bwd": 6,
-                            "coattn_ring": 0, "loc_gram": 0}
+                            "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0,
+                            "conv_s8_quant": 0}
         want, _ = losses(dtype, *other)
         for k, w in want.items():
             assert abs(got[k] - w) <= 1e-3 * abs(w), (dtype, k, got[k], w)
@@ -830,7 +831,8 @@ def test_conv_s8_equals_plain_bitwise(card, case):
     k, stride, ci, co, h, w = case
     gen = torch.Generator().manual_seed(ci * 1000 + co)
     x, wt, scale, bias = _conv_inputs(gen, k, ci, co, h, w)
-    for name, epi in _conv_epilogues(gen, co, 2.0 / (127 * 127 * k * k)).items():
+    for i, (name, epi) in enumerate(
+            _conv_epilogues(gen, co, 2.0 / (127 * 127 * k * k)).items()):
         if name != "int32":
             epi = dict(epi, scale=scale, bias=bias)
         want = conv_s8.conv_s8(x, wt, stride, (k - 1) // 2, **epi)
@@ -862,18 +864,171 @@ def test_conv_s8_addend_and_stacked_rows(card):
                                conv_s8.fma32(raw.float(), scale, bias), rtol=0, atol=0)
 
 
+def _misaligned(t, card, offset=4):
+    """A copy of t on the card whose data starts `offset` elements past a
+    16-byte boundary."""
+    big = torch.zeros(t.numel() + offset, dtype=t.dtype, device=card)
+    out = big[offset:].view(t.shape)
+    out.copy_(t.to(card))
+    return out
+
+
 def test_conv_s8_takes_misaligned_inputs(card):
-    """A tensor whose data is not 16-byte aligned takes a narrower gather."""
+    """An int8 x whose data is not 16-byte aligned takes the gather route
+    at a narrower gather; a misaligned bf16 x, or an int8 x whose channels
+    are padded, is copied by the quantize pass and keeps the TMA route."""
     gen = torch.Generator().manual_seed(3)
-    x, wt, _, _ = _conv_inputs(gen, 3, 32, 32, 8, 8)
-    big = torch.zeros(x.numel() + 4, dtype=torch.int8, device=card)
-    xa = big[4:].view(x.shape)
-    xa.copy_(x.to(card))
-    assert conv_s8.conv_vec(32, xa, wt.to(card)) == 4
+    x, wt, _, _ = _conv_inputs(gen, 3, 64, 32, 8, 8)
+    xa = _misaligned(x, card)
+    assert conv_s8.conv_vec(64, xa, wt.to(card)) == 4
+    assert conv_s8.plan_for(xa, wt.to(card), 1, 1).route == "gather"
     kernels.reset_launches()
     got = conv_s8.conv_s8(xa, wt.to(card), 1, 1)
-    assert kernels.LAUNCHES["conv_s8"] == 1
+    assert kernels.LAUNCHES["conv_s8"] == 1 and kernels.LAUNCHES["conv_s8_quant"] == 0
     assert torch.equal(got.cpu(), conv_s8.conv_s8_acc_plain(x, wt, 1, 1))
+    xf = torch.randn(2, 8, 8, 64, generator=gen).to(torch.bfloat16)
+    xfa = _misaligned(xf, card, offset=1)
+    assert conv_s8.plan_for(xfa, wt.to(card), 1, 1).route == "tma"
+    got = conv_s8.conv_s8(xfa, wt.to(card), 1, 1, in_inv=30.0)
+    assert kernels.LAUNCHES["conv_s8_quant"] == 1
+    assert torch.equal(got.cpu(), conv_s8.conv_s8_plain(xf, wt, 1, 1, in_inv=30.0))
+    xi, wi, _, _ = _conv_inputs(gen, 1, 1032, 64, 4, 4)
+    xia, wia = _misaligned(xi, card, offset=8), _misaligned(wi, card, offset=8)
+    plan = conv_s8.plan_for(xia, wia, 1, 0)
+    assert plan.route == "tma" and plan.pad_w and plan.cp == 1040
+    got = conv_s8.conv_s8(xia, wia)
+    assert kernels.LAUNCHES["conv_s8_quant"] == 3 and kernels.LAUNCHES["conv_s8"] == 3
+    assert torch.equal(got.cpu(), conv_s8.conv_s8_acc_plain(xi, wi))
+
+
+# K6's routes: (k, stride, Ci, Co, H, W, N, route) -- the headline 3x3 on 8
+# frames (split-K), a stride-2 3x3 (four phase maps, 64-byte boxes), Co =
+# 255 on a 1x1, Ci = 72 and Ci = 1032 padded by the quantize pass, Ci = 64
+# at odd sides; the gather route at thin reductions (Ci = 3, the first
+# layer; a 1x1 128 -> 64) and at an odd height at stride 2
+ROUTE_CASES = ((3, 1, 256, 512, 16, 16, 8, "tma"), (3, 2, 64, 128, 16, 16, 2, "tma"),
+               (1, 1, 1024, 255, 8, 8, 8, "tma"), (3, 1, 72, 32, 33, 31, 2, "tma"),
+               (1, 1, 1032, 512, 6, 6, 3, "tma"), (3, 1, 64, 80, 9, 10, 2, "tma"),
+               (3, 1, 3, 32, 33, 31, 2, "gather"), (1, 1, 128, 64, 9, 7, 2, "gather"),
+               (3, 2, 64, 64, 11, 12, 2, "gather"))
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES,
+                         ids=lambda c: "k{}s{}-ci{}-co{}-{}x{}-n{}-{}".format(*c))
+@pytest.mark.parametrize("xdtype", ["int8", "bfloat16", "float32"])
+def test_conv_s8_each_route_bitwise(card, case, xdtype):
+    """Each route, in every epilogue mode and input type, bitwise equal to
+    the plain version; one K6 launch a call, and the quantize passes the
+    plan asks for (w's padded copy made at the first call only)."""
+    k, stride, ci, co, h, w, n, route = case
+    gen = torch.Generator().manual_seed(ci * 7 + co + k)
+    x, wt, scale, bias = _conv_inputs(gen, k, ci, co, h, w, n=n)
+    quant = {}
+    if xdtype != "int8":
+        x = torch.randn(n, h, w, ci, generator=gen).to(getattr(torch, xdtype))
+        amax = x.float().abs().max()
+        quant = dict(in_inv=float(100.0 / amax)) if xdtype == "bfloat16" else \
+            dict(in_scale=amax / 100.0)
+    xc, wc = x.to(card), wt.to(card)
+    plan = conv_s8.plan_for(xc, wc, stride, (k - 1) // 2)
+    assert plan.route == route, plan.why
+    for i, (name, epi) in enumerate(
+            _conv_epilogues(gen, co, 2.0 / (127 * 127 * k * k)).items()):
+        epi = dict(epi, **quant)
+        if name != "int32":
+            epi = dict(epi, scale=scale, bias=bias)
+        want = conv_s8.conv_s8(x, wt, stride, (k - 1) // 2, **epi)
+        kernels.reset_launches()
+        got = conv_s8.conv_s8(xc, wc, stride, (k - 1) // 2,
+                              **{a: v.to(card) if isinstance(v, torch.Tensor) else v
+                                 for a, v in epi.items()})
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["conv_s8"] == 1
+        assert kernels.LAUNCHES["conv_s8_quant"] == (
+            (plan.quant_x + (plan.pad_w and i == 0)) if route == "tma" else 0)
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert torch.equal(got.cpu(), want), (name, (got.cpu().float() - want.float()).abs().max())
+
+
+def test_conv_s8_pads_constant_weights_once(card):
+    """A w whose channels are padded (Ci 1032) goes through the quantize
+    pass at its first call only, x (padded too) at every call; written in
+    place, w is padded again and the result follows it."""
+    gen = torch.Generator().manual_seed(14)
+    x, wt, _, _ = _conv_inputs(gen, 1, 1032, 64, 4, 4, n=2)
+    xc, wc = x.to(card), wt.to(card)
+    plan = conv_s8.plan_for(xc, wc, 1, 0)
+    assert plan.route == "tma" and plan.pad_w and plan.quant_x
+    kernels.reset_launches()
+    for _ in range(3):
+        got = conv_s8.conv_s8(xc, wc)
+    assert kernels.LAUNCHES["conv_s8_quant"] == 3 + 1 and kernels.LAUNCHES["conv_s8"] == 3
+    assert torch.equal(got.cpu(), conv_s8.conv_s8_acc_plain(x, wt))
+    wt[:, :, :, 1030] = 127
+    wc[:, :, :, 1030] = 127
+    assert conv_s8.pad_w_due(wc, 1040)
+    got = conv_s8.conv_s8(xc, wc)
+    assert kernels.LAUNCHES["conv_s8_quant"] == 4 + 2
+    assert torch.equal(got.cpu(), conv_s8.conv_s8_acc_plain(x, wt))
+
+
+@pytest.mark.parametrize("ci", [1024, 256])
+def test_conv_s8_split_k_with_addend_and_stacked_rows(card, ci):
+    """The split corr_conv's int32 addend, read once for R stacked parts,
+    in fp32 and int8 out: under split-K (Ci 1024: the partial tiles summed
+    across the cluster) and under one split (Ci 256: fp32 out takes the
+    epilogue straight from the accumulators, int8 out the staged one)."""
+    gen = torch.Generator().manual_seed(11)
+    b, r, h, w, co = 2, 3, 8, 8, 256
+    x, wt, scale, bias = _conv_inputs(gen, 1, ci, co, h, w, n=b * r)
+    plan = conv_s8.plan_for(x.to(card), wt.to(card), 1, 0)
+    assert plan.route == "tma" and (plan.splits >= 2) == (ci == 1024)
+    addend = torch.randint(-10 ** 6, 10 ** 6, (b, h, w, co), generator=gen, dtype=torch.int32)
+    for out in (dict(out_dtype=torch.float32), dict(out_dtype=torch.int8, inv_out=1e-3,
+                                                   act="leaky")):
+        epi = dict(out, scale=scale, bias=bias, addend=addend, addend_hw=h * w, addend_rep=r)
+        want = conv_s8.conv_s8(x, wt, **epi)
+        got = conv_s8.conv_s8(x.to(card), wt.to(card),
+                              **{a: v.to(card) if isinstance(v, torch.Tensor) else v
+                                 for a, v in epi.items()})
+        assert torch.equal(got.cpu(), want)
+    raw = conv_s8.conv_s8(x.to(card), wt.to(card))
+    assert torch.equal(raw.cpu(), conv_s8.conv_s8_acc_plain(x, wt))
+
+
+def test_conv_s8_refused_tensor_map_raises(card):
+    """A tensor map the CUDA driver refuses (a stride that is not a multiple of
+    16 bytes) raises; nothing launches and nothing falls back."""
+    gen = torch.Generator().manual_seed(12)
+    x, wt, _, _ = _conv_inputs(gen, 3, 64, 64, 8, 8)
+    xc, wc = x.to(card), wt.to(card)
+    plan = conv_s8.plan_for(xc, wc, 1, 1)
+    bad = plan.array()
+    bad[len(conv_s8.TMA_FIELDS) + 5] += 8   # the first phase map's W stride
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="refused a tensor map of x"):
+        conv_s8._conv_tma(plan, xc, wc, (None,) * 4, None, 1, 1, torch.int32, None, None,
+                          None, None, plan_array=bad)
+    assert kernels.LAUNCHES["conv_s8"] == 0
+
+
+def test_conv_s8_quant_pass_bitwise(card):
+    """The quantize pass on the card equals its plain version: bf16 and fp32
+    x (aligned or not, whole or ragged 16-channel chunks), int8 copied with
+    its channels padded."""
+    gen = torch.Generator().manual_seed(13)
+    for dt, ci, cp, off in ((torch.bfloat16, 256, 256, 0), (torch.bfloat16, 1032, 1040, 1),
+                            (torch.float32, 3, 16, 0), (torch.float32, 40, 48, 3)):
+        x = (torch.randn(3, 5, 7, ci, generator=gen) * 3).to(dt)
+        xc = _misaligned(x, card, off) if off else x.to(card)
+        for quant in (dict(in_inv=37.0), dict(in_scale=torch.tensor(0.03))):
+            want = conv_s8.quant_pass_plain(x, cp, **quant)
+            got = conv_s8.quant_pass(xc, cp, **{a: v.to(card) if isinstance(v, torch.Tensor)
+                                                else v for a, v in quant.items()})
+            assert torch.equal(got.cpu(), want), (dt, ci, quant)
+    xi = torch.randint(-127, 128, (4, 3, 1032), generator=gen, dtype=torch.int8)
+    assert torch.equal(conv_s8.quant_pass(xi.to(card), 1040).cpu(),
+                       conv_s8.quant_pass_plain(xi, 1040))
 
 
 def test_conv_s8_refuses_what_it_cannot_take(card):
