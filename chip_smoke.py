@@ -22,9 +22,11 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      K4's int8 block alone, integer wgmma (IGMMA) for the logits, HGMMA for
      PV and UTMALDG, failing if one is 0 or any IMMA is there; and K6's
      main route (conv_s8_tma) integer wgmma (IGMMA) and UTMALDG, failing at
-     0 or on any IMMA, and the int8 mma.sync products (IMMA) of its gather
-     route in the three per-type libraries (int8, bf16 and fp32 inputs),
-     failing at 0. The SASS dumps run in parallel; K6's four
+     0 or on any IMMA; in the three per-type libraries (int8, bf16 and fp32
+     inputs), kernel by kernel, IGMMA and UTMALDG in the halo route's
+     kernel (failing at 0 or on any IMMA there) and the int8 mma.sync
+     products (IMMA) of the gather route's, failing at 0. The SASS dumps
+     run in parallel; K6's four
      libraries build and are dumped in the
      background while the kernel phase runs K1-K5; that phase waits for
      them (and checks them) before K6's cases.
@@ -50,8 +52,10 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      kernel): every distinct conv shape of the YOLOv3 backbone on 8 frames
      of 256 px and the trunk's at P=1024, in every epilogue mode (int32,
      fp32 / bf16 with leaky, the int8 chain, the trunk's BN + ReLU, float
-     inputs quantized on load), bitwise against its plain version; a
-     dropped k-tile and a two-rounding scale are shown to fail that check;
+     inputs quantized on load), bitwise against its plain version, and on
+     the thin shapes (the halo route's) PR 9's gather kernel too, in every
+     mode; a dropped k-tile, a dropped tile of the halo walk and a
+     two-rounding scale are shown to fail that check;
      timed in bf16 out beside the plain version (at the headline shape),
      torch._int_mm (1x1) and cuDNN's bf16 convolution of the shape (a
      point of reference). The int8 and serving_int8 phases hold K6 again
@@ -383,13 +387,18 @@ K15_SOURCES = ("coattn", "coattn_bwd", "coattn_ring", "locgram")
 K6_SOURCES = k_conv.ALL_SOURCES
 # TF32_MMA: tensor-core instructions with a TF32 operand (HMMA.1688.F32.TF32
 # of mma.sync, or HGMMA ... TF32); IGMMA and UTMALDG: K6's main route (wgmma
-# s8 on TMA tiles); IMMA: the int8 mma.sync products of K6's gather route,
-# which the three per-type libraries still build
+# s8 on TMA tiles) and its halo route (wgmma s8 on TMA-loaded halo tiles),
+# which the three per-type libraries build beside the gather route; IMMA:
+# the int8 mma.sync products of the gather route (the thin shapes the halo
+# route cannot map). `K6_SASS_BY_KERNEL` counts them kernel by kernel.
 SASS_COUNTED = {"coattn": ("HGMMA", "UTMALDG", "TF32_MMA"),
                 "coattn_ring": ("HGMMA", "UTMALDG", "TF32_MMA"),
                 "coattn_bwd": ("TF32_MMA",),
-                **{name: ("IMMA",) for name in k_conv.SOURCES.values()},
+                **{name: ("IGMMA", "UTMALDG", "IMMA") for name in k_conv.SOURCES.values()},
                 k_conv.TMA_SOURCE: ("IGMMA", "UTMALDG")}
+# K6's kernels in the per-type libraries (a fragment of the kernel's name):
+# the instructions each must hold, and IMMA, which the halo kernel must not
+K6_SASS_BY_KERNEL = {"conv_halo_kernel": ("IGMMA", "UTMALDG"), "conv_s8_kernel": ("IMMA",)}
 
 
 def _has_op(line: str, op: str) -> bool:
@@ -488,9 +497,10 @@ def _build_and_dump(names) -> None:
 
 def finish_k6_build(k6: concurrent.futures.Future) -> None:
     """Waits for K6's background build (re-raising its failure), loads its
-    four libraries and fails unless the TMA route's holds integer wgmma
-    (IGMMA) and TMA loads (UTMALDG) and no mma.sync product (IMMA), and each
-    per-type library (the gather route) holds IMMA."""
+    four libraries and fails unless the TMA route's library and each
+    per-type library's halo kernel hold integer wgmma (IGMMA) and TMA
+    loads (UTMALDG) and no mma.sync product (IMMA), and each per-type
+    library's gather kernel holds IMMA."""
     t0 = time.perf_counter()
     k6.result()
     for dtype in k_conv.SOURCES:
@@ -498,17 +508,23 @@ def finish_k6_build(k6: concurrent.futures.Future) -> None:
     k_conv._tma_lib()
     _print_build_lines(K6_SOURCES)
     sass = {n: sass_counts(n, SASS_COUNTED[n]) for n in K6_SOURCES}
+    by_kernel = {n: {frag: sass_counts(n, ("IGMMA", "UTMALDG", "IMMA"), function=frag)
+                     for frag in K6_SASS_BY_KERNEL} for n in k_conv.SOURCES.values()}
     emit({"phase": "build", "kernels": list(K6_SOURCES), "built_in_background": True,
           "waited_s": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": {k: round(build.BUILD_SECONDS[k], 3) for k in K6_SOURCES
                            if k in build.BUILD_SECONDS},
-          "sass_instructions": sass,
+          "sass_instructions": sass, "sass_by_kernel": by_kernel,
           "spill_bytes": {k: spill_bytes(build.BUILD_LOG[k]) for k in K6_SOURCES
                           if k in build.BUILD_LOG}})
-    tma_imma = sass_counts(k_conv.TMA_SOURCE, ("IMMA",))["IMMA"]
-    if not all(v > 0 for counts in sass.values() for v in counts.values()) or tma_imma:
-        raise AssertionError(f"K6's libraries lack int8 tensor-core instructions, or its "
-                             f"TMA route holds mma.sync ({tma_imma}): {sass}")
+    wgmma_imma = [sass_counts(k_conv.TMA_SOURCE, ("IMMA",))["IMMA"]] + [
+        counts["conv_halo_kernel"]["IMMA"] for counts in by_kernel.values()]
+    held = all(counts[frag][op] > 0 for counts in by_kernel.values()
+               for frag, ops in K6_SASS_BY_KERNEL.items() for op in ops)
+    if not all(v > 0 for counts in sass.values() for v in counts.values()) or not held \
+            or any(wgmma_imma):
+        raise AssertionError(f"K6's libraries lack int8 tensor-core instructions or TMA "
+                             f"loads, or its wgmma routes hold mma.sync: {sass} {by_kernel}")
 
 
 def _sdpa_backends(q, kv):
@@ -1017,7 +1033,10 @@ K6_TICK_FRAMES = 120                    # the quantized tick's (120 streams)
 K6_TRUNK = ((1, 1, 0, 1024, 512, 32), (1, 1, 0, 512, 512, 32), (1, 1, 0, 1032, 512, 32),
             (3, 1, 1, 512, 512, 32), (1, 1, 0, 512, 256, 32), (1, 1, 0, 256, 512, 32))
 K6_HEADLINE = (3, 1, 1, 256, 512, 16)   # the /16 residual blocks' 3x3 (8 of them)
+K6_HALO_HEADLINE = (3, 1, 32, 64, 128)  # the halo route's: the first residual's 3x3
 K6_DROPPED_BYTES = 64                   # one k-tile of the reduction
+FIRST_LAYER_CI = 3                      # the first layer reads the fp32 frames
+K6_PATH_ROUTES = ("tma", "halo")        # the routes the int8 paths' calls must take
 
 
 def k6_shapes() -> list:
@@ -1075,35 +1094,44 @@ def _k6_input(mode: str, x, xf):
 
 
 def k6_sums(xq, w, stride: int, pad: int, plan) -> tuple:
-    """The plain int32 sums of the int8 input xq, those a faulty K6 would
-    give by leaving one k-tile of the reduction (K6_DROPPED_BYTES of k^2 Ci,
-    from its middle) out, and, where the plan splits the reduction, those
-    of a K6 that drops split 1 (its (tap, channel box) iterations; None
-    without a split)."""
+    """The plain int32 sums of the int8 input xq, and those a faulty K6
+    would give (`faults`): leaving one k-tile of the reduction
+    (K6_DROPPED_BYTES of k^2 Ci, from its middle) out; where the TMA plan
+    splits the reduction, dropping split 1 (its (tap, channel box)
+    iterations); on the halo route, skipping the walk's last tile (its
+    output pixels zero)."""
     kdim = w[0].numel()
     start = (kdim // 2) // K6_DROPPED_BYTES * K6_DROPPED_BYTES
     w_drop = w.reshape(w.shape[0], -1).clone()
     w_drop[:, start:start + K6_DROPPED_BYTES] = 0
-    split = None
+    acc = k_conv.conv_s8_acc_plain(xq, w, stride, pad)
+    faults = {"dropped_k_tile": k_conv.conv_s8_acc_plain(xq, w_drop.reshape(w.shape), stride,
+                                                         pad)}
     if plan.route == "tma" and plan.splits > 1:
         ci = w.shape[-1]
         w_split = w.reshape(w.shape[0], -1, ci).clone()
         for it in range(*plan.split_range(1)):
             tap, cb = divmod(it, plan.cblocks)
             w_split[:, tap, cb * plan.cbox:(cb + 1) * plan.cbox] = 0
-        split = k_conv.conv_s8_acc_plain(xq, w_split.reshape(w.shape), stride, pad)
-    return (k_conv.conv_s8_acc_plain(xq, w, stride, pad),
-            k_conv.conv_s8_acc_plain(xq, w_drop.reshape(w.shape), stride, pad), split)
+        faults["dropped_split"] = k_conv.conv_s8_acc_plain(xq, w_split.reshape(w.shape),
+                                                           stride, pad)
+    if plan.route == "halo":
+        hp = plan.halo
+        img, oh, ow = hp.tile_origin(hp.tiles - 1)
+        tile = acc.contiguous().clone()
+        if hp.th == 1:   # 128 consecutive pixels of the flattened output
+            tile.view(-1, acc.shape[-1])[ow:ow + hp.tw] = 0
+        else:
+            tile[img, oh:oh + hp.th, ow:ow + hp.tw] = 0
+        faults["dropped_tile"] = tile
+    return acc, faults
 
 
-def k6_wrong(acc, acc_dropped, acc_split, epi: dict) -> dict:
-    """What a faulty K6 would return, from `k6_sums`: the sums with a
-    k-tile dropped, with a split dropped (where the plan splits), and
-    (with an epilogue) the scale applied as a multiply and an add, two
-    roundings."""
-    out = {"dropped_k_tile": k_conv.epilogue_plain(acc_dropped, **epi)}
-    if acc_split is not None:
-        out["dropped_split"] = k_conv.epilogue_plain(acc_split, **epi)
+def k6_wrong(acc, faults: dict, epi: dict) -> dict:
+    """What a faulty K6 would return: the epilogue on each of `k6_sums`'s
+    faulty sums, and (with an epilogue) the scale applied as a multiply
+    and an add, two roundings."""
+    out = {name: k_conv.epilogue_plain(f, **epi) for name, f in faults.items()}
     if epi.get("scale") is not None:
         y = acc.float() * epi["scale"] + epi["bias"]
         if epi.get("scale2") is not None:
@@ -1124,9 +1152,24 @@ def _epilogue_from_float(y: torch.Tensor, epi: dict) -> torch.Tensor:
 
 
 def _k6_plan_rec(plan) -> dict:
+    if plan.route == "halo":
+        hp = plan.halo
+        return {"route": plan.route, "why": plan.why, "map": "pixels" if hp.kind == 0
+                else "rows", "tile": [hp.th, hp.tw], "halo": [hp.hin, hp.win], "cp": hp.cp,
+                "stages": hp.stages, "grid": hp.grid, "tiles": hp.tiles, "smem": hp.smem}
     return {"route": plan.route, "why": plan.why, "bn": plan.bn, "splits": plan.splits,
             "stages": plan.stages, "cbox": plan.cbox, "rect": [plan.bimg, plan.bh, plan.bw],
             "quant_pass": plan.quant_x, "pad_w": plan.pad_w}
+
+
+def k6_gather(x, w, stride: int, pad: int, scale=None, bias=None, scale2=None, bias2=None,
+              act=None, out_dtype=torch.int32, inv_out=None, in_inv=None, in_scale=None):
+    """PR 9's mma.sync kernel (the gather route) on a shape the plan gives
+    another route, with `conv_s8`'s epilogue arguments (no addend)."""
+    plan = k_conv.plan_for(x, w, stride, pad, out_dtype)
+    gather = k_conv.ConvPlan("gather", "run beside the plan's route", plan.ho, plan.wo)
+    return k_conv._conv_gather(gather, x, w, stride, pad, (scale, bias, scale2, bias2), None,
+                               1, 1, out_dtype, inv_out, act, in_inv, in_scale)
 
 
 def _k6_timing(dev, gdev, frames: int, k, stride, pad, ci, co, side, w, epi,
@@ -1148,14 +1191,28 @@ def _k6_timing(dev, gdev, frames: int, k, stride, pad, ci, co, side, w, epi,
            "int32_ms": device_ms(lambda: k_conv.conv_s8(x, w, stride, pad), iters),
            "quant_ms": (device_ms(lambda: k_conv.quant_pass(xf, plan.cp, epi["in_inv"]), iters)
                         if plan.route == "tma" else None)}
-    # the mma.sync kernel (the gather route) on the same int8 input, int32 out
-    gather = k_conv.ConvPlan("gather", "timed beside the plan's route", plan.ho, plan.wo)
-    rec["gather_int32_ms"] = device_ms(lambda: k_conv._conv_gather(
-        gather, x, w, stride, pad, (None,) * 4, None, 1, 1, torch.int32, None, None, None,
-        None), iters)
-    rec["gather_ms"] = device_ms(lambda: k_conv._conv_gather(
-        gather, xf, w, stride, pad, (epi["scale"], epi["bias"], None, None), None, 1, 1,
-        torch.bfloat16, None, epi["act"], epi["in_inv"], None), iters)
+    # the mma.sync kernel (the gather route) on the same inputs
+    rec["gather_int32_ms"] = device_ms(lambda: k6_gather(x, w, stride, pad), iters)
+    rec["gather_ms"] = device_ms(lambda: k6_gather(xf, w, stride, pad, **epi), iters)
+    if ci < 64 or k * k * ci < 256:
+        # a thin shape in the input types the paths feed it: int8 in (the
+        # int8 chain) to bf16 out, and the first layer's fp32 frames
+        out_epi = {a: v for a, v in epi.items() if a != "in_inv"}
+        rec["int8_in_ms"] = device_ms(lambda: k_conv.conv_s8(x, w, stride, pad, **out_epi),
+                                      iters)
+        rec["gather_int8_in_ms"] = device_ms(lambda: k6_gather(x, w, stride, pad, **out_epi),
+                                             iters)
+        rec["int8_in_bound_ms"], _ = conv_bound(frames, k, stride, pad, ci, co, side,
+                                                torch.bfloat16)
+        if ci == FIRST_LAYER_CI:
+            x32 = xf.float()
+            rec["fp32_in_ms"] = device_ms(lambda: k_conv.conv_s8(x32, w, stride, pad, **epi),
+                                          iters)
+            rec["gather_fp32_in_ms"] = device_ms(lambda: k6_gather(x32, w, stride, pad, **epi),
+                                                 iters)
+            rec["fp32_in_bound_ms"], _ = conv_bound(frames, k, stride, pad, ci, co, side,
+                                                    torch.bfloat16, in_bytes=4)
+            del x32
     rec["library_ms"] = None
     if k == 1 and stride == 1:
         a2, b2 = x.reshape(-1, ci), w.reshape(co, ci).t()
@@ -1206,10 +1263,13 @@ def kernel_cases_k6(dev, gen) -> list:
         plan = k_conv.plan_for(x, w, stride, pad)
         routes = {}
         sums = {}  # the plain version's steps, its sums once per quantized input
+        # on a thin shape PR 9's gather kernel is held beside the halo route
+        gather_equal, gather_before = {}, kernels.LAUNCHES["conv_s8_gather"]
         for mode, epi in modes.items():
             xin = _k6_input(mode, x, xf)
             routes[mode] = k_conv.plan_for(xin, w, stride, pad).route
             got = k_conv.conv_s8(xin, w, stride, pad, **epi)
+            got_g = k6_gather(xin, w, stride, pad, **epi) if plan.route == "halo" else None
             out_epi = {a: v for a, v in epi.items() if a not in ("in_inv", "in_scale")}
             key = "int8" if xin is x else mode
             if key not in sums:
@@ -1218,11 +1278,14 @@ def kernel_cases_k6(dev, gen) -> list:
             want = k_conv.epilogue_plain(sums[key][0], **out_epi)
             torch.cuda.synchronize()
             equal[mode] = bool(torch.equal(got, want))
+            if got_g is not None:
+                gather_equal[mode] = bool(torch.equal(got_g, want))
             rejects[mode] = {name: not torch.equal(wrong, want)
                              for name, wrong in k6_wrong(*sums[key], out_epi).items()}
+        gather_launches = kernels.LAUNCHES["conv_s8_gather"] - gather_before
         ok = (all(equal.values())
               and all(r["dropped_k_tile"] and r.get("dropped_split", True)
-                      for r in rejects.values())
+                      and r.get("dropped_tile", True) for r in rejects.values())
               and rejects["float32"]["two_roundings"])
         # the quantize pass (the TMA route's): bf16 x * in_inv (the timed
         # input), fp32 x / in_scale
@@ -1242,7 +1305,9 @@ def kernel_cases_k6(dev, gen) -> list:
         t1 = time.perf_counter()
         # timed: bf16 activations quantized to bf16 out (the path's)
         epi = modes["bf16_in"]
-        headline = group == "backbone" and (k, stride, pad, ci, co, side) == K6_HEADLINE
+        headline = group == "backbone" and (
+            (k, stride, pad, ci, co, side) == K6_HEADLINE
+            or (k, stride, ci, co, side) == K6_HALO_HEADLINE)
         timing = {K6_FRAMES: _k6_timing(dev, gdev, K6_FRAMES, k, stride, pad, ci, co, side,
                                         w, epi, x, xf)}
         call_ms = (cuda_ms(lambda: k_conv.conv_s8(xf, w, stride, pad, **epi), 20)
@@ -1257,7 +1322,8 @@ def kernel_cases_k6(dev, gen) -> list:
         t3 = time.perf_counter()
         head = timing[K6_FRAMES]
         ho = (side + 2 * pad - k) // stride + 1
-        rec = {"phase": "kernel", "name": "conv_s8", "group": group, "dtype": "bfloat16",
+        rec = {"phase": "kernel", "name": "conv_s8_halo" if plan.route == "halo" else "conv_s8",
+               "group": group, "dtype": "bfloat16",
                "B": K6_FRAMES, "P": side * side, "C": ci, "k": k, "stride": stride,
                "Ci": ci, "Co": co, "side": side, "out_side": ho,
                "plan": _k6_plan_rec(plan), "routes": routes,
@@ -1275,11 +1341,20 @@ def kernel_cases_k6(dev, gen) -> list:
                                   "reference, not the same function",
                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                "int32_bound_ms": head["int32_bound_ms"],
-               f"at_{K6_TICK_FRAMES}": timing[K6_TICK_FRAMES],
+               f"at_{K6_FRAMES}": head, f"at_{K6_TICK_FRAMES}": timing[K6_TICK_FRAMES],
                "seconds": {"inputs_and_checks": round(t1 - t0, 3),
                            f"timing_{K6_FRAMES}": round(t2 - t1, 3),
                            f"timing_{K6_TICK_FRAMES}": round(t3 - t2, 3)}}
         emit(rec)
+        if plan.route == "halo":  # no quantize pass; PR 9's kernel held beside it
+            grec = k6_gather_rec(rec, gather_equal, gather_launches)
+            emit(grec)
+            if not ok or not grec["ok"]:
+                raise AssertionError(f"K6 disagrees with its plain version or its check "
+                                     f"misses a fault: {rec} {grec}")
+            cases += [rec, grec]
+            del x, xf, w
+            continue
         if plan.route != "tma":  # no quantize pass on the gather route
             if not ok:
                 raise AssertionError(f"K6 disagrees with its plain version or its check "
@@ -1303,6 +1378,36 @@ def kernel_cases_k6(dev, gen) -> list:
         cases += [rec, qrec]
         del x, xf, w
     return cases
+
+
+def k6_gather_rec(rec: dict, equal: dict, launches: int) -> dict:
+    """The case of PR 9's gather kernel at a thin shape, from the halo
+    route's case `rec` of the same shape and inputs: its bitwise checks in
+    every mode (`equal`), the rejects that do not depend on the walk (a
+    dropped k-tile, two roundings), its launches in those checks, and its
+    times from the same run beside the same plain version, bound and
+    cuDNN call."""
+    at = {}
+    for frames in (K6_FRAMES, K6_TICK_FRAMES):
+        t = rec[f"at_{frames}"]
+        at[f"at_{frames}"] = {
+            "frames": frames, "ms": t["gather_ms"], "int32_ms": t["gather_int32_ms"],
+            **{k: t[k] for k in ("gather_int8_in_ms", "gather_fp32_in_ms", "bound_ms",
+                                 "int8_in_bound_ms", "fp32_in_bound_ms", "int32_bound_ms",
+                                 "cudnn_bf16_conv_ms") if k in t}}
+    ok = bool(equal) and all(equal.values()) and rec["ok"]
+    return {"phase": "kernel", "name": "conv_s8_gather",
+            **{k: rec[k] for k in ("group", "dtype", "B", "P", "C", "k", "stride", "Ci", "Co",
+                                   "side", "out_side", "vec", "timer",
+                                   "plain_ms", "library_ms", "library_call",
+                                   "cudnn_bf16_conv_ms", "cudnn_bf16_conv", "bound_ms",
+                                   "bound_by", "int32_bound_ms")},
+            "route": "gather (run beside the plan's halo route)", "bitwise_equal": equal,
+            "limits_reject": {mode: {f: v for f, v in r.items() if f != "dropped_tile"}
+                              for mode, r in rec["limits_reject"].items()},
+            "launches": launches, "max_abs_err": 0.0 if ok else None, "ok": ok,
+            "ms": rec[f"at_{K6_FRAMES}"]["gather_ms"],
+            "int32_ms": rec[f"at_{K6_FRAMES}"]["gather_int32_ms"], **at}
 
 
 def k6_mode(x: torch.Tensor, kw: dict) -> str:
@@ -1334,9 +1439,10 @@ class HeldK6:
     (`conv_plan`): the routes the plan picks, and the quantize passes it
     asks for (`quant_passes`: x's, and w's where w keeps no padded copy
     yet; to hold `conv_s8_quant`'s count against).
-    `summary` fails on any difference, on no held call, or on a route the
-    plan picked that no held call took, and gives the held calls by mode
-    and by route and the distinct shapes."""
+    `summary` fails on any difference, on no held call, on a route the
+    plan picked that no held call took, or on a route in `need` that no
+    held call took, and gives the held calls by mode and by route and the
+    distinct shapes."""
 
     def __init__(self):
         self.active, self.calls, self.modes, self.shapes, self.bad = True, 0, {}, set(), []
@@ -1375,12 +1481,14 @@ class HeldK6:
                                  "max_abs_err": (out.double() - want.double()).abs().max().item()})
         return out
 
-    def summary(self, what: str) -> dict:
+    def summary(self, what: str, need=()) -> dict:
         unheld = sorted(set(self.routes_picked) - set(self.routes_held))
-        if self.bad or not self.calls or unheld:
+        missing = [r for r in need if not any(h.split()[0] == r for h in self.routes_held)]
+        if self.bad or not self.calls or unheld or missing:
             raise AssertionError(f"{what}: K6 differs from its plain version on the path's "
                                  f"own calls ({len(self.bad)} of {self.calls}): {self.bad[:5]}"
-                                 f"; routes picked but never held: {unheld}")
+                                 f"; routes picked but never held: {unheld}; routes the "
+                                 f"path must take but no held call took: {missing}")
         return {"calls": self.calls, "distinct_shapes": len(self.shapes),
                 "modes": dict(sorted(self.modes.items())),
                 "routes_held": dict(sorted(self.routes_held.items())),
@@ -1391,8 +1499,9 @@ class HeldK6:
 def phase_kernel(dev, k6_build: concurrent.futures.Future):
     """K1-K6 against their plain versions on the card (K6 once its
     background build is done, `finish_k6_build`); returns the case records
-    and K5's launches (K5 runs on no path: its count is that of the kernel
-    phase's checked calls, one a case)."""
+    and the launches of the kernels that run on no path, those of the
+    kernel phase's checked calls: K5's (one a case) and PR 9's gather
+    kernel's (one a mode at each thin shape)."""
     gen = torch.Generator(device="cpu").manual_seed(0)
     cases = (kernel_cases_k1(dev, gen) + kernel_cases_k2(dev, gen)
              + kernel_cases_k3(dev, gen) + kernel_cases_k4(dev, gen))
@@ -1407,7 +1516,10 @@ def phase_kernel(dev, k6_build: concurrent.futures.Future):
     finish_k6_build(k6_build)
     cases += kernel_cases_k6(dev, gen)
     kernels.reset_launches()  # the comparison launches above do not count
-    return cases + k5_cases, k5_launches
+    off_path = {"loc_gram": k5_launches,
+                "conv_s8_gather": sum(c["launches"] for c in cases
+                                      if c["name"] == "conv_s8_gather")}
+    return cases + k5_cases, off_path
 
 
 def full_width_config():
@@ -1533,7 +1645,7 @@ def phase_slice(dev, profile_dir=None) -> dict:
                               "frames_per_s": TIMING_CLIPS * n_frame / dt,
                               "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
         if profile_dir:
-            try:  # a diagnostic: a profiler that cannot trace is reported
+            try:  # the profile or its error; one that stays lossy fails main
                 timing[dtype_name]["profile"] = profile_call(
                     lambda: m.eval_clip(images, ids, n_frame=n_frame),
                     profile_dir, f"eval_clip_{dtype_name}")
@@ -1719,10 +1831,10 @@ def phase_int8(dev, profile_dir=None) -> dict:
         dec = decode_best(out.outbox, cfg)
         torch.cuda.synchronize()
         got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-        want = {"conv_s8": bb + trunk_k6_per_call(base.replace(**variants[name][0])),
+        want = {"k6_convs": bb + trunk_k6_per_call(base.replace(**variants[name][0])),
                 "coattn_attend": 12 if name == "int8_chain" else 0,
                 "conv_s8_quant": held.quant_passes - passes}
-        if any(got[k] != want.get(k, 0) for k in got):
+        if launches_differ(got, want):
             raise AssertionError(f"int8 {name}: launches {got}, expected {want}")
         per_call.setdefault(name, []).append(got)
         for s_, ob in enumerate(out.outbox):
@@ -1731,7 +1843,7 @@ def phase_int8(dev, profile_dir=None) -> dict:
                 raise AssertionError(f"int8 {name}: outbox[{s_}] bad {tuple(ob.shape)}")
         answers.append(dec.boxes[:, 0].cpu())
     launches = dict(kernels.LAUNCHES)
-    held_on_path = held.summary("int8 eval")
+    held_on_path = held.summary("int8 eval", need=K6_PATH_ROUTES)
 
     # --- fp32 copies with the trunk PTQ on the card and the CPU, the same
     # qparams and scales (the int8 backbone's calls are among the held) ----
@@ -1781,7 +1893,7 @@ def phase_int8(dev, profile_dir=None) -> dict:
                         "clips_per_s": TIMING_CLIPS / dt,
                         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
         if profile_dir:
-            try:  # a diagnostic: a profiler that cannot trace is reported
+            try:  # the profile or its error; one that stays lossy fails main
                 timing[name]["profile"] = profile_call(fn, profile_dir, f"int8_{name}")
             except Exception as e:  # noqa: BLE001
                 timing[name]["profile"] = {"error": repr(e)[:300]}
@@ -2196,8 +2308,8 @@ def phase_train(dev, profile_dir=None) -> dict:
     launches = dict(kernels.LAUNCHES)
     want = {"coattn_attend": 0, "coattn_pair": 3 * TRAIN_STEPS,
             "coattn_attend_bwd": 6 * TRAIN_STEPS, "coattn_ring": 0, "loc_gram": 0,
-            "conv_s8": 0, "conv_s8_quant": 0}
-    if launches != want:
+            "k6_convs": 0, "conv_s8_quant": 0}
+    if launches_differ(launches, want):
         raise AssertionError(f"train_epoch launches {launches}, expected {want}")
     if not all(np.isfinite(v) for v in averages.values()):
         raise AssertionError(f"train metrics not finite: {averages}")
@@ -2250,7 +2362,7 @@ def phase_train(dev, profile_dir=None) -> dict:
             "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
             "loss": float(metrics["loss"])}
         if profile_dir:
-            try:  # a diagnostic: a profiler that cannot trace is reported
+            try:  # the profile or its error; one that stays lossy fails main
                 timing[dtype_name]["profile"] = profile_call(
                     lambda: train_step(st, batch), profile_dir,
                     f"train_step_{dtype_name}")
@@ -2316,9 +2428,20 @@ def _serve(eng, ids, ticks: int, frames_at, swap=None):
     return state, per_tick, outs
 
 
+def launches_differ(got: dict, want: dict) -> bool:
+    """Whether a run's launches (`got`: LAUNCHES, or the difference of two
+    of its copies) differ from `want`: each kernel's count as `want` gives
+    it (0 where it gives none), K6's convolutions on all routes together
+    against `want["k6_convs"]` (the route of each call is its plan's,
+    which `HeldK6` holds)."""
+    routes = kernels.CONV_S8_KEYS.values()
+    return kernels.conv_s8_launches(got) != want.get("k6_convs", 0) or any(
+        got[k] != want.get(k, 0) for k in got if k not in routes)
+
+
 def _expect_launches(per_tick, want: dict, what: str) -> None:
     for t, got in enumerate(per_tick):
-        if any(got[k] != want.get(k, 0) for k in got):
+        if launches_differ(got, want):
             raise AssertionError(f"{what}: tick {t} launched {got}, expected {want}")
 
 
@@ -2505,7 +2628,7 @@ def phase_serving(dev, profile_dir=None) -> dict:
                         "predictions_per_s": n / med,
                         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
         if profile_dir:
-            try:  # a diagnostic: a profiler that cannot trace is reported
+            try:  # the profile or its error; one that stays lossy fails main
                 timing[name]["profile"] = profile_call(
                     lambda: eng.step(state, frames), profile_dir,
                     f"serving_tick_{name}_bf16")
@@ -2656,9 +2779,9 @@ def phase_serving_int8(dev, profile_dir=None) -> dict:
     for name in ("multiref", "k1"):
         engines[name].qparams = ring_eng.qparams
     k6 = backbone_k6_per_call() + trunk_k6_per_call(model.cfg)
-    want = {"multiref_int8_rings": {"conv_s8": k6, "coattn_ring": 3},
-            "multiref": {"conv_s8": k6, "coattn_ring": 3},
-            "k1": {"conv_s8": k6, "coattn_attend": 12}}
+    want = {"multiref_int8_rings": {"k6_convs": k6, "coattn_ring": 3},
+            "multiref": {"k6_convs": k6, "coattn_ring": 3},
+            "k1": {"k6_convs": k6, "coattn_attend": 12}}
     launches, timing, held_on_path = {}, {}, {}
     for name, eng in engines.items():
         kernels.reset_launches()
@@ -2671,7 +2794,7 @@ def phase_serving_int8(dev, profile_dir=None) -> dict:
 
         with held:
             state, per_tick, outs = _serve(eng, ids, SERVE_TICKS, frames_held)
-        held_on_path[name] = held.summary(f"quantized serving, {name}")
+        held_on_path[name] = held.summary(f"quantized serving, {name}", need=K6_PATH_ROUTES)
         # each tick's quantize passes as its plans asked for them (a padded
         # weight is kept from its first tick on); the last tick's recorded
         marks.append(held.quant_passes)
@@ -2698,7 +2821,7 @@ def phase_serving_int8(dev, profile_dir=None) -> dict:
                         "predictions_per_s": n / med,
                         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
         if profile_dir:
-            try:  # a diagnostic: a profiler that cannot trace is reported
+            try:  # the profile or its error; one that stays lossy fails main
                 timing[name]["profile"] = profile_call(
                     lambda: eng.step(state, frames), profile_dir,
                     f"serving_tick_{name}_int8_bf16")
@@ -2774,30 +2897,104 @@ def phase_serving_int8(dev, profile_dir=None) -> dict:
     return rec
 
 
-def profile_call(fn, out_dir, tag) -> dict:
-    """torch.profiler over one call of fn: device time by kernel (top
-    entries), summed kernel time, the host wall time of the call and their
-    ratio (the device's busy share). The full table goes to `out_dir`."""
-    from torch.profiler import ProfilerActivity, profile
+# K6's kernels by the name a profile gives them (a fragment of it), and the
+# key of `kernels.LAUNCHES` that counts each one's launches
+K6_KERNEL_NAMES = {"conv_tma_kernel": "conv_s8", "conv_halo_kernel": "conv_s8_halo",
+                   "conv_s8_kernel": "conv_s8_gather", "quant_pass_kernel": "conv_s8_quant"}
+
+
+def k6_profile_counts(rows, counted: dict) -> dict:
+    """K6's launches and device ms in a profile by kernel name (`rows`:
+    (device us, name, calls) of every kernel), beside what the wrappers
+    counted over the same call (`counted`: the `K6_KERNEL_NAMES` keys of
+    `kernels.LAUNCHES`); `agree` says whether every count matches."""
+    launches = dict.fromkeys(counted, 0)
+    ms = dict.fromkeys(counted, 0.0)
+    for us, name, calls in rows:
+        for frag, key in K6_KERNEL_NAMES.items():
+            if frag in name:
+                launches[key] += calls
+                ms[key] += us / 1e3
+    return {"by_kernel_name": launches, "ms_by_kernel_name": ms, "counted": counted,
+            "agree": launches == counted}
+
+
+PROFILE_ATTEMPTS = 3    # traces of a call before a lossy profile fails the run
+PROFILE_FAILURES = []   # the profiles that failed (`main` fails on any)
+
+
+def _trace_call(fn) -> tuple:
+    """One torch.profiler trace of fn (after one traced and dropped): the
+    kept call's key averages and table, its host wall ms and the K6
+    launches the wrappers counted in it (`K6_KERNEL_NAMES`' keys)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    traced = {}
+
+    def ready(p) -> None:   # the kept call's events, before the cycle clears them
+        traced["events"] = p.key_averages()
+        traced["table"] = traced["events"].table(sort_by="self_cuda_time_total", row_limit=60)
+
+    # one call traced and dropped first: without it the trace lost the first
+    # kernels of the call (up to 4 of K6's, the first layer among them)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1), on_trace_ready=ready) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        # a marker kernel opens the kept window: with the dropped call alone
+        # one tick's trace still lost its first kernel (the first layer)
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        before = dict(kernels.LAUNCHES)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = []  # kernels only: operator rows would count their kernels twice
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and \
-                e.self_device_time_total > 0:
-            rows.append((e.self_device_time_total, e.key, e.count))
-    rows.sort(reverse=True)
-    total_ms = sum(r[0] for r in rows) / 1e3
+        prof.step()
+    counted = {key: kernels.LAUNCHES[key] - before[key] for key in K6_KERNEL_NAMES.values()}
+    return traced["events"], traced["table"], wall_ms, counted
+
+
+def profile_call(fn, out_dir, tag) -> dict:
+    """torch.profiler over one call of fn (`_trace_call`): device time by
+    kernel (top entries), summed kernel time, the host wall time of the
+    call and their ratio (the device's busy share), and K6's launches by
+    kernel name held against the wrappers' counts (`k6_profile_counts`).
+    A trace with no device time or a count that differs is discarded and
+    the call traced again (the trace loses a few of a call's first kernels
+    now and then: 2 of 49 profiles on an H100); after PROFILE_ATTEMPTS
+    such traces it fails and is listed in PROFILE_FAILURES. The full table
+    goes to `out_dir`."""
+    lost = []
+    for _ in range(PROFILE_ATTEMPTS):
+        events, table, wall_ms, counted = _trace_call(fn)
+        rows = []  # kernels only: operator rows would count their kernels twice, and
+        # the schedule's step annotation spans the call
+        for e in events:
+            if e.device_type == torch.autograd.DeviceType.CUDA and \
+                    e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep"):
+                rows.append((e.self_device_time_total, e.key, e.count))
+        rows.sort(reverse=True)
+        total_ms = sum(r[0] for r in rows) / 1e3
+        k6 = k6_profile_counts(rows, counted)
+        if total_ms and k6["agree"]:
+            break
+        lost.append({"kernels": len(rows), "device_ms": total_ms,
+                     "by_kernel_name": k6["by_kernel_name"], "counted": counted})
+    else:
+        PROFILE_FAILURES.append(tag)
+        raise AssertionError(f"profile {tag}: every trace lost kernels or device time: "
+                             f"{lost}")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=60))
+        f.write(table)
+        f.write("\n\nevery kernel: device ms, calls, name\n")
+        for us, key, n in rows:
+            f.write(f"{us / 1e3:10.4f} {n:6d} {key}\n")
     return {"wall_ms": wall_ms, "device_ms": total_ms,
             "device_busy_share": total_ms / wall_ms if wall_ms else None,
+            "k6": k6, "traces_discarded": lost,
             "top": [{"name": k[:80], "ms": us / 1e3, "calls": n}
                     for us, k, n in rows[:12]]}
 
@@ -3118,7 +3315,8 @@ def phase_cli(dev) -> dict:
 
         # the int8 CLI on the lock, card and CPU: equal metrics, each within
         # the JAX package's limits of float (tests/test_cli.py:84-107)
-        k6_before = {k: kernels.LAUNCHES[k] for k in ("conv_s8", "conv_s8_quant")}
+        k6_keys = (*kernels.CONV_S8_KEYS.values(), "conv_s8_quant")
+        k6_before = {k: kernels.LAUNCHES[k] for k in k6_keys}
         for name, extra in (("quant", ["--quant"]),
                             ("quant_trunk", ["--quant", "--quant_trunk"]),
                             ("coattn_int8", ["--coattn_int8"]),
@@ -3140,7 +3338,7 @@ def phase_cli(dev) -> dict:
             runs[f"lock_{name}"] = {"output": text_q.strip().splitlines(),
                                     "cpu_output": text_qc.strip().splitlines(), "wall_s": s_q}
         k6_cli = {k: kernels.LAUNCHES[k] - v for k, v in k6_before.items()}
-        if not k6_cli["conv_s8"]:
+        if not kernels.conv_s8_launches(k6_cli):
             raise AssertionError("the int8 CLI runs never launched K6")
         launches.update(k6_cli)
     finally:
@@ -3350,6 +3548,13 @@ KERNELS = (  # name, path it runs on, source, the TPU kernel it replaces
      "none: no TPU kernel; the JAX package's int8 conv is XLA's "
      "lax.conv_general_dilated(int8, int8, preferred_element_type=int32), "
      "dcnet_tpu/ops/quant.py:224-227 and dcnet_tpu/models/heads.py:93-96, :121-132"),
+    ("conv_s8_halo", "int8_eval", "dcnet_tpu_torch/csrc/conv_s8_halo.cuh",
+     "none: no TPU kernel; K6's route for thin reductions, the JAX package's "
+     "int8 conv is XLA's, dcnet_tpu/ops/quant.py:224-236"),
+    ("conv_s8_gather", None, "dcnet_tpu_torch/csrc/conv_s8.cuh",
+     "none: no TPU kernel; K6's route for the shapes the TMA and halo routes "
+     "cannot map (no path's), the JAX package's int8 conv is XLA's, "
+     "dcnet_tpu/ops/quant.py:224-236"),
     ("conv_s8_quant", "int8_eval", "dcnet_tpu_torch/csrc/conv_s8.cuh",
      "none: no TPU kernel; the JAX package's quantize step is XLA's "
      "clip(round(x * inv), -127, 127).astype(int8), dcnet_tpu/ops/quant.py:229 "
@@ -3361,10 +3566,14 @@ def _headline(name: str, case: dict) -> bool:
     """The case a kernel's entry reports: K1-K4 at P=1024, C=512, bf16 (B=8
     for K1's eval request, B=16 for the train step's K2 and K3, B=120
     streams for K4); K5 at B=8, P=1344, fp32 ce (the fp32 eval trunk's);
-    K6 at K6_HEADLINE on 8 frames, bf16 out."""
+    K6's TMA route and quantize pass at K6_HEADLINE, its halo and gather
+    routes at K6_HALO_HEADLINE, on 8 frames, bf16 out."""
     if name == "loc_gram":
         return (case["B"] == 8 and case["P"] == LOC_P and case["E"] == LOC_E
                 and case["C"] == KERNEL_C and case["dtype"] == "float32")
+    if name in ("conv_s8_halo", "conv_s8_gather"):
+        return (case["k"], case["stride"], case["Ci"], case["Co"], case["side"]) == \
+            K6_HALO_HEADLINE
     if name in ("conv_s8", "conv_s8_quant"):
         return (case["group"] == "backbone" and (case["k"], case["stride"], 1, case["Ci"],
                                                  case["Co"], case["side"]) == K6_HEADLINE)
@@ -3375,8 +3584,9 @@ def _headline(name: str, case: dict) -> bool:
 def kernels_line(cases: list, launches: dict, by_path=None) -> dict:
     """One entry per kernel: headline numbers (`_headline`), every case
     under `cases`. `launches` are the counts of the path each kernel runs
-    on (eval for K1, train for K2 and K3, serving for K4); K5 runs on no
-    path (`"path": null`) and reports its kernel-phase launches.
+    on (eval for K1, train for K2 and K3, serving for K4, the int8 eval
+    for K6); K5 and K6's gather route run on no path (`"path": null`) and
+    report their kernel-phase launches.
     `by_path` adds, per kernel, its counts on every path that runs it (K1:
     eval and the CLIs), each path driven with the counts at 0. Each
     entry's "timer" names what its "ms", "plain_ms" and "library_ms"
@@ -3403,7 +3613,8 @@ def kernels_line(cases: list, launches: dict, by_path=None) -> dict:
                 ("group", "k", "stride", "Ci", "Co", "side", "plan", "max_abs_err", "ms",
                  "int32_ms", "gather_ms", "gather_int32_ms", "plain_ms", "library_ms",
                  "cudnn_bf16_conv_ms", "bound_ms",
-                 "int32_bound_ms", "bound_by", f"at_{K6_TICK_FRAMES}") if name == "conv_s8"
+                 "int32_bound_ms", "bound_by", f"at_{K6_FRAMES}", f"at_{K6_TICK_FRAMES}")
+                if name in ("conv_s8", "conv_s8_halo", "conv_s8_gather")
                 else ("group", "k", "stride", "Ci", "Co", "side", "cp", "max_abs_err", "ms",
                       "plain_ms", "bound_ms", f"at_{K6_TICK_FRAMES}")
                 if name == "conv_s8_quant" else
@@ -3443,7 +3654,7 @@ def main(argv=None) -> int:
         finish_k6_build(k6_build)
         phase_cli_pace(dev)
         return 0
-    cases, k5_launches = timed("kernel", phase_kernel, dev, k6_build)
+    cases, off_path = timed("kernel", phase_kernel, dev, k6_build)
     prof = dict(profile_dir=args.profile)
     eval_launches = timed("slice", phase_slice, dev, **prof)["launches"]
     int8_launches = timed("int8", phase_int8, dev, **prof)["launches"]
@@ -3452,6 +3663,8 @@ def main(argv=None) -> int:
     serving_int8 = timed("serving_int8", phase_serving_int8, dev, **prof)["launches"]
     cli_launches = timed("cli", phase_cli, dev)["launches"]
     emit({"phase": "seconds", **seconds})
+    if PROFILE_FAILURES:
+        raise AssertionError(f"profiles that lost kernels in every trace: {PROFILE_FAILURES}")
     if not cli_launches["coattn_attend"]:
         raise AssertionError(f"K1 never launched on the CLI path: {cli_launches}")
     on_paths = {"coattn_attend": eval_launches["coattn_attend"],
@@ -3459,12 +3672,14 @@ def main(argv=None) -> int:
                 "coattn_attend_bwd": train_launches["coattn_attend_bwd"],
                 "coattn_ring": serving_launches["coattn_ring"],
                 "conv_s8": int8_launches["conv_s8"],
+                "conv_s8_halo": int8_launches["conv_s8_halo"],
                 "conv_s8_quant": int8_launches["conv_s8_quant"]}
     if not all(on_paths.values()):
         raise AssertionError(f"a kernel of the paths never launched: {on_paths}")
-    if not k5_launches:
-        raise AssertionError("K5 never launched in the kernel phase")
-    launches = {**on_paths, "loc_gram": k5_launches}
+    if not all(off_path.values()):
+        raise AssertionError(f"a kernel of no path never launched in the kernel phase: "
+                             f"{off_path}")
+    launches = {**on_paths, **off_path}
     emit(kernels_line(cases, launches, by_path={
         "coattn_attend": {"eval": eval_launches["coattn_attend"],
                           "int8_eval": int8_launches["coattn_attend"],
@@ -3475,7 +3690,7 @@ def main(argv=None) -> int:
         **{name: {"int8_eval": int8_launches[name],
                   **{f"int8_serving_{k}": v[name] for k, v in serving_int8.items()},
                   "int8_cli": cli_launches[name]}
-           for name in ("conv_s8", "conv_s8_quant")}}))
+           for name in ("conv_s8", "conv_s8_halo", "conv_s8_quant")}}))
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

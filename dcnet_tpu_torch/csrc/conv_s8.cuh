@@ -3,7 +3,8 @@
 // routes share (the epilogue `finish`, the quantize step), the quantize
 // pass and the gather route with their host entries, templated on the
 // input type; conv_s8.cu (int8 x), conv_s8_bf16.cu and conv_s8_fp32.cu each
-// export them for one type as a library of its own. The main route, wgmma
+// export them for one type as a library of its own, with the halo route
+// (thin reductions, conv_s8_halo.cuh) of that type; the main route, wgmma
 // s8 on TMA tiles, is conv_s8_tma.cuh (library conv_s8_tma.cu);
 // kernels/conv_s8.py::conv_plan picks the route by shape and alignment.
 //
@@ -51,11 +52,12 @@
 // thread, 16-byte stores; loads of 16 values where the row's chunk is
 // whole and 16-byte aligned, single values otherwise.
 //
-// The gather route (the mma.sync kernel, `conv_s8_kernel`): thin reductions
-// (Ci < 64 or k^2 Ci < 256, the first layer's 3 -> 32 among them), where
-// the TMA route measured slower, and the shapes the TMA route cannot take
-// (an int8 x or a w whose data is not 16-byte aligned and that needs no
-// padded copy; strides whose phase views overlap; k > 8).
+// The gather route (the first mma.sync kernel, `conv_s8_kernel`): the
+// shapes no path runs and neither other route takes -- a thin reduction
+// (Ci < 64 or k^2 Ci < 256) the halo route cannot map (x not 16-byte
+// aligned, rows of x not 16-byte multiples), an int8 x or a w whose data is
+// not 16-byte aligned and that needs no padded copy, strides whose phase
+// views overlap, k > 8.
 // A block of 128 threads computes a 128 x 64 tile of the (N Ho Wo) x Co
 // output over k-tiles of 64 bytes of the k^2 Ci reduction, three stages
 // deep in shared memory (46,080 B, static). Row r of the A tile is the
@@ -592,7 +594,7 @@ int quant_pass_entry(const void* x, int x_dtype, int qmode, float in_inv,
 // 4 (Ci a multiple of it, x aligned to vec elements, w to vec bytes) or 1.
 // Returns a cudaError_t code, 0 on success.
 // Each of conv_s8.cu, conv_s8_bf16.cu and conv_s8_fp32.cu exports it for
-// one input type, as its own library: the three build in parallel.
+// one input type, as its own library: the four of K6 build in parallel.
 template <typename IN>
 int conv_s8_entry(const void* x, int x_dtype, int qmode, float in_inv,
                   const void* in_scale, const void* w, void* out, const void* scale,

@@ -61,6 +61,7 @@
 #include "attend_wgmma.cuh"
 #include "conv_s8.cuh"
 #include "smem.cuh"
+#include "tmap.cuh"
 
 namespace {
 
@@ -454,32 +455,7 @@ enum Field {
   kfBStride1, kfBStride2, kfFields
 };
 
-using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                            const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                            const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point (no -lcuda).
-inline Encode encoder() {
-  static Encode encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                                       cudaEnableDefault, &status);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                              cudaEnableDefault, &status);
-#endif
-    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess || fn == nullptr) {
-      cudaGetLastError();
-      return nullptr;
-    }
-    encode = reinterpret_cast<Encode>(fn);
-  }
-  return encode;
-}
+using Encode = dcnet::TensorMapEncode;
 
 // An int8 tensor map of `rank` dims (innermost first), strides of dims
 // 1..rank-1 in bytes, box `box`, the swizzle of a `cbox`-byte row, zero
@@ -560,7 +536,7 @@ int conv_s8_tma_entry(const void* xq, const void* w, void* out, const void* scal
       (addend != nullptr && (addend_hw < 1 || addend_rep < 1))) {
     return kErrPlan;
   }
-  const Encode fn = encoder();
+  const Encode fn = dcnet::tensor_map_encoder();
   if (fn == nullptr) return kErrEncoder;
   Maps maps;
   const long long* pm = plan + kfFields;

@@ -4,8 +4,8 @@ No TPU kernel stands behind it: the JAX package runs its int8 convolutions
 through XLA (`lax.conv_general_dilated(int8, int8,
 preferred_element_type=int32)`, `dcnet_tpu/ops/quant.py:224-227` and
 `dcnet_tpu/models/heads.py:93-96`), and PyTorch has no int8 convolution on
-CUDA. Two CUDA routes compute it, chosen by `conv_plan` from the shape and
-the data's alignment, never as a fallback:
+CUDA. Three CUDA routes compute it, chosen by `conv_plan` from the shape
+and the data's alignment, never as a fallback:
 
 - "tma" (`csrc/conv_s8_tma.cuh`, library `conv_s8_tma.cu`): wgmma s8 on TMA
   tiles, split-K through a cluster's shared memory. It reads int8 x with
@@ -13,26 +13,36 @@ the data's alignment, never as a fallback:
   first through the quantize pass (`csrc/conv_s8.cuh::quant_pass_kernel`,
   counted as `conv_s8_quant`), and so does w where its channels are padded
   (once for each version of w: the padded copy is kept on w).
+- "halo" (`csrc/conv_s8_halo.cuh`): a thin reduction, Ci < 64 or k^2 Ci <
+  256 (the first layer's 3 -> 32, the 3x3 32 -> 64s, the 1x1 64 -> 32 and
+  128 -> 64: too few iterations for the TMA route's pipeline). Persistent
+  blocks walk tiles of 128 output pixels and all of Co; each tile's input
+  and halo arrives as one TMA box in x's own type, is quantized once into
+  an int8 halo tile in shared memory, and wgmma s8 reads every tap from it
+  (A from registers) against the weights, resident in shared memory
+  (`halo_plan` gives the tile, the map, the layout and the grid).
 - "gather" (`csrc/conv_s8.cuh::conv_s8_kernel`, the first mma.sync kernel):
-  a thin reduction, Ci < 64 or k^2 Ci < 256 (the first layer's 3 -> 32,
-  the 3x3 32 -> 64s, the 1x1 64 -> 32 and 128 -> 64: there the TMA route's
-  few iterations a block leave it latency-bound, 1.3-3.8x slower than this
-  route on the card, PERF.md section 6), an int8 x or a w that is not 16-byte
-  aligned and needs no padded copy, a stride whose phase views would
-  overlap (an odd height at stride 2), more than 64 taps or 16 phase maps.
+  the shapes neither takes, no path's: a thin reduction the halo route
+  cannot map (x off 16-byte alignment, rows of x that are not 16-byte
+  multiples), an int8 x or a w that is not 16-byte aligned and needs no
+  padded copy, a stride whose phase views would overlap (an odd height at
+  stride 2), more than 64 taps or 16 phase maps.
 
-The gather route and the pass are built as one library per input type
-(`csrc/conv_s8.cu`, `conv_s8_bf16.cu`, `conv_s8_fp32.cu`); the four build in
-parallel. `conv_s8_plain` is the plain version:
+The halo route, the gather route and the pass are built as one library
+per input type (`csrc/conv_s8.cu`, `conv_s8_bf16.cu`, `conv_s8_fp32.cu`);
+the four libraries of K6 build in parallel. `kernels.LAUNCHES` counts the
+launches under one key per route (`kernels.CONV_S8_KEYS`).
+`conv_s8_plain` is the plain version:
 the int32 sums as a float64 product of the im2col matrix with the weights
 (every partial sum an integer below 2^53, so exact in any order), then the
 same epilogue with each fused multiply-add emulated exactly (`fma32`). CPU
 tensors take it; CUDA tensors launch the kernel or raise.
 
-x may be int8, or fp32 / bf16 quantized (by the pass, or as the gather
-route gathers it) with the JAX package's static-scale step: `clamp(round(x * in_inv), -127, 127)`
-(the backbone) or `clamp(round(x / in_scale), -127, 127)` (the trunk,
-`in_scale` an fp32 0-dim tensor on x's device, a true division).
+x may be int8, or fp32 / bf16 quantized (by the pass, in the halo tile, or
+as the gather route gathers it) with the JAX package's static-scale step:
+`clamp(round(x * in_inv), -127, 127)` (the backbone) or
+`clamp(round(x / in_scale), -127, 127)` (the trunk, `in_scale` an fp32
+0-dim tensor on x's device, a true division).
 
 The epilogue, each step optional, in this order: an int32 addend (the
 shared half of the split corr_conv), `fma(float(acc), scale, bias)`, a
@@ -50,6 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -181,9 +192,9 @@ def _pow2_ceil(v: int) -> int:
 
 @dataclass(frozen=True)
 class ConvPlan:
-    """One convolution's route and, on the TMA route, everything the entry
-    encodes and launches (`conv_plan`)."""
-    route: str                      # "tma" or "gather"
+    """One convolution's route and, on the TMA and halo routes, everything
+    the entry encodes and launches (`conv_plan`)."""
+    route: str                      # "tma", "halo" or "gather"
     why: str                        # the shape rule that chose it
     ho: int
     wo: int
@@ -213,6 +224,7 @@ class ConvPlan:
     taps: Tuple = ()                # per tap (r, c): (phase map, dw, dh)
     b_dims: Tuple = ()              # w as (Cp, k k, Co), box (cbox, 1, bn)
     b_strides: Tuple = ()
+    halo: Optional["HaloPlan"] = None   # the halo route's launch (`halo_plan`)
 
     @property
     def grid(self) -> Tuple[int, int, int]:
@@ -226,8 +238,11 @@ class ConvPlan:
                 self.kiters * (split + 1) // self.splits)
 
     def array(self) -> "ctypes.Array":
-        """The int64 plan array the entry reads: TMA_FIELDS, then 8 numbers a
-        phase map, then 3 a tap."""
+        """The int64 plan array the entry reads: on the halo route
+        HALO_FIELDS; on the TMA route TMA_FIELDS, then 8 numbers a phase map,
+        then 3 a tap."""
+        if self.halo is not None:
+            return self.halo.array()
         fields = dict(nmaps=len(self.a_maps), ntaps=len(self.taps),
                       b_dim0=self.b_dims[0], b_dim1=self.b_dims[1],
                       b_stride1=self.b_strides[0], b_stride2=self.b_strides[1])
@@ -237,6 +252,212 @@ class ConvPlan:
         for t in self.taps:
             vals += list(t)
         return (ctypes.c_longlong * len(vals))(*vals)
+
+
+# --- the halo route (csrc/conv_s8_halo.cuh) -----------------------------------
+
+HALO_ROWS = 128            # output pixels of a tile
+HALO_STAGES = 4            # raw slots of the ring at most (halo::kMaxStages)
+SM_SMEM = 233472           # shared memory of an SM; each block also reserves 1 KB
+BOX_MAX = 256              # elements of a TMA box along one dimension
+_ITEMSIZE = {"int8": 1, "bfloat16": 2, "float32": 4}
+# the order of the plan array's fields, csrc/conv_s8_halo.cuh::halo::Field
+HALO_FIELDS = ("kind", "d0", "d1", "d2", "d3", "s1", "s2", "s3", "b0", "b1", "b2",
+               "box_bytes", "ci", "cp", "k", "stride", "pad", "th", "tw", "hin", "win",
+               "row_elems", "lead", "rpitch", "ppitch", "kp", "hv", "wv", "nv",
+               "tiles_w", "tiles_h", "tiles", "co", "nchunk", "cochunks", "stages",
+               "grid", "smem", "raw_bytes", "off_halo", "off_w", "off_consts", "off_tbl",
+               "off_out", "out_es", "off_bar")
+
+
+@dataclass(frozen=True)
+class HaloPlan:
+    """One launch of the halo route: x's tensor map (kind 0: (Ci, W, H, N);
+    1: each image row flat, (W Ci, H, N, 1); dims d in elements, strides s
+    of dims 1..3 in bytes, box b of dims 0..2, `lead` elements of a row
+    box before the halo's first pixel), the tile of th x tw output pixels
+    and its halo hin x win, the int8 halo tile (Cp channels a pixel, ppitch
+    bytes between pixels, rpitch pixels a row), the reduction kp bytes (k^2
+    Cp to 32), the output (nv, hv, wv) and its tiles, Co in passes of
+    nchunk columns, the ring of `stages` raw slots, the persistent grid and
+    the shared-memory layout (byte offsets after the raw slots; 1 KB to
+    align them; the staged output sized for outputs of out_es bytes)."""
+    kind: int
+    d0: int
+    d1: int
+    d2: int
+    d3: int
+    s1: int
+    s2: int
+    s3: int
+    b0: int
+    b1: int
+    b2: int
+    box_bytes: int
+    ci: int
+    cp: int
+    k: int
+    stride: int
+    pad: int
+    th: int
+    tw: int
+    hin: int
+    win: int
+    row_elems: int
+    lead: int
+    rpitch: int
+    ppitch: int
+    kp: int
+    hv: int
+    wv: int
+    nv: int
+    tiles_w: int
+    tiles_h: int
+    tiles: int
+    co: int
+    nchunk: int
+    cochunks: int
+    stages: int
+    grid: int
+    smem: int
+    raw_bytes: int
+    off_halo: int
+    off_w: int
+    off_consts: int
+    off_tbl: int
+    off_out: int
+    out_es: int
+    off_bar: int
+
+    def array(self) -> "ctypes.Array":
+        vals = [getattr(self, f) for f in HALO_FIELDS]
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+    def tile_origin(self, t: int) -> Tuple[int, int, int]:
+        """Tile t's (image, first output row, first output column)."""
+        return (t // (self.tiles_w * self.tiles_h), (t // self.tiles_w) % self.tiles_h * self.th,
+                t % self.tiles_w * self.tw)
+
+    def box_coords(self, t: int) -> Tuple[int, int, int, int]:
+        """Where tile t's TMA box starts in the map, as the kernel asks."""
+        img, oh, ow = self.tile_origin(t)
+        wi0, hi0 = ow * self.stride - self.pad, oh * self.stride - self.pad
+        return ((0, wi0, hi0, img) if self.kind == 0
+                else (wi0 * self.ci - self.lead, hi0, img, 0))
+
+    def tap_offsets(self) -> list:
+        """The halo tile offset (tap's pixel offset times ppitch, plus the
+        channel) of each 4-byte word of the reduction, (tap, channel) order;
+        0 past k^2 taps."""
+        out = []
+        for kk in range(0, self.kp, 4):
+            tap, ch = divmod(kk, self.cp)
+            out.append(((tap // self.k) * self.rpitch + tap % self.k) * self.ppitch + ch
+                       if tap < self.k * self.k else 0)
+        return out
+
+
+def halo_per_sm(nchunk: int) -> int:
+    """Persistent blocks an SM the halo kernel is compiled for (its launch
+    bounds, halo::kMinBlocks): three at 32 columns a pass, two at 64."""
+    return 3 if nchunk == 32 else 2
+
+
+def _round(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def halo_plan(n: int, h: int, w: int, ci: int, co: int, k: int, stride: int, pad: int,
+              itemsize: int, x_aligned: bool = True, out_itemsize: int = 4):
+    """The halo route's launch for a thin reduction (`HaloPlan`; x of
+    `itemsize` bytes an element, outputs of `out_itemsize` bytes or
+    fewer), or None and the reason it cannot map it. A pure function of
+    its arguments."""
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    if not x_aligned:
+        return None, "and x not 16-byte aligned (the halo route's tensor map)"
+    pix = ci * itemsize
+    if k == 1 and stride == 1 and pad == 0 and pix % 16 == 0:
+        # 128 consecutive pixels of the flattened output
+        kind, th, tw, hv, wv, nv = 0, 1, HALO_ROWS, 1, n * ho * wo, 1
+        dims, strides = (ci, n * h * w, 1, 1), (pix, n * h * w * pix, n * h * w * pix)
+        hin, win, box = 1, HALO_ROWS, (ci, HALO_ROWS, 1)
+        row_elems, lead = HALO_ROWS * ci, 0
+    else:
+        hv, wv, nv = ho, wo, n
+        if pix % 16 == 0:
+            kind, tw_min = 0, 1
+        elif (w * pix) % 16 == 0:
+            # a row map's box starts on a 16-byte multiple (TMA's rule for
+            # the innermost coordinate): `lead` elements before the halo's
+            # first pixel, the same for every tile as tw s Ci is a multiple
+            # of 16 bytes
+            kind, tw_min = 1, 16 // math.gcd(stride * pix, 16)
+            lead = (-pad * pix) % 16 // itemsize
+        else:
+            return None, "and rows of x not a multiple of 16 bytes (the halo route's map)"
+
+        def box0(tw):   # the box's innermost dim: the halo's row (kind 0: a pixel)
+            return ci if kind == 0 else _round(lead + ((tw - 1) * stride + k) * ci,
+                                               16 // itemsize)
+        tw = max(tw_min, min(16, _pow2_ceil(wo)))
+        while tw > tw_min and ((tw - 1) * stride + k > BOX_MAX or box0(tw) > BOX_MAX):
+            tw //= 2
+        th = HALO_ROWS // tw
+        hin, win = (th - 1) * stride + k, (tw - 1) * stride + k
+        if th < 1 or win > BOX_MAX or box0(tw) > BOX_MAX or hin > BOX_MAX:
+            return None, "and a halo wider than a tensor map's box"
+        if kind == 0:
+            dims, strides = (ci, w, h, n), (pix, w * pix, h * w * pix)
+            box, row_elems, lead = (ci, win, hin), win * ci, 0
+        else:
+            dims, strides = (w * ci, h, n, 1), (w * pix, h * w * pix, n * h * w * pix)
+            box, row_elems = (box0(tw), hin, 1), box0(tw)
+    cp = max(4, _pow2_ceil(ci))
+    # the eight rows of an mma fragment in distinct banks: Cp = 4, rows 16
+    # pixels past a multiple of 32 words (a step's four words are four
+    # taps); Cp >= 32, pixels Cp + 16 bytes apart
+    rpitch = win + (16 - win) % 32 if cp == 4 else win
+    ppitch = cp + 16 if cp >= 32 else cp
+    kp = _round(k * k * cp, 32)
+    nchunk = 32 if co <= 32 else 64
+    cochunks = -(-co // nchunk)
+    tiles_w, tiles_h = -(-wv // tw), -(-hv // th)
+    tiles = tiles_w * tiles_h * nv
+    box_bytes = box[0] * box[1] * box[2] * itemsize
+    raw_bytes = _round(box_bytes, 1024)
+    rows = cochunks * nchunk
+    # the int8 halo tile; the staged output over it where one pass covers Co
+    # (the kernel syncs between the products and the epilogue), else after it
+    halo_bytes = _round(hin * rpitch * ppitch, 128)
+    out_bytes = HALO_ROWS * (out_itemsize * nchunk + 16)
+    shared = cochunks == 1
+    sizes = (max(halo_bytes, out_bytes) if shared else halo_bytes + out_bytes,
+             _round(rows * kp, 128),           # w (wgmma's core matrices)
+             _round(16 * rows, 128),           # scale, bias, scale2, bias2
+             _round(kp, 128))                  # the tap offsets (kp / 4 ints)
+    # the deepest ring (HALO_STAGES at most) that leaves the blocks an SM
+    # the kernel is compiled for, else fewer
+    for per_sm, stages in [(p, st) for p in range(halo_per_sm(nchunk), 0, -1)
+                           for st in range(HALO_STAGES, 0, -1)]:
+        offs = [stages * raw_bytes]
+        for size in sizes:
+            offs.append(offs[-1] + size)
+        smem = offs[-1] + 8 * stages + 1024
+        if smem <= SMEM_LIMIT and per_sm * (smem + 1024) <= SM_SMEM:
+            break
+    else:
+        return None, "and a halo tile and weights past shared memory"
+    return HaloPlan(
+        kind=kind, d0=dims[0], d1=dims[1], d2=dims[2], d3=dims[3], s1=strides[0],
+        s2=strides[1], s3=strides[2], b0=box[0], b1=box[1], b2=box[2], box_bytes=box_bytes,
+        ci=ci, cp=cp, k=k, stride=stride, pad=pad, th=th, tw=tw, hin=hin, win=win,
+        row_elems=row_elems, lead=lead, rpitch=rpitch, ppitch=ppitch, kp=kp, hv=hv, wv=wv,
+        nv=nv, tiles_w=tiles_w, tiles_h=tiles_h, tiles=tiles, co=co, nchunk=nchunk,
+        cochunks=cochunks, stages=stages, grid=min(tiles, SMS * per_sm), smem=smem,
+        raw_bytes=raw_bytes, off_halo=offs[0], off_w=offs[1], off_consts=offs[2],
+        off_tbl=offs[3], off_out=offs[0] if shared else offs[0] + halo_bytes,
+        out_es=out_itemsize, off_bar=offs[4]), ""
 
 
 def _smem(stages: int, bn: int, cbox: int) -> int:
@@ -249,13 +470,14 @@ def _smem(stages: int, bn: int, cbox: int) -> int:
 @functools.lru_cache(maxsize=4096)
 def conv_plan(n: int, h: int, w: int, ci: int, co: int, k: int, stride: int, pad: int,
               x_dtype: str = "int8", x_aligned: bool = True,
-              w_aligned: bool = True) -> ConvPlan:
+              w_aligned: bool = True, out_itemsize: int = 4) -> ConvPlan:
     """How K6 computes the convolution of x (n, h, w, ci) (`x_dtype` "int8",
     "bfloat16" or "float32"; `x_aligned` / `w_aligned`: the data 16-byte
-    aligned) with w (co, k, k, ci), stride, pad: the route, and on the TMA
+    aligned) with w (co, k, k, ci), stride, pad: the route; on the TMA
     route the quantize pass, the tiles, the split, the stages and the
-    tensor maps (module doc, `csrc/conv_s8_tma.cuh`). A pure function of its
-    arguments."""
+    tensor maps (module doc, `csrc/conv_s8_tma.cuh`); on the halo route
+    `halo_plan`'s launch, its staged output sized for outputs of
+    `out_itemsize` bytes or fewer. A pure function of its arguments."""
     ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
     cp = -(-ci // 16) * 16
     quant_x, pad_w = x_dtype != "int8" or cp != ci, cp != ci
@@ -265,7 +487,12 @@ def conv_plan(n: int, h: int, w: int, ci: int, co: int, k: int, stride: int, pad
     hs = {rr: -(-(h - rr) // stride) for rr in rows}
     ws = {cc: -(-(w - cc) // stride) for cc in cols}
     if ci < 64 or k * k * ci < 256:
-        return ConvPlan("gather", "a thin reduction (Ci < 64 or k^2 Ci < 256)", ho, wo)
+        halo, why = halo_plan(n, h, w, ci, co, k, stride, pad, _ITEMSIZE[x_dtype], x_aligned,
+                              out_itemsize)
+        if halo is not None:
+            return ConvPlan("halo", "a thin reduction (Ci < 64 or k^2 Ci < 256) on halo tiles",
+                            ho, wo, co=co, halo=halo)
+        return ConvPlan("gather", f"a thin reduction (Ci < 64 or k^2 Ci < 256) {why}", ho, wo)
     if not (x_aligned or quant_x) or not (w_aligned or pad_w):
         return ConvPlan("gather", "an int8 operand not 16-byte aligned", ho, wo)
     if k * k > MAX_TAPS or (not flat and len(rows) * len(cols) > MAX_MAPS):
@@ -323,12 +550,13 @@ def conv_plan(n: int, h: int, w: int, ci: int, co: int, k: int, stride: int, pad
         b_dims=(cp, k * k, co), b_strides=(cp, k * k * cp))
 
 
-def plan_for(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int) -> ConvPlan:
-    """`conv_plan` for these tensors."""
+def plan_for(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
+             out_dtype: torch.dtype = torch.int32) -> ConvPlan:
+    """`conv_plan` for these tensors and an output of `out_dtype`."""
     n, h, wd, ci = x.shape
     return conv_plan(n, h, wd, ci, w.shape[0], w.shape[1], stride, pad,
                      str(x.dtype).replace("torch.", ""), x.data_ptr() % 16 == 0,
-                     w.data_ptr() % 16 == 0)
+                     w.data_ptr() % 16 == 0, torch.empty((), dtype=out_dtype).element_size())
 
 
 def conv_vec(ci: int, x: torch.Tensor, w: torch.Tensor) -> int:
@@ -343,8 +571,8 @@ def conv_vec(ci: int, x: torch.Tensor, w: torch.Tensor) -> int:
 
 
 def _lib(x_dtype: torch.dtype = torch.int8) -> ctypes.CDLL:
-    """The library of K6's gather route and quantize pass for inputs of
-    `x_dtype`, built first if needed."""
+    """The library of K6's halo route, gather route and quantize pass for
+    inputs of `x_dtype`, built first if needed."""
     lib = build.load(SOURCES[x_dtype])
     if not getattr(lib, "_dcnet_bound", False):
         lib.dcnet_conv_s8.argtypes = (
@@ -356,6 +584,11 @@ def _lib(x_dtype: torch.dtype = torch.int8) -> ctypes.CDLL:
             [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         lib.dcnet_conv_s8_quant.restype = ctypes.c_int
+        lib.dcnet_conv_s8_halo.argtypes = (
+            [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+            + [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_float]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+        lib.dcnet_conv_s8_halo.restype = ctypes.c_int
         lib.dcnet_conv_s8_error_string.argtypes = [ctypes.c_int]
         lib.dcnet_conv_s8_error_string.restype = ctypes.c_char_p
         lib._dcnet_bound = True
@@ -495,10 +728,13 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1, pad: int = 0,
                              **epilogue)
     floats = (scale, bias, scale2, bias2)
     _check(x, w, stride, pad, floats, addend, out_dtype, inv_out, in_inv, in_scale)
-    plan = plan_for(x, w, stride, pad)
+    plan = plan_for(x, w, stride, pad, out_dtype)
     if plan.route == "tma":
         return _conv_tma(plan, x, w, floats, addend, addend_hw, addend_rep, out_dtype,
                          inv_out, act, in_inv, in_scale)
+    if plan.route == "halo":
+        return _conv_halo(plan, x, w, floats, addend, addend_hw, addend_rep, out_dtype,
+                          inv_out, act, in_inv, in_scale)
     return _conv_gather(plan, x, w, stride, pad, floats, addend, addend_hw, addend_rep,
                         out_dtype, inv_out, act, in_inv, in_scale)
 
@@ -538,10 +774,39 @@ def _plan_array(plan: ConvPlan):
     return plan.array()
 
 
+def _conv_halo(plan: ConvPlan, x, w, floats, addend, addend_hw, addend_rep, out_dtype,
+               inv_out, act, in_inv, in_scale, plan_array=None) -> torch.Tensor:
+    """The halo route: one launch of the persistent halo-tile kernel, x
+    read in its own type and quantized in shared memory (`plan_array`
+    replaces the plan's own array: the tests hand it a map the CUDA driver
+    refuses)."""
+    out = torch.empty((x.shape[0], plan.ho, plan.wo, plan.co), dtype=out_dtype,
+                      device=x.device)
+    lib = _lib(x.dtype)
+    qmode = 0 if x.dtype == torch.int8 else (1 if in_scale is None else 2)
+    with torch.cuda.device(x.device):
+        err = lib.dcnet_conv_s8_halo(
+            x.data_ptr(), _X_DTYPE[x.dtype], qmode,
+            float(in_inv) if in_inv is not None else 0.0, _ptr(in_scale), w.data_ptr(),
+            out.data_ptr(), *[_ptr(t) for t in floats], _ptr(addend), addend_hw, addend_rep,
+            float(inv_out) if inv_out is not None else 0.0, _MODE[out_dtype], _ACT[act],
+            plan_array if plan_array is not None else _plan_array(plan),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        hp = plan.halo
+        raise RuntimeError(
+            f"int8 conv kernel (halo route) launch failed (x {tuple(x.shape)} {x.dtype}, "
+            f"w {tuple(w.shape)}, {out_dtype}, tile {hp.th}x{hp.tw}, stages {hp.stages}, "
+            f"grid {hp.grid}): {lib.dcnet_conv_s8_error_string(err).decode()}")
+    kernels.LAUNCHES["conv_s8_halo"] += 1
+    return out
+
+
 def _conv_gather(plan: ConvPlan, x, w, stride, pad, floats, addend, addend_hw,
                  addend_rep, out_dtype, inv_out, act, in_inv, in_scale) -> torch.Tensor:
-    """The gather route: the mma.sync kernel, quantizing a float x as it
-    gathers it."""
+    """The gather route: the first mma.sync kernel, quantizing a float x as it
+    gathers it (the thin shapes the halo route cannot map, and the others
+    the TMA route cannot take)."""
     n, h, wd, ci = x.shape
     co, k = w.shape[0], w.shape[1]
     out = torch.empty((n, plan.ho, plan.wo, co), dtype=out_dtype, device=x.device)
@@ -563,5 +828,5 @@ def _conv_gather(plan: ConvPlan, x, w, stride, pad, floats, addend, addend_hw,
             f"w {tuple(w.shape)}, "
             f"stride {stride}, pad {pad}, {out_dtype}, vec {vec}): "
             f"{lib.dcnet_conv_s8_error_string(err).decode()}")
-    kernels.LAUNCHES["conv_s8"] += 1
+    kernels.LAUNCHES["conv_s8_gather"] += 1
     return out

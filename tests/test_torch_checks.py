@@ -206,7 +206,9 @@ def _int8_mini_model(**over):
 @pytest.mark.parametrize("batch_refs", [False, True])
 def test_held_k6_holds_every_call_of_the_int8_path(batch_refs):
     """HeldK6 wraps the path's K6 calls (backbone and trunk), counts them by
-    mode, restores the callers on exit, and fails on a wrong output."""
+    mode and route (the mini model's thin convs on the halo route),
+    restores the callers on exit, and fails on a wrong output or a route
+    the path must take and did not."""
     from dcnet_tpu_torch.kernels import conv_s8 as k_conv
     from dcnet_tpu_torch.models import heads
     from dcnet_tpu_torch.ops import quant
@@ -215,7 +217,10 @@ def test_held_k6_holds_every_call_of_the_int8_path(batch_refs):
     with held:
         quant.quant_eval_clip(model, qparams, images, ids, 5, int8_chain=True)
     assert heads.conv_s8 is k_conv.conv_s8 and quant.conv_s8 is k_conv.conv_s8
-    res = held.summary("mini int8 eval")
+    res = held.summary("mini int8 eval", need=("halo",))   # mini widths: all thin
+    assert "halo" in res["routes_held"]
+    with pytest.raises(AssertionError, match="must take but no held call took"):
+        held.summary("mini int8 eval", need=("gather",))
     modes = res["modes"]
     assert res["calls"] == sum(modes.values()) > 0 and res["bitwise_equal"]
     assert any(m.endswith("-> int8") for m in modes)              # the int8 chain
@@ -294,3 +299,86 @@ def test_decode_taps_record_the_engines_decodes():
     conf = torch.cat([c.reshape(2, 3, 5, -1)[:, :, 4].reshape(2, -1) for c in
                       torch.split(t["outbox"], [15 * g * g for g in grids], dim=1)], dim=1)
     assert torch.equal(conf.amax(dim=1), t["top2"][:, 0])
+
+
+@pytest.mark.parametrize("case", [(2, 16, 16, 3, 32, 3, 1, 1, "float32"),
+                                  (2, 9, 12, 64, 32, 1, 1, 0, "bfloat16"),
+                                  (1, 12, 12, 32, 64, 3, 2, 1, "int8")])
+def test_k6_faults_fit_the_halo_walk(case):
+    """On the halo route the kernel phase's K6 check holds a dropped k-tile,
+    the walk's last tile dropped and two roundings against the plain
+    version, and each is shown to miss."""
+    from dcnet_tpu_torch.kernels import conv_s8 as k_conv
+    n, h, w, ci, co, k, s, p, dt = case
+    gen = torch.Generator().manual_seed(ci + co)
+    xq = torch.randint(-127, 128, (n, h, w, ci), generator=gen, dtype=torch.int8)
+    wt = torch.randint(-127, 128, (co, k, k, ci), generator=gen, dtype=torch.int8)
+    plan = k_conv.conv_plan(n, h, w, ci, co, k, s, p, dt)
+    assert plan.route == "halo"
+    acc, faults = chip_smoke.k6_sums(xq, wt, s, p, plan)
+    assert set(faults) == {"dropped_k_tile", "dropped_tile"}
+    epi = dict(scale=torch.rand(co, generator=gen) * 1e-4, bias=torch.randn(co, generator=gen),
+               act="leaky", out_dtype=torch.float32)
+    want = k_conv.epilogue_plain(acc, **epi)
+    wrong = chip_smoke.k6_wrong(acc, faults, epi)
+    assert set(wrong) == {"dropped_k_tile", "dropped_tile", "two_roundings"}
+    assert all(not torch.equal(v, want) for v in wrong.values())
+
+
+def test_launches_differ_holds_k6_routes_together():
+    """A path's expected launches name K6's convolutions once ("k6_convs"):
+    the three routes' counts are summed against it, every other kernel is
+    held one by one (0 where the expectation names none)."""
+    from dcnet_tpu_torch import kernels
+    got = dict.fromkeys(kernels.LAUNCHES, 0)
+    got.update(conv_s8=2, conv_s8_halo=3, conv_s8_quant=1, coattn_attend=12)
+    assert kernels.conv_s8_launches(got) == 5
+    want = {"k6_convs": 5, "conv_s8_quant": 1, "coattn_attend": 12}
+    assert not chip_smoke.launches_differ(got, want)
+    assert chip_smoke.launches_differ(got, dict(want, k6_convs=4))
+    assert chip_smoke.launches_differ(dict(got, conv_s8_gather=1), want)
+    assert chip_smoke.launches_differ(dict(got, coattn_ring=1), want)
+    assert chip_smoke.launches_differ(got, {"conv_s8_quant": 1, "coattn_attend": 12})
+
+
+def test_k6_profile_counts_hold_kernel_names_against_the_counters():
+    """K6's launches found by kernel name in a profile equal the wrappers'
+    counts only when no launch is lost or misnamed."""
+    rows = [(900.0, "void (anonymous namespace)::halo::conv_halo_kernel<float, 32>("
+                    "CUtensorMap, Geo, Epilogue)", 2),
+            (500.0, "void (anonymous namespace)::conv_tma_kernel<128>(...)", 3),
+            (40.0, "void quant_pass_kernel<__nv_bfloat16>(...)", 3),
+            (70.0, "void ampere_sgemm_128x64_nn", 1)]
+    counted = {"conv_s8": 3, "conv_s8_halo": 2, "conv_s8_gather": 0, "conv_s8_quant": 3}
+    res = chip_smoke.k6_profile_counts(rows, counted)
+    assert res["agree"] and res["by_kernel_name"] == counted
+    assert res["ms_by_kernel_name"]["conv_s8_halo"] == 0.9
+    assert not chip_smoke.k6_profile_counts(rows[1:], counted)["agree"]   # lost halo launches
+    assert not chip_smoke.k6_profile_counts(rows, dict(counted, conv_s8_gather=1))["agree"]
+
+
+def test_profile_call_discards_lossy_traces_and_fails_when_all_are(monkeypatch, tmp_path):
+    """A trace whose K6 launches by kernel name differ from the wrappers'
+    counts is discarded and the call traced again; a call whose every
+    trace is lossy raises and is listed for `main` to fail on."""
+    from types import SimpleNamespace
+    cuda = torch.autograd.DeviceType.CUDA
+    counted = {"conv_s8": 1, "conv_s8_halo": 2, "conv_s8_gather": 0, "conv_s8_quant": 0}
+
+    def trace(halo_calls):
+        events = [SimpleNamespace(device_type=cuda, self_device_time_total=300.0,
+                                  key="conv_tma_kernel<64>", count=1),
+                  SimpleNamespace(device_type=cuda, self_device_time_total=200.0,
+                                  key="halo::conv_halo_kernel<float, 32>", count=halo_calls)]
+        return events, "table", 1.0, counted
+
+    traces = iter([trace(1), trace(2)])
+    monkeypatch.setattr(chip_smoke, "_trace_call", lambda fn: next(traces))
+    monkeypatch.setattr(chip_smoke, "PROFILE_FAILURES", [])
+    res = chip_smoke.profile_call(None, str(tmp_path), "ok_on_retry")
+    assert res["k6"]["agree"] and len(res["traces_discarded"]) == 1
+    assert res["device_ms"] == 0.5 and (tmp_path / "profile_ok_on_retry.txt").exists()
+    monkeypatch.setattr(chip_smoke, "_trace_call", lambda fn: trace(1))
+    with pytest.raises(AssertionError, match="every trace lost kernels"):
+        chip_smoke.profile_call(None, str(tmp_path), "lossy")
+    assert chip_smoke.PROFILE_FAILURES == ["lossy"]

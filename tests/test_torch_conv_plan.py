@@ -1,11 +1,14 @@
 """K6's plan on the CPU: `kernels.conv_s8.conv_plan` gives every shape the
-paths run a route, keeps TMA's rules on the TMA route, sends the shapes TMA
-cannot take to the gather route, and its walk -- the tensor maps' boxes,
-tap by tap, with TMA's zero fill, the quantize pass's padding, the
-rectangles of output pixels and the split-K partition -- sums to the plain
-int32 convolution. The walk is emulated here byte for byte in numpy, as
-the kernel (`csrc/conv_s8_tma.cuh`) walks it; a walk that drops a tap, a
-split or a channel block is shown to miss. No card is needed.
+paths run a route, keeps TMA's rules on the TMA and halo routes, sends the
+shapes neither can take to the gather route, and each route's walk sums to
+the plain int32 convolution: the TMA route's tensor maps' boxes, tap by
+tap, with TMA's zero fill, the quantize pass's padding, the rectangles of
+output pixels and the split-K partition; the halo route's persistent walk
+over tiles, each tile's box with its halo, the int8 halo tile's layout and
+the reduction's tap offsets. Both walks are emulated here byte for byte in
+numpy, as the kernels (`csrc/conv_s8_tma.cuh`, `csrc/conv_s8_halo.cuh`)
+walk them; a walk that drops a tap, a split, a channel block, a halo row or
+column or the last tile is shown to miss. No card is needed.
 """
 
 import os
@@ -45,11 +48,11 @@ def test_every_path_shape_gets_a_route():
     8-320 frames, in each input type, on wgmma s8 + TMA, float inputs and
     padded channels through the quantize pass; but the thin reductions (Ci
     < 64 or k^2 Ci < 256: the first layer, the 3x3 32 -> 64s, the 1x1s
-    64 -> 32 and 128 -> 64), on the gather route."""
+    64 -> 32 and 128 -> 64), on the halo route."""
     seen, thin = 0, set()
     for (n, h, w, ci, co, k, s, p, dt), plan in _all_plans():
         if ci < 64 or k * k * ci < 256:
-            assert plan.route == "gather" and "thin" in plan.why, (ci, plan.why)
+            assert plan.route == "halo" and "thin" in plan.why, (ci, dt, plan.why)
             thin.add((k, s, ci, co))
             continue
         assert plan.route == "tma", (n, h, ci, co, k, s, dt, plan.why)
@@ -110,8 +113,8 @@ def test_plan_fields_match_the_kernel():
 
 @pytest.mark.parametrize("case,why", [
     (dict(ci=3, x_dtype="bfloat16"), "thin"),
-    (dict(ci=32), "thin"),
-    (dict(ci=128, k=1, pad=0, stride=1), "thin"),
+    (dict(ci=32, x_aligned=False), "thin"),
+    (dict(ci=12, k=1, pad=0, stride=1), "thin"),
     (dict(x_dtype="int8", x_aligned=False), "aligned"),
     (dict(x_dtype="int8", w_aligned=False), "aligned"),
     (dict(x_dtype="bfloat16", w_aligned=False), "aligned"),
@@ -120,10 +123,11 @@ def test_plan_fields_match_the_kernel():
     (dict(stride=5, k=5, pad=2), "phase maps"),
 ])
 def test_shapes_tma_cannot_take_gather(case, why):
-    """A thin reduction (Ci < 64 or k^2 Ci < 256), an int8 operand off
-    16-byte alignment that needs no padded copy, a phase view past the image
-    (odd side at stride 2), more than 64 taps or 16 phase maps: the gather
-    route."""
+    """A thin reduction (Ci < 64 or k^2 Ci < 256) the halo route cannot map
+    (rows of x not a multiple of 16 bytes, x off 16-byte alignment), an int8
+    operand off 16-byte alignment that needs no padded copy, a phase view
+    past the image (odd side at stride 2), more than 64 taps or 16 phase
+    maps: the gather route."""
     args = dict(n=2, h=12, w=13, ci=64, co=64, k=3, stride=2, pad=1, x_dtype="int8",
                 x_aligned=True, w_aligned=True)
     args.update(case)
@@ -297,3 +301,182 @@ def test_padded_weights_are_kept_until_written():
     assert k6.pad_w_due(wi, 1040)
     assert torch.equal(k6._padded_w(wi, 1040), k6.quant_pass_plain(w, 1040))
     assert k6.pad_w_due(wi, 1040) and not hasattr(wi, "_k6_padded")
+
+
+# --- the halo route --------------------------------------------------------
+
+def _thin_path_plans():
+    for (n, h, w, ci, co, k, s, p, dt), plan in _all_plans():
+        if ci < 64 or k * k * ci < 256:
+            yield (n, h, w, ci, co, k, s, p, dt), plan
+
+
+def test_halo_plan_obeys_tma_rules_and_the_card():
+    """At every thin path shape, frame count and input type: x's map with
+    global strides multiples of 16 bytes below 2^40, dims 1..2^32, box dims
+    at most 256 with an inner box of whole 16-byte units, the box a whole
+    halo (of pixels, on a row map), the int8 halo tile covering every tap
+    of every row, shared memory within 232,448 B and two blocks an SM (the
+    flat row map among them, for the first layer), the fields in the
+    order of the kernel's."""
+    kinds = set()
+    for (n, h, w, ci, co, k, s, p, dt), plan in _thin_path_plans():
+        hp = plan.halo
+        es = k6._ITEMSIZE[dt]
+        kinds.add(hp.kind)
+        assert all(st % 16 == 0 and 0 < st < 2 ** 40 for st in (hp.s1, hp.s2, hp.s3))
+        assert all(1 <= d < 2 ** 32 for d in (hp.d0, hp.d1, hp.d2, hp.d3))
+        assert all(1 <= b <= 256 for b in (hp.b0, hp.b1, hp.b2))
+        assert (hp.b0 * es) % 16 == 0 and hp.box_bytes == hp.b0 * hp.b1 * hp.b2 * es
+        assert hp.th * hp.tw == k6.HALO_ROWS
+        assert hp.hin == (hp.th - 1) * s + k and hp.win == (hp.tw - 1) * s + k
+        if hp.kind == 0:
+            assert (hp.b0, hp.b1, hp.b2) == (ci, hp.win, hp.hin) and hp.row_elems == hp.win * ci
+        else:
+            assert hp.b0 >= hp.lead + hp.win * ci and hp.b1 == hp.hin
+            assert hp.row_elems == hp.b0 and hp.d0 == w * ci
+            assert all((hp.box_coords(t)[0] * es) % 16 == 0 for t in range(hp.tiles_w))
+        assert hp.cp >= ci and hp.cp & (hp.cp - 1) == 0 and hp.kp % 32 == 0
+        last = ((hp.th - 1) * s * hp.rpitch + (hp.tw - 1) * s) * hp.ppitch + max(hp.tap_offsets())
+        assert last + 4 <= hp.hin * hp.rpitch * hp.ppitch <= hp.off_w - hp.off_halo
+        out_end = hp.off_out + k6.HALO_ROWS * (hp.out_es * hp.nchunk + 16)
+        assert out_end <= hp.off_w and (hp.off_out == hp.off_halo) == (hp.cochunks == 1)
+        assert hp.ppitch % 16 == 0 or hp.cp < 16
+        per_sm = min(k6.SM_SMEM // (hp.smem + 1024), k6.halo_per_sm(hp.nchunk))
+        assert hp.smem <= k6.SMEM_LIMIT and per_sm >= (1 if dt == "float32" else 2)
+        assert hp.off_halo >= hp.stages * hp.raw_bytes >= hp.stages * hp.box_bytes
+        assert hp.off_bar + 8 * hp.stages + 1024 == hp.smem
+        assert hp.grid == min(hp.tiles, k6.SMS * per_sm)
+        assert hp.hin * hp.win * hp.cp // 4 < 2 ** 16   # the kernel's exact divisions
+        assert hp.tiles == hp.tiles_w * hp.tiles_h * hp.nv
+        assert hp.tiles_w * hp.tw >= hp.wv and hp.tiles_h * hp.th >= hp.hv
+        assert len(plan.array()) == len(k6.HALO_FIELDS)
+    assert kinds == {0, 1}
+    src = open(os.path.join(os.path.dirname(k6.__file__), "..", "csrc",
+                            "conv_s8_halo.cuh")).read()
+    body = re.search(r"enum Field \{([^}]*)\}", src).group(1)
+    names = [n.strip() for n in body.split(",") if n.strip()]
+    assert names[-1] == "kfFields"
+    assert [n.lower() for n in names[:-1]] == ["kf" + f.replace("_", "")
+                                                for f in k6.HALO_FIELDS]
+
+
+def halo_walk(plan, xq, w, drop=None):
+    """The int32 sums the halo kernel computes by the plan: each persistent
+    block's tiles (t = block, block + grid, ...), each tile's TMA box (zero
+    fill outside x), the box written into the int8 halo tile as the kernel
+    lays it out (Cp channels a pixel, ppitch bytes apart, channels past Ci
+    zero, rpitch pixels a row), A read from it word by word at each row's pixel plus
+    the tap offset of the word, B from w laid out in (tap, channel) order,
+    and the tile's rows scattered to their output pixels. `drop` leaves out
+    the halo's last row or column, tap 1 or the last tile."""
+    hp = plan.halo
+    n, co = xq.shape[0], w.shape[0]
+    xbuf = xq.reshape(-1).astype(np.int64)
+    es = hp.s1 // hp.d0                      # x's element size: dim 1 is a row of dim 0
+    es_strides = [st // es for st in (hp.s1, hp.s2, hp.s3)]
+    dims, box = (hp.d0, hp.d1, hp.d2, hp.d3), (hp.b0, hp.b1, hp.b2, 1)
+    taps = hp.k * hp.k
+    # w as the kernel stages it: rows of kp bytes, (tap, channel), zero padded
+    wk = np.zeros((hp.cochunks * hp.nchunk, taps, hp.cp), np.int64)
+    wk[:co, :, :hp.ci] = w.reshape(co, taps, hp.ci)
+    wk = np.pad(wk.reshape(wk.shape[0], -1), ((0, 0), (0, hp.kp - taps * hp.cp)))
+    offs = np.array(hp.tap_offsets())
+    if drop == "tap":
+        offs = np.where((np.arange(hp.kp // 4) * 4) // hp.cp == 1, -1, offs)
+    r = np.arange(k6.HALO_ROWS)
+    pix = ((r // hp.tw) * hp.rpitch + r % hp.tw) * hp.stride
+    word = (pix[:, None] * hp.ppitch + np.maximum(offs, 0)[None, :])  # (rows, kp / 4)
+    addr = word[:, :, None] + np.arange(4)                              # bytes of each word
+    size = hp.hin * hp.rpitch * hp.ppitch
+    assert addr.max() < size
+    hr, hc, ch = np.meshgrid(np.arange(hp.hin), np.arange(hp.win), np.arange(hp.cp),
+                             indexing="ij")
+    dst = ((hr * hp.rpitch + hc) * hp.ppitch + ch).reshape(-1)
+    assert len(np.unique(dst)) == dst.size          # no two bytes of the tile overlap
+    src = (hr * hp.row_elems + hp.lead + hc * hp.ci + np.minimum(ch, hp.ci - 1)).reshape(-1)
+    real = (ch < hp.ci).reshape(-1)
+    out = np.zeros((n * plan.ho * plan.wo, co), np.int64)
+    tiles = [t for b in range(hp.grid) for t in range(b, hp.tiles, hp.grid)]
+    assert sorted(tiles) == list(range(hp.tiles))
+    for t in tiles:
+        if drop == "tile" and t == hp.tiles - 1:
+            continue
+        raw = _tma_box(xbuf, 0, dims, es_strides, hp.box_coords(t), box).reshape(-1)
+        if drop == "row":
+            raw = raw.reshape(hp.hin, -1).copy()
+            raw[-1] = 0
+        elif drop == "col":
+            raw = raw.reshape(hp.hin, -1).copy()
+            raw[:, hp.lead + (hp.win - 1) * hp.ci:hp.lead + hp.win * hp.ci] = 0
+        tile8 = np.zeros(size, np.int64)
+        tile8[dst] = np.where(real, raw.reshape(-1)[src], 0)
+        a = tile8[addr].reshape(k6.HALO_ROWS, -1)                       # (rows, kp)
+        if drop == "tap":
+            a = a * np.repeat(offs >= 0, 4)[None, :]
+        acc = a @ wk.T
+        img, oh0, ow0 = hp.tile_origin(t)
+        oh, ow = oh0 + r // hp.tw, ow0 + r % hp.tw
+        ok = (oh < hp.hv) & (ow < hp.wv)
+        rows = (img * hp.hv + oh) * hp.wv + ow
+        out[rows[ok]] = acc[ok, :co]
+    return out.reshape(n, plan.ho, plan.wo, co)
+
+
+# (n, h, w, Ci, Co, k, stride, pad, x dtype): the first layer's flat row map
+# (fp32 and int8), stride 2 (four input pixels an output), odd sides and
+# tiles cut by the image edge, the 1x1s' 128-pixel runs with a tail tile
+# and a persistent walk of more tiles than blocks (N 4), Ci 4 / 16 / 24 (Cp 4 / 16
+# / 32: a step spanning 8, 2 or 1 taps), Co 40 / 80 (passes of 64
+# columns), N 1-3
+HALO_WALKS = ((1, 32, 32, 3, 32, 3, 1, 1, "float32"), (2, 17, 16, 3, 32, 3, 1, 1, "int8"),
+              (3, 16, 16, 32, 64, 3, 2, 1, "bfloat16"), (2, 15, 9, 32, 64, 3, 1, 1, "int8"),
+              (1, 12, 20, 64, 32, 1, 1, 0, "bfloat16"), (2, 9, 7, 128, 64, 1, 1, 0, "float32"),
+              (4, 128, 128, 64, 32, 1, 1, 0, "int8"), (3, 8, 8, 24, 40, 3, 1, 1, "int8"),
+              (2, 10, 10, 16, 80, 3, 1, 1, "int8"), (1, 8, 12, 4, 32, 3, 2, 1, "int8"),
+              (2, 11, 13, 32, 64, 3, 2, 1, "float32"))
+
+
+def _halo_inputs(case):
+    n, h, w, ci, co, k, s, p, dt = case
+    rng = np.random.default_rng(ci * 131 + co * 7 + k + h)
+    w_ = rng.integers(-127, 128, (co, k, k, ci), dtype=np.int8)
+    if dt == "int8":
+        xq = torch.from_numpy(rng.integers(-127, 128, (n, h, w, ci), dtype=np.int8))
+    else:
+        x = torch.from_numpy(rng.standard_normal((n, h, w, ci)).astype(np.float32))
+        xq = k6.quantize_plain(x.to(getattr(torch, dt)), in_inv=40.0)
+    plan = k6.conv_plan(n, h, w, ci, co, k, s, p, dt)
+    want = k6.conv_s8_acc_plain(xq, torch.from_numpy(w_), s, p).numpy()
+    return plan, xq.numpy(), w_, want
+
+
+@pytest.mark.parametrize("case", HALO_WALKS,
+                         ids=lambda c: "n{}-{}x{}-ci{}-co{}-k{}s{}p{}-{}".format(*c))
+def test_halo_walk_equals_the_plain_convolution(case):
+    plan, xq, w_, want = _halo_inputs(case)
+    assert plan.route == "halo", plan.why
+    np.testing.assert_array_equal(halo_walk(plan, xq, w_), want)
+
+
+def test_halo_walks_cover_the_plan():
+    """The cases above reach both maps, Cp 4 / 16 / 32 / 64 / 128, stride 2,
+    rings of one to four slots, a tail tile, more than one pass over
+    Co and a persistent walk of more tiles than blocks."""
+    hps = [k6.conv_plan(*c).halo for c in HALO_WALKS]
+    assert {hp.kind for hp in hps} == {0, 1}
+    assert {4, 16, 32, 64, 128} <= {hp.cp for hp in hps}
+    assert any(hp.stride == 2 for hp in hps) and any(hp.cochunks > 1 for hp in hps)
+    assert 1 in {hp.stages for hp in hps} and max(hp.stages for hp in hps) > 1
+    assert any(hp.tiles > hp.grid for hp in hps)
+    assert any(hp.tiles_w * hp.tw > hp.wv or hp.tiles_h * hp.th > hp.hv for hp in hps)
+
+
+@pytest.mark.parametrize("drop,case", [("row", HALO_WALKS[0]), ("col", HALO_WALKS[0]),
+                                       ("tap", HALO_WALKS[2]), ("tile", HALO_WALKS[5]),
+                                       ("tile", HALO_WALKS[6])])
+def test_halo_walk_that_drops_work_misses(drop, case):
+    """The check is not blind: a walk that drops the halo's last row or
+    column, a tap or the last tile does not match."""
+    plan, xq, w_, want = _halo_inputs(case)
+    assert not np.array_equal(halo_walk(plan, xq, w_, drop=drop), want)

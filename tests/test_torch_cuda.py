@@ -239,9 +239,11 @@ def test_train_step_launches(card, k):
     metrics = train_step(state, batch)
     torch.cuda.synchronize()
     want = ({"coattn_attend": 0, "coattn_pair": 3, "coattn_attend_bwd": 6,
-             "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0, "conv_s8_quant": 0} if k == 2 else
+             "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0, "conv_s8_halo": 0,
+             "conv_s8_gather": 0, "conv_s8_quant": 0} if k == 2 else
             {"coattn_attend": 3, "coattn_pair": 0, "coattn_attend_bwd": 3,
-             "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0, "conv_s8_quant": 0})
+             "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0, "conv_s8_halo": 0,
+             "conv_s8_gather": 0, "conv_s8_quant": 0})
     assert kernels.LAUNCHES == want
     assert all(torch.isfinite(v) for v in metrics.values())
 
@@ -516,7 +518,7 @@ def test_train_step_at_any_width(card, c, monkeypatch):
         got, launches = losses(dtype, card)
         assert launches == {"coattn_attend": 0, "coattn_pair": 3, "coattn_attend_bwd": 6,
                             "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0,
-                            "conv_s8_quant": 0}
+                            "conv_s8_halo": 0, "conv_s8_gather": 0, "conv_s8_quant": 0}
         want, _ = losses(dtype, *other)
         for k, w in want.items():
             assert abs(got[k] - w) <= 1e-3 * abs(w), (dtype, k, got[k], w)
@@ -884,7 +886,8 @@ def test_conv_s8_takes_misaligned_inputs(card):
     assert conv_s8.plan_for(xa, wt.to(card), 1, 1).route == "gather"
     kernels.reset_launches()
     got = conv_s8.conv_s8(xa, wt.to(card), 1, 1)
-    assert kernels.LAUNCHES["conv_s8"] == 1 and kernels.LAUNCHES["conv_s8_quant"] == 0
+    assert kernels.LAUNCHES["conv_s8_gather"] == 1 and kernels.conv_s8_launches() == 1
+    assert kernels.LAUNCHES["conv_s8_quant"] == 0
     assert torch.equal(got.cpu(), conv_s8.conv_s8_acc_plain(x, wt, 1, 1))
     xf = torch.randn(2, 8, 8, 64, generator=gen).to(torch.bfloat16)
     xfa = _misaligned(xf, card, offset=1)
@@ -897,19 +900,21 @@ def test_conv_s8_takes_misaligned_inputs(card):
     plan = conv_s8.plan_for(xia, wia, 1, 0)
     assert plan.route == "tma" and plan.pad_w and plan.cp == 1040
     got = conv_s8.conv_s8(xia, wia)
-    assert kernels.LAUNCHES["conv_s8_quant"] == 3 and kernels.LAUNCHES["conv_s8"] == 3
+    assert kernels.LAUNCHES["conv_s8_quant"] == 3 and kernels.LAUNCHES["conv_s8"] == 2
+    assert kernels.conv_s8_launches() == 3
     assert torch.equal(got.cpu(), conv_s8.conv_s8_acc_plain(xi, wi))
 
 
 # K6's routes: (k, stride, Ci, Co, H, W, N, route) -- the headline 3x3 on 8
 # frames (split-K), a stride-2 3x3 (four phase maps, 64-byte boxes), Co =
 # 255 on a 1x1, Ci = 72 and Ci = 1032 padded by the quantize pass, Ci = 64
-# at odd sides; the gather route at thin reductions (Ci = 3, the first
-# layer; a 1x1 128 -> 64) and at an odd height at stride 2
+# at odd sides; the halo route at a thin reduction (a 1x1 128 -> 64); the
+# gather route at a thin reduction whose rows of x are not 16-byte
+# multiples (Ci = 3 at W = 31) and at an odd height at stride 2
 ROUTE_CASES = ((3, 1, 256, 512, 16, 16, 8, "tma"), (3, 2, 64, 128, 16, 16, 2, "tma"),
                (1, 1, 1024, 255, 8, 8, 8, "tma"), (3, 1, 72, 32, 33, 31, 2, "tma"),
                (1, 1, 1032, 512, 6, 6, 3, "tma"), (3, 1, 64, 80, 9, 10, 2, "tma"),
-               (3, 1, 3, 32, 33, 31, 2, "gather"), (1, 1, 128, 64, 9, 7, 2, "gather"),
+               (3, 1, 3, 32, 33, 31, 2, "gather"), (1, 1, 128, 64, 9, 7, 2, "halo"),
                (3, 2, 64, 64, 11, 12, 2, "gather"))
 
 
@@ -943,11 +948,126 @@ def test_conv_s8_each_route_bitwise(card, case, xdtype):
                               **{a: v.to(card) if isinstance(v, torch.Tensor) else v
                                  for a, v in epi.items()})
         torch.cuda.synchronize()
-        assert kernels.LAUNCHES["conv_s8"] == 1
+        assert kernels.LAUNCHES[kernels.CONV_S8_KEYS[route]] == 1
+        assert kernels.conv_s8_launches() == 1
         assert kernels.LAUNCHES["conv_s8_quant"] == (
             (plan.quant_x + (plan.pad_w and i == 0)) if route == "tma" else 0)
         assert got.dtype == want.dtype and got.shape == want.shape, name
         assert torch.equal(got.cpu(), want), (name, (got.cpu().float() - want.float()).abs().max())
+
+
+def _float_x(gen, xdtype, n, h, w, ci):
+    """A float x and the quantize arguments that put its largest value at
+    code 100: x * in_inv for bf16 (the backbone's), x / in_scale for fp32
+    (the trunk's)."""
+    x = torch.randn(n, h, w, ci, generator=gen).to(getattr(torch, xdtype))
+    amax = x.float().abs().max()
+    return x, (dict(in_inv=float(100.0 / amax)) if xdtype == "bfloat16"
+               else dict(in_scale=amax / 100.0))
+
+
+def _held_bitwise(card, x, wt, stride, pad, epi, route, acc=None):
+    """One K6 call on the card against the plain version, bitwise: one
+    launch on `route`, no quantize pass (`acc`: the plain int32 sums,
+    computed once for several epilogues)."""
+    xc, wc = x.to(card), wt.to(card)
+    assert conv_s8.plan_for(xc, wc, stride, pad).route == route
+    if acc is None:
+        want = conv_s8.conv_s8(x, wt, stride, pad, **epi)
+    else:
+        want = conv_s8.epilogue_plain(acc, **{a: v for a, v in epi.items()
+                                              if a not in ("in_inv", "in_scale")})
+    kernels.reset_launches()
+    got = conv_s8.conv_s8(xc, wc, stride, pad,
+                          **{a: v.to(card) if isinstance(v, torch.Tensor) else v
+                             for a, v in epi.items()})
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[kernels.CONV_S8_KEYS[route]] == 1
+    assert kernels.conv_s8_launches() == 1
+    assert kernels.LAUNCHES["conv_s8_quant"] == 0
+    assert got.dtype == want.dtype and got.shape == want.shape
+    return torch.equal(got.cpu(), want), (got.cpu().double() - want.double()).abs().max()
+
+
+# the halo route at the paths' thin shapes (k, stride, Ci, Co, side, N): the
+# first layer, the 3x3 s2 32 -> 64 at 256, the 1x1 64 -> 32 and 3x3 32 -> 64
+# at 128, the 1x1 128 -> 64 at 64, on 2-3 frames
+HALO_PATH_CASES = ((3, 1, 3, 32, 256, 2), (3, 2, 32, 64, 256, 2), (1, 1, 64, 32, 128, 3),
+                   (3, 1, 32, 64, 128, 2), (1, 1, 128, 64, 64, 3))
+
+
+@pytest.mark.parametrize("case", HALO_PATH_CASES,
+                         ids=lambda c: "k{}s{}-ci{}-co{}-{}-n{}".format(*c))
+@pytest.mark.parametrize("xdtype", ["int8", "bfloat16", "float32"])
+def test_conv_s8_halo_path_shapes_bitwise(card, case, xdtype):
+    """The halo route at each thin shape of the paths, in every epilogue
+    mode and input type, bitwise equal to the plain version."""
+    k, stride, ci, co, side, n = case
+    gen = torch.Generator().manual_seed(ci * 5 + co + k + stride)
+    x, wt, scale, bias = _conv_inputs(gen, k, ci, co, side, side, n=n)
+    quant = {}
+    if xdtype != "int8":
+        x, quant = _float_x(gen, xdtype, n, side, side, ci)
+    acc = conv_s8.conv_s8_acc_plain(conv_s8.quantize_plain(x, **quant), wt, stride,
+                                    (k - 1) // 2)
+    for name, epi in _conv_epilogues(gen, co, 2.0 / (127 * 127 * k * k)).items():
+        epi = dict(epi, **quant)
+        if name != "int32":
+            epi = dict(epi, scale=scale, bias=bias)
+        equal, err = _held_bitwise(card, x, wt, stride, (k - 1) // 2, epi, "halo", acc)
+        assert equal, (name, err)
+
+
+# the halo route off the paths (k, stride, Ci, Co, H, W, N): Ci 3 / 4 / 16 /
+# 24 / 32 (halo pixels of 4, 16 and 32 bytes; the flat row map for the
+# channels that are not 16-byte pixels), Co 32 / 64 / 40 / 80 (passes of 64
+# columns), odd sides and tiles cut by the image's edges
+HALO_CASES = ((3, 1, 3, 32, 17, 16, 2), (3, 1, 4, 64, 9, 12, 2), (3, 2, 16, 32, 13, 11, 3),
+              (3, 1, 24, 64, 7, 10, 1), (3, 1, 32, 32, 15, 9, 2), (1, 1, 16, 64, 5, 7, 3),
+              (3, 1, 16, 80, 11, 13, 2), (3, 2, 24, 40, 9, 14, 1))
+
+
+@pytest.mark.parametrize("case", HALO_CASES,
+                         ids=lambda c: "k{}s{}-ci{}-co{}-{}x{}-n{}".format(*c))
+@pytest.mark.parametrize("xdtype", ["int8", "bfloat16", "float32"])
+def test_conv_s8_halo_any_thin_shape_bitwise(card, case, xdtype):
+    """The halo route at thin shapes no path runs, in the int32 and int8-out
+    modes and bf16 out with an addend, bitwise equal to the plain
+    version."""
+    k, stride, ci, co, h, w, n = case
+    gen = torch.Generator().manual_seed(ci * 3 + co + h)
+    x, wt, scale, bias = _conv_inputs(gen, k, ci, co, h, w, n=n)
+    quant = {}
+    if xdtype != "int8":
+        x, quant = _float_x(gen, xdtype, n, h, w, ci)
+    pad = (k - 1) // 2
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    addend = torch.randint(-10 ** 5, 10 ** 5, (n, ho, wo, co), generator=gen,
+                           dtype=torch.int32)
+    modes = _conv_epilogues(gen, co, 2.0 / (127 * 127 * k * k))
+    for name, epi in (("int32", {}), ("int8", dict(modes["int8"], scale=scale, bias=bias)),
+                      ("bf16_addend", dict(modes["bn_relu"], scale=scale, bias=bias,
+                                           addend=addend, addend_hw=ho * wo))):
+        equal, err = _held_bitwise(card, x, wt, stride, pad, dict(epi, **quant), "halo")
+        assert equal, (name, err)
+
+
+def test_conv_s8_halo_refused_tensor_map_raises(card):
+    """A tensor map the CUDA driver refuses (a stride that is not a multiple
+    of 16 bytes) raises on the halo route; nothing launches and nothing
+    falls back."""
+    gen = torch.Generator().manual_seed(15)
+    x, wt, _, _ = _conv_inputs(gen, 3, 32, 64, 16, 16)
+    xc, wc = x.to(card), wt.to(card)
+    plan = conv_s8.plan_for(xc, wc, 1, 1)
+    assert plan.route == "halo"
+    bad = plan.array()
+    bad[conv_s8.HALO_FIELDS.index("s1")] += 8
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="refused the tensor map of x"):
+        conv_s8._conv_halo(plan, xc, wc, (None,) * 4, None, 1, 1, torch.int32, None, None,
+                           None, None, plan_array=bad)
+    assert kernels.conv_s8_launches() == 0
 
 
 def test_conv_s8_pads_constant_weights_once(card):
@@ -1009,7 +1129,7 @@ def test_conv_s8_refused_tensor_map_raises(card):
     with pytest.raises(RuntimeError, match="refused a tensor map of x"):
         conv_s8._conv_tma(plan, xc, wc, (None,) * 4, None, 1, 1, torch.int32, None, None,
                           None, None, plan_array=bad)
-    assert kernels.LAUNCHES["conv_s8"] == 0
+    assert kernels.conv_s8_launches() == 0
 
 
 def test_conv_s8_quant_pass_bitwise(card):
@@ -1049,7 +1169,7 @@ def test_conv_s8_refuses_what_it_cannot_take(card):
                         out_dtype=torch.int8)
     with pytest.raises(ValueError, match="scale"):
         conv_s8.conv_s8(xc, wc, out_dtype=torch.float32)
-    assert kernels.LAUNCHES["conv_s8"] == 0
+    assert kernels.conv_s8_launches() == 0
 
 
 def test_int8_backbone_on_card_equals_cpu(card):
@@ -1076,7 +1196,7 @@ def test_int8_backbone_on_card_equals_cpu(card):
         kernels.reset_launches()
         got = quant.backbone_apply_int8(defs, qp_card, images.to(card), int8_chain=chain)
         torch.cuda.synchronize()
-        assert kernels.LAUNCHES["conv_s8"] == live
+        assert kernels.conv_s8_launches() == live
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
 
