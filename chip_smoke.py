@@ -89,6 +89,16 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      K3 are held on the model's own inputs and upstream gradients in each
      compute dtype (fp32 K3 against float64, with the plain fp32 version's
      share of the limits); train_step is timed in float32 and bfloat16.
+  5b. bert   -- the same model with the frozen BERT text encoder at
+     bert-base-uncased's geometry (768 hidden, 12 layers, 12 heads, 3072,
+     vocab 30522; seeded weights) and 20-token phrases of the offline
+     fallback tokenizer: requests of 8 clips through eval_clip ->
+     decode_best (K1 12 a call), card against CPU in fp32 (decoded index
+     equal, outbox 1e-3), eval_clip timed at 64 clips in fp32 and bf16
+     beside the BiLSTM model's (slice phase); train_epoch on 16 k=2 clips
+     (K2 3 and K3 6 a step), the BERT body bytewise unchanged, proj, the
+     backbone and the trunk moved; train_step timed in both dtypes beside
+     the BiLSTM step (train phase).
   6. serving -- the same full-width model, cast for serving, in bf16 serves
      120 streams through GroundingEngine: with coattn_multiref (float rings,
      a query swap on a third of the streams mid-run; launches per tick K4 3,
@@ -123,8 +133,24 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      mIoU 2e-3) and each within mIoU 0.03 / acc 0.11 of float. Wall time
      and clips/s per run (set-up dominates at 16 windows), and the host
      data path's time alone.
+  8. train_cli -- cli/train.py in-process on the card at full width
+     (Darknet-53 from a seeded `.weights` file, 256 px, emb 512) under a
+     temporary directory, over a synthetic train split in .npy frames
+     with augmentation on (4 videos x 6 frames, batch 4, --max_steps 2, 2
+     epochs) and a test split for validate: a --lstm run and a
+     bert-base-uncased run, each with K2 3 a train or validate step and
+     K3 6 a train step, two `accu ... miou ...` lines and the checkpoints
+     0.pth.tar and 1.pth.tar; a --lstm run of 1 epoch resumed with
+     --resume to 2 ends as close to the uninterrupted run as a second
+     uninterrupted run does (`RESUME_SPREAD`; bitwise where that repeats
+     bitwise; cuDNN deterministic, torch's deterministic algorithms asked
+     for with their warnings recorded);
+     cli/test.py --resume on each run's checkpoint directory, card against
+     CPU (acc 1e-6, mIoU 2e-3). s/step, the card's busy share over the
+     --lstm run's epochs (torch.profiler) and the host data path's time
+     per augmented clip.
 Then the seconds of each phase, the `kernels` line (K1's launches per
-path), the nvidia-smi line, and
+path, K2's and K3's per path), the nvidia-smi line, and
 as the last line
 `{"ok": true, "device": {...}}`.
 """
@@ -140,6 +166,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -2385,6 +2412,410 @@ def phase_train(dev, profile_dir=None) -> dict:
     return rec
 
 
+# --- the BERT language path -------------------------------------------------
+
+BERT_MODEL = "bert-base-uncased"  # 768 hidden, 12 layers, 12 heads, 3072, 30522
+
+
+def bert_config(**over):
+    return full_width_config().replace(use_lstm=False, bert_model=BERT_MODEL, **over)
+
+
+def bert_ids(word_ids: np.ndarray) -> np.ndarray:
+    """`synthetic_clips`' corpus ids (..., L) as the fallback tokenizer's
+    ids of the same phrases."""
+    from dcnet_tpu_torch.data.bert_tokenize import encode_phrase, get_bert_tokenizer
+
+    tok, inv = get_bert_tokenizer(BERT_MODEL), {i: w for w, i in WORDS.items()}
+    flat = word_ids.reshape(-1, word_ids.shape[-1])
+    out = np.stack([encode_phrase(tok, " ".join(inv[int(i)] for i in row if i),
+                                  flat.shape[1])[0] for row in flat])
+    return out.reshape(word_ids.shape).astype(np.int64)
+
+
+def bert_phrase_ids(rng, n: int, query_len: int) -> np.ndarray:
+    """n seeded phrases of the synthetic vocabulary, tokenized."""
+    words = list(WORDS)
+    ids = np.zeros((n, query_len), np.int64)
+    for i in range(n):
+        k = rng.randint(3, 12)
+        ids[i, :k] = [WORDS[words[j]] for j in rng.randint(0, len(words), k)]
+    return bert_ids(ids)
+
+
+def phase_bert(dev, lstm_eval: dict, lstm_train: dict) -> dict:
+    """The BERT path on the card at full width (see the module doc)."""
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.ops.decode import decode_best
+    from dcnet_tpu_torch.train.loop import flatten_clip_batch, to_device, train_epoch
+    from dcnet_tpu_torch.train.state import create_train_state
+    from dcnet_tpu_torch.train.step import train_step
+
+    cfg = bert_config()
+    size, n_frame, k = cfg.image_size, 5, cfg.n_frames_train
+    model, defs, setup_s = seeded_model(cfg, dev)
+    rng = np.random.RandomState(2)
+
+    def request(clips):
+        images = rng.rand(clips * n_frame, size, size, 3).astype(np.float32)
+        return (torch.from_numpy(images),
+                torch.from_numpy(bert_phrase_ids(rng, clips, cfg.query_len)))
+
+    # --- the eval path: requests of 8 clips, K1 12 a call --------------------
+    kernels.reset_launches()
+    for _ in range(3):
+        images, ids = request(8)
+        out = model.eval_clip(images.to(dev), ids.to(dev), n_frame=n_frame)
+        dec = decode_best(out.outbox, cfg)
+        if not all(torch.isfinite(ob).all() for ob in out.outbox) or \
+                not torch.isfinite(dec.boxes).all():
+            raise AssertionError("BERT eval_clip outputs not finite")
+    torch.cuda.synchronize()
+    eval_launches = dict(kernels.LAUNCHES)
+    if launches_differ(eval_launches, {"coattn_attend": 36}):
+        raise AssertionError(f"BERT eval_clip launches {eval_launches}, expected K1 12 "
+                             f"a call (36)")
+
+    # --- card against CPU in fp32 --------------------------------------------
+    images, ids = request(2)
+    cpu_model = DCNet(cfg, backbone_defs=defs, device="cpu")
+    cpu_model.load_state_dict({n: v.cpu() for n, v in model.state_dict().items()})
+    ref = cpu_model.eval_clip(images, ids, n_frame=n_frame)
+    got = model.eval_clip(images.to(dev), ids.to(dev), n_frame=n_frame)
+    parity_err = max((g.cpu() - r).abs().max().item() for g, r in zip(got.outbox, ref.outbox))
+    for g, r in zip(got.outbox, ref.outbox):
+        torch.testing.assert_close(g.cpu(), r, rtol=1e-3, atol=1e-3)
+    ref_dec, got_dec = decode_best(ref.outbox, cfg), decode_best(got.outbox, cfg)
+    if not all(torch.equal(getattr(got_dec, f).cpu(), getattr(ref_dec, f))
+               for f in ("best_n", "gi", "gj", "scale")):
+        raise AssertionError("BERT decoded boxes differ between the card and CPU")
+    del cpu_model
+
+    # --- eval_clip at 64 clips, fp32 and bf16 ---------------------------------
+    state = model.state_dict()
+    timing = {}
+    for dtype_name in ("float32", "bfloat16"):
+        m = model if dtype_name == "float32" else DCNet(
+            cfg.replace(compute_dtype=dtype_name), backbone_defs=defs, device=dev)
+        if m is not model:
+            m.load_state_dict(state)
+        images, ids = (t.to(dev) for t in request(TIMING_CLIPS))
+        for _ in range(2):
+            decode_best(m.eval_clip(images, ids, n_frame=n_frame).outbox, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            dec = decode_best(m.eval_clip(images, ids, n_frame=n_frame).outbox, cfg)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t1) / 5
+        timing[f"eval_{dtype_name}"] = {
+            "clips": TIMING_CLIPS, "s_per_eval_clip": dt, "clips_per_s": TIMING_CLIPS / dt,
+            "lstm_clips_per_s": lstm_eval[dtype_name]["clips_per_s"]}
+        del m
+
+    # --- train_epoch: K2 3 and K3 6 a step, the body bytewise unchanged ------
+    state0 = {n: v.detach().clone() for n, v in model.state_dict().items()}
+
+    def clips(n):
+        b = synthetic_clips(rng, n, k, size, cfg.query_len)
+        b["word_ids"] = bert_ids(b["word_ids"])
+        return b
+
+    st = create_train_state(model, cfg, steps_per_epoch=TRAIN_STEPS)
+    kernels.reset_launches()
+    averages = train_epoch(st, [clips(TRAIN_B) for _ in range(TRAIN_STEPS)], epoch=0,
+                           print_freq=TRAIN_STEPS,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    train_launches = dict(kernels.LAUNCHES)
+    want = {"coattn_pair": 3 * TRAIN_STEPS, "coattn_attend_bwd": 6 * TRAIN_STEPS}
+    if launches_differ(train_launches, want):
+        raise AssertionError(f"BERT train_epoch launches {train_launches}, expected {want}")
+    if not all(np.isfinite(v) for v in averages.values()):
+        raise AssertionError(f"BERT train metrics not finite: {averages}")
+    after = model.state_dict()
+    body = [n for n in after if n.startswith("textmodel.")
+            and not n.startswith("textmodel.proj.")]
+    changed = [n for n in body if not torch.equal(after[n], state0[n])]
+    if len(body) != 5 + 16 * model.textmodel.cfg.num_layers or changed:
+        raise AssertionError(f"the frozen BERT body moved: {changed[:5]} of {len(body)}")
+    moved = {g: max((after[n] - state0[n]).abs().max().item() for n in after
+                    if n.startswith(g) and after[n].is_floating_point())
+             for g in ("textmodel.proj.", "visumodel.", "mapping_lang.", "fcn_emb.")}
+    if min(moved.values()) <= 0:
+        raise AssertionError(f"a trained part did not move: {moved}")
+    del st
+
+    # --- train_step at 16 clips, fp32 and bf16 --------------------------------
+    for dtype_name in ("float32", "bfloat16"):
+        m = DCNet(cfg.replace(compute_dtype=dtype_name), backbone_defs=defs, device=dev)
+        m.load_state_dict(state0)
+        s2 = create_train_state(m, cfg)
+        batch = to_device(flatten_clip_batch(clips(TRAIN_B)), dev)
+        for _ in range(WARMUP_STEPS):
+            train_step(s2, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            metrics = train_step(s2, batch)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t1) / TIMED_STEPS
+        if not all(torch.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"BERT {dtype_name} train metrics not finite")
+        timing[f"train_{dtype_name}"] = {
+            "clips": TRAIN_B, "s_per_step": dt, "frames_per_s": TRAIN_B * k / dt,
+            "lstm_s_per_step": lstm_train[dtype_name]["s_per_step"]}
+        del m, s2
+    del model
+    kernels.reset_launches()
+    rec = {"phase": "bert", "model": f"YOLOv3/Darknet-53 + {BERT_MODEL} geometry (768 "
+           "hidden, 12 layers, 12 heads, 3072, vocab 30522), 256 px, emb 512, frozen body",
+           "weights": "backbone: random_darknet_weights_file(seed=0); rest, BERT "
+                      "included: seeded_init_(seed=0)",
+           "phrases": "fallback-tokenised phrases of the synthetic vocabulary, 20 tokens",
+           "setup_s": setup_s, "eval_launches": eval_launches,
+           "train_launches": train_launches,
+           "cpu_parity": {"clips": 2, "max_abs_outbox_err": parity_err, "rtol": 1e-3,
+                          "atol": 1e-3, "same_decoded_index": True},
+           "frozen_body_tensors_unchanged": len(body), "moved_max_abs": moved,
+           "train_averages": averages, "timing": timing,
+           "kind": torch.cuda.get_device_name(dev), "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    return rec
+
+
+# --- the training CLI --------------------------------------------------------
+
+TCLI_VIDEOS, TCLI_FRAMES, TCLI_BATCH, TCLI_STEPS = 4, 6, 4, 2
+# 4 train videos of 6 frames at k=2: 16 clips, 4 batches of 4, 2 steps an
+# epoch (--max_steps); the test split 2 videos of 6 frames: 8 clips, 2
+# validate batches. Two epochs per run.
+# A resumed run is held against the uninterrupted one at the distance
+# between two uninterrupted runs (the largest element difference of any
+# tensor, doubled): bitwise where the run repeats bitwise. RMSprop's first
+# steps move each weight by ~lr * 10 * sign(g), so a rounding difference in
+# a gradient near zero moves a weight by ~1e-3, which no relative limit on
+# the weights would tell from a fault.
+RESUME_SPREAD = 2.0
+
+
+class _StepCounter:
+    """Counts `train_step` and `eval_step` calls of `train.loop`, and
+    profiles the card from the first `train_epoch` of cli.train when asked."""
+
+    def __init__(self, profile: bool = False):
+        from dcnet_tpu_torch.cli import train as cli_train
+        from dcnet_tpu_torch.train import loop
+        self.loop, self.cli, self.profile = loop, cli_train, profile
+        self.calls = {"train_step": 0, "eval_step": 0}
+        self.prof, self.t0 = None, None
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.loop, n) for n in self.calls}
+        self.orig_epoch = self.cli.train_epoch
+        for name, fn in self.orig.items():
+            def counted(*a, _fn=fn, _n=name, **k):
+                self.calls[_n] += 1
+                return _fn(*a, **k)
+            setattr(self.loop, name, counted)
+
+        def epoch(*a, **k):
+            if self.profile and self.prof is None:
+                from torch.profiler import ProfilerActivity, profile
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.start()
+                self.t0 = time.perf_counter()
+            return self.orig_epoch(*a, **k)
+        self.cli.train_epoch = epoch
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.loop, name, fn)
+        self.cli.train_epoch = self.orig_epoch
+
+    def busy(self) -> tuple:
+        """(seconds from the first epoch, card-busy seconds in them)."""
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - self.t0
+        self.prof.stop()
+        busy_us = sum(e.self_device_time_total for e in self.prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        return wall, busy_us / 1e6
+
+
+def _train_cli(argv, profile: bool = False) -> tuple:
+    """cli.train's `main` in-process: (state, stdout, seconds, step calls,
+    launches, (wall, busy) or None)."""
+    import contextlib
+    import io
+    from dcnet_tpu_torch.cli import train as cli_train
+
+    kernels.reset_launches()
+    out = io.StringIO()
+    with _StepCounter(profile) as counter, contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        state = cli_train.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        busy = counter.busy() if profile else None
+    return state, out.getvalue(), seconds, dict(counter.calls), dict(kernels.LAUNCHES), busy
+
+
+def _epoch_lines(text: str) -> dict:
+    accu = [tuple(map(float, m)) for m in re.findall(r"^accu (\S+) miou (\S+)$", text, re.M)]
+    steps = [float(m) for m in re.findall(r"^Epoch \[\d+\]\[\d+\] .* batch_time (\S+) ", text, re.M)]
+    return {"accu_miou": accu, "batch_time_s": steps}
+
+
+def phase_train_cli(dev) -> dict:
+    """cli.train in-process on the card at full width (see the module doc)."""
+    import shutil
+    import tempfile
+    from dcnet_tpu_torch.cli import test as cli_test
+    from dcnet_tpu_torch.data.synthetic import build_synthetic_corpus, generate_synthetic_vid
+    from dcnet_tpu_torch.data.vid import VIDDataset
+    from dcnet_tpu_torch.models.darknet import random_darknet_weights_file
+
+    work = tempfile.mkdtemp(prefix="dcnet_train_cli_")
+    cwd = os.getcwd()
+    os.chdir(work)  # ./logs and ./saved_models
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        root = os.path.join(work, "synthetic")
+        generate_synthetic_vid(root, "train", num_videos=TCLI_VIDEOS,
+                               frames_per_video=TCLI_FRAMES, seed=13, frame_format="npy")
+        generate_synthetic_vid(root, "test", num_videos=2, frames_per_video=TCLI_FRAMES,
+                               seed=14, frame_format="npy")
+        darknet = os.path.join(work, "backbone_seed0.weights")
+        random_darknet_weights_file(_defs(), darknet, seed=0)
+        size = int(CLI_WIDTH[CLI_WIDTH.index("--size") + 1])
+
+        # the host data path with augmentation: every clip of the train split
+        ds = VIDDataset(os.path.join(root, "VID_video_level_train.json"),
+                        build_synthetic_corpus(), split="train", imsize=size,
+                        num_frame_k=2, image_root=root, seed=13)
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds[i]
+        host_s = time.perf_counter() - t0
+        host = {"clips": len(ds), "s": host_s, "ms_per_clip": 1e3 * host_s / len(ds),
+                "augment": ds.augment}
+
+        base = ["--synthetic"] + CLI_WIDTH + [
+            "--batch_size", str(TCLI_BATCH), "--max_steps", str(TCLI_STEPS),
+            "--workers", "4", "--seed", "13", "--split_root", work,
+            "--backbone_weights", darknet, "--print_freq", "1"]
+        encoders = {"lstm": ["--lstm"], "bert": ["--bert_model", BERT_MODEL]}
+        runs, states = {}, {}
+        for enc, flags in encoders.items():
+            state, text, s, calls, launches, busy = _train_cli(
+                base + flags + ["--nb_epoch", "2", "--savename", f"{enc}_full"],
+                profile=enc == "lstm")
+            want = {"coattn_pair": 3 * (calls["train_step"] + calls["eval_step"]),
+                    "coattn_attend_bwd": 6 * calls["train_step"]}
+            if calls["train_step"] != 2 * TCLI_STEPS or launches_differ(launches, want):
+                raise AssertionError(f"cli.train {enc}: {calls} steps, launches {launches}, "
+                                     f"expected {want}")
+            lines = _epoch_lines(text)
+            files = sorted(os.listdir(os.path.join("saved_models", f"{enc}_full")))
+            if len(lines["accu_miou"]) != 2 or files != ["0.pth.tar", "1.pth.tar"] or \
+                    not all(0 <= v <= 1 for am in lines["accu_miou"] for v in am):
+                raise AssertionError(f"cli.train {enc}: {lines}, checkpoints {files}")
+            states[enc] = {n: v.detach().cpu().clone()
+                           for n, v in state.model.state_dict().items()}
+            runs[enc] = {"wall_s": s, "steps": calls, "launches": launches,
+                         "launches_per_train_step": {"coattn_pair": 3, "coattn_attend_bwd": 6},
+                         "launches_per_eval_step": {"coattn_pair": 3},
+                         "s_per_step_epoch1": float(np.mean(lines["batch_time_s"][TCLI_STEPS:])),
+                         **lines, "checkpoints": files}
+            if busy:
+                runs[enc]["epochs_s"], runs[enc]["device_busy_s"] = busy
+                runs[enc]["device_busy_share"] = busy[1] / busy[0]
+            del state
+
+        # --- resume after epoch 0 against the uninterrupted run (LSTM); a
+        # second uninterrupted run gives the card's run-to-run spread. These
+        # four runs take torch's deterministic algorithms (the profiled run
+        # above does not, and differs from them) ------------------------------
+        lstm = base + encoders["lstm"]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                ends = [_train_cli(lstm + ["--nb_epoch", "2", "--savename", f"run{i}"])[0]
+                        for i in range(2)]
+                _train_cli(lstm + ["--nb_epoch", "1", "--savename", "resume"])
+                state, text, _, calls, _, _ = _train_cli(
+                    lstm + ["--nb_epoch", "2", "--savename", "resume",
+                            "--resume", "saved_models/resume"])
+            finally:
+                torch.use_deterministic_algorithms(False)
+        if calls["train_step"] != TCLI_STEPS or "resumed from" not in text:
+            raise AssertionError(f"the resumed run took {calls}: {text[-500:]}")
+        def weights(st):
+            return {n: v.detach().cpu() for n, v in st.model.state_dict().items()}
+
+        full = weights(ends[0])
+
+        def spread(other):
+            d = {n: (other[n].double() - full[n].double()).abs().max().item()
+                 for n in full if full[n].is_floating_point()}
+            worst = max(d, key=d.get)
+            return d[worst], worst, sum(v > 0 for v in d.values())
+
+        repeat_d, repeat_at, repeat_n = spread(weights(ends[1]))
+        resume_d, resume_at, resume_n = spread(weights(state))
+        profiled_d = spread(states["lstm"])[0]
+        if resume_d > RESUME_SPREAD * repeat_d:
+            raise AssertionError(f"the resumed run differs from the uninterrupted one by "
+                                 f"{resume_d} at {resume_at}; a repeated run by "
+                                 f"{repeat_d} at {repeat_at}")
+        resume = {"bitwise": resume_d == 0.0, "max_abs_diff": resume_d, "at": resume_at,
+                  "tensors_differing": resume_n, "repeat_bitwise": repeat_d == 0.0,
+                  "repeat_max_abs_diff": repeat_d, "repeat_at": repeat_at,
+                  "repeat_tensors_differing": repeat_n, "limit": f"{RESUME_SPREAD} x repeat",
+                  "profiled_run_max_abs_diff": profiled_d,
+                  "cudnn_deterministic": True, "deterministic_algorithms": "warn_only",
+                  "nondeterministic_ops": sorted({str(w.message)[:160] for w in caught
+                                                  if "deterministic" in str(w.message)})}
+        del state, ends
+
+        # --- cli.test --resume <the checkpoint dir>, card against CPU ---------
+        tests = {}
+        for enc, flags in encoders.items():
+            argv = ["--synthetic"] + CLI_WIDTH + flags + [
+                "--num_frame_k", str(CLI_K), "--batch_size", "4", "--seed", "13",
+                "--split_root", work, "--workers", "4", "--savename", f"t_{enc}",
+                "--resume", os.path.join("saved_models", f"{enc}_full")]
+            kernels.reset_launches()
+            card, s = _cli_output(cli_test.main, argv)
+            k1 = kernels.LAUNCHES["coattn_attend"]
+            cpu, cpu_s = _cli_output(cli_test.main, argv, platform="cpu")
+            tests[enc] = {"card": cli_metrics(card), "cpu": cli_metrics(cpu),
+                          "card_s": s, "cpu_s": cpu_s, "k1_launches": k1,
+                          **_close(cli_metrics(card), cli_metrics(cpu),
+                                   f"cli.test {enc} card against CPU")}
+            if not k1:
+                raise AssertionError(f"cli.test {enc} launched no K1")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    kernels.reset_launches()
+    launches = {n: sum(r["launches"][n] for r in runs.values())
+                for n in ("coattn_pair", "coattn_attend_bwd")}
+    rec = {"phase": "train_cli", "runs": runs, "resume": resume, "test": tests,
+           "host_data_path": host, "launches": launches,
+           "split": f"synthetic .npy frames, seed 13: train {TCLI_VIDEOS} videos x "
+                    f"{TCLI_FRAMES} frames (augmented), test 2 x {TCLI_FRAMES} (seed 14)",
+           "argv": base, "kind": torch.cuda.get_device_name(dev), "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    return rec
+
+
 # --- the serving path -----------------------------------------------------
 
 SERVE_TICKS = 12                  # the fusion window (5) is full from tick 4
@@ -3656,12 +4087,16 @@ def main(argv=None) -> int:
         return 0
     cases, off_path = timed("kernel", phase_kernel, dev, k6_build)
     prof = dict(profile_dir=args.profile)
-    eval_launches = timed("slice", phase_slice, dev, **prof)["launches"]
+    slice_rec = timed("slice", phase_slice, dev, **prof)
+    eval_launches = slice_rec["launches"]
     int8_launches = timed("int8", phase_int8, dev, **prof)["launches"]
-    train_launches = timed("train", phase_train, dev, **prof)["launches"]
+    train_rec = timed("train", phase_train, dev, **prof)
+    train_launches = train_rec["launches"]
+    bert = timed("bert", phase_bert, dev, slice_rec["timing"], train_rec["timing"])
     serving_launches = timed("serving", phase_serving, dev, **prof)["launches"]
     serving_int8 = timed("serving_int8", phase_serving_int8, dev, **prof)["launches"]
     cli_launches = timed("cli", phase_cli, dev)["launches"]
+    train_cli = timed("train_cli", phase_train_cli, dev)["launches"]
     emit({"phase": "seconds", **seconds})
     if PROFILE_FAILURES:
         raise AssertionError(f"profiles that lost kernels in every trace: {PROFILE_FAILURES}")
@@ -3680,11 +4115,19 @@ def main(argv=None) -> int:
         raise AssertionError(f"a kernel of no path never launched in the kernel phase: "
                              f"{off_path}")
     launches = {**on_paths, **off_path}
+    if not (bert["eval_launches"]["coattn_attend"] and all(train_cli.values())):
+        raise AssertionError(f"a kernel never launched on the BERT or train CLI path: "
+                             f"{bert['eval_launches']}, {train_cli}")
     emit(kernels_line(cases, launches, by_path={
         "coattn_attend": {"eval": eval_launches["coattn_attend"],
+                          "bert_eval": bert["eval_launches"]["coattn_attend"],
                           "int8_eval": int8_launches["coattn_attend"],
                           "cli": cli_launches["coattn_attend"],
                           "int8_serving_k1": serving_int8["k1"]["coattn_attend"]},
+        **{name: {"train": train_launches[name],
+                  "bert_train": bert["train_launches"][name],
+                  "train_cli": train_cli[name]}
+           for name in ("coattn_pair", "coattn_attend_bwd")},
         "coattn_ring": {"serving": serving_launches["coattn_ring"],
                         "int8_serving_multiref": serving_int8["multiref"]["coattn_ring"]},
         **{name: {"int8_eval": int8_launches[name],

@@ -3,10 +3,11 @@
 
 `base_parser` takes the JAX CLIs' flags, `config_from_args` maps them onto
 the port's `DCNetConfig`, `build_dataset` opens the synthetic or the
-reference VID layout, `build_model` makes the model on the CLI's device
-with seeded weights, `splice_backbone_weights` loads a Darknet `.weights`
-file and `restore_weights` a reference `.pth.tar` state_dict or a committed
-lock `.npz`.
+reference VID layout (with the corpus, or BERT's tokenizer without
+`--lstm`), `build_model` makes the model on the CLI's device with seeded
+weights, `splice_backbone_weights` loads a Darknet `.weights` file and
+`restore_weights` the weights of a checkpoint directory of `cli.train`, a
+reference `.pth.tar` or a committed lock `.npz`.
 
 Device: the CLIs run on the CUDA card. `DCNET_PLATFORM=cpu` (the variable
 the JAX CLIs read) runs them on the CPU; without a card and without it they
@@ -25,13 +26,15 @@ import torch
 
 from dcnet_tpu_torch import default_device, not_ported
 from dcnet_tpu_torch.config import DCNetConfig
+from dcnet_tpu_torch.data.bert_tokenize import get_bert_tokenizer
 from dcnet_tpu_torch.data.corpus import Corpus
 from dcnet_tpu_torch.data.synthetic import build_synthetic_corpus, generate_synthetic_vid
 from dcnet_tpu_torch.data.vid import VIDDataset
 from dcnet_tpu_torch.models.darknet import mini_backbone_defs
 from dcnet_tpu_torch.models.dcnet import DCNet
+from dcnet_tpu_torch.train.checkpoint import checkpoint_path, load_reference_checkpoint
 from dcnet_tpu_torch.weights import (
-    load_into, load_lock_into, seeded_init_, splice_darknet_weights)
+    load_lock_into, seeded_init_, splice_darknet_weights)
 
 
 def cli_device() -> torch.device:
@@ -65,8 +68,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="BiLSTM hidden size; the word embedding width "
                         "follows it")
     p.add_argument("--resume", default="", type=str,
-                   help="weights: a reference .pth.tar state_dict or a lock "
-                        ".npz (the layout of tools/lock_pack.py)")
+                   help="a checkpoint directory of cli.train (train: the full "
+                        "state; eval: its weights), or for the eval CLIs a "
+                        "reference .pth.tar or a lock .npz (tools/lock_pack.py)")
     p.add_argument("--pretrain", default="", type=str)
     p.add_argument("--optimizer", default="RMSprop", type=str)
     p.add_argument("--print_freq", "-p", default=100, type=int)
@@ -91,16 +95,21 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="bfloat16 compute dtype")
     p.add_argument("--auto_resume", action="store_true",
                    help="resume from the run's checkpoint dir if present")
-    p.add_argument("--profile_dir", default="", type=str)
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--profile_dir", default="", type=str,
+                   help="write a torch.profiler trace of 3 train steps here")
+    p.add_argument("--multihost", action="store_true",
+                   help="more than one process (not ported: raises)")
     return p
 
 
 def check_ported(args) -> None:
-    """Raise for the shared options the port does not run yet."""
-    if not args.lstm:
-        raise not_ported("the BERT text encoder (run with --lstm)",
-                         "ROADMAP queue A, item 10")
+    """Raise for the shared options the port does not run yet: more than
+    one process or card (distribution is ROADMAP queue A, item 12)."""
+    if args.multihost:
+        raise not_ported("--multihost", "ROADMAP queue A, item 12")
+    if args.devices > 1:
+        raise not_ported(f"--devices {args.devices} (one card only)",
+                         "ROADMAP queue A, item 12")
 
 
 def setup_logging(savename: str, test: bool) -> None:
@@ -124,6 +133,7 @@ def config_from_args(args, corpus_size: int = 0) -> DCNetConfig:
         use_lstm=args.lstm,
         lstm_hidden=args.lstm_hidden,
         word_embedding_size=args.lstm_hidden,
+        bert_model=args.bert_model,
         corpus_size=corpus_size,
         lr=args.lr,
         poly_power=args.power,
@@ -152,25 +162,26 @@ def build_dataset(args, split: str, testmode: bool = False,
             generate_synthetic_vid(
                 root, split, num_videos=8, frames_per_video=8, seed=args.seed)
         corpus = build_synthetic_corpus()
-        ds = VIDDataset(index, corpus, split=split, imsize=args.size,
-                        num_frame_k=k, max_query_len=args.time,
-                        testmode=testmode, image_root=root, seed=args.seed)
-        return ds, corpus
-    index = os.path.join(args.split_root, args.dataset,
-                         f"VID_video_level_{split}.pth")
-    if not os.path.exists(index):
-        alt = index.replace(".pth", ".json")
-        index = alt if os.path.exists(alt) else index
-    corpus = load_corpus(args)
-    ds = VIDDataset(index, corpus, split=split, imsize=args.size,
-                    num_frame_k=k, max_query_len=args.time,
-                    testmode=testmode, image_root=args.data_root,
-                    seed=args.seed)
+        image_root = root
+    else:
+        index = os.path.join(args.split_root, args.dataset,
+                             f"VID_video_level_{split}.pth")
+        if not os.path.exists(index):
+            alt = index.replace(".pth", ".json")
+            index = alt if os.path.exists(alt) else index
+        corpus = load_corpus(args)
+        image_root = args.data_root
+    tok = None if args.lstm else get_bert_tokenizer(args.bert_model)
+    ds = VIDDataset(index, corpus if args.lstm else None, split=split,
+                    imsize=args.size, num_frame_k=k, max_query_len=args.time,
+                    testmode=testmode, image_root=image_root, seed=args.seed,
+                    bert_tokenizer=tok)
     return ds, corpus
 
 
 def load_corpus(args) -> Corpus:
-    """`<split_root>/<dataset>/corpus.pth` (reference pickle) or `.json`."""
+    """`<split_root>/<dataset>/corpus.pth` (reference pickle) or `.json`;
+    the BERT path, which tokenizes with its own ids, runs without one."""
     from dcnet_tpu_torch.data.corpus import load_reference_corpus
 
     path = os.path.join(args.split_root, args.dataset, "corpus.pth")
@@ -178,6 +189,8 @@ def load_corpus(args) -> Corpus:
         return load_reference_corpus(path)
     if os.path.exists(path.replace(".pth", ".json")):
         return Corpus.load(path.replace(".pth", ".json"))
+    if not args.lstm:
+        return Corpus()
     raise FileNotFoundError(path)
 
 
@@ -197,16 +210,15 @@ def splice_backbone_weights(args, model: DCNet) -> DCNet:
 
 
 def restore_weights(path: str, model: DCNet) -> DCNet:
-    """`--resume`: a lock `.npz` or a reference `.pth.tar` / `.pth`
-    checkpoint (its `state_dict`, or the file's dict itself), strictly. An
-    orbax checkpoint directory raises: checkpoints are ROADMAP queue A,
-    item 11."""
+    """`--resume` of the eval CLIs, weights only: a lock `.npz`, a port
+    checkpoint directory (its latest epoch), or one reference `.pth.tar` /
+    `.pth` file (its `state_dict`, or the file's dict itself; BERT
+    LayerNorms as gamma/beta and the pooler taken as the reference wrote
+    them). An orbax checkpoint directory of the JAX package raises."""
     if os.path.isdir(path):
-        raise not_ported(f"restoring the orbax checkpoint directory {path}",
-                         "ROADMAP queue A, item 11")
+        path = checkpoint_path(path)
     if path.endswith(".npz"):
         load_lock_into(model, path, light=model.cfg.light)
         return model
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    load_into(model, ckpt.get("state_dict", ckpt))
+    load_reference_checkpoint(path, model)
     return model

@@ -22,6 +22,7 @@ from dcnet_tpu_torch.cli.common import (
     config_from_args, load_corpus, restore_weights, setup_logging,
     splice_backbone_weights)
 from dcnet_tpu_torch.data.vid import batch_iterator, prefetch_to_device
+from dcnet_tpu_torch.data.bert_tokenize import get_bert_tokenizer
 from dcnet_tpu_torch.eval.metrics import AverageMeter
 from dcnet_tpu_torch.ops.boxes import bbox_iou
 from dcnet_tpu_torch.ops.decode import decode_best, inverse_letterbox
@@ -31,14 +32,15 @@ def _build_single_dataset(args):
     if args.synthetic:  # single frames of the synthetic clips
         return build_dataset(args, "test", testmode=True, num_frame_k=1)
     from dcnet_tpu_torch.data.referit import ReferItDataset
-    check_ported(args)
     index = os.path.join(args.split_root, args.dataset, f"{args.dataset}_test.pth")
     if not os.path.exists(index):
         index = index.replace(".pth", ".json")
     corpus = load_corpus(args)
-    ds = ReferItDataset(index, corpus, dataset=args.dataset, imsize=args.size,
-                        max_query_len=args.time, testmode=True,
-                        image_root=args.data_root)
+    ds = ReferItDataset(index, corpus if args.lstm else None, dataset=args.dataset,
+                        imsize=args.size, max_query_len=args.time, testmode=True,
+                        image_root=args.data_root,
+                        bert_tokenizer=None if args.lstm else get_bert_tokenizer(
+                            args.bert_model))
     return ds, corpus
 
 

@@ -15,6 +15,9 @@ or read from `--quant_params` (written there when the file is missing);
 `eval_clip` of the first clip. `--coattn_batch_refs` and `--coattn_int8`
 select the batched-reference and int8-logit co-attention (einsums, no K1).
 Prints `acc,miou` and, with `--post_process`, `post_process: acc,miou`.
+Without `--lstm` the model reads phrases through the frozen BERT encoder
+(`--bert_model`). `--resume` takes the weights of a checkpoint directory
+of `cli.train` (its latest epoch), a reference `.pth.tar` or a lock `.npz`.
 
 Example (data-free, on the CPU):
     DCNET_PLATFORM=cpu python -m dcnet_tpu_torch.cli.test --synthetic \\

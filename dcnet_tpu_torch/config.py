@@ -63,7 +63,8 @@ class DCNetConfig:
     n_frames_train: int = 2        # train clip length (k=2: the pair kernel)
     n_frames_test: int = 5
     light: bool = False
-    use_lstm: bool = True          # False = BERT text encoder (not ported)
+    use_lstm: bool = True          # False = the frozen BERT text encoder
+    bert_model: str = "bert-base-uncased"
     corpus_size: int = 0           # vocab size when use_lstm
     lstm_hidden: int = 512
     word_embedding_size: int = 512
@@ -100,7 +101,7 @@ class DCNetConfig:
     coattn_multiref: bool = False     # center vs every reference in one K4 launch
     coattn_int8_logits: bool = False  # int8 QK logits, static scale 1/127
     trunk_quant: str = "off"          # trunk convs: off | calib | int8 (PTQ)
-    remat_backbone: bool = False      # not ported yet (ROADMAP queue A, 6)
+    remat_backbone: bool = False      # recompute the backbone in the backward
     tp_internals: bool = False        # not ported yet (ROADMAP queue A, 12)
 
     def __post_init__(self):
@@ -119,7 +120,15 @@ class DCNetConfig:
 
     @property
     def textdim(self) -> int:
-        return 2 * self.lstm_hidden  # BiLSTM output width
+        """The language context's width: the BiLSTM's 2 * hidden, or the
+        BERT geometry's hidden size. (The JAX package's `textdim` says 1024
+        for every BERT name but bert-base-uncased, bert-mini's 128
+        included; flax reads the width off the input, the port's modules
+        are sized from this.)"""
+        if self.use_lstm:
+            return 2 * self.lstm_hidden
+        from dcnet_tpu_torch.models.bert import BertConfig
+        return BertConfig.for_model(self.bert_model).hidden_size
 
     @property
     def strides(self) -> Tuple[int, ...]:

@@ -1,12 +1,13 @@
 """Single-image referring-expression datasets (ReferIt, Flickr, RefCOCO
-family, OTB) for evaluation: the port of `dcnet_tpu/data/referit.py` in
-test mode, on the frame reader of `data/vid.py`.
+family, OTB): the port of `dcnet_tpu/data/referit.py` on the frame
+reader, tokenizers and augmentations of `data/vid.py`.
 
 RefCOCO-family boxes (unc, unc+, gref) arrive as xywh and are converted to
 xyxy. Index: the reference's `{dataset}_{split}.pth` torch pickle or a JSON
-list with the same per-entry tuples. The training augmentations (ROADMAP
-queue A, item 11), the BERT tokenizer (item 10) and the C++ host loader
-(item 13) raise.
+list with the same per-entry tuples. `augment=True` flips, jitters,
+letterboxes and warps as the JAX package does, from a stream seeded by
+(seed, epoch, index). The C++ host loader (ROADMAP queue A, item 13)
+raises.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import numpy as np
 from dcnet_tpu_torch import not_ported
 from dcnet_tpu_torch.data import transforms as T
 from dcnet_tpu_torch.data.corpus import Corpus
-from dcnet_tpu_torch.data.vid import load_index, read_image
+from dcnet_tpu_torch.data.vid import (
+    item_rng, letterbox_box, load_index, read_image, tokenize)
 
 _XYWH_DATASETS = {"unc", "unc+", "gref"}
 
@@ -30,12 +32,10 @@ class ReferItDataset:
         dataset: str = "referit", imsize: int = 256, max_query_len: int = 20,
         augment: bool = False, testmode: bool = False, image_root: str = "",
         seed: int = 13, bert_tokenizer: Optional[Any] = None,
-        use_native: Optional[bool] = None,
+        legacy_hsv: bool = False, use_native: Optional[bool] = None,
     ):
-        if corpus is None or bert_tokenizer is not None:
-            raise not_ported("the BERT tokenizer", "ROADMAP queue A, item 10")
-        if augment:
-            raise not_ported("the training augmentations", "ROADMAP queue A, item 11")
+        if corpus is None and bert_tokenizer is None:
+            raise ValueError("ReferItDataset needs a corpus or a BERT tokenizer")
         if use_native:
             raise not_ported("the C++ host loader (use_native=True)",
                              "ROADMAP queue A, item 13")
@@ -44,8 +44,17 @@ class ReferItDataset:
         self.imsize = imsize
         self.query_len = max_query_len
         self.corpus = corpus
+        self.bert_tokenizer = bert_tokenizer
+        self.augment = augment
+        self.legacy_hsv = legacy_hsv
         self.testmode = testmode
         self.image_root = image_root
+        self.seed = seed
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """Re-draw the augmentation streams."""
+        self._epoch = epoch
 
     def __len__(self) -> int:
         return len(self.entries)
@@ -62,17 +71,25 @@ class ReferItDataset:
         return img_file, bbox, str(phrase)
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
-        img_file, bbox, phrase = self._unpack(self.entries[int(idx)])
+        idx = int(idx)
+        img_file, bbox, phrase = self._unpack(self.entries[idx])
         phrase = phrase.lower()
+        ori_phrase = phrase
         img = read_image(os.path.join(self.image_root, img_file))
-        img, ratio, dw, dh = T.letterbox(img, self.imsize)
-        bbox[[0, 2]] = bbox[[0, 2]] * ratio + dw
-        bbox[[1, 3]] = bbox[[1, 3]] * ratio + dh
-        word_ids = self.corpus.tokenize(phrase, self.query_len)
+        if self.augment:
+            rng = item_rng(self.seed, self._epoch, idx)
+            if rng.random() > 0.5:
+                img, bbox, phrase = T.horizontal_flip(img, bbox, phrase)
+            img = T.hsv_jitter(img, rng, legacy_hsv=self.legacy_hsv)
+        img, ratio, dw, dh = letterbox_box(img, bbox, self.imsize)
+        if self.augment:
+            img, bbox, _, _ = T.random_affine(img, bbox, rng)
+        word_ids, word_mask = tokenize(phrase, self.query_len, self.corpus,
+                                       self.bert_tokenizer)
         out = {
             "images": T.normalize_image(img)[None].astype(np.float32),  # (1,H,W,3)
             "word_ids": word_ids[None].astype(np.int32),
-            "word_mask": np.zeros_like(word_ids)[None].astype(np.int32),
+            "word_mask": word_mask[None].astype(np.int32),
             "bbox": bbox[None].astype(np.float32),
         }
         if self.testmode:
@@ -80,5 +97,5 @@ class ReferItDataset:
             out["dw"] = np.asarray([dw], np.float32)
             out["dh"] = np.asarray([dh], np.float32)
             out["paths"] = [img_file]
-            out["phrases"] = [phrase]
+            out["phrases"] = [ori_phrase]
         return out

@@ -21,15 +21,26 @@ against cv2 pixel for pixel.
 Only uint8 images are resized (every frame the datasets decode is uint8);
 other dtypes raise. The tensor resizes (`crop_resize`, `resize_image`,
 `resize_annotation`) use `F.interpolate` where the JAX package uses
-`jax.image.resize` (bilinear, antialiased when shrinking). The training
-augmentations (flip, HSV jitter, random affine) are not ported yet
-(ROADMAP queue A, item 11).
+`jax.image.resize` (bilinear, antialiased when shrinking).
+
+The training augmentations draw from the numpy Generator in the JAX
+package's order and compute cv2's 8-bit arithmetic (that of cv2 5.0 on
+x86-64): `horizontal_flip` with the left/right phrase swap; `hsv_jitter`
+through `rgb_to_hsv` (cv2's integer tables, hsv_shift 12) and `hsv_to_rgb`
+(cv2's float32 path with its FMAs, truncated in its vector blocks of 32
+pixels a row and rounded in the scalar tail); `random_affine` through
+`rotation_matrix` (getRotationMatrix2D), `warp_perspective` (cv2's float32
+warp kernel: the inverted matrix in float32, FMA coordinates, an FMA
+bilinear blend, the border colour outside) and `wrap_points`. Flip and
+HSV equal cv2 pixel for pixel; the warp is within one level in at most
+1e-4 of the values (`tests/test_torch_augment.py`), the FMAs being
+emulated in float64.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -215,6 +226,229 @@ def denormalize_image(img: np.ndarray) -> np.ndarray:
     """Inverse of normalize_image -> uint8 RGB (for visualization)."""
     out = (img * IMAGENET_STD + IMAGENET_MEAN) * 255.0
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# training augmentations: cv2's 8-bit arithmetic in numpy
+# ---------------------------------------------------------------------------
+
+_HSV_SHIFT = 12                     # cv2's hsv_shift
+
+
+def _div_table(num: float) -> np.ndarray:
+    """cv2's sdiv / hdiv tables: rint(num / i) for i in 1..255, 0 at 0."""
+    i = np.arange(256, dtype=np.float64)
+    with np.errstate(divide="ignore"):
+        t = np.rint(num / i)
+    t[0] = 0
+    return t.astype(np.int64)
+
+
+_SDIV = _div_table(255 << _HSV_SHIFT)
+_HDIV = _div_table((180 << _HSV_SHIFT) / 6.0)
+
+
+def rgb_to_hsv(img: np.ndarray) -> np.ndarray:
+    """`cv2.cvtColor(RGB2BGR -> BGR2HSV)` of a uint8 RGB image: cv2's
+    integer path (H in [0, 180), S and V in [0, 255])."""
+    r, g, b = (img[..., i].astype(np.int64) for i in range(3))
+    v = np.maximum(np.maximum(b, g), r)
+    diff = v - np.minimum(np.minimum(b, g), r)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * _SDIV[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV[diff] + half) >> _HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], axis=-1).astype(np.uint8)
+
+
+# (b, g, r) indices into (v, v(1-s), v(1-sh), v(1-s(1-h))) by sector
+_SECTOR = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+# cv2 5.0 on x86-64 converts each row's pixels in blocks of this many with
+# its vector code and the rest with its scalar code
+_HSV_BLOCK = 32
+
+
+def _fma32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """float32 a * b + c with the product unrounded (an FMA), in float64:
+    the product of two float32 values is exact there."""
+    return (a.astype(np.float64) * b.astype(np.float64) + c).astype(np.float32)
+
+
+def hsv_to_rgb(hsv: np.ndarray) -> np.ndarray:
+    """`cv2.cvtColor(HSV2BGR -> BGR2RGB)` of a uint8 HSV image (H, W, 3):
+    cv2's float32 path (h * 6/180, s and v / 255, the sector table, with
+    FMAs in v (1 - s h) and v (1 - s (1 - h))), each value times 255
+    truncated where cv2's vector code converts it (the first
+    W // 32 * 32 pixels of a row) and rounded half to even in its scalar
+    tail."""
+    f = np.float32
+    h = hsv[..., 0].astype(f) * f(6.0 / 180.0)
+    s = hsv[..., 1].astype(f) * f(1.0 / 255.0)
+    v = hsv[..., 2].astype(f) * f(1.0 / 255.0)
+    sector = np.floor(h).astype(np.int64)
+    h = h - sector.astype(f)
+    one = f(1.0)
+    tab = np.stack([v, v * (one - s), v * _fma32(-s, h, one),
+                    v * _fma32(-s, one - h, one)], -1)
+    bgr = np.take_along_axis(tab, _SECTOR[sector % 6], axis=-1) * f(255.0)
+    vec = np.arange(hsv.shape[-2]) < hsv.shape[-2] // _HSV_BLOCK * _HSV_BLOCK
+    out = np.where(vec[:, None], np.trunc(bgr), np.rint(bgr))
+    return np.clip(out, 0, 255).astype(np.uint8)[..., ::-1]
+
+
+def hsv_jitter(img: np.ndarray, rng: np.random.Generator,
+               fraction: float = 0.50, legacy_hsv: bool = False) -> np.ndarray:
+    """Random saturation and value scaling of a uint8 RGB image. The
+    reference draws the saturation factor but never applies it;
+    `legacy_hsv=True` keeps that no-op (the factor is still drawn, so the
+    draws that follow stay the same)."""
+    img_hsv = rgb_to_hsv(img)
+    s = img_hsv[:, :, 1].astype(np.float32)
+    v = img_hsv[:, :, 2].astype(np.float32)
+    a = (rng.random() * 2 - 1) * fraction + 1
+    if not legacy_hsv:
+        s *= a
+    if a > 1:
+        np.clip(s, 0, 255, out=s)
+    a = (rng.random() * 2 - 1) * fraction + 1
+    v *= a
+    if a > 1:
+        np.clip(v, 0, 255, out=v)
+    img_hsv[:, :, 1] = s.astype(np.uint8)
+    img_hsv[:, :, 2] = v.astype(np.uint8)
+    return hsv_to_rgb(img_hsv)
+
+
+def horizontal_flip(img: np.ndarray, bbox: np.ndarray, phrase: str
+                    ) -> Tuple[np.ndarray, np.ndarray, str]:
+    """Mirror the image and the xyxy box, and swap left and right in the
+    phrase."""
+    w = img.shape[1]
+    img = np.ascontiguousarray(img[:, ::-1])
+    bbox = bbox.copy()
+    bbox[0], bbox[2] = w - bbox[2] - 1, w - bbox[0] - 1
+    phrase = (phrase.replace("right", "*&^special^&*")
+              .replace("left", "right").replace("*&^special^&*", "left"))
+    return img, bbox, phrase
+
+
+def wrap_points(bbox: np.ndarray, M: np.ndarray, height: int,
+                angle: float) -> np.ndarray:
+    """Warp an xyxy box through the affine matrix, shrink it by the
+    reference's angle-based factor and clip it to the image."""
+    points = bbox.astype(np.float64)
+    xy = np.ones((4, 3))
+    xy[:, :2] = points[[0, 1, 2, 3, 0, 3, 2, 1]].reshape(4, 2)
+    xy = (xy @ M.T)[:, :2].reshape(1, 8)
+    x = xy[:, [0, 2, 4, 6]]
+    y = xy[:, [1, 3, 5, 7]]
+    xy = np.concatenate((x.min(1), y.min(1), x.max(1), y.max(1))).reshape(4, 1).T
+    radians = angle * math.pi / 180
+    reduction = max(abs(math.sin(radians)), abs(math.cos(radians))) ** 0.5
+    cx = (xy[:, 2] + xy[:, 0]) / 2
+    cy = (xy[:, 3] + xy[:, 1]) / 2
+    w = (xy[:, 2] - xy[:, 0]) * reduction
+    h = (xy[:, 3] - xy[:, 1]) * reduction
+    xy = np.concatenate((cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2)
+                        ).reshape(4, 1).T
+    np.clip(xy, 0, height, out=xy)
+    return xy[0]
+
+
+def rotation_matrix(center: Tuple[float, float], angle: float,
+                    scale: float) -> np.ndarray:
+    """`cv2.getRotationMatrix2D` (2 x 3, float64; the centre in float32)."""
+    cx, cy = (float(np.float32(c)) for c in center)
+    rad = angle * (math.pi / 180)
+    alpha, beta = math.cos(rad) * scale, math.sin(rad) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def _invert3(m: np.ndarray) -> np.ndarray:
+    """cv2's 3 x 3 `invert` (DECOMP_LU): cofactors times 1 / det, in cv2's
+    order of operations."""
+    (a, b, c), (d, e, f), (g, h, i) = m.tolist()
+    det = a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+    if det == 0:
+        return np.zeros((3, 3))
+    r = 1.0 / det
+    return np.array([[(e * i - f * h) * r, (c * h - b * i) * r, (b * f - c * e) * r],
+                     [(f * g - d * i) * r, (a * i - c * g) * r, (c * d - a * f) * r],
+                     [(d * h - e * g) * r, (b * g - a * h) * r, (a * e - b * d) * r]])
+
+
+def warp_perspective(img: np.ndarray, M: np.ndarray, size: Tuple[int, int],
+                     border_value: Sequence[float]) -> np.ndarray:
+    """`cv2.warpPerspective(img, M, size, flags=INTER_LINEAR,
+    borderMode=BORDER_CONSTANT, borderValue=...)` of a uint8 (H, W, C)
+    image, in the float32 arithmetic of cv2's warp kernels (cv2 >= 4.11):
+    M inverted in double and rounded to float32; each destination pixel's
+    source coordinate x M0 + (y M1 + M2) (an FMA) divided by its w; the
+    four neighbours blended with FMAs, p00 + a (p01 - p00) along x, then
+    along y; a neighbour outside the image takes the border colour; the
+    result rounded half to even."""
+    w, h = int(size[0]), int(size[1])
+    src_h, src_w, c = img.shape
+    m = _invert3(np.asarray(M, np.float64)).reshape(-1).astype(np.float32)
+    x = np.arange(w, dtype=np.float32)[None, :]
+    y = np.arange(h, dtype=np.float32)[:, None]
+
+    def coord(i):
+        return _fma32(x, m[i], y * m[i + 1] + m[i + 2])
+
+    ww = coord(6)
+    sx, sy = coord(0) / ww, coord(3) / ww
+    ix, iy = np.floor(sx), np.floor(sy)
+    ax, ay = (sx - ix)[..., None], (sy - iy)[..., None]
+    ix, iy = ix.astype(np.int64), iy.astype(np.int64)
+    border = _border_value(border_value, c).astype(np.float32)
+
+    def pixel(yy, xx):
+        inside = (yy >= 0) & (yy < src_h) & (xx >= 0) & (xx < src_w)
+        px = img[np.clip(yy, 0, src_h - 1), np.clip(xx, 0, src_w - 1)].astype(np.float32)
+        return np.where(inside[..., None], px, border)
+
+    p00, p01 = pixel(iy, ix), pixel(iy, ix + 1)
+    p10, p11 = pixel(iy + 1, ix), pixel(iy + 1, ix + 1)
+    v0 = _fma32(ax, p01 - p00, p00)
+    v1 = _fma32(ax, p11 - p10, p10)
+    out = np.rint(_fma32(ay, v1 - v0, v0))
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def random_affine(
+    img: np.ndarray, bbox: np.ndarray, rng: np.random.Generator,
+    degrees: Tuple[float, float] = (-5, 5),
+    translate: Tuple[float, float] = (0.10, 0.10),
+    scale: Tuple[float, float] = (0.90, 1.10),
+    shear: Tuple[float, float] = (-2, 2),
+    border_value: Tuple[float, float, float] = PAD_COLOR,
+    M: Optional[np.ndarray] = None, angle: Optional[float] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, float]:
+    """Rotation, scale, translation and shear warp of the image and its
+    box, the draws in the JAX package's order. Pass (M, angle) to share
+    one transform across a clip."""
+    height = max(img.shape[0], img.shape[1])
+    if M is None:
+        a = rng.random() * (degrees[1] - degrees[0]) + degrees[0]
+        s = rng.random() * (scale[1] - scale[0]) + scale[0]
+        R = np.eye(3)
+        R[:2] = rotation_matrix((img.shape[1] / 2, img.shape[0] / 2), a, s)
+        T = np.eye(3)
+        T[0, 2] = (rng.random() * 2 - 1) * translate[0] * img.shape[0]
+        T[1, 2] = (rng.random() * 2 - 1) * translate[1] * img.shape[1]
+        S = np.eye(3)
+        S[0, 1] = math.tan((rng.random() * (shear[1] - shear[0]) + shear[0])
+                           * math.pi / 180)
+        S[1, 0] = math.tan((rng.random() * (shear[1] - shear[0]) + shear[0])
+                           * math.pi / 180)
+        M = S @ T @ R
+        angle = a
+    imw = warp_perspective(img, M, (height, height), border_value)
+    new_bbox = wrap_points(bbox, M, height, angle)
+    return imw, new_bbox, M, angle
 
 
 # The reference's resize transforms that no DCNet path calls, kept for API

@@ -1,19 +1,21 @@
 """VID video-clip grounding dataset and host input pipeline: the port of
-`dcnet_tpu/data/vid.py` for evaluation.
+`dcnet_tpu/data/vid.py`.
 
 - `get_chunks`: sliding windows of `num_frame_k` consecutive frames around
   each center index (train picks one random annotation track per video).
-- `VIDDataset` in test mode: decode -> letterbox -> normalize -> tokenize,
-  plus (ratio, dw, dh, video id, paths, phrases) per frame.
+- `VIDDataset`: decode -> (train: shared flip, per-frame HSV jitter and
+  letterbox, per-frame random affine) -> normalize -> tokenize (the
+  corpus, or BERT's `encode_phrase`), plus in test mode (ratio, dw, dh,
+  video id, paths, phrases) per frame.
 - `batch_iterator`: batches with per-host sharding and optional decode
   threads; `prefetch_to_device`: a background thread that
   copies batches from pinned host memory to the card without blocking.
 
 Frames are read by their extension (`read_image`): `.npy` with numpy, any
 other image file through cv2, which raises a `RuntimeError` naming cv2
-where it is not installed. The training augmentations (ROADMAP queue A,
-item 11), the BERT tokenizer (item 10) and the C++ host loader (item 13)
-are not ported and raise.
+where it is not installed. The augmentations are numpy copies of cv2's
+arithmetic (`data/transforms.py`). The C++ host loader (ROADMAP queue A,
+item 13) is not ported and raises.
 
 Index formats: the reference's torch-pickled `VID_video_level_{split}.pth`
 or a JSON file with the same nesting:
@@ -33,6 +35,7 @@ import torch
 
 from dcnet_tpu_torch import not_ported
 from dcnet_tpu_torch.data import transforms as T
+from dcnet_tpu_torch.data.bert_tokenize import encode_phrase
 from dcnet_tpu_torch.data.corpus import Corpus
 
 # (frame paths, boxes, phrases, video index): the video index keeps temporal
@@ -95,29 +98,57 @@ def get_chunks(videos: List, split: str, num_frame_k: int,
     return chunks
 
 
+def item_rng(seed: int, epoch: int, idx: int) -> np.random.Generator:
+    """The augmentation stream of one item in one epoch."""
+    return np.random.default_rng((seed * 1_000_003 + epoch * 10_007 + idx) % (2 ** 63))
+
+
+def tokenize(phrase: str, query_len: int, corpus: Optional[Corpus],
+             bert_tokenizer: Optional[Any]) -> Tuple[np.ndarray, np.ndarray]:
+    """(word ids, word mask) of a phrase: the corpus's ids with a zero
+    mask, or BERT's `encode_phrase`."""
+    if corpus is not None:
+        ids = corpus.tokenize(phrase, query_len)
+        return ids, np.zeros_like(ids)
+    return encode_phrase(bert_tokenizer, phrase, query_len)
+
+
+def letterbox_box(img: np.ndarray, bbox: np.ndarray, imsize: int):
+    """Letterbox one frame and move its xyxy box with it, in place:
+    returns (img, ratio, dw, dh)."""
+    img, ratio, dw, dh = T.letterbox(img, imsize)
+    bbox[[0, 2]] = bbox[[0, 2]] * ratio + dw
+    bbox[[1, 3]] = bbox[[1, 3]] * ratio + dh
+    return img, ratio, dw, dh
+
+
 class VIDDataset:
     """Map-style clip dataset. `__getitem__` returns numpy arrays ready to
-    stack into a batch."""
+    stack into a batch. The train split augments by default: a flip shared
+    by the clip (with the left/right phrase swap), then per frame HSV
+    jitter and letterbox, then per frame a random affine warp, drawn from
+    a stream seeded by (seed, epoch, index) in the JAX package's order."""
 
     def __init__(
         self, index_path: str, corpus: Optional[Corpus], split: str = "train",
         imsize: int = 256, num_frame_k: int = 2, max_query_len: int = 20,
         augment: Optional[bool] = None, testmode: bool = False,
         image_root: str = "", seed: int = 13,
-        bert_tokenizer: Optional[Any] = None, use_native: Optional[bool] = None,
+        bert_tokenizer: Optional[Any] = None, legacy_hsv: bool = False,
+        use_native: Optional[bool] = None,
     ):
-        if corpus is None or bert_tokenizer is not None:
-            raise not_ported("the BERT tokenizer", "ROADMAP queue A, item 10")
+        if corpus is None and bert_tokenizer is None:
+            raise ValueError("VIDDataset needs a corpus or a BERT tokenizer")
         if use_native:
             raise not_ported("the C++ host loader (use_native=True)",
                              "ROADMAP queue A, item 13")
         self.augment = (split == "train") if augment is None else augment
-        if self.augment:
-            raise not_ported("the training augmentations", "ROADMAP queue A, item 11")
+        self.legacy_hsv = legacy_hsv
         self.imsize = imsize
         self.k = num_frame_k
         self.query_len = max_query_len
         self.corpus = corpus
+        self.bert_tokenizer = bert_tokenizer
         self.testmode = testmode
         self.image_root = image_root
         self.seed = seed
@@ -126,9 +157,10 @@ class VIDDataset:
         self.set_epoch(0)
 
     def set_epoch(self, epoch: int) -> None:
-        """Re-draw the random track picks."""
+        """Re-draw the random track picks and the augmentation streams."""
         rng = np.random.default_rng(self.seed + epoch)
         self.chunks = get_chunks(self._videos, self.split, self.k, rng)
+        self._epoch = epoch
 
     def __len__(self) -> int:
         return len(self.chunks)
@@ -137,23 +169,34 @@ class VIDDataset:
         return read_image(os.path.join(self.image_root, path))
 
     def _tokenize(self, phrase: str) -> Tuple[np.ndarray, np.ndarray]:
-        ids = self.corpus.tokenize(phrase, self.query_len)
-        return ids, np.zeros_like(ids)
+        return tokenize(phrase, self.query_len, self.corpus, self.bert_tokenizer)
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
-        paths, bboxs, phrases, video_id = self.chunks[int(idx)]
+        idx = int(idx)
+        paths, bboxs, phrases, video_id = self.chunks[idx]
         bboxs = [b.copy() for b in bboxs]
         phrases = [p.lower() for p in phrases]
-        imgs, ratios, dws, dhs = [], [], [], []
-        for i, p in enumerate(paths):
-            img, ratio, dw, dh = T.letterbox(self._read_image(p), self.imsize)
-            imgs.append(T.normalize_image(img))
+        ori_phrases = list(phrases)
+        imgs = [self._read_image(p) for p in paths]
+        ratios, dws, dhs = [], [], []
+        if self.augment:
+            rng = item_rng(self.seed, self._epoch, idx)
+            if rng.random() > 0.5:  # one flip for the clip
+                for i in range(self.k):
+                    imgs[i], bboxs[i], phrases[i] = T.horizontal_flip(
+                        imgs[i], bboxs[i], phrases[i])
+        for i in range(self.k):  # (train: per-frame HSV jitter first)
+            if self.augment:
+                imgs[i] = T.hsv_jitter(imgs[i], rng, legacy_hsv=self.legacy_hsv)
+            imgs[i], ratio, dw, dh = letterbox_box(imgs[i], bboxs[i], self.imsize)
             ratios.append(ratio); dws.append(dw); dhs.append(dh)
-            bboxs[i][[0, 2]] = bboxs[i][[0, 2]] * ratio + dw
-            bboxs[i][[1, 3]] = bboxs[i][[1, 3]] * ratio + dh
+        if self.augment:
+            for i in range(self.k):
+                imgs[i], bboxs[i], _, _ = T.random_affine(imgs[i], bboxs[i], rng)
         ids_masks = [self._tokenize(p) for p in phrases]
         out = {
-            "images": np.stack(imgs).astype(np.float32),     # (k, H, W, 3)
+            "images": np.stack([T.normalize_image(im) for im in imgs]
+                               ).astype(np.float32),         # (k, H, W, 3)
             "word_ids": np.stack([im[0] for im in ids_masks]).astype(np.int32),
             "word_mask": np.stack([im[1] for im in ids_masks]).astype(np.int32),
             "bbox": np.stack(bboxs).astype(np.float32),
@@ -164,7 +207,7 @@ class VIDDataset:
             out["dh"] = np.asarray(dhs, np.float32)
             out["video_id"] = np.asarray(video_id, np.int32)
             out["paths"] = paths
-            out["phrases"] = phrases
+            out["phrases"] = ori_phrases
         return out
 
 

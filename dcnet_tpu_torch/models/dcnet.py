@@ -27,6 +27,11 @@ in one batched einsum and keeps them stacked through the split corr_conv,
 (both torch products, no kernel, as in JAX), and `cfg.trunk_quant` sets the
 int8 mode of mapping_visu, corr_conv and the fusion FCNs' ConvBNReLUs
 (static-scale PTQ through kernel K6; `ops/quant.py` calibrates it).
+The language encoder is the BiLSTM (`cfg.use_lstm`) or the frozen BERT
+(`models/bert.py`, sized by `cfg.bert_model`); on the BERT path the
+cross-modal branch reads BERT's projected `embedded` where the BiLSTM's
+halved context goes. `cfg.remat_backbone` recomputes the backbone in the
+backward (`torch.utils.checkpoint`), its BatchNorm statistics moved once.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dcnet_tpu_torch import DeviceLike, resolve_device, resolve_dtype
 from dcnet_tpu_torch import not_ported as _not_ported
@@ -44,11 +50,12 @@ from dcnet_tpu_torch.kernels.coattn import (
     coattention_center_fused, coattention_pair_fused, coattention_ring_fused,
     ring_slots)
 from dcnet_tpu_torch.models.attention import PhraseAttention
+from dcnet_tpu_torch.models.bert import BertEncoder
 from dcnet_tpu_torch.models.darknet import (
     DarknetBackbone, LayerDef, yolov3_layer_defs)
 from dcnet_tpu_torch.models.heads import (
     ConvBNReLU, DenseBNReLU, MappingLang, build_fusion_fcn, fusion_fcn,
-    l2_normalize, tile_language)
+    l2_normalize, running_stats_frozen, tile_language)
 from dcnet_tpu_torch.models.lstm import BiLSTMEncoder
 from dcnet_tpu_torch.ops.coattention import (
     coattention_center, coattention_center_batched)
@@ -86,12 +93,8 @@ class DCNet(nn.Module):
                  backbone_defs: Optional[Sequence[LayerDef]] = None,
                  device: DeviceLike = None):
         super().__init__()
-        if not cfg.use_lstm:
-            raise _not_ported("the BERT text encoder", "ROADMAP queue A, item 10")
         if cfg.trunk_quant not in ("off", "calib", "int8"):
             raise ValueError(f"trunk_quant is off, calib or int8, not {cfg.trunk_quant!r}")
-        if cfg.remat_backbone:
-            raise _not_ported("remat_backbone", "ROADMAP queue A, item 6")
         if cfg.tp_internals:
             raise _not_ported("tp_internals", "ROADMAP queue A, item 12")
         device = resolve_device(device)
@@ -103,9 +106,13 @@ class DCNet(nn.Module):
         captured = [ld.in_filters for ld in defs if ld.type == "yoloconvolutional"]
 
         self.visumodel = DarknetBackbone(defs, device=device)
-        self.textmodel = BiLSTMEncoder(
-            cfg.corpus_size, cfg.word_embedding_size, textdim // 2,
-            textdim // 2, cfg.input_dropout, dtype=dt, device=device)
+        if cfg.use_lstm:
+            self.textmodel = BiLSTMEncoder(
+                cfg.corpus_size, cfg.word_embedding_size, textdim // 2,
+                textdim // 2, cfg.input_dropout, dtype=dt, device=device)
+        else:  # frozen body; `proj` maps its context to emb_size
+            self.textmodel = BertEncoder(cfg.bert_model, proj_dim=emb,
+                                         dtype=dt, device=device)
         self.sub_attn = PhraseAttention(textdim, dtype=dt, device=device)
         self.loc_attn = PhraseAttention(textdim, dtype=dt, device=device)
         self.loc_embedding = DenseBNReLU(8, 8, dtype=dt, device=device)
@@ -288,6 +295,24 @@ class DCNet(nn.Module):
     # training forward: interleaved k-frame clips
     # ------------------------------------------------------------------
 
+    def _backbone(self, images: torch.Tensor, train: bool) -> List[torch.Tensor]:
+        """The backbone's three captured maps. With cfg.remat_backbone and
+        gradients on, its activations are recomputed in the backward
+        (`torch.utils.checkpoint`) instead of kept; the recompute leaves
+        the BatchNorm running statistics as the forward left them."""
+        if not (self.cfg.remat_backbone and torch.is_grad_enabled()):
+            return self.visumodel(images, self.dtype, train=train)
+        calls = []
+
+        def run(x):
+            calls.append(None)
+            if len(calls) == 1:
+                return tuple(self.visumodel(x, self.dtype, train=train))
+            with running_stats_frozen(self.visumodel):
+                return tuple(self.visumodel(x, self.dtype, train=train))
+
+        return list(checkpoint(run, images, use_reentrant=False))
+
     def forward(self, images: torch.Tensor, word_ids: torch.Tensor,
                 train: bool = True,
                 generator: Optional[torch.Generator] = None) -> TrainOutputs:
@@ -304,8 +329,7 @@ class DCNet(nn.Module):
         bk = images.shape[0]
         b = bk // k_frames
         t = cfg.coattn_temperature
-        fvisu = self.map_features(
-            self.visumodel(images, self.dtype, train=train), train)
+        fvisu = self.map_features(self._backbone(images, train), train)
 
         corr_feat = []
         if k_frames == 2:
@@ -344,7 +368,9 @@ class DCNet(nn.Module):
         # softmaxed over words
         vit = l2_normalize(fvisu[0].reshape(bk, -1, cfg.emb_size).transpose(1, 2),
                            dim=2)                          # (kB, C, P)
-        lang = l2_normalize(context[:, :, ::2], dim=1)     # (kB, L, C)
+        # the BiLSTM's context halved by nearest x0.5; BERT's projection
+        lang = l2_normalize(context[:, :, ::2] if cfg.use_lstm else embedded,
+                            dim=1)                         # (kB, L, C)
         wp_map = torch.einsum("blc,bcp->blp", lang, vit.to(lang.dtype))
         conv = self.feature_map[0]
         wp_map = torch.softmax(F.conv1d(wp_map, conv.weight.to(wp_map.dtype),

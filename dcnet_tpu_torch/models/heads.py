@@ -15,6 +15,7 @@ carries the static-scale int8 modes of the JAX package's QuantConv2D
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -56,6 +57,23 @@ def bn_eval(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tenso
     return y.movedim(1, -1)
 
 
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module):
+    """Inside it `bn_train` leaves the running statistics of `module`'s
+    BatchNorms as they are: the backbone's recompute under
+    `remat_backbone` runs the forward a second time, and one step must
+    move them once, as flax's `nn.remat` does. A flag on each BatchNorm,
+    not on the thread: autograd may recompute on its own thread."""
+    bns = [m for m in module.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    for bn in bns:
+        bn.stats_frozen = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.stats_frozen = False
+
+
 def bn_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
     """Training BatchNorm over the last axis: normalises with the batch
     mean and the *biased* batch variance (fp32 math, output in x's dtype),
@@ -85,6 +103,8 @@ def bn_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tens
             x.movedim(-1, 1), bn.weight, bn.bias, None, None, True, 0.0, bn.eps)
         y = y.movedim(1, -1)
         var = torch.clamp(invstd.detach().double().pow(-2) - bn.eps, min=0.0)
+    if getattr(bn, "stats_frozen", False):
+        return y
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.mul_(1 - m).add_(mean.to(bn.running_mean.dtype), alpha=m)

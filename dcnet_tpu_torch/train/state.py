@@ -36,8 +36,12 @@ def poly_epoch_factor(nb_epoch: int, power: float,
 
 
 def param_groups(model: nn.Module, cfg: DCNetConfig) -> List[Dict]:
-    """The backbone group at lr * backbone_lr_scale, the rest at lr."""
-    named = list(model.named_parameters())
+    """The backbone group at lr * backbone_lr_scale, the rest at lr. A
+    frozen parameter (the BERT body: `requires_grad` False) is in no group,
+    so no step moves it, weight decay included: the JAX package forces
+    its update to zero (`_frozen_mask`), and torch's RMSprop would apply
+    `wd * p` to a zero gradient."""
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     return [
         {"params": [p for n, p in named if n.startswith("visumodel.")],
          "lr": cfg.lr * cfg.backbone_lr_scale},

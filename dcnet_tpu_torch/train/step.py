@@ -77,7 +77,7 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
         # a parameter outside the loss's graph (feature_map only smooths the
         # map the top-k indices are read from) gets a zero gradient, as in
         # JAX, so weight decay still moves it as optax moves it
-        if prm.grad is None:
+        if prm.requires_grad and prm.grad is None:
             prm.grad = torch.zeros_like(prm)
     state.optimizer.step()
     state.schedule.step()

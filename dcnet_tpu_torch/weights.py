@@ -5,7 +5,10 @@ splicing.
 `state_dict_from_jax` is the port's own numpy-only copy of the key map and
 layout transposes of `dcnet_tpu/train/checkpoint.py` (export direction):
 it turns the JAX package's numpy `params` / `batch_stats` trees into the
-reference state_dict the port's modules are named after.
+reference state_dict the port's modules are named after; the BERT body
+goes to the HuggingFace names under `textmodel.` (the inverse of
+`dcnet_tpu/models/bert.py::convert_hf_bert_params`), its `proj` to
+`textmodel.proj`.
 
     flax -> torch layouts: Dense kernel (I, O) -> Linear weight (O, I);
     Conv kernel HWIO -> (O, I, kH, kW); Conv1d kernel (k, I, O) -> (O, I, k);
@@ -112,6 +115,16 @@ def _key_map(params: Mapping[str, Any], light: bool) -> Dict[str, Spec]:
             table[f"textmodel.rnn.bias_{gate}_l0{tdir}"] = (
                 "params", ("textmodel", f"{ours}_b_{gate}"), None)
 
+    # frozen BERT body (HF names under textmodel.) and its trained proj
+    bert = params.get("textmodel", {}).get("bert", {})
+    if "proj" in params.get("textmodel", {}):
+        table["textmodel.proj.weight"] = ("params", ("textmodel", "proj", "kernel"), _lin)
+        table["textmodel.proj.bias"] = ("params", ("textmodel", "proj", "bias"), None)
+    if bert:
+        for k, leaf in bert_key_map(bert).items():
+            kind, path, fn = leaf
+            table["textmodel." + k] = (kind, ("textmodel", "bert") + path, fn)
+
     # attention and location heads
     for name in ("sub_attn", "loc_attn"):
         table[f"{name}.fc.weight"] = ("params", (name, "fc", "kernel"), _lin)
@@ -136,6 +149,37 @@ def _key_map(params: Mapping[str, Any], light: bool) -> Dict[str, Spec]:
         plain_out = f"fcn_out.{s}.0" if light else f"fcn_out.{s}.1"
         table[f"{plain_out}.weight"] = ("params", (fcn, "out1", "kernel"), _conv2d)
         table[f"{plain_out}.bias"] = ("params", (fcn, "out1", "bias"), None)
+    return table
+
+
+def bert_key_map(bert: Mapping[str, Any]) -> Dict[str, Spec]:
+    """HF BertModel key -> ('params', path in the JAX BertModel tree,
+    layout fn), for the layers `bert` holds: the inverse of the JAX
+    package's `convert_hf_bert_params`."""
+    table: Dict[str, Spec] = {}
+
+    def lin(key, path):
+        table[f"{key}.weight"] = ("params", path + ("kernel",), _lin)
+        table[f"{key}.bias"] = ("params", path + ("bias",), None)
+
+    def ln(key, path):
+        table[f"{key}.weight"] = ("params", path + ("scale",), None)
+        table[f"{key}.bias"] = ("params", path + ("bias",), None)
+
+    for name in ("word", "position", "token_type"):
+        table[f"embeddings.{name}_embeddings.weight"] = (
+            "params", (f"{name}_embeddings", "embedding"), None)
+    ln("embeddings.LayerNorm", ("embeddings_layernorm",))
+    n_layers = sum(1 for k in bert if re.fullmatch(r"layer_\d+", k))
+    for i in range(n_layers):
+        p, j = f"encoder.layer.{i}", (f"layer_{i}",)
+        for qkv in ("query", "key", "value"):
+            lin(f"{p}.attention.self.{qkv}", j + ("attention_self", qkv))
+        lin(f"{p}.attention.output.dense", j + ("attention_output",))
+        ln(f"{p}.attention.output.LayerNorm", j + ("attention_layernorm",))
+        lin(f"{p}.intermediate.dense", j + ("intermediate",))
+        lin(f"{p}.output.dense", j + ("output",))
+        ln(f"{p}.output.LayerNorm", j + ("output_layernorm",))
     return table
 
 
@@ -199,6 +243,9 @@ def seeded_init_(model: nn.Module, seed: int = 0) -> nn.Module:
             put(m.running_var, 0.5 + torch.rand(n, generator=g))
         elif isinstance(m, nn.Embedding):
             put(m.weight, torch.randn(m.weight.shape, generator=g))
+        elif isinstance(m, nn.LayerNorm):
+            put(m.weight, 1 + 0.1 * torch.randn(m.weight.shape, generator=g))
+            put(m.bias, 0.1 * torch.randn(m.bias.shape, generator=g))
         elif isinstance(m, nn.LSTM):
             bound = 1.0 / math.sqrt(m.hidden_size)
             for p in m.parameters():
@@ -227,8 +274,12 @@ def read_lock_npz(path: str) -> Tuple[Dict[str, Any], Dict[str, Any], Dict[str, 
     meta = json.loads(str(z["__meta__"])) if "__meta__" in z.files else {}
     if meta.get("bert"):
         raise NotImplementedError(
-            f"{path} is a BERT lock; the BERT text encoder is not ported to "
-            "dcnet_tpu_torch yet (ROADMAP queue A, item 10)")
+            f"{path} is a BERT lock: it leaves out the frozen BERT body, which "
+            "the JAX package regenerates from flax's seed-13 init (checked "
+            "against __meta__['frozen_fingerprint']) and the port cannot "
+            "regenerate without JAX. Restore it with the JAX package "
+            "(tools/lock_pack.py unpack), then carry the trees across with "
+            "dcnet_tpu_torch.weights.state_dict_from_jax")
     trees: Dict[str, Dict[str, Any]] = {"params": {}, "bstats": {}}
     for key in z.files:
         kind, _, rest = key.partition("/")

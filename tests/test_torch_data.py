@@ -265,11 +265,26 @@ def test_read_image_names_the_missing_decoder(tmp_path, monkeypatch):
     (dict(augment=True), "11"), (dict(use_native=True), "13"),
     (dict(bert_tokenizer=object()), "10")])
 def test_unported_dataset_options_raise(synthetic32, kwargs, item):
+    """The C++ host loader (item 13) raises; the augmentations (item 11)
+    and the BERT tokenizer (item 10) are ported (held against the JAX
+    package in tests/test_torch_augment.py): the datasets build and give
+    an item."""
     index = os.path.join(synthetic32, "VID_video_level_test.json")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        VIDDataset(index, psynthetic.build_synthetic_corpus(), split="test", **kwargs)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        ReferItDataset(index, psynthetic.build_synthetic_corpus(), **kwargs)
+    corpus = psynthetic.build_synthetic_corpus()
+    if item == "13":
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            VIDDataset(index, corpus, split="test", **kwargs)
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            ReferItDataset(index, corpus, **kwargs)
+        return
+    if item == "10":
+        from dcnet_tpu_torch.data.bert_tokenize import get_bert_tokenizer
+        kwargs, corpus = dict(bert_tokenizer=get_bert_tokenizer()), None
+    ds = VIDDataset(index, corpus, split="test", image_root=synthetic32,
+                    imsize=64, **kwargs)
+    item0 = ds[0]
+    assert item0["images"].shape == (2, 64, 64, 3) and item0["word_ids"].any()
+    ReferItDataset(index, corpus, **kwargs).set_epoch(1)
 
 
 def test_corpus_matches_jax(tmp_path):

@@ -18,7 +18,8 @@ from dcnet_tpu_torch.models.dcnet import DCNet
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "dcnet_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dcnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dcnet_tpu",
+             "transformers", "grain")
 
 
 def _port_modules():
@@ -36,7 +37,10 @@ def test_importing_the_port_loads_no_jax():
     mods = _port_modules() + ["chip_smoke", "kernel_timing"]
     assert {"dcnet_tpu_torch.cli.test", "dcnet_tpu_torch.data.vid",
             "dcnet_tpu_torch.eval.ref_cache", "dcnet_tpu_torch.ops.quant",
-            "dcnet_tpu_torch.kernels.conv_s8"} <= set(mods)
+            "dcnet_tpu_torch.kernels.conv_s8", "dcnet_tpu_torch.cli.train",
+            "dcnet_tpu_torch.models.bert", "dcnet_tpu_torch.data.bert_tokenize",
+            "dcnet_tpu_torch.data.grain_pipeline", "dcnet_tpu_torch.losses_extra",
+            "dcnet_tpu_torch.train.checkpoint"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -59,7 +63,7 @@ def test_importing_the_cli_data_and_eval_modules_loads_no_cv2():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
-@pytest.mark.parametrize("cli", ["test", "eval_single", "post_process"])
+@pytest.mark.parametrize("cli", ["test", "eval_single", "post_process", "train"])
 def test_cli_main_raises_without_cuda(cli, tmp_path, monkeypatch):
     """Without DCNET_PLATFORM=cpu a CLI runs on the card, and raises where
     there is none."""
@@ -75,7 +79,8 @@ def test_cli_main_raises_without_cuda(cli, tmp_path, monkeypatch):
 
 def test_sources_import_no_jax():
     pattern = re.compile(
-        r"^\s*(?:import|from)\s+(?:jax|jaxlib|flax|optax|orbax|dcnet_tpu)(?:[.\s]|$)",
+        r"^\s*(?:import|from)\s+"
+        r"(?:jax|jaxlib|flax|optax|orbax|dcnet_tpu|transformers|grain)(?:[.\s]|$)",
         re.M)
     files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "kernel_timing.py")]
     for root, dirs, names in os.walk(PKG):

@@ -215,17 +215,14 @@ def test_bfloat16_eval_clip_matches_jax(pair, monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(use_lstm=False), dict(trunk_quant="int8"),
+    dict(use_lstm=False, bert_model="bert-mini"), dict(trunk_quant="int8"),
     dict(coattn_batch_refs=True), dict(coattn_int8_logits=True)])
 def test_unported_options_raise(option):
-    """The BERT encoder still raises; the int8 trunk and the co-attention
-    variants are ported (held against JAX in tests/test_torch_quant.py):
-    the model builds and its eval_clip gives finite outputs."""
+    """The BERT encoder, the int8 trunk and the co-attention variants are
+    ported (held against JAX in tests/test_torch_bert.py and
+    tests/test_torch_quant.py): the model builds and its eval_clip gives
+    finite outputs."""
     cfg = DCNetConfig(**SMALL, **option)
-    if "use_lstm" in option:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            DCNet(cfg, backbone_defs=mini_backbone_defs(), device="cpu")
-        return
     model = DCNet(cfg, backbone_defs=mini_backbone_defs(), device="cpu")
     images, ids = clip_inputs()
     out = model.eval_clip(torch.from_numpy(images), torch.from_numpy(ids))
