@@ -7,6 +7,9 @@
     python3 chip_smoke.py --cli-pace      # device and build phases, then
                                           # only the eval CLI's pace over
                                           # longer splits (phase_cli_pace)
+    python3 chip_smoke.py --only export,serve_cli
+                                          # device and build phases, then
+                                          # only the named phases
 
 Phases, each printing JSON lines, any failure exiting non-zero:
   1. device  -- the card (nvidia-smi name and power limit), torch/CUDA
@@ -149,6 +152,29 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      CPU (acc 1e-6, mIoU 2e-3). s/step, the card's busy share over the
      --lstm run's epochs (torch.profiler) and the host data path's time
      per augmented clip.
+  9. export -- the serving bundle (`serving/export.py`): the serving
+     phase's bf16 model at 120 streams exported (torch.export, the slot a
+     dynamic input, the kernels as `dcnet::` operators) as a float engine
+     with int8 rings on K4, a float K1 engine, and after `quantize()`
+     with int8 rings; the bundles loaded and served in a fresh process
+     that imports no model module, 12 ticks on the live engine's seeded
+     frames: raw and fused boxes and scores within 1e-4 of the live
+     engine and the same launches every tick (K4 3, or K1 12; K6 95 and
+     the quantize passes after `quantize()`); export and load seconds,
+     s/tick beside the live engine's.
+  10. serve_cli -- cli/serve.py in-process at full width (Darknet-53 from
+     a seeded `.weights` file, 256 px, emb 512) on --synthetic streams of
+     `.npy` frames: BiLSTM and BERT, float and --quant, 4 fp32 streams x 6
+     ticks, card against CPU (float boxes and scores 1e-3 each tick;
+     --quant by `serve_cells_held`), K1 12
+     (and K6 95 after --quant) launches a tick; --state_file stopped at
+     tick 3 and resumed against the uninterrupted run; --export_bundle;
+     predictions/s at 16 streams, float and --quant.
+  11. ddp -- a NCCL group of one on the card: one fp32 train step through
+     DistributedDataParallel against the plain step from the same weights
+     (bitwise, deterministic algorithms), and `cli/train.py --devices 1`
+     against the plain run (within twice a repeated plain run's spread).
+     Two cards cannot run on a one-card machine (the phase says so).
 Then the seconds of each phase, the `kernels` line (K1's launches per
 path, K2's and K3's per path), the nvidia-smi line, and
 as the last line
@@ -3960,6 +3986,711 @@ def phase_cli_pace(dev) -> dict:
     return rec
 
 
+# --- the serving bundle, the serve CLI and data parallelism ------------------
+
+EXPORT_TICKS = 12                 # every slot value of the 5-frame ring twice
+EXPORT_TOL = 1e-4                 # runtime against the live engine (tests/test_serving.py)
+EXPORT_SEED = 11
+SERVE_CLI_STREAMS, SERVE_CLI_TICKS = 4, 6
+SERVE_CLI_PACE = (16, 24)         # streams, ticks of the predictions/s runs
+
+# the bundle's runtime in a fresh process: loads each bundle of the spec,
+# serves the spec's seeded frames tick by tick (launches per tick), times
+# chains of ticks as the serving phase does, and reports the modules of
+# dcnet_tpu_torch it imported
+_RUNTIME_WORKER = r"""
+import json, sys, time
+import numpy as np, torch
+from dcnet_tpu_torch import kernels
+from dcnet_tpu_torch.serving.export import ServingRuntime
+
+spec = json.loads(open(sys.argv[1]).read())
+dev = torch.device(spec["device"])
+torch.backends.cuda.matmul.allow_tf32 = False   # as the device phase sets them
+torch.backends.cudnn.allow_tf32 = False
+
+
+def sync():
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+ids = torch.from_numpy(np.load(spec["ids"])).to(dev)
+out, report = {}, {}
+for name, path in spec["bundles"].items():
+    t0 = time.perf_counter()
+    rt = ServingRuntime(path, device=dev)
+    sync()
+    load_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    n, size = spec["streams"], spec["size"]
+    state = rt.init_state(ids)
+    per_tick = []
+    for t in range(spec["ticks"]):
+        frames = torch.rand((n, size, size, 3), generator=gen, device=dev)
+        before = dict(kernels.LAUNCHES)
+        state, fused, raw, score = rt.step(state, frames)
+        per_tick.append({k: kernels.LAUNCHES[k] - before[k] for k in before})
+        for k, v in (("fused", fused), ("raw", raw), ("score", score)):
+            out[f"{name}/{k}/{t}"] = v.float().cpu().numpy()
+    frames = torch.rand((n, size, size, 3), generator=gen, device=dev)
+    for _ in range(spec["warmup"]):
+        state, *_ = rt.step(state, frames)
+    chains = []
+    for _ in range(spec["chains"]):
+        sync()
+        t1 = time.perf_counter()
+        for _ in range(spec["chain_ticks"]):
+            state, *_ = rt.step(state, frames)
+        sync()
+        chains.append((time.perf_counter() - t1) / spec["chain_ticks"])
+    report[name] = {"load_s": load_s, "launches_per_tick": per_tick,
+                    "s_per_tick": float(np.median(chains)), "s_per_tick_chains": chains}
+    del rt, state
+np.savez(spec["out"], **out)
+report["modules"] = sorted(m for m in sys.modules if m.startswith("dcnet_tpu_torch"))
+print(json.dumps(report))
+"""
+
+
+def _timed_ticks(step, state, frames, sync) -> tuple:
+    """The serving phase's timing: WARMUP_TICKS, then the median of
+    TIMED_CHAINS chains of CHAIN_TICKS ticks: (state, s/tick, chains)."""
+    for _ in range(WARMUP_TICKS):
+        state, *_ = step(state, frames)
+    chains = []
+    for _ in range(TIMED_CHAINS):
+        sync()
+        t1 = time.perf_counter()
+        for _ in range(CHAIN_TICKS):
+            state, *_ = step(state, frames)
+        sync()
+        chains.append((time.perf_counter() - t1) / CHAIN_TICKS)
+    return state, float(np.median(chains)), chains
+
+
+def _per_tick_equal(got: list, want: list, first_tick_pads: bool) -> list:
+    """Ticks whose launches differ. On the first tick the runtime pads its
+    constant weights once where the live engine's were padded before (by
+    the export's warm-up), so there its quantize passes may exceed the
+    live engine's; every other count, and every count of a later tick,
+    is equal."""
+    bad = []
+    for t, (g, w) in enumerate(zip(got, want)):
+        keys = [k for k in g if not (t == 0 and first_tick_pads and k == "conv_s8_quant")]
+        if any(g[k] != w[k] for k in keys) or (
+                t == 0 and g["conv_s8_quant"] < w["conv_s8_quant"]):
+            bad.append({"tick": t, "runtime": g, "live": w})
+    return bad
+
+
+def phase_export(dev) -> dict:
+    """The serving bundle on the card (`serving/export.py`): the serving
+    phase's full-width bf16 model at 120 streams, exported as a float
+    engine with int8 rings on K4, as a float K1 engine, and after
+    `quantize()` (int8 backbone and trunk) with int8 rings on K4; each
+    bundle loaded and served in one fresh process that imports no model
+    module (`_RUNTIME_WORKER`), EXPORT_TICKS ticks on the live engine's
+    seeded frames: raw and fused boxes and scores within EXPORT_TOL of the
+    live engine each tick, the same launches each tick (`_per_tick_equal`);
+    export and load seconds, s/tick of the runtime beside the live
+    engine's (timed before the export, the ratio's base, and after it)."""
+    import shutil
+    import tempfile
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.serving.engine import GroundingEngine, cast_params_for_serving
+    from dcnet_tpu_torch.serving.export import export_engine
+
+    cfg = serving_config(compute_dtype="bfloat16", coattn_multiref=True)
+    size, n = cfg.image_size, SERVE_STREAMS
+    model, defs, setup_s = seeded_model(cfg, dev)
+    cast_params_for_serving(model)
+    k1_model = DCNet(cfg.replace(coattn_multiref=False), backbone_defs=defs, device=dev)
+    k1_model.load_state_dict(model.state_dict())
+    ids = _phrases(np.random.RandomState(3), cfg, n)
+    work = tempfile.mkdtemp(prefix="dcnet_export_")
+    np.save(os.path.join(work, "ids.npy"), ids.numpy())
+    ids = ids.to(dev)
+    variants, live = {}, {}
+    try:
+        for name in ("float", "k1", "quantized"):
+            if name == "quantized":
+                t0 = time.perf_counter()
+                gen = torch.Generator(device=dev).manual_seed(3)
+                calib = torch.rand((16, size, size, 3), generator=gen, device=dev)
+                eng = GroundingEngine(model, n, int8_rings=True).quantize(calib, ids[:1])
+                torch.cuda.synchronize()
+                quantize_s = time.perf_counter() - t0
+            else:
+                eng = GroundingEngine(k1_model if name == "k1" else model, n,
+                                      int8_rings=name == "float")
+            # the live engine's s/tick before the export too: the runtime is
+            # held against it, and the reading after the export shows the
+            # tick's spread within one process
+            pre = torch.rand((n, size, size, 3), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(EXPORT_SEED + 1))
+            _, before_s, before_chains = _timed_ticks(eng.step, eng.init_state(ids), pre,
+                                                      torch.cuda.synchronize)
+            del pre
+            t0 = time.perf_counter()
+            meta = export_engine(eng, os.path.join(work, name))
+            export_s = time.perf_counter() - t0
+            gen = torch.Generator(device=dev).manual_seed(EXPORT_SEED)
+            state, per_tick, outs = _serve(eng, ids, EXPORT_TICKS, lambda _t: torch.rand(
+                (n, size, size, 3), generator=gen, device=dev))
+            live[name] = {"per_tick": per_tick,
+                          "outs": [[x.float().cpu() for x in o] for o in outs]}
+            frames = torch.rand((n, size, size, 3), generator=gen, device=dev)
+            _, s_tick, chains = _timed_ticks(eng.step, state, frames, torch.cuda.synchronize)
+            variants[name] = {"export_s": export_s, "live_s_per_tick": s_tick,
+                              "live_s_per_tick_chains": chains,
+                              "live_before_export_s_per_tick": before_s,
+                              "live_before_export_chains": before_chains, "meta": meta,
+                              "bundle_mib": sum(os.path.getsize(os.path.join(work, name, f))
+                                                for f in os.listdir(os.path.join(work, name)))
+                              / 2**20}
+            if name == "quantized":
+                variants[name]["quantize_s"] = quantize_s
+            del state, eng, outs
+        kernels.reset_launches()
+        spec = {"bundles": {k: os.path.join(work, k) for k in variants}, "device": str(dev),
+                "ids": os.path.join(work, "ids.npy"), "seed": EXPORT_SEED,
+                "streams": n, "size": size, "ticks": EXPORT_TICKS,
+                "warmup": WARMUP_TICKS, "chains": TIMED_CHAINS, "chain_ticks": CHAIN_TICKS,
+                "out": os.path.join(work, "served.npz")}
+        with open(os.path.join(work, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _RUNTIME_WORKER,
+                               os.path.join(work, "spec.json")], capture_output=True,
+                              text=True, timeout=600, cwd=os.path.dirname(
+                                  os.path.abspath(__file__)))
+        worker_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the runtime process failed: {proc.stderr[-3000:]}")
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        served = np.load(spec["out"])
+        models = [m for m in report["modules"] if m.startswith("dcnet_tpu_torch.models")
+                  or m == "dcnet_tpu_torch.serving.engine"]
+        if models:
+            raise AssertionError(f"the runtime process imported model code: {models}")
+        for name, v in variants.items():
+            worst = 0.0
+            for t, want in enumerate(live[name]["outs"]):
+                for k, w in zip(("fused", "raw", "score"), want):
+                    worst = max(worst, float(np.abs(served[f"{name}/{k}/{t}"]
+                                                    - w.numpy()).max()))
+            if worst > EXPORT_TOL:
+                raise AssertionError(f"export {name}: the runtime is {worst} from the "
+                                     f"live engine (limit {EXPORT_TOL})")
+            rt = report[name]
+            bad = _per_tick_equal(rt["launches_per_tick"], live[name]["per_tick"],
+                                  first_tick_pads=name == "quantized")
+            if bad:
+                raise AssertionError(f"export {name}: launches differ: {bad[:2]}")
+            v.update(max_abs_diff=worst, load_s=rt["load_s"],
+                     runtime_s_per_tick=rt["s_per_tick"],
+                     runtime_s_per_tick_chains=rt["s_per_tick_chains"],
+                     runtime_over_live=rt["s_per_tick"] / v["live_before_export_s_per_tick"],
+                     live_after_over_before_export=(v["live_s_per_tick"]
+                                                    / v["live_before_export_s_per_tick"]),
+                     launches_per_tick=rt["launches_per_tick"][-1],
+                     launches=_sum_counts(rt["launches_per_tick"]))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    kernels.reset_launches()
+    rec = {"phase": "export", "model": "the serving phase's (bf16, cast for serving, 120 "
+           "streams, rotating rings, split_corr_conv off)", "setup_s": setup_s,
+           "ticks": EXPORT_TICKS, "tol": EXPORT_TOL, "worker_s": worker_s,
+           "runtime_modules": report["modules"], "variants": variants,
+           "kind": torch.cuda.get_device_name(dev), "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    return rec
+
+
+def _sum_counts(per_tick: list) -> dict:
+    return {k: sum(t[k] for t in per_tick) for k in per_tick[0]}
+
+
+class _RecordedTicks:
+    """Inside the `with`, `cli.serve`'s engine records each tick's outputs
+    (on the CPU) and launches."""
+
+    def __init__(self):
+        from dcnet_tpu_torch.cli import serve
+        self.mod, self.ticks, self.launches = serve, [], []
+
+    def __enter__(self):
+        real = self.real = self.mod.GroundingEngine
+        ticks, launches = self.ticks, self.launches
+
+        class Recorded(real):
+            def step(self, state, frames):
+                before = dict(kernels.LAUNCHES)
+                out = super().step(state, frames)
+                launches.append({k: kernels.LAUNCHES[k] - before[k] for k in before})
+                ticks.append([x.float().cpu() for x in out[1:]])
+                return out
+
+        self.mod.GroundingEngine = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.GroundingEngine = self.real
+        return False
+
+
+def _serve_cli(argv, platform=None) -> dict:
+    """cli/serve.py's `main` in-process: its ticks, launches, decode taps,
+    stdout and seconds."""
+    from dcnet_tpu_torch.cli import serve
+    kernels.reset_launches()
+    with _RecordedTicks() as rec, DecodeTaps() as taps:
+        text, seconds = _cli_output(serve.main, argv, platform=platform)
+    return {"ticks": rec.ticks, "launches": rec.launches, "taps": taps.taps,
+            "text": text, "s": seconds}
+
+
+def _pace(text: str) -> float:
+    return float(re.findall(r": (\S+) predictions/s", text)[-1])
+
+
+def phase_serve_cli(dev) -> dict:
+    """cli/serve.py in-process at full width (Darknet-53 from a seeded
+    `.weights` file, 256 px, emb 512) on --synthetic streams (`.npy`
+    frames): the BiLSTM and the BERT engine, float and --quant, card
+    against the CPU on SERVE_CLI_STREAMS fp32 streams (float: boxes and
+    scores within SERVE_TOL each tick; --quant, whose trunk PTQ flips
+    codes: `serve_cells_held`, as the serving_int8 phase holds its tick);
+    --state_file stopped after half the
+    ticks and resumed against the uninterrupted run; --export_bundle;
+    predictions/s at SERVE_CLI_PACE streams (float and --quant)."""
+    import shutil
+    import tempfile
+    from dcnet_tpu_torch.models.darknet import random_darknet_weights_file
+
+    work = tempfile.mkdtemp(prefix="dcnet_serve_cli_")
+    cwd = os.getcwd()
+    os.chdir(work)  # ./cache (the synthetic streams) and ./logs
+    try:
+        darknet = os.path.join(work, "backbone_seed0.weights")
+        random_darknet_weights_file(_defs(), darknet, seed=0)
+        base = CLI_WIDTH + ["--synthetic", "--seed", "13", "--print_every", "100",
+                            "--backbone_weights", darknet, "--topk", "5",
+                            "--fuse_window", "5"]
+        encoders = {"lstm": ["--lstm"], "bert": ["--bert_model", BERT_MODEL]}
+        par = ["--n_streams", str(SERVE_CLI_STREAMS), "--ticks", str(SERVE_CLI_TICKS)]
+        runs = {}
+        for enc, flags in encoders.items():
+            for quant in (False, True):
+                name = f"{enc}{'_quant' if quant else ''}"
+                argv = base + flags + par + (["--quant"] if quant else [])
+                card = _serve_cli(argv)
+                want = {"coattn_attend": 12}
+                if quant:
+                    want["k6_convs"] = backbone_k6_per_call() + trunk_k6_per_call(
+                        serving_config())
+                for t, got in enumerate(card["launches"]):
+                    if launches_differ({**got, "conv_s8_quant": 0}, want):
+                        raise AssertionError(f"serve CLI {name}: tick {t} launched {got}")
+                _finite(card["ticks"], f"serve CLI {name}")
+                run = {"card_s": card["s"], "launches": _sum_counts(card["launches"]),
+                       "ticks": len(card["ticks"])}
+                cpu = _serve_cli(argv, platform="cpu")
+                run["cpu_s"] = cpu["s"]
+                if quant:
+                    held = serve_cells_held(card["taps"], cpu["taps"],
+                                            full_width_config().strides,
+                                            INT8_PARITY_TOL["atol"], SERVE_TOL["atol"])
+                    if not held["ok"]:
+                        raise AssertionError(f"serve CLI {name}, card against CPU: "
+                                             f"{held}")
+                    run["cpu_parity"] = held
+                else:
+                    worst = 0.0
+                    for a_tick, b_tick in zip(card["ticks"], cpu["ticks"]):
+                        for a, b in zip(a_tick, b_tick):
+                            torch.testing.assert_close(a, b, **SERVE_TOL)
+                            worst = max(worst, (a - b).abs().max().item())
+                    run["cpu_parity"] = {"max_abs_err": worst, "tol": SERVE_TOL}
+                runs[name] = run
+                if name == "lstm":
+                    uninterrupted = card
+                del card
+
+        # --state_file: stop after half the ticks, resume to the end
+        half = SERVE_CLI_TICKS // 2
+        lstm = base + encoders["lstm"] + ["--n_streams", str(SERVE_CLI_STREAMS)]
+        _serve_cli(lstm + ["--ticks", str(half), "--state_file", "s.npz",
+                           "--state_every", "1"])
+        resumed = _serve_cli(lstm + ["--ticks", str(SERVE_CLI_TICKS),
+                                     "--state_file", "s.npz"])
+        if "resumed stream state" not in resumed["text"] or \
+                len(resumed["ticks"]) != SERVE_CLI_TICKS - half:
+            raise AssertionError(f"serve CLI resume: {resumed['text'][-500:]}")
+        diff = max((a - b).abs().max().item()
+                   for got, want in zip(resumed["ticks"], uninterrupted["ticks"][half:])
+                   for a, b in zip(got, want))
+        if diff > EXPORT_TOL:
+            raise AssertionError(f"serve CLI resume differs by {diff}")
+        resume = {"ticks_resumed": SERVE_CLI_TICKS - half, "max_abs_diff": diff,
+                  "bitwise": diff == 0.0, "tol": EXPORT_TOL}
+
+        # --export_bundle (the export phase serves bundles)
+        t0 = time.perf_counter()
+        _serve_cli(lstm + ["--ticks", "1", "--export_bundle", "bundle"])
+        with open(os.path.join("bundle", "meta.json")) as f:
+            meta = json.load(f)
+        if sorted(os.listdir("bundle")) != ["encode_lang.pt2", "meta.json", "step.pt2"] \
+                or meta["platforms"] != [dev.type] or meta["n_streams"] != SERVE_CLI_STREAMS:
+            raise AssertionError(f"serve CLI --export_bundle wrote {os.listdir('bundle')}, "
+                                 f"{meta}")
+        bundle = {"s": time.perf_counter() - t0, "meta": meta}
+
+        # predictions/s at SERVE_CLI_PACE streams
+        streams, ticks = SERVE_CLI_PACE
+        pace = {}
+        for quant in (False, True):
+            r = _serve_cli(lstm[:-2] + ["--n_streams", str(streams), "--ticks", str(ticks),
+                                        "--print_every", str(ticks)]
+                           + (["--quant"] if quant else []))
+            pace["quant" if quant else "float"] = {
+                "streams": streams, "ticks": ticks, "predictions_per_s": _pace(r["text"]),
+                "wall_s": r["s"], "note": "the CLI's own count: every tick from the first, "
+                                          "host frame stacking included"}
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    kernels.reset_launches()
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in kernels.LAUNCHES}
+    rec = {"phase": "serve_cli", "streams": SERVE_CLI_STREAMS, "ticks": SERVE_CLI_TICKS,
+           "runs": runs, "resume": resume, "export_bundle": bundle, "pace": pace,
+           "launches": launches, "argv": base, "kind": torch.cuda.get_device_name(dev),
+           "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    return rec
+
+
+DDP_CLIPS = 4                     # clips of the DDP train step against the plain one
+
+
+DDP_RANKS = 2                     # gloo processes sharing the card: the two-process step
+DP_LOSS_RTOL = 1e-3               # the JAX package's data-parallel limits,
+DP_METRIC_RTOL, DP_METRIC_ATOL = 5e-3, 1e-5   # tests/test_train.py:171-177
+DP_METRICS = ("acc50", "miou", "loss_yolo", "loss_interframe")
+DP_GRAD_FLOOR = 1e-3              # train_parity's floor of a module's gradient limit
+DP_STATS_RTOL, DP_STATS_ATOL = 1e-5, 1e-6
+
+
+def _dp_flags(on: bool = True):
+    """fp32 without TF32, cuDNN deterministic: the two-process step and
+    the one-process step it is held against compute alike. Returns the
+    flags before."""
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+              torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = not on
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = on, not on
+    return before
+
+
+def _dp_step(cfg, weights, batch, dev, rows, ddp: bool, moments: str = "global"):
+    """One fp32 train step from `weights` on `rows` of the flattened
+    `batch` (deterministic negatives), plain or through
+    DistributedDataParallel in the current group. `moments`: "global"
+    (the code as it is), "per_process" (each process's own BatchNorm
+    moments, `mesh.bn_group` None: plain DDP) or "summed" (one process
+    through the data-parallel BatchNorm's sums, the all-reduce the
+    identity: another fp32 evaluation of the one-process step). Returns
+    (metrics averaged over the ranks, gradients, BatchNorm running
+    statistics, launches)."""
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.parallel import mesh
+    from dcnet_tpu_torch.train.state import create_train_state
+    from dcnet_tpu_torch.train.step import train_step
+
+    model = DCNet(cfg, backbone_defs=_defs(), device=dev)
+    model.load_state_dict(weights)
+    state = create_train_state(model, cfg, steps_per_epoch=10)
+    if ddp:
+        state.ddp = mesh.wrap_ddp(model, dev)
+    part = {k: v[rows] for k, v in batch.items()}
+    real = mesh.bn_group, mesh.all_reduce_sum
+    if moments == "per_process":
+        mesh.bn_group = lambda bn: None
+    elif moments == "summed":
+        mesh.bn_group, mesh.all_reduce_sum = (lambda bn: "one"), (lambda x, group=None: x)
+    kernels.reset_launches()
+    torch.manual_seed(0)  # the same dropout masks
+    try:
+        metrics = mesh.mean_over_ranks(train_step(state, part))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    finally:
+        mesh.bn_group, mesh.all_reduce_sum = real
+    launches = dict(kernels.LAUNCHES)
+    grads = {n: q.grad.detach().clone() for n, q in model.named_parameters()
+             if q.grad is not None}
+    stats = {n: b.detach().clone() for n, b in model.named_buffers() if "running" in n}
+    return {k: float(v) for k, v in metrics.items()}, grads, stats, launches
+
+
+def _dp_rows(batch, rank: int) -> slice:
+    per = batch["images"].shape[0] // DDP_RANKS
+    return slice(rank * per, (rank + 1) * per)
+
+
+def _gloo_rank(i: int, init: str, work: str) -> None:
+    """Rank i + 1 of the two-process step (spawned, on the same card): its
+    rows of the global batch, with the global-batch BatchNorm and with
+    per-process moments; writes its metrics and running statistics (its
+    gradients are rank 0's: DDP all-reduces them)."""
+    import torch.distributed as dist
+
+    rank = i + 1
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    dev = torch.device(inputs["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    _dp_flags()
+    correspondence._sample_negatives_excluding = _deterministic_negatives
+    dist.init_process_group("gloo", init_method=init, world_size=DDP_RANKS, rank=rank)
+    try:
+        out = {}
+        for name in ("global", "per_process"):
+            m, _, st, _ = _dp_step(inputs["cfg"], inputs["weights"], inputs["batch"], dev,
+                                   _dp_rows(inputs["batch"], rank), True, name)
+            out[name] = {"metrics": m, "stats": {k: v.cpu() for k, v in st.items()}}
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_within(got: dict, want: dict) -> bool:
+    """The JAX package's data-parallel limits: loss rtol 1e-3; acc50,
+    miou, loss_yolo, loss_interframe rtol 5e-3 / atol 1e-5."""
+    ok = abs(got["loss"] - want["loss"]) <= DP_LOSS_RTOL * abs(want["loss"])
+    return ok and all(abs(got[k] - want[k]) <= DP_METRIC_ATOL + DP_METRIC_RTOL * abs(want[k])
+                      for k in DP_METRICS)
+
+
+def _module_distances(got: dict, want: dict) -> dict:
+    """Each top-level module's gradient: relative l2 distance of `got`
+    from `want`."""
+    d2, n2 = {}, {}
+    for n, g in want.items():
+        m = n.split(".")[0]
+        d2[m] = d2.get(m, 0.0) + float((got[n] - g).double().norm()) ** 2
+        n2[m] = n2.get(m, 0.0) + float(g.double().norm()) ** 2
+    return {m: (d2[m] / n2[m]) ** 0.5 if n2[m] else d2[m] ** 0.5 for m in d2}
+
+
+def two_process_step(cfg, weights, batch, dev, work: str) -> dict:
+    """Two processes on the one card, joined by gloo over CUDA tensors
+    (this one rank 0, one spawned): one fp32 train step of DDP_CLIPS
+    clips, each rank its half, through DistributedDataParallel with the
+    global-batch BatchNorm (all-reduced moments, `_AllReduceSum`'s
+    backward) and the all-gathered flip, held against the one-process
+    step on the global batch at the JAX package's data-parallel limits,
+    running statistics equal on both ranks and within DP_STATS_RTOL of the
+    one-process step's, and each module's gradient within max(1e-3, 2 d)
+    relative l2, d its distance between two fp32 evaluations of the
+    one-process step (cuDNN's fused BatchNorm and the data-parallel sums,
+    `moments="summed"`): `train_parity`'s rule, whose float64 step shows
+    that at full width 75 train-mode BatchNorms turn fp32 rounding into
+    ~1e-2 of the backbone's gradient on any fp32 path. The same ranks then
+    take the step with per-process moments (plain DDP), reported beside."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    cfg = cfg.replace(jemb_dropout=0.0, input_dropout=0.0)  # no masks to pair
+    before = _dp_flags()
+    t0 = time.perf_counter()
+    try:
+        one = _dp_step(cfg, weights, batch, dev, slice(None), ddp=False)
+        summed = _dp_step(cfg, weights, batch, dev, slice(None), False, "summed")
+        torch.save({"cfg": cfg, "weights": weights, "batch": batch, "device": str(dev)},
+                   os.path.join(work, "inputs.pt"))
+        init = "file://" + os.path.join(work, "store")
+        ctx = mp.start_processes(_gloo_rank, args=(init, work), nprocs=DDP_RANKS - 1,
+                                 join=False, start_method="spawn")
+        try:
+            dist.init_process_group("gloo", init_method=init, world_size=DDP_RANKS, rank=0)
+            try:
+                mine = {name: _dp_step(cfg, weights, batch, dev, _dp_rows(batch, 0), True,
+                                       name)
+                        for name in ("global", "per_process")}
+            finally:
+                dist.destroy_process_group()
+        except BaseException:
+            for proc in ctx.processes:  # they would wait on rank 0's collectives
+                proc.terminate()
+            raise
+        while not ctx.join():
+            pass
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = before
+    others = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+              for r in range(1, DDP_RANKS)]
+    want_m, want_g, want_st = one[0], one[1], one[2]
+    noise = _module_distances(summed[1], want_g)
+    limit = {m: max(DP_GRAD_FLOOR, 2 * d) for m, d in noise.items()}
+    rec = {"ranks": DDP_RANKS, "backend": "gloo (CUDA tensors, one card)",
+           "clips": DDP_CLIPS, "dropout": 0.0, "tf32": False,
+           "limits": {"loss_rtol": DP_LOSS_RTOL, "metrics": [DP_METRIC_RTOL, DP_METRIC_ATOL],
+                      "stats": [DP_STATS_RTOL, DP_STATS_ATOL], "grad_rel_l2": limit},
+           "one_process_metrics": want_m, "summed_metrics": summed[0],
+           "grad_rel_l2_summed_vs_one": noise, "launches": mine["global"][3],
+           "one_process_launches": one[3]}
+    for name in ("global", "per_process"):
+        got_m, got_g, got_st = mine[name][:3]
+        dist_m = _module_distances(got_g, want_g)
+        stats_equal = all(torch.equal(o[name]["stats"][k], v.cpu())
+                          for o in others for k, v in got_st.items())
+        stats_err = max(((v.double() - want_st[k].double()).abs()
+                         - DP_STATS_RTOL * want_st[k].double().abs()).max().item()
+                        for k, v in got_st.items())
+        rec[name] = {"metrics": got_m,
+                     "within_jax_limits": all(_dp_within(m, want_m) for m in
+                                              [got_m] + [o[name]["metrics"] for o in others]),
+                     "grad_rel_l2": dist_m,
+                     "modules_beyond_limit": sorted(m for m, d in dist_m.items()
+                                                    if d > limit[m]),
+                     "stats_equal_on_every_rank": stats_equal,
+                     "stats_excess_over_rtol": stats_err}
+    rec["seconds"] = time.perf_counter() - t0
+    g = rec["global"]
+    if not (g["within_jax_limits"] and not g["modules_beyond_limit"]
+            and g["stats_equal_on_every_rank"] and g["stats_excess_over_rtol"] <= DP_STATS_ATOL
+            and rec["launches"]["coattn_pair"] and rec["launches"]["coattn_attend_bwd"]):
+        raise AssertionError(f"the two-process step misses the one-process step: {rec}")
+    return rec
+
+
+def phase_ddp(dev) -> dict:
+    """Data parallelism on one card: a NCCL group of one. One fp32 train
+    step of the full-width model on DDP_CLIPS k=2 clips through
+    DistributedDataParallel against the plain step from the same weights
+    (metrics, every gradient and BatchNorm running statistic, bitwise with
+    torch's deterministic algorithms and cuDNN deterministic, as the
+    train_cli phase's resume); `cli/train.py --devices 1` (DDP in a group
+    of one) against the plain run and a second plain run (the card's
+    run-to-run spread, `RESUME_SPREAD`). Then two processes on the one
+    card joined by gloo (`two_process_step`): the global-batch BatchNorm,
+    its backward and the all-gathered flip on CUDA tensors, held against
+    the one-process step. Two cards cannot run on a one-card machine: the
+    phase says so."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from dcnet_tpu_torch.cli import train as cli_train
+    from dcnet_tpu_torch.data.synthetic import generate_synthetic_vid
+    from dcnet_tpu_torch.models.darknet import random_darknet_weights_file
+    from dcnet_tpu_torch.parallel import mesh
+    from dcnet_tpu_torch.train.loop import flatten_clip_batch, to_device
+
+    cfg = full_width_config()
+    model, defs, setup_s = seeded_model(cfg, dev)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    batch = to_device(flatten_clip_batch(synthetic_clips(
+        np.random.RandomState(9), DDP_CLIPS, 2, cfg.image_size, cfg.query_len)), dev)
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    real_neg = correspondence._sample_negatives_excluding
+    work = tempfile.mkdtemp(prefix="dcnet_ddp_")
+    cwd = os.getcwd()
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        correspondence._sample_negatives_excluding = _deterministic_negatives
+        every = slice(None)
+        plain = _dp_step(cfg, weights, batch, dev, every, ddp=False)
+        mesh.init_distributed(dev)          # a NCCL group of one
+        try:
+            size, rank = mesh.world()
+            backend = torch.distributed.get_backend()
+            ddp = _dp_step(cfg, weights, batch, dev, every, ddp=True)
+        finally:
+            mesh.shutdown()
+        correspondence._sample_negatives_excluding = real_neg
+        diff = {k: (got[k].double() - v.double()).abs().max().item()
+                for got, want in ((ddp[1], plain[1]), (ddp[2], plain[2]))
+                for k, v in want.items()}
+        step = {"clips": DDP_CLIPS, "world_size": size, "backend": backend,
+                "metrics": ddp[0], "plain_metrics": plain[0],
+                "metrics_equal": ddp[0] == plain[0],
+                "max_abs_diff_grads_and_stats": max(diff.values()),
+                "tensors_differing": sum(d > 0 for d in diff.values()),
+                "launches": ddp[3], "plain_launches": plain[3]}
+        if not step["metrics_equal"] or step["max_abs_diff_grads_and_stats"] != 0.0 \
+                or launches_differ(ddp[3], plain[3]) or not ddp[3]["coattn_pair"]:
+            raise AssertionError(f"the DDP step differs from the plain step: {step}")
+
+        # cli/train.py --devices 1 against the plain run
+        os.chdir(work)
+        root = os.path.join(work, "synthetic")
+        generate_synthetic_vid(root, "train", num_videos=TCLI_VIDEOS,
+                               frames_per_video=TCLI_FRAMES, seed=13, frame_format="npy")
+        generate_synthetic_vid(root, "test", num_videos=2, frames_per_video=TCLI_FRAMES,
+                               seed=14, frame_format="npy")
+        darknet = os.path.join(work, "backbone_seed0.weights")
+        random_darknet_weights_file(defs, darknet, seed=0)
+        argv = ["--synthetic", "--lstm"] + CLI_WIDTH + [
+            "--batch_size", str(TCLI_BATCH), "--max_steps", str(TCLI_STEPS),
+            "--nb_epoch", "1", "--workers", "4", "--seed", "13", "--split_root", work,
+            "--backbone_weights", darknet, "--print_freq", "100"]
+        ends, cli = {}, {}
+        for name, extra in (("plain", []), ("devices_1", ["--devices", "1"]),
+                            ("plain_again", [])):
+            kernels.reset_launches()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                state = cli_train.main(argv + extra + ["--savename", name])
+            torch.cuda.synchronize()
+            cli[name] = {"s": time.perf_counter() - t0, "launches": dict(kernels.LAUNCHES),
+                         "ddp": state.ddp is not None,
+                         "checkpoints": sorted(os.listdir(os.path.join("saved_models",
+                                                                       name)))}
+            ends[name] = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+            del state
+
+        def spread(a, b):
+            return max((ends[a][k].double() - ends[b][k].double()).abs().max().item()
+                       for k in ends[a] if ends[a][k].is_floating_point())
+
+        cli_rec = {"runs": cli, "devices_1_vs_plain": spread("devices_1", "plain"),
+                   "plain_vs_plain": spread("plain_again", "plain"),
+                   "limit": f"{RESUME_SPREAD} x plain_vs_plain"}
+        cli_rec["bitwise"] = cli_rec["devices_1_vs_plain"] == 0.0
+        if not cli["devices_1"]["ddp"] or cli["plain"]["ddp"] or \
+                cli_rec["devices_1_vs_plain"] > RESUME_SPREAD * cli_rec["plain_vs_plain"] or \
+                launches_differ(cli["devices_1"]["launches"], cli["plain"]["launches"]):
+            raise AssertionError(f"cli.train --devices 1 against the plain run: {cli_rec}")
+        os.chdir(cwd)
+        correspondence._sample_negatives_excluding = _deterministic_negatives
+        two = two_process_step(cfg, weights, batch, dev, work)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        correspondence._sample_negatives_excluding = real_neg
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    kernels.reset_launches()
+    launches = {k: step["launches"][k] + cli["devices_1"]["launches"][k]
+                + two["launches"][k] for k in kernels.LAUNCHES}
+    rec = {"phase": "ddp", "setup_s": setup_s, "train_step": step, "train_cli": cli_rec,
+           "two_process_step": two, "launches": launches,
+           "cards": torch.cuda.device_count(),
+           "not_run": "two or more cards (NCCL across cards): this machine has one; two "
+                      "processes ran on the one card over gloo (two_process_step), and on "
+                      "the CPU in tests/test_torch_parallel.py",
+           "kind": torch.cuda.get_device_name(dev), "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    return rec
+
+
 KERNELS = (  # name, path it runs on, source, the TPU kernel it replaces
     ("coattn_attend", "eval", "dcnet_tpu_torch/csrc/coattn.cu",
      "dcnet_tpu/ops/pallas/coattn.py:52 (_attend; body _attend_kernel :40)"),
@@ -4065,6 +4796,10 @@ def main(argv=None) -> int:
     ap.add_argument("--cli-pace", action="store_true",
                     help="only time the eval CLI over longer splits, by "
                          "decode path (after the device and build phases)")
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run after the device and "
+                         "build phases (e.g. export,serve_cli,ddp), without the "
+                         "kernels line: a quick check of those phases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4085,6 +4820,12 @@ def main(argv=None) -> int:
         finish_k6_build(k6_build)
         phase_cli_pace(dev)
         return 0
+    if args.only:
+        finish_k6_build(k6_build)
+        for name in args.only.split(","):
+            timed(name, globals()[f"phase_{name}"], dev)
+        emit({"phase": "seconds", **seconds})
+        return 0
     cases, off_path = timed("kernel", phase_kernel, dev, k6_build)
     prof = dict(profile_dir=args.profile)
     slice_rec = timed("slice", phase_slice, dev, **prof)
@@ -4097,6 +4838,9 @@ def main(argv=None) -> int:
     serving_int8 = timed("serving_int8", phase_serving_int8, dev, **prof)["launches"]
     cli_launches = timed("cli", phase_cli, dev)["launches"]
     train_cli = timed("train_cli", phase_train_cli, dev)["launches"]
+    exported = timed("export", phase_export, dev)["variants"]
+    serve_cli = timed("serve_cli", phase_serve_cli, dev)["launches"]
+    ddp = timed("ddp", phase_ddp, dev)["launches"]
     emit({"phase": "seconds", **seconds})
     if PROFILE_FAILURES:
         raise AssertionError(f"profiles that lost kernels in every trace: {PROFILE_FAILURES}")
@@ -4118,21 +4862,35 @@ def main(argv=None) -> int:
     if not (bert["eval_launches"]["coattn_attend"] and all(train_cli.values())):
         raise AssertionError(f"a kernel never launched on the BERT or train CLI path: "
                              f"{bert['eval_launches']}, {train_cli}")
+    runtime = {k: v["launches"] for k, v in exported.items()}
+    if not (runtime["float"]["coattn_ring"] and runtime["k1"]["coattn_attend"]
+            and runtime["quantized"]["coattn_ring"] and all(
+                runtime["quantized"][k] for k in ("conv_s8", "conv_s8_halo", "conv_s8_quant"))
+            and serve_cli["coattn_attend"] and serve_cli["conv_s8"]
+            and ddp["coattn_pair"] and ddp["coattn_attend_bwd"]):
+        raise AssertionError(f"a kernel never launched on the exported runtime, the serve "
+                             f"CLI or the DDP path: {runtime}, {serve_cli}, {ddp}")
     emit(kernels_line(cases, launches, by_path={
         "coattn_attend": {"eval": eval_launches["coattn_attend"],
                           "bert_eval": bert["eval_launches"]["coattn_attend"],
                           "int8_eval": int8_launches["coattn_attend"],
                           "cli": cli_launches["coattn_attend"],
-                          "int8_serving_k1": serving_int8["k1"]["coattn_attend"]},
+                          "int8_serving_k1": serving_int8["k1"]["coattn_attend"],
+                          "export_runtime_k1": runtime["k1"]["coattn_attend"],
+                          "serve_cli": serve_cli["coattn_attend"]},
         **{name: {"train": train_launches[name],
                   "bert_train": bert["train_launches"][name],
-                  "train_cli": train_cli[name]}
+                  "train_cli": train_cli[name], "ddp": ddp[name]}
            for name in ("coattn_pair", "coattn_attend_bwd")},
         "coattn_ring": {"serving": serving_launches["coattn_ring"],
-                        "int8_serving_multiref": serving_int8["multiref"]["coattn_ring"]},
+                        "int8_serving_multiref": serving_int8["multiref"]["coattn_ring"],
+                        "export_runtime": runtime["float"]["coattn_ring"],
+                        "export_runtime_quantized": runtime["quantized"]["coattn_ring"]},
         **{name: {"int8_eval": int8_launches[name],
                   **{f"int8_serving_{k}": v[name] for k, v in serving_int8.items()},
-                  "int8_cli": cli_launches[name]}
+                  "int8_cli": cli_launches[name],
+                  "export_runtime_quantized": runtime["quantized"][name],
+                  "serve_cli": serve_cli[name]}
            for name in ("conv_s8", "conv_s8_halo", "conv_s8_quant")}}))
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

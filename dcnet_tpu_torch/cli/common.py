@@ -11,8 +11,10 @@ reference `.pth.tar` or a committed lock `.npz`.
 
 Device: the CLIs run on the CUDA card. `DCNET_PLATFORM=cpu` (the variable
 the JAX CLIs read) runs them on the CPU; without a card and without it they
-raise. Options the port does not run yet raise `NotImplementedError` naming
-their ROADMAP item.
+raise. Processes (`processes`, `start_processes`): cli.train and cli.test
+--data_parallel run one process a card (`--devices N`, 0 = every card;
+torchrun's launch, which `--multihost` needs), the others one process
+(`check_ported`).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from dcnet_tpu_torch import default_device, not_ported
+from dcnet_tpu_torch import default_device
 from dcnet_tpu_torch.config import DCNetConfig
 from dcnet_tpu_torch.data.bert_tokenize import get_bert_tokenizer
 from dcnet_tpu_torch.data.corpus import Corpus
@@ -32,6 +34,7 @@ from dcnet_tpu_torch.data.synthetic import build_synthetic_corpus, generate_synt
 from dcnet_tpu_torch.data.vid import VIDDataset
 from dcnet_tpu_torch.models.darknet import mini_backbone_defs
 from dcnet_tpu_torch.models.dcnet import DCNet
+from dcnet_tpu_torch.parallel import mesh
 from dcnet_tpu_torch.train.checkpoint import checkpoint_path, load_reference_checkpoint
 from dcnet_tpu_torch.weights import (
     load_lock_into, seeded_init_, splice_darknet_weights)
@@ -39,13 +42,16 @@ from dcnet_tpu_torch.weights import (
 
 def cli_device() -> torch.device:
     """The device a CLI runs on: `DCNET_PLATFORM` unset (or cuda/gpu) means
-    the CUDA card, which must be present; `cpu` means the CPU."""
+    the CUDA card, which must be present; `cpu` means the CPU. A rank of a
+    data-parallel launch takes the card of its local rank."""
     platform = os.environ.get("DCNET_PLATFORM", "").lower()
     if platform == "cpu":
         return torch.device("cpu")
     if platform not in ("", "cuda", "gpu"):
         raise ValueError(f"DCNET_PLATFORM={platform!r}: the port runs on 'cuda' "
                          "(the default) or 'cpu'")
+    if mesh.launched() and torch.cuda.is_available():
+        torch.cuda.set_device(mesh.local_rank())
     return default_device()
 
 
@@ -88,7 +94,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--mini", action="store_true",
                    help="tiny backbone for smoke runs")
     p.add_argument("--devices", default=0, type=int,
-                   help="data-parallel devices (0 = all)")
+                   help="data-parallel processes, one a card (0 = every card, "
+                        "one process on the CPU; 1 = a group of one)")
     p.add_argument("--max_steps", default=0, type=int,
                    help="cap steps per epoch (0 = no cap)")
     p.add_argument("--bf16", action="store_true",
@@ -98,18 +105,54 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--profile_dir", default="", type=str,
                    help="write a torch.profiler trace of 3 train steps here")
     p.add_argument("--multihost", action="store_true",
-                   help="more than one process (not ported: raises)")
+                   help="the processes of a torchrun launch over hosts (its "
+                        "environment gives the ranks)")
     return p
 
 
-def check_ported(args) -> None:
-    """Raise for the shared options the port does not run yet: more than
-    one process or card (distribution is ROADMAP queue A, item 12)."""
+def check_ported(args, cli: str = "this CLI") -> None:
+    """Raise for the process options in a CLI that runs one process (every
+    one but cli.train and cli.test --data_parallel): more than one card,
+    or --multihost, would otherwise silently run one."""
+    if args.multihost or args.devices > 1 or mesh.launched():
+        raise ValueError(f"{cli} runs one process: --devices above 1, --multihost "
+                         f"and torchrun apply to cli.train and cli.test --data_parallel")
+
+
+def processes(args, device: torch.device) -> int:
+    """The data-parallel processes a run asks for: torchrun's world (which
+    --multihost needs), else --devices (0: every card, or one process on
+    the CPU)."""
+    if mesh.launched():
+        size = int(os.environ["WORLD_SIZE"])
+        if args.devices not in (0, size):
+            raise ValueError(f"--devices {args.devices} under a launch of {size} "
+                             f"processes")
+        return size
     if args.multihost:
-        raise not_ported("--multihost", "ROADMAP queue A, item 12")
-    if args.devices > 1:
-        raise not_ported(f"--devices {args.devices} (one card only)",
-                         "ROADMAP queue A, item 12")
+        raise ValueError("--multihost runs under torchrun (RANK, WORLD_SIZE, "
+                         "LOCAL_RANK and MASTER_ADDR/MASTER_PORT in the environment)")
+    if args.devices > 0:
+        if device.type == "cuda" and args.devices > torch.cuda.device_count():
+            raise ValueError(f"--devices {args.devices}: {torch.cuda.device_count()} "
+                             f"CUDA devices")
+        return args.devices
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def start_processes(main, argv, args, device: torch.device):
+    """The data-parallel start of cli.train / cli.test: None where this
+    process runs on (joined to the group, or alone), else the result of
+    `main` run as N processes (`parallel.mesh.launch`, this one rank 0).
+    A group is made for a launch, for torchrun, and for --devices 1 (a
+    group of one); the default on one card or the CPU runs without."""
+    n = processes(args, device)
+    if mesh.launched() or (n == 1 and args.devices == 1):
+        mesh.init_distributed(device)
+        return None
+    if n > 1:
+        return (mesh.launch(main, argv, n),)
+    return None
 
 
 def setup_logging(savename: str, test: bool) -> None:
@@ -152,7 +195,6 @@ def build_dataset(args, split: str, testmode: bool = False,
     frames from `--seed` where its index is missing; a split written
     beforehand in .npy frames is read as it is), or the reference VID
     layout under `<split_root>/<dataset>` with frames under `--data_root`."""
-    check_ported(args)
     k = num_frame_k if num_frame_k is not None else args.num_frame_k
     if args.synthetic:
         root = os.path.join(args.split_root, "synthetic")

@@ -52,7 +52,7 @@ def main(argv=None):
     if args.savename == "default":
         args.savename = f"model_{args.dataset}_batch{args.batch_size}"
     device = cli_device()
-    check_ported(args)
+    check_ported(args, "cli.eval_single")
     setup_logging(args.savename, test=True)
 
     ds, corpus = _build_single_dataset(args)

@@ -95,7 +95,7 @@ def _ref_cache_main(args, k: int, device):
     from dcnet_tpu_torch.cli.common import build_dataset
     from dcnet_tpu_torch.eval.ref_cache import read_reference_cache
 
-    check_ported(args)
+    check_ported(args, "cli.post_process")
     ds, _ = build_dataset(args, "test", testmode=True)
     center = k // 2
     paths, gts, vids = [], [], []

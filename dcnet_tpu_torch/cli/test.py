@@ -18,6 +18,11 @@ Prints `acc,miou` and, with `--post_process`, `post_process: acc,miou`.
 Without `--lstm` the model reads phrases through the frozen BERT encoder
 (`--bert_model`). `--resume` takes the weights of a checkpoint directory
 of `cli.train` (its latest epoch), a reference `.pth.tar` or a lock `.npz`.
+`--data_parallel` evaluates on one process a card (`--devices N`, 0 = every
+card; torchrun's launch): the standard eval gives each rank its shard of
+the clips (`--batch_size` is the global batch), the stream eval its share
+of the videos, and rank 0 gathers the results in the split's order and
+prints and writes them.
 
 Example (data-free, on the CPU):
     DCNET_PLATFORM=cpu python -m dcnet_tpu_torch.cli.test --synthetic \\
@@ -27,20 +32,22 @@ Example (data-free, on the CPU):
 from __future__ import annotations
 
 import os
+import sys
 
 import numpy as np
 import torch
 
-from dcnet_tpu_torch import not_ported
 from dcnet_tpu_torch.cli.common import (
     base_parser, build_dataset, build_model, check_ported, cli_device,
-    config_from_args, restore_weights, setup_logging, splice_backbone_weights)
+    config_from_args, restore_weights, setup_logging, splice_backbone_weights,
+    start_processes)
 from dcnet_tpu_torch.data.vid import batch_iterator, prefetch_to_device
 from dcnet_tpu_torch.data import transforms as T
 from dcnet_tpu_torch.eval.metrics import AverageMeter
 from dcnet_tpu_torch.eval.temporal import FrameCache, build_frame_cache, fuse_per_video
 from dcnet_tpu_torch.ops.boxes import bbox_iou
 from dcnet_tpu_torch.ops.decode import decode_best, inverse_letterbox
+from dcnet_tpu_torch.parallel import mesh
 
 
 def parser():
@@ -55,7 +62,8 @@ def parser():
                    help="with --cache, also write the reference's per-frame "
                         ".pth files")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard the clip batch over all cards (one card: no-op)")
+                   help="evaluate on --devices processes, one a card (0 = every "
+                        "card), the clips sharded over them")
     p.add_argument("--save_plot", action="store_true",
                    help="write qualitative JPEGs (needs cv2)")
     p.add_argument("--stream_eval", action="store_true",
@@ -85,13 +93,31 @@ def parser():
 
 
 def _check_options(args, device: torch.device) -> None:
-    check_ported(args)
-    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise not_ported("--data_parallel over more than one card",
-                         "ROADMAP queue A, item 12")
+    if not args.data_parallel:
+        check_ported(args, "cli.test without --data_parallel")
     if args.stream_eval and (args.cache or args.ref_cache_format):
         raise ValueError("--cache is written by the standard eval; run it "
                          "without --stream_eval")
+
+
+def split_order(lengths) -> np.ndarray:
+    """The permutation that puts the rows rank r of W took (the split's
+    rows r, r + W, r + 2W, ...; `lengths[r]` of them), concatenated in rank
+    order, back in the split's order."""
+    w = len(lengths)
+    index = np.concatenate([r + w * np.arange(n) for r, n in enumerate(lengths)])
+    return np.argsort(index, kind="stable")
+
+
+def _reorder(parts, perm: np.ndarray):
+    """Every rank's rows (`parts`: arrays, tensors or lists) concatenated
+    and permuted by `perm`."""
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)[torch.from_numpy(perm)]
+    if isinstance(parts[0], np.ndarray):
+        return np.concatenate(parts)[perm]
+    flat = [x for p in parts for x in p]
+    return [flat[i] for i in perm]
 
 
 def _cat(rows) -> FrameCache:
@@ -100,6 +126,7 @@ def _cat(rows) -> FrameCache:
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser().parse_args(argv)
     if args.quant:
         args.stream_eval = True
@@ -110,9 +137,24 @@ def main(argv=None):
         args.savename = f"model_{args.dataset}_batch{args.batch_size}"
     device = cli_device()
     _check_options(args, device)
-    setup_logging(args.savename, test=True)
+    if args.data_parallel:
+        launched = start_processes(main, argv, args, device)
+        if launched is not None:
+            return launched[0]
+    try:
+        return _evaluate(args, device)
+    finally:
+        if mesh.launched() or (args.data_parallel and args.devices == 1):
+            mesh.shutdown()
 
-    ds, corpus = build_dataset(args, "test", testmode=True)
+
+def _evaluate(args, device):
+    setup_logging(args.savename, test=True)
+    rank = mesh.world()[1]
+    for turn in (0, 1):  # rank 0 writes a missing synthetic split first
+        if (rank == 0) == (turn == 0):
+            ds, corpus = build_dataset(args, "test", testmode=True)
+        mesh.barrier()
     cfg = config_from_args(args, corpus_size=len(corpus))
     cfg = cfg.replace(coattn_batch_refs=args.coattn_batch_refs,
                       coattn_int8_logits=args.coattn_int8,
@@ -127,11 +169,12 @@ def main(argv=None):
     k = args.num_frame_k
     center = k // 2
     size = cfg.image_size
-    acc, miou = AverageMeter(), AverageMeter()
-    cache_rows, vid_rows, gt_rows, path_rows = [], [], [], []
+    size_w, rank = mesh.world()
+    want_cache = args.cache or args.post_process
+    ious, cache_rows, vid_rows, gt_rows, path_rows = [], [], [], [], []
     batches = prefetch_to_device(
-        batch_iterator(ds, args.batch_size, drop_last=False,
-                       num_workers=args.workers), device)
+        batch_iterator(ds, max(args.batch_size // size_w, 1), drop_last=False,
+                       num_workers=args.workers, **mesh.shard_args()), device)
     for batch in batches:
         images = batch["images"].reshape(-1, *batch["images"].shape[2:])
         out = model.eval_clip(images, batch["word_ids"][:, center], n_frame=k)
@@ -143,8 +186,7 @@ def main(argv=None):
         gt = inverse_letterbox(bbox, ratio, dw, dh, ow, oh)
         iou = bbox_iou(pred, gt).cpu().numpy()
         n = iou.shape[0]
-        acc.update(float((iou > 0.5).mean()), n)
-        miou.update(float(iou.mean()), n)
+        ious.append(iou)
 
         if args.save_plot:
             from dcnet_tpu_torch.eval.visualize import save_grounding_results
@@ -152,9 +194,10 @@ def main(argv=None):
             save_grounding_results(
                 dec.boxes[:, 0].cpu().numpy(), bbox.cpu().numpy(),
                 batch["images"][:, center].cpu().numpy(), phrases, "test",
-                acc.count - n, save_path=f"./visulizations/{args.savename}/")
+                sum(len(x) for x in ious) - n,
+                save_path=f"./visulizations/{args.savename}/")
 
-        if args.cache or args.post_process:
+        if want_cache:
             cache_rows.append(build_frame_cache(out.outbox, out.corr_feat,
                                                 args.topk, cfg))
             vid_rows.append(batch["video_id"].cpu().numpy().astype(np.int32))
@@ -164,11 +207,30 @@ def main(argv=None):
                                 float(host[2][ii]), float(host[3][ii])))
                 path_rows.append(batch["paths"][ii][center])
 
+    ious = np.concatenate(ious) if ious else np.zeros((0,), np.float32)
+    full = _cat(cache_rows) if cache_rows else None
+    if size_w > 1:  # rank 0 puts every rank's clips back in the split's order
+        mine = (ious, None if full is None else tuple(x.cpu() for x in full),
+                np.concatenate(vid_rows) if vid_rows else None, gt_rows, path_rows)
+        parts = mesh.gather_to_rank0(mine)
+        if rank != 0:
+            return None
+        perm = split_order([len(p[0]) for p in parts])
+        ious = _reorder([p[0] for p in parts], perm)
+        if want_cache:
+            full = FrameCache(*(_reorder([p[1][i] for p in parts], perm).to(device)
+                                for i in range(3)))
+            vid_rows = [_reorder([p[2] for p in parts], perm)]
+            gt_rows = _reorder([p[3] for p in parts], perm)
+            path_rows = _reorder([p[4] for p in parts], perm)
+    acc, miou = AverageMeter(), AverageMeter()
+    if len(ious):
+        acc.update(float((ious > 0.5).mean()), len(ious))
+        miou.update(float(ious.mean()), len(ious))
     print(f"{acc.avg:.6f},{miou.avg:.6f}")
 
-    if args.cache and cache_rows:
+    if args.cache and full is not None:
         from dcnet_tpu_torch.cli.post_process import save_cache_npz
-        full = _cat(cache_rows)
         save_cache_npz(
             os.path.join(args.cache_dir, args.savename, "cache.npz"), full,
             np.stack([g[0] for g in gt_rows]),
@@ -186,8 +248,8 @@ def main(argv=None):
             write_reference_cache(os.path.join(args.cache_dir, args.savename),
                                   path_rows, FrameCache(orig, full.scores, full.feats))
 
-    if args.post_process and cache_rows:
-        fused = fuse_per_video(_cat(cache_rows), np.concatenate(vid_rows), ref_frames=k)
+    if args.post_process and full is not None:
+        fused = fuse_per_video(full, np.concatenate(vid_rows), ref_frames=k)
         _print_fused(fused, gt_rows, size, gt_in_letterbox=True)
     return acc.avg
 
@@ -256,7 +318,7 @@ def _stream_eval(args, ds, cfg, model):
     backbone is the int8 one (`_quantize`)."""
     k = args.num_frame_k
     center = k // 2
-    cb = max(args.batch_size, 1)   # trunk batch (centers)
+    cb = max(args.batch_size // mesh.world()[0], 1)   # trunk batch (centers)
     fb = cb * k                    # backbone batch (frames)
     dev = model.device
     size = cfg.image_size
@@ -272,10 +334,11 @@ def _stream_eval(args, ds, cfg, model):
     by_video = {}
     for row in ds.chunks:
         by_video.setdefault(row[3], []).append(row)
+    size_w, rank = mesh.world()
+    videos = list(by_video.items())[rank::size_w]  # this rank's share
 
-    acc, miou = AverageMeter(), AverageMeter()
-    cache_rows, vid_rows, fused_gt = [], [], []
-    for vid, rows in by_video.items():
+    done = []  # per video: (ious, fused_gt, cache rows, video id rows)
+    for vid, rows in videos:
         # rows are consecutive windows: the first window's frames, then the
         # last frame of each later window
         paths = list(rows[0][0]) + [r[0][-1] for r in rows[1:]]
@@ -295,6 +358,7 @@ def _stream_eval(args, ds, cfg, model):
                                          for r in rows]).astype(np.int64))
         gts = np.stack([np.asarray(r[1][center], np.float64) for r in rows])
 
+        ious, fused_gt, cache_rows, vid_rows = [], [], [], []
         for s0 in range(0, n_centers, cb):
             sel = win[s0:s0 + cb].to(dev)
             n = sel.shape[0]
@@ -307,22 +371,34 @@ def _stream_eval(args, ds, cfg, model):
                        (ratio, dw, dh, (size - 2 * dw) / ratio, (size - 2 * dh) / ratio)]
                 pred = inverse_letterbox(dec.boxes[j, 0], *geo)
                 gt = torch.as_tensor(gts[s0 + j], dtype=torch.float32, device=dev)
-                iou = float(bbox_iou(pred[None], gt[None])[0])
-                acc.update(float(iou > 0.5))
-                miou.update(iou)
+                ious.append(float(bbox_iou(pred[None], gt[None])[0]))
                 fused_gt.append((gts[s0 + j], ratio, dw, dh))
             if args.post_process:
-                cache_rows.append(build_frame_cache(out.outbox, out.corr_feat,
-                                                    args.topk, cfg))
+                cache = build_frame_cache(out.outbox, out.corr_feat, args.topk, cfg)
+                cache_rows.append(cache if size_w == 1 else
+                                  FrameCache(*(x.cpu() for x in cache)))
                 vid_rows.append(np.full((n,), vid, np.int32))
+        done.append((ious, fused_gt, cache_rows, vid_rows))
 
+    if size_w > 1:  # rank 0 puts every rank's videos back in the split's order
+        parts = mesh.gather_to_rank0(done)
+        if rank != 0:
+            return None
+        done = _reorder(parts, split_order([len(p) for p in parts]))
+    acc, miou = AverageMeter(), AverageMeter()
+    for iou in (x for d in done for x in d[0]):
+        acc.update(float(iou > 0.5))
+        miou.update(iou)
     print(f"{acc.avg:.6f},{miou.avg:.6f}")
 
+    cache_rows = [c for d in done for c in d[2]]
     if args.post_process and cache_rows:
-        fused = fuse_per_video(_cat(cache_rows), np.concatenate(vid_rows), ref_frames=k)
-        _print_fused(fused, fused_gt, size, gt_in_letterbox=False)
+        cache = _cat(cache_rows)
+        fused = fuse_per_video(FrameCache(*(x.to(dev) for x in cache)),
+                               np.concatenate([v for d in done for v in d[3]]),
+                               ref_frames=k)
+        _print_fused(fused, [g for d in done for g in d[1]], size, gt_in_letterbox=False)
     return acc.avg
-
 
 if __name__ == "__main__":
     main()

@@ -214,9 +214,15 @@ class VIDDataset:
 def batch_iterator(
     dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
     drop_last: bool = True, num_shards: int = 1, shard_index: int = 0,
-    num_workers: int = 0,
+    num_workers: int = 0, batch_shards: int = 1, batch_shard: int = 0,
 ) -> Iterator[Dict[str, np.ndarray]]:
-    """Host batch iterator with per-host sharding; num_workers > 0 decodes
+    """Host batch iterator with per-host sharding (`num_shards`: each shard
+    batches its own interleaved share of the clips) or per-rank batch
+    slices (`batch_shards`: every shard walks the global batches of
+    `batch_size`, drop_last, and yields rows `batch_shard` * b to
+    (`batch_shard` + 1) * b of each, b = batch_size / batch_shards, the
+    rows a data-parallel step places on that rank; every shard takes
+    the same len // batch_size steps). num_workers > 0 decodes
     each batch's items in a pool of that many threads (the letterbox's
     numpy passes release the GIL for part of their time). On the 8-core
     host of an NVIDIA H100 80GB HBM3 (700.00 W), cli/test.py's fp32
@@ -228,6 +234,10 @@ def batch_iterator(
         np.random.default_rng(seed).shuffle(order)
     order = order[shard_index::num_shards]
     n = len(order)
+    if batch_shards > 1 and (batch_size % batch_shards or not drop_last):
+        raise ValueError(f"batch slices need drop_last and a batch of {batch_size} "
+                         f"divisible by {batch_shards} shards")
+    per = batch_size // batch_shards
 
     def collate(items):
         out: Dict[str, Any] = {}
@@ -241,6 +251,7 @@ def batch_iterator(
             idxs = order[start:start + batch_size]
             if len(idxs) < batch_size and drop_last:
                 break
+            idxs = idxs[batch_shard * per:(batch_shard + 1) * per]
             yield collate(get_many([int(i) for i in idxs]))
 
     if num_workers > 0:

@@ -14,6 +14,13 @@ launched it (`CONV_S8_KEYS`, by `kernels.conv_s8.conv_plan`'s route names:
 the gather route; `conv_s8_launches` sums them) and `conv_s8_quant` K6's
 quantize pass (one count a pass: a float x on the TMA route, and each
 operand whose channels it pads).
+
+Importing the package registers the kernels that a serving tick reaches
+as operators (`torch.library.custom_op`, namespace `dcnet`):
+`dcnet::attend` (K1), `dcnet::ring` (K4), `dcnet::conv_s8` (K6, its route
+picked inside) and `dcnet::conv_s8_quant` (K6's quantize pass). A program
+saved by `torch.export` that calls them loads once this package is
+imported. Each counts its launches in its real implementation only.
 """
 
 from typing import Dict
@@ -35,3 +42,7 @@ def conv_s8_launches(counts: Dict[str, int] = LAUNCHES) -> int:
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# the operator library (imported last: the modules read LAUNCHES)
+from dcnet_tpu_torch.kernels import coattn, conv_s8  # noqa: E402,F401

@@ -19,10 +19,19 @@ module binds them with `ctypes`, holds their plain PyTorch versions, and
 dispatches on where the tensors lie: CPU tensors take the plain versions,
 CUDA tensors launch the kernels or raise.
 
+K1 and K4 are also registered operators, `torch.ops.dcnet.attend` and
+`torch.ops.dcnet.ring` (`torch.library.custom_op`), each with a fake
+implementation that gives the output's shape and dtype, so `torch.export`
+records them as calls (an exported serving tick launches the kernels, and
+counts them, when it runs). Their real implementation is the dispatch
+above; `kernels.LAUNCHES` is counted there and never in the fake one.
+
 The gradients are `torch.autograd.Function`s, as the JAX package's are
-`custom_vjp`s: `coattention_one` is K1 forward and K3 backward, and
-`coattention_fused` is K2 forward and two K3 backward, combined as
-df1 = dq1 + dkv2 and df2 = dkv1 + dq2, the sum taken in the input dtype.
+`custom_vjp`s: `coattention_one` is K1 forward (the `dcnet::attend` op)
+and K3 backward, and `coattention_fused` is K2 forward and two K3
+backward, combined as df1 = dq1 + dkv2 and df2 = dkv1 + dq2, the sum taken
+in the input dtype. Without gradients `coattention_one` calls the op
+directly.
 """
 
 from __future__ import annotations
@@ -107,13 +116,24 @@ def attend_bwd_plain(q: torch.Tensor, kv: torch.Tensor, temperature: float,
     return dq.to(q.dtype), dkv.to(kv.dtype)
 
 
-def _newest_slot(s: int, center_t: int, newest_slot=None) -> int:
+def _newest_slot(s: int, center_t: int, newest_slot=None):
     """The physical slot of a ring's newest frame (None: S - 1, physical
-    order is temporal order), checked with the center's temporal index."""
-    slot = s - 1 if newest_slot is None else int(newest_slot)
-    if not 0 <= slot < s or not 0 <= center_t < s:
-        raise ValueError(f"ring of {s} frames: newest_slot {newest_slot} and "
-                         f"center_t {center_t} must lie in [0, {s})")
+    order is temporal order), checked with the center's temporal index. A
+    symbolic slot (under `torch.export`) stays symbolic: its range becomes
+    a runtime check of the program, not a guard on its value."""
+    if not 0 <= center_t < s:
+        raise ValueError(f"ring of {s} frames: center_t {center_t} must lie in "
+                         f"[0, {s})")
+    if newest_slot is None:
+        return s - 1
+    if isinstance(newest_slot, torch.SymInt):
+        torch._check(newest_slot >= 0)
+        torch._check(newest_slot < s)
+        return newest_slot
+    slot = int(newest_slot)
+    if not 0 <= slot < s:
+        raise ValueError(f"ring of {s} frames: newest_slot {newest_slot} must "
+                         f"lie in [0, {s})")
     return slot
 
 
@@ -316,11 +336,7 @@ class _AttendOne(torch.autograd.Function):
     def forward(ctx, q, kv, temperature):
         ctx.save_for_backward(q, kv)
         ctx.temperature = temperature
-        if _on_cpu(q, kv):
-            return attend_plain(q, kv, temperature)
-        out = _launch_attend(q, kv, temperature, pair=False)
-        kernels.LAUNCHES["coattn_attend"] += 1
-        return out
+        return attend_op(q, kv, temperature)
 
     @staticmethod
     def backward(ctx, g):
@@ -355,8 +371,11 @@ def coattention_one(q: torch.Tensor, kv: torch.Tensor,
                     temperature: float) -> torch.Tensor:
     """Attended-for-q: softmax_rows(T q kvᵀ) kv. q, kv: (B, P, C) -> (B, P, C)
     in q's dtype, differentiable (K3). CPU tensors take the plain versions;
-    CUDA tensors launch the kernels (on the current stream) or raise."""
-    return _AttendOne.apply(q, kv, temperature)
+    CUDA tensors launch the kernels (on the current stream) or raise.
+    Without gradients to take it is the `dcnet::attend` op itself."""
+    if torch.is_grad_enabled() and (q.requires_grad or kv.requires_grad):
+        return _AttendOne.apply(q, kv, temperature)
+    return attend_op(q, kv, temperature)
 
 
 def coattention_fused(f1: torch.Tensor, f2: torch.Tensor, temperature: float
@@ -446,13 +465,60 @@ def coattention_ring_fused(ring: torch.Tensor, temperature: float = 10.0,
                            center_t=None, newest_slot=None) -> torch.Tensor:
     """The dispatch of K4 on an NHWC ring (B, S, H, W, C) -> the STACKED
     (B, S-1, H, W, C) attended features, references in temporal order;
-    `center_t` defaults to S // 2. CPU tensors take `ring_attend_plain`;
-    CUDA tensors launch the kernel (`coattention_ring`) or raise."""
+    `center_t` defaults to S // 2, `newest_slot` to S - 1. It is the
+    `dcnet::ring` op: CPU tensors take `ring_attend_plain`; CUDA tensors
+    launch the kernel (`coattention_ring`) or raise. The slot may be a
+    symbolic integer under `torch.export`."""
     b, s, h, w, c = ring.shape
     center_t = s // 2 if center_t is None else center_t
-    flat = ring.reshape(b, s, h * w, c)
-    if _on_cpu(ring):
-        out = ring_attend_plain(flat, temperature, center_t, newest_slot)
-    else:
-        out = coattention_ring(flat, temperature, center_t, newest_slot)
+    newest_slot = s - 1 if newest_slot is None else newest_slot
+    out = ring_op(ring.reshape(b, s, h * w, c), temperature, center_t, newest_slot)
     return out.reshape(b, s - 1, h, w, c)
+
+
+# --------------------------------------------------------------------------
+# Registered operators: K1 and K4 as `torch.ops.dcnet.*`
+# --------------------------------------------------------------------------
+
+def _refuse_meta(op: str, *xs: torch.Tensor) -> None:
+    """A real meta tensor (not a fake one under tracing) lies on no device
+    the kernels run on: refuse it, as the CUDA path refuses it."""
+    if any(x.device.type == "meta" for x in xs):
+        raise ValueError(f"{op} kernel needs its inputs on one CUDA device (or "
+                         f"all on the CPU), got "
+                         f"{', '.join(str(x.device) for x in xs)}")
+
+
+@torch.library.custom_op("dcnet::attend", mutates_args=())
+def attend_op(q: torch.Tensor, kv: torch.Tensor, temperature: float) -> torch.Tensor:
+    """K1: CPU tensors take `attend_plain`; CUDA tensors launch the kernel
+    (one count of `coattn_attend`) or raise."""
+    if _on_cpu(q, kv):
+        return attend_plain(q, kv, temperature)
+    out = _launch_attend(q, kv, temperature, pair=False)
+    kernels.LAUNCHES["coattn_attend"] += 1
+    return out
+
+
+@attend_op.register_fake
+def _attend_fake(q, kv, temperature):
+    _refuse_meta("coattention", q, kv)
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("dcnet::ring", mutates_args=())
+def ring_op(ring: torch.Tensor, temperature: float, center_t: int,
+            newest_slot: int) -> torch.Tensor:
+    """K4 on a (B, S, P, C) ring: CPU tensors take `ring_attend_plain`;
+    CUDA tensors launch the kernel (`coattention_ring`, one count of
+    `coattn_ring`) or raise."""
+    if _on_cpu(ring):
+        return ring_attend_plain(ring, temperature, center_t, newest_slot)
+    return coattention_ring(ring, temperature, center_t, newest_slot)
+
+
+@ring_op.register_fake
+def _ring_fake(ring, temperature, center_t, newest_slot):
+    _refuse_meta("ring", ring)
+    b, s, p, c = ring.shape
+    return ring.new_empty((b, s - 1, p, c), dtype=_ring_out_dtype(ring.dtype))

@@ -614,9 +614,13 @@ def quant_pass(x: torch.Tensor, cp: int, in_inv: Optional[float] = None,
     """The quantize pass on the card: x (..., Ci) contiguous, int8 (copied)
     or fp32 / bf16 (quantized, `quantize_plain`), into an int8 (..., cp)
     copy whose channels past Ci are zero. Counted as `conv_s8_quant`. A CPU
-    tensor takes `quant_pass_plain`."""
-    if x.device.type == "cpu":
-        return quant_pass_plain(x, cp, in_inv, in_scale)
+    tensor takes `quant_pass_plain`. It is the `dcnet::conv_s8_quant` op."""
+    return quant_pass_op(x, cp, in_inv, in_scale)
+
+
+def _quant_pass_launch(x: torch.Tensor, cp: int, in_inv: Optional[float],
+                       in_scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of the quantize pass (`quant_pass_kernel`), counted."""
     ci = x.shape[-1]
     out = torch.empty((*x.shape[:-1], cp), dtype=torch.int8, device=x.device)
     lib = _lib(x.dtype)
@@ -714,18 +718,27 @@ def conv_s8(x: torch.Tensor, w: torch.Tensor, stride: int = 1, pad: int = 0,
     with `in_inv` or `in_scale`) with w (Co, k, k, Ci) int8, zero padding
     `pad`, and its epilogue (module doc): (N, Ho, Wo, Co) in `out_dtype`
     (int32 raw sums when `scale` is None). `act` is None, "relu" or
-    "leaky". CPU tensors take `conv_s8_plain`; CUDA tensors launch the
-    kernel on the current stream or raise."""
+    "leaky". It is the `dcnet::conv_s8` op: CPU tensors take
+    `conv_s8_plain`; CUDA tensors launch the kernel on the current stream
+    (the route `conv_plan` picks) or raise."""
     if (scale is None) != (out_dtype == torch.int32) or (scale is None) != (bias is None) \
             or (scale2 is None) != (bias2 is None) or act not in _ACT:
         raise ValueError("conv_s8: int32 output takes no scale; a scale needs a bias, "
                          "scale2 needs bias2, act is None, 'relu' or 'leaky'")
+    return conv_s8_op(x, w, stride, pad, scale, bias, scale2, bias2, act, out_dtype,
+                      inv_out, addend, addend_hw, addend_rep, in_inv, in_scale)
+
+
+def _conv_s8_dispatch(x, w, stride, pad, scale, bias, scale2, bias2, act, out_dtype,
+                      inv_out, addend, addend_hw, addend_rep, in_inv, in_scale):
+    """The real implementation of `dcnet::conv_s8`: the plain version on
+    the CPU, else the checks, the plan and one route's launch."""
     epilogue = dict(scale=scale, bias=bias, scale2=scale2, bias2=bias2, act=act,
                     out_dtype=out_dtype, inv_out=inv_out, addend=addend,
                     addend_hw=addend_hw, addend_rep=addend_rep)
-    if x.device.type == "cpu" and w.device.type == "cpu":
+    if x.device.type == "cpu" and w.device.type == "cpu":  # in the kernel's layout
         return conv_s8_plain(x, w, stride, pad, in_inv=in_inv, in_scale=in_scale,
-                             **epilogue)
+                             **epilogue).contiguous()
     floats = (scale, bias, scale2, bias2)
     _check(x, w, stride, pad, floats, addend, out_dtype, inv_out, in_inv, in_scale)
     plan = plan_for(x, w, stride, pad, out_dtype)
@@ -830,3 +843,54 @@ def _conv_gather(plan: ConvPlan, x, w, stride, pad, floats, addend, addend_hw,
             f"{lib.dcnet_conv_s8_error_string(err).decode()}")
     kernels.LAUNCHES["conv_s8_gather"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# Registered operators: K6 and its quantize pass as `torch.ops.dcnet.*`
+# --------------------------------------------------------------------------
+
+def _refuse_meta(*xs: Optional[torch.Tensor]) -> None:
+    """A real meta tensor (not a fake one under tracing) lies on no device
+    the kernel runs on: refuse it, as the CUDA path refuses it."""
+    xs = [t for t in xs if t is not None]
+    if any(t.device.type == "meta" for t in xs):
+        raise ValueError(f"int8 conv kernel needs every tensor on one CUDA device, "
+                         f"got {', '.join(str(t.device) for t in xs)}")
+
+
+@torch.library.custom_op("dcnet::conv_s8", mutates_args=())
+def conv_s8_op(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
+               scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+               scale2: Optional[torch.Tensor], bias2: Optional[torch.Tensor],
+               act: Optional[str], out_dtype: torch.dtype, inv_out: Optional[float],
+               addend: Optional[torch.Tensor], addend_hw: int, addend_rep: int,
+               in_inv: Optional[float], in_scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """K6, one operator over its three routes (`conv_s8`'s arguments)."""
+    return _conv_s8_dispatch(x, w, stride, pad, scale, bias, scale2, bias2, act,
+                             out_dtype, inv_out, addend, addend_hw, addend_rep, in_inv,
+                             in_scale)
+
+
+@conv_s8_op.register_fake
+def _conv_s8_fake(x, w, stride, pad, scale, bias, scale2, bias2, act, out_dtype,
+                  inv_out, addend, addend_hw, addend_rep, in_inv, in_scale):
+    _refuse_meta(x, w, scale, bias, scale2, bias2, addend, in_scale)
+    n, h, wd, _ = x.shape
+    k = w.shape[1]
+    ho, wo = (h + 2 * pad - k) // stride + 1, (wd + 2 * pad - k) // stride + 1
+    return x.new_empty((n, ho, wo, w.shape[0]), dtype=out_dtype)
+
+
+@torch.library.custom_op("dcnet::conv_s8_quant", mutates_args=())
+def quant_pass_op(x: torch.Tensor, cp: int, in_inv: Optional[float],
+                  in_scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """K6's quantize pass (`quant_pass`)."""
+    if x.device.type == "cpu":
+        return quant_pass_plain(x, cp, in_inv, in_scale)
+    return _quant_pass_launch(x, cp, in_inv, in_scale)
+
+
+@quant_pass_op.register_fake
+def _quant_pass_fake(x, cp, in_inv, in_scale):
+    _refuse_meta(x, in_scale)
+    return x.new_empty((*x.shape[:-1], cp), dtype=torch.int8)

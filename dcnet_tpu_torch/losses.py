@@ -18,6 +18,7 @@ from dcnet_tpu_torch.models.heads import l2_normalize
 from dcnet_tpu_torch.ops.correspondence import ContrastiveSamples
 from dcnet_tpu_torch.ops.decode import flatten_conf
 from dcnet_tpu_torch.ops.target import CompactTarget
+from dcnet_tpu_torch.parallel.mesh import global_flip
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -58,11 +59,12 @@ def rank_loss(sim_flat: torch.Tensor, neg_sim_flat: torch.Tensor,
               pos_idx: torch.Tensor, margin: float = 0.1) -> torch.Tensor:
     """Hinge of the positive against two negative pairings: the unaligned
     phrase at the GT position, and the aligned sim at the reversed batch's
-    GT position. sim_flat, neg_sim_flat: (B, all_positions)."""
+    GT position. sim_flat, neg_sim_flat: (B, all_positions). Under data
+    parallelism the reversed batch is the global one (`global_flip`)."""
     idx = pos_idx.long()[:, None]
     pos = torch.gather(sim_flat, 1, idx)[:, 0]
     neg1 = torch.gather(neg_sim_flat, 1, idx)[:, 0]
-    neg2 = torch.gather(sim_flat, 1, torch.flip(idx, dims=[0]))[:, 0]
+    neg2 = torch.gather(sim_flat, 1, global_flip(idx))[:, 0]
     loss = F.relu(margin + neg1 - pos) + F.relu(margin + neg2 - pos)
     return loss.sum() / (2 * sim_flat.shape[0])
 

@@ -96,7 +96,9 @@ class DCNet(nn.Module):
         if cfg.trunk_quant not in ("off", "calib", "int8"):
             raise ValueError(f"trunk_quant is off, calib or int8, not {cfg.trunk_quant!r}")
         if cfg.tp_internals:
-            raise _not_ported("tp_internals", "ROADMAP queue A, item 12")
+            raise _not_ported("tp_internals (tensor-parallel co-attention and "
+                              "location Gram)", "ROADMAP queue A, item 12, the part "
+                              "still open")
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = resolve_dtype(cfg.compute_dtype)

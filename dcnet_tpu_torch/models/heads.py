@@ -25,6 +25,7 @@ from torch import nn
 
 from dcnet_tpu_torch.config import ANCHORS_PER_SCALE, BOX_ATTRS
 from dcnet_tpu_torch.kernels.conv_s8 import conv_s8
+from dcnet_tpu_torch.parallel import mesh
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
@@ -90,8 +91,28 @@ def bn_train(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tens
     BatchNorms amplify that into 1e-2 of the backbone's gradient. So the CPU
     takes the statistics from `torch.var_mean` (cascade sums, ~1e-7) and
     normalises with the same formula as flax, (x - mean) (rsqrt(var + eps)
-    scale) + bias."""
-    if x.device.type == "cpu":
+    scale) + bias.
+
+    Under data parallelism (`parallel.mesh.bn_group(bn)`: a process group of
+    more than one rank) the moments are the global batch's, as in the JAX
+    package's step jitted over a sharded batch: each rank's count and
+    channel sums are all-reduced for the mean, then the sums of squared
+    deviations for the variance, both differentiable (their backward is
+    the matching all-reduce), and every rank moves the running statistics
+    by the same global moments. Without a group, or with one of one rank,
+    the code below runs as it is."""
+    group = mesh.bn_group(bn)
+    if group is not None:
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = tuple(range(x.dim() - 1))
+        part = torch.cat([x32.sum(dims), x32.new_full((1,), x32.numel() // x.shape[-1])])
+        total = mesh.all_reduce_sum(part, group)
+        mean = total[:-1] / total[-1]
+        dev = x32 - mean
+        var = mesh.all_reduce_sum((dev * dev).sum(dims), group) / total[-1]
+        y = (dev * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias).to(x.dtype)
+        mean, var = mean.detach(), var.detach().double()
+    elif x.device.type == "cpu":
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         var, mean = torch.var_mean(x32, dim=tuple(range(x.dim() - 1)),
                                    correction=0)
@@ -227,8 +248,15 @@ class ConvBNReLU(nn.Module):
         They are made once and kept until the weights, the BatchNorm
         statistics or act_max change: each source's storage and version
         counter stamp the cache, which pins the sources, so no storage
-        address is reused while it is cached."""
+        address is reused while it is cached. Under `torch.export` the
+        cache filled before the trace is read as it is (the program's
+        constants)."""
         bn = self.bn
+        if torch.compiler.is_compiling():  # under torch.export: the cache is a constant
+            if self._int8_cache is None:
+                raise RuntimeError("the int8 trunk's constants are made by a call "
+                                   "before the trace (export_engine's warm-up tick)")
+            return self._int8_cache[2]
         srcs = (self.conv.weight, bn.weight, bn.bias, bn.running_mean,
                 bn.running_var, self.act_max)
         stamp = None if any(t.is_inference() for t in srcs) else \

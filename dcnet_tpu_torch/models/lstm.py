@@ -4,9 +4,18 @@ The port of `dcnet_tpu/models/lstm.py`: Embedding -> Dropout -> Linear+ReLU
 -> one bidirectional LSTM layer with packed-sequence semantics, returning
 (last-step output (B, 2H), context (B, L, 2H), embedding (B, L, word_vec)).
 Where the JAX package masks a `lax.scan`, this packs the padded batch
-(`pack_padded_sequence`), which the masked scan reproduces exactly. Children
-carry the reference names (`embedding`, `mlp.0`, `rnn`); torch keeps
-`bias_ih` and `bias_hh` apart, as the JAX parameters do.
+in training (`pack_padded_sequence`), which the masked scan reproduces
+exactly. Inference runs `unpacked`: the `nn.LSTM` on the padded batch for
+the forward direction, and on each sequence moved to the end of its row
+(a gather) for the backward one, positions past a sequence's length
+zero. It needs no host copy of the
+lengths (no sync) and `torch.export` takes it, so the serving bundle's
+language program computes what the live engine computes, bit for bit.
+The two forms agree within fp32 rounding (1e-7 here); training keeps
+packing, whose rounding the train parity tests against the JAX package
+hold (the unpacked form's moved the k=3 fp32 gradients past their limit). Children carry the
+reference names (`embedding`, `mlp.0`, `rnn`); torch keeps `bias_ih` and
+`bias_hh` apart, as the JAX parameters do.
 
 The encoder runs in fp32 whatever the compute dtype (20 tokens a clip; the
 outputs are cast to the compute dtype). `train` turns the input dropout on;
@@ -53,12 +62,35 @@ class BiLSTMEncoder(nn.Module):
         # has no inter-layer dropout, so the mode changes no number
         if self.rnn.training != train:
             self.rnn.train(train)
-        packed = pack_padded_sequence(emb, lengths.cpu(), batch_first=True,
-                                      enforce_sorted=False)
-        out, _ = self.rnn(packed)
-        context, _ = pad_packed_sequence(out, batch_first=True,
-                                         total_length=seq_len)
+        if not train:
+            context = self.unpacked(emb, lengths)
+        else:
+            packed = pack_padded_sequence(emb, lengths.cpu(), batch_first=True,
+                                          enforce_sorted=False)
+            out, _ = self.rnn(packed)
+            context, _ = pad_packed_sequence(out, batch_first=True,
+                                             total_length=seq_len)
         idx = (lengths - 1).to(context.device)
         last = context[torch.arange(context.shape[0], device=context.device), idx]
         return (last.to(self.dtype), context.to(self.dtype),
                 emb.to(self.dtype))
+
+    def unpacked(self, emb: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """The packed BiLSTM's context (B, L, 2H) of `emb` (B, L, D) with
+        no packing and no host copy of `lengths` (the form `torch.export`
+        takes). `rnn` runs twice on the padded batch: as it is, for the
+        forward direction (it reads no position past the one it writes);
+        and with each sequence moved to the end of its row (padding first,
+        a gather), for the backward direction, which there starts at the
+        sequence's last token and reaches the padding only after its
+        first; that half is moved back."""
+        h, n = self.rnn.hidden_size, emb.shape[1]
+        t = torch.arange(n, device=emb.device)[None, :]
+        shift = (n - lengths)[:, None]                            # (B, 1)
+        fwd, _ = self.rnn(emb)
+        right = torch.gather(emb, 1, ((t - shift) % n)[..., None].expand_as(emb))
+        back, _ = self.rnn(right)
+        bwd = torch.gather(back[..., h:], 1, ((t + shift) % n)[..., None].expand(
+            *back.shape[:2], h))
+        valid = (t < lengths[:, None])[..., None]
+        return torch.where(valid, torch.cat([fwd[..., :h], bwd], dim=-1), 0.0)

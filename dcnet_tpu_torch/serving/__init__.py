@@ -1,1 +1,3 @@
-"""The streaming serving engine (`serving.engine`)."""
+"""Streaming serving: the engine (`serving.engine`), its state
+(`serving.state`) and the exported bundle with its runtime
+(`serving.export`)."""

@@ -24,14 +24,15 @@ them intact), and the rotating slot is a host integer carried in the state,
 so a tick reads no device scalar. `quantize()` switches the per-frame
 backbone to the int8 path (`ops/quant.py`, kernel K6; `int8_chain` keeps
 sole-consumer activations in int8) and, by default, the trunk convs to
-static-scale int8. The device mesh and XLA compiler options are not carried
-(ROADMAP).
+static-scale int8. The device mesh (a stream shard per process) and XLA
+compiler options are not carried (ROADMAP). `serving/export.py` exports the
+step as a `torch.export` program that serves without this module.
 """
 
 from __future__ import annotations
 
 import os
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,20 +41,10 @@ from dcnet_tpu_torch import DeviceLike, resolve_device
 from dcnet_tpu_torch.eval.temporal import build_frame_cache
 from dcnet_tpu_torch.models.dcnet import DCNet, _not_ported
 from dcnet_tpu_torch.ops.decode import decode_best
+from dcnet_tpu_torch.serving.state import StreamState
 
-
-class StreamState(NamedTuple):
-    """Rings and caches of all streams. Leading dim = n_streams."""
-
-    feat_rings: Tuple[torch.Tensor, ...]  # per scale (N, n_frame, g, g, C)
-    cache_boxes: torch.Tensor             # (N, fuse_window, K, 4) fp32
-    cache_scores: torch.Tensor            # (N, fuse_window, K) fp32
-    cache_feats: torch.Tensor             # (N, fuse_window, K, C)
-    frames_seen: torch.Tensor             # (N,) int32
-    word_ids: torch.Tensor                # (N, L) each stream's phrase
-    language: Tuple[torch.Tensor, ...]    # cached (flang, context, embedded)
-    slot: int  # physical ring index of the newest frame (rotate mode);
-    #            carried but unused in shift mode
+__all__ = ["GroundingEngine", "StreamState", "cast_params_for_serving",
+           "load_stream_state", "save_stream_state"]
 
 
 class GroundingEngine:
@@ -66,7 +57,8 @@ class GroundingEngine:
                  int8_rings: bool = False, int8_chain: bool = False,
                  compiler_options=None):
         if mesh is not None:
-            raise _not_ported("a device mesh", "ROADMAP queue A, item 12")
+            raise _not_ported("the engine's device mesh (a stream shard per process)",
+                              "ROADMAP queue A, item 12, the part still open")
         if compiler_options:
             raise _not_ported("compiler_options (XLA/TPU compiler flags)",
                               "XLA options have no PyTorch counterpart")
@@ -211,7 +203,9 @@ class GroundingEngine:
             rings = (state.feat_rings if self.donate_state
                      else tuple(r.clone() for r in state.feat_rings))
             for ring, f in zip(rings, new_feats):
-                ring[:, new_slot] = f
+                # narrow + copy_ keeps a symbolic slot symbolic under
+                # torch.export (an indexed store would specialise on it)
+                ring.narrow(1, new_slot, 1).copy_(f[:, None])
         else:
             new_slot = state.slot
             rings = tuple(torch.cat([r[:, 1:], f[:, None].to(r.dtype)], dim=1)

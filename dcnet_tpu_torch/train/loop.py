@@ -4,7 +4,8 @@
 arrays or CPU tensors, as a data loader yields them), move each to the
 model's device (pinned memory and `non_blocking` copies to a CUDA card),
 and keep the metric meters. Clip batches (B, k, ...) are flattened to the
-(B*k, ...) layout the steps take.
+(B*k, ...) layout the steps take. Under data parallelism the meters take
+the metrics averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from dcnet_tpu_torch.eval.metrics import AverageMeter
+from dcnet_tpu_torch.parallel import mesh
 from dcnet_tpu_torch.train.state import TrainState
 from dcnet_tpu_torch.train.step import eval_step, train_step
 
@@ -61,7 +63,9 @@ def train_epoch(state: TrainState, batches: Iterable[Mapping[str, object]],
                 should_stop: Optional[Callable[[], bool]] = None
                 ) -> Dict[str, float]:
     """One epoch of `train_step`s; returns the epoch's metric averages.
-    `should_stop` is polled between steps (the preemption hook)."""
+    `should_stop` is polled between steps (the preemption hook); under data
+    parallelism the epoch ends where any rank's poll says stop, on every
+    rank at the same step (`mesh.any_rank`)."""
     meters = {k: AverageMeter() for k in
               ("loss", "loss_yolo", "loss_rank", "loss_loc", "loss_interframe",
                "loss_crossmodal", "acc50", "acc_center", "miou", "batch_time")}
@@ -70,17 +74,17 @@ def train_epoch(state: TrainState, batches: Iterable[Mapping[str, object]],
     for i, batch in enumerate(batches):
         if max_steps is not None and i >= max_steps:
             break
-        if should_stop is not None and should_stop():
+        if should_stop is not None and mesh.any_rank(should_stop()):
             log.info("stop requested at step %d of epoch %d", i, epoch)
             break
         batch = to_device(flatten_clip_batch(batch), device)
         n = batch["images"].shape[0]
-        metrics = train_step(state, batch, generator)
+        metrics = mesh.mean_over_ranks(train_step(state, batch, generator))
         for k, v in metrics.items():
             meters[k].update(float(v), n)
         meters["batch_time"].update(time.time() - end)
         end = time.time()
-        if i % print_freq == 0:
+        if i % print_freq == 0 and mesh.world()[1] == 0:
             msg = (f"Epoch [{epoch}][{i}] "
                    + " ".join(f"{k} {m.val:.4f} ({m.avg:.4f})"
                               for k, m in meters.items()))
@@ -91,7 +95,8 @@ def train_epoch(state: TrainState, batches: Iterable[Mapping[str, object]],
 
 def validate(model, batches: Iterable[Mapping[str, object]],
              max_steps: Optional[int] = None) -> Dict[str, float]:
-    """`eval_step` over the batches; returns acc50, acc_center and miou."""
+    """`eval_step` over the batches; returns acc50, acc_center and miou
+    (under data parallelism over every rank's batches)."""
     meters = {k: AverageMeter() for k in ("acc50", "acc_center", "miou")}
     for i, batch in enumerate(batches):
         if max_steps is not None and i >= max_steps:
@@ -101,5 +106,10 @@ def validate(model, batches: Iterable[Mapping[str, object]],
         for k, v in eval_step(model, batch).items():
             meters[k].update(float(v), n)
     result = {k: m.avg for k, m in meters.items()}
+    if mesh.world()[0] > 1:
+        sums = torch.tensor([[m.sum, m.count] for m in meters.values()],
+                            dtype=torch.float64, device=model.device)
+        torch.distributed.all_reduce(sums)
+        result = {k: float(s / max(c, 1)) for k, (s, c) in zip(meters, sums.tolist())}
     log.info("%f,%f,%f", result["acc50"], result["miou"], result["acc_center"])
     return result

@@ -15,7 +15,7 @@ stepped once per step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -64,12 +64,15 @@ def make_optimizer(cfg: DCNetConfig, model: nn.Module) -> torch.optim.Optimizer:
 
 @dataclasses.dataclass
 class TrainState:
-    """The model, its optimizer, the poly schedule and the step count."""
+    """The model, its optimizer, the poly schedule and the step count;
+    under data parallelism `ddp` is the model wrapped by
+    `parallel.mesh.wrap_ddp`, which the train step's forward runs through."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: torch.optim.lr_scheduler.LambdaLR
     step: int = 0
+    ddp: Optional[nn.Module] = None
 
 
 def create_train_state(model: nn.Module, cfg: DCNetConfig,

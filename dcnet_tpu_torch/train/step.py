@@ -1,6 +1,7 @@
 """The train and eval steps: the port of `dcnet_tpu/train/step.py`.
 
-One train step is forward (`DCNet.forward(train=True)`), the five-loss sum,
+One train step is forward (`DCNet.forward(train=True)`, through
+DistributedDataParallel under data parallelism), the five-loss sum,
 backward, an optimizer and schedule step, and the train metrics of the
 forward's outputs; the eval step is the eval-mode forward of the same
 clips, the argmax decode and acc@0.5 / center accuracy / mIoU.
@@ -17,14 +18,16 @@ from dcnet_tpu_torch.losses import gather_pred_at_target, total_loss
 from dcnet_tpu_torch.ops.boxes import bbox_iou, xywh2xyxy
 from dcnet_tpu_torch.ops.decode import decode_best, flatten_conf, flatten_scores
 from dcnet_tpu_torch.ops.target import CompactTarget, build_target
+from dcnet_tpu_torch.parallel.mesh import global_flip
 from dcnet_tpu_torch.train.state import TrainState
 
 
 def neg_sim_scores(corr_feat: Sequence[torch.Tensor],
                    flang_attn: torch.Tensor) -> torch.Tensor:
     """The reversed batch's phrase attention dotted with the fused visual
-    features, flattened to (B, all_positions)."""
-    rev = torch.flip(flang_attn, dims=[0])
+    features, flattened to (B, all_positions). Under data parallelism the
+    reversed batch is the global one (`parallel.mesh.global_flip`)."""
+    rev = global_flip(flang_attn)
     return flatten_scores([torch.einsum("bc,bhwc->bhw", rev, f.to(rev.dtype))
                            for f in corr_feat])
 
@@ -61,11 +64,15 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                ) -> Dict[str, torch.Tensor]:
     """batch: images (kB, H, W, 3), word_ids (kB, L), bbox (kB, 4) xyxy.
     Updates the state in place; returns the metrics as 0-dim tensors. The
-    parameters keep this step's gradients until the next step."""
+    parameters keep this step's gradients until the next step. With
+    `state.ddp` (`parallel.mesh.wrap_ddp` of the model) the forward runs
+    through it: the batch is this rank's shard, the gradients are averaged
+    over the ranks and the metrics are this rank's."""
     model = state.model
     cfg = model.cfg
     images, word_ids, bbox = _inputs(model, batch)
-    out = model(images, word_ids, train=True, generator=generator)
+    forward = state.ddp if state.ddp is not None else model
+    out = forward(images, word_ids, train=True, generator=generator)
     tgt = build_target(bbox, cfg)
     lb = total_loss(out.outbox, flatten_scores(out.sim_score),
                     neg_sim_scores(out.corr_feat, out.flang_attn),

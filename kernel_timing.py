@@ -20,6 +20,16 @@ its checkout's `dcnet_tpu_torch`:
 
 Prints one JSON line per run and a summary line, each case's readings in
 both checkouts.
+
+`--paths` times, in the same turns, the main paths whose kernels are
+called through the host: `chip_smoke.py`'s int8 eval (clips/s of the
+64-clip call and its variants, beside the float bf16 `eval_clip`), and
+its float and quantized serving ticks at 120 streams (s/tick by mode),
+each checkout through its own `chip_smoke.py`; in this checkout it also
+times the host cost of a call of each `torch.ops.dcnet.*` operator
+against its real implementation called directly (`dispatch_us`):
+
+    python3 kernel_timing.py OTHER_CHECKOUT --paths
 """
 
 from __future__ import annotations
@@ -206,6 +216,89 @@ def time_cases(kernels=()) -> dict:
     return {"source": coattn.__file__, "cases": out}
 
 
+def dispatch_us(calls: int = 2000, rounds: int = 3) -> dict:
+    """Host microseconds a call, of each registered operator of this
+    checkout (`torch.ops.dcnet.*`, through the dispatcher) and of its real
+    implementation called directly, on small CUDA inputs whose kernels
+    take less of the card than their calls take of the host: the host
+    time of `calls` enqueued calls, the least of `rounds` taken in turns.
+    None where the checkout registers no operators."""
+    from dcnet_tpu_torch.kernels import coattn as kc
+    from dcnet_tpu_torch.kernels import conv_s8 as kq
+    if not hasattr(kq, "conv_s8_op"):
+        return None
+    import time
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rows(*shape):
+        return torch.randn(*shape, device=dev, generator=gen).to(torch.bfloat16)
+
+    q, kv, ring, xf = rows(1, 128, 128), rows(1, 128, 128), rows(1, 5, 128, 128), \
+        rows(1, 8, 8, 64)
+    x = torch.randint(-127, 128, (1, 8, 8, 64), dtype=torch.int8, device=dev, generator=gen)
+    w = torch.randint(-127, 128, (64, 1, 1, 64), dtype=torch.int8, device=dev, generator=gen)
+    conv = (x, w, 1, 0, None, None, None, None, None, torch.int32, None, None, 1, 1, None,
+            None)
+    cases = {
+        "dcnet::attend": (lambda: kc.attend_op(q, kv, T),
+                          lambda: kc._launch_attend(q, kv, T, False)),
+        "dcnet::ring": (lambda: kc.ring_op(ring, T, 2, 4),
+                        lambda: kc.coattention_ring(ring, T, 2, 4)),
+        "dcnet::conv_s8": (lambda: kq.conv_s8_op(*conv),
+                           lambda: kq._conv_s8_dispatch(*conv)),
+        "dcnet::conv_s8_quant": (lambda: kq.quant_pass_op(xf, 64, 0.5, None),
+                                 lambda: kq._quant_pass_launch(xf, 64, 0.5, None)),
+    }
+    out = {}
+    for name, fns in cases.items():
+        best = [float("inf"), float("inf")]
+        for _ in range(rounds):
+            for i, fn in enumerate(fns):
+                for _ in range(50):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                best[i] = min(best[i], (time.perf_counter() - t0) / calls * 1e6)
+                torch.cuda.synchronize()
+        out[name] = {"op_us": best[0], "direct_us": best[1], "dispatch_us": best[0] - best[1]}
+    return out
+
+
+def time_paths() -> dict:
+    """This process's checkout (first on sys.path): `chip_smoke.py`'s int8,
+    serving and serving_int8 phases after its build phase, their timing
+    records, and `dispatch_us`."""
+    import contextlib
+    import io
+    import time
+    import chip_smoke as cs
+    dev = torch.device("cuda", 0)
+    out, seconds, timing = io.StringIO(), {}, {}
+    with contextlib.redirect_stdout(out):
+        cs.finish_k6_build(cs.phase_build())
+        for name in ("int8", "serving", "serving_int8"):
+            t0 = time.perf_counter()
+            timing[name] = getattr(cs, f"phase_{name}")(dev)["timing"]
+            seconds[name] = time.perf_counter() - t0
+    return {"timing": timing, "seconds": seconds, "dispatch": dispatch_us(),
+            "nvidia_smi": cs.nvidia_smi()}
+
+
+def _paths_summary(runs: list) -> dict:
+    """Each timing reading (clips/s, s/tick) by checkout, in run order."""
+    rows = {}
+    for run in runs:
+        for phase, modes in run["timing"].items():
+            for mode, rec in modes.items():
+                key = "clips_per_s" if "clips_per_s" in rec else "s_per_tick"
+                row = rows.setdefault(f"{phase}/{mode}", {"metric": key})
+                row.setdefault(run["checkout"], []).append(rec[key])
+    return rows
+
+
 def time_k6_plans() -> list:
     """K6's TMA route at K6_SHAPES on 8 and 120 frames, int8 in to int32
     out, under other tiles and splits than `conv_plan` picks (the plan's
@@ -254,6 +347,10 @@ def main(argv=None) -> int:
                     help="time the checkout `other` in this process")
     ap.add_argument("--kernels", default="",
                     help="comma-separated kernels to time (K1-K6; default all)")
+    ap.add_argument("--paths", action="store_true",
+                    help="time the int8 eval and the serving ticks through each "
+                         "checkout's chip_smoke.py, and this checkout's operator "
+                         "dispatch, instead of the kernels")
     ap.add_argument("--k6-plans", action="store_true",
                     help="time K6's TMA route under other tiles and splits "
                          "(this checkout only; `other` is ignored)")
@@ -268,14 +365,19 @@ def main(argv=None) -> int:
         return 0
     if args.worker:
         sys.path.insert(0, os.path.abspath(args.other))
-        print(json.dumps(time_cases(only)), flush=True)
+        if args.paths:
+            os.chdir(os.path.abspath(args.other))
+            print(json.dumps(time_paths()), flush=True)
+        else:
+            print(json.dumps(time_cases(only)), flush=True)
         return 0
     here = os.path.dirname(os.path.abspath(__file__))
     runs = []
     for label, root in (("other", args.other), ("this", here), ("this", here),
                         ("other", args.other)):
         res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                              "--kernels", ",".join(only), root],
+                              "--kernels", ",".join(only), root]
+                             + (["--paths"] if args.paths else []),
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             print(res.stderr[-4000:], file=sys.stderr)
@@ -283,6 +385,9 @@ def main(argv=None) -> int:
         run = {"checkout": label, **json.loads(res.stdout.strip().splitlines()[-1])}
         print(json.dumps(run), flush=True)
         runs.append(run)
+    if args.paths:
+        print(json.dumps({"summary": _paths_summary(runs)}), flush=True)
+        return 0
     summary = []
     for i, case in enumerate(runs[0]["cases"]):
         row = {k: case[k] for k in ("kernel", "dtype", "B", "P", "C", "shape") if k in case}

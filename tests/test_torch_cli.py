@@ -308,11 +308,19 @@ def test_unported_cli_options_raise(tmp_path, monkeypatch, argv, item):
 
 
 def test_data_parallel_over_cards_raises(tmp_path, monkeypatch):
+    """--data_parallel runs one process a card (its runs are in
+    tests/test_torch_parallel.py); it raises only where the processes it is
+    asked for cannot start: more cards than there are, --multihost outside
+    torchrun's launch, or --devices above 1 without --data_parallel."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(ptest, "cli_device", lambda: torch.device("cuda", 0))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ptest.main(["--synthetic", "--lstm", "--data_parallel"])
+    with pytest.raises(ValueError, match="--devices 3: 2 CUDA devices"):
+        ptest.main(["--synthetic", "--lstm", "--data_parallel", "--devices", "3"])
+    with pytest.raises(ValueError, match="torchrun"):
+        ptest.main(["--synthetic", "--lstm", "--data_parallel", "--multihost"])
+    with pytest.raises(ValueError, match="without --data_parallel runs one process"):
+        ptest.main(["--synthetic", "--lstm", "--devices", "2"])
 
 
 @pytest.mark.parametrize("resume,item", [

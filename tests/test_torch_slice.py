@@ -248,5 +248,7 @@ def test_unported_engine_options_raise(option):
         state, fused, raw, score = eng.step(state, rng.rand(2, 64, 64, 3).astype(np.float32))
         assert torch.isfinite(fused).all() and eng.qparams is not None
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
+    match = {"mesh": "device mesh.*item 12, the part still open",
+             "compiler_options": "XLA options have no PyTorch counterpart"}[option]
+    with pytest.raises(NotImplementedError, match=match):
         GroundingEngine(model, n_streams=2, **kw)

@@ -93,6 +93,12 @@ def test_train_and_eval_with_bert(workdir):
 
 
 @pytest.mark.parametrize("argv", [["--multihost"], ["--devices", "2"]])
-def test_more_than_one_process_or_card_raises(workdir, argv):
-    with pytest.raises(NotImplementedError, match="item 12"):
+def test_more_than_one_process_or_card_raises(workdir, argv, monkeypatch):
+    """More than one process runs (tests/test_torch_parallel.py); these
+    options raise only where their processes cannot start: --multihost
+    outside torchrun's launch, --devices above the cards there are."""
+    monkeypatch.setattr(ptrain, "cli_device", lambda: torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    match = "torchrun" if argv == ["--multihost"] else "--devices 2: 1 CUDA devices"
+    with pytest.raises(ValueError, match=match):
         ptrain.main(SMALL + ENCODERS["lstm"] + argv)
