@@ -175,6 +175,24 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      (bitwise, deterministic algorithms), and `cli/train.py --devices 1`
      against the plain run (within twice a repeated plain run's spread).
      Two cards cannot run on a one-card machine (the phase says so).
+  12. mesh -- the 2-D (data, model) mesh (`parallel.mesh`, `cfg.tp_internals`,
+     the engine's `mesh`): K1 (B=8), K2 and K3 (B=16) on row windows at P
+     64, 256 and 1024, C=512, fp32 and bf16 (P/2 and P/4 at offset 0 and at
+     the end, 37 rows at offset 11), each window against its plain version
+     (K3 fp32 against float64), against the full launch's rows, a window
+     shifted by one row rejected, K3's partial dkv over each partition
+     summed against the whole frame's, device ms of the P/2 and P/4 launches
+     beside the full one; a NCCL group of one with tp_internals (train step
+     and eval_clip bitwise the plain ones, K2 3, K3 6, K1 12); two processes
+     on the card joined by gloo over CUDA tensors: the (data 1, model 2)
+     fp32 k=2 train step at full width against the one-process step by
+     train_parity's rule (K2 3 and K3 6 on windows on each rank), eval_clip
+     under it (K1 12 on windows), the (data 2, model 1) engine at 8 fp32
+     streams over 8 ticks against the one-process engine (1e-4), its state
+     file resumed in one process, and the bf16 multiref serving cell's
+     s/tick per rank beside one process (no scaling measured on one card);
+     `dryrun_multichip(4)` (4 gloo ranks on the card, a 2 x 2 mesh, the mini
+     model at 64 px). Two cards cannot run here (the phase says so).
 Then the seconds of each phase, the `kernels` line (K1's launches per
 path, K2's and K3's per path), the nvidia-smi line, and
 as the last line
@@ -4691,6 +4709,485 @@ def phase_ddp(dev) -> dict:
     return rec
 
 
+# --- the 2-D (data, model) mesh --------------------------------------------
+
+MESH_P = MAIN_P                   # the windows' frames: the three scales at 256 px
+MESH_STREAMS, MESH_TICKS, MESH_SAVE = 8, 8, 4      # the two-rank engine
+MESH_TOL = dict(rtol=1e-4, atol=1e-4)              # mesh engine against one process
+MESH_PACE_WARMUP, MESH_PACE_TICKS = 2, 6           # the 120-stream multiref ticks
+MESH_EVAL_CLIPS = 2
+
+
+def mesh_windows(p: int) -> list:
+    """The row windows held on a P-row frame: P/2 and P/4 at offset 0 and
+    at the last window, and a ragged one (37 rows at offset 11)."""
+    return [(0, p // 2), (p - p // 2, p // 2), (0, p // 4), (p - p // 4, p // 4), (11, 37)]
+
+
+def mesh_partitions(p: int) -> list:
+    """Partitions of P rows into windows, whose K3 partial dkv sum to the
+    whole frame's: halves, quarters, and ragged thirds."""
+    return [[(0, p // 2), (p // 2, p - p // 2)],
+            [(i * (p // 4), p // 4) for i in range(3)] + [(3 * (p // 4), p - 3 * (p // 4))],
+            [(0, 11), (11, 37), (48, p - 48)]]
+
+
+def _shifted(p: int, r0: int, rows: int) -> int:
+    """The offset of the window moved by one row (down, or up at the end)."""
+    return r0 + 1 if r0 + rows < p else r0 - 1
+
+
+def _k3_window_held(got, q, kv, g, r0: int, dtype):
+    """K3 on the window (r0, rows of g): dq and the partial dkv against
+    the window's reference (fp32: float64 at K3_F64_TOL; bf16: the plain
+    version at BWD_TOL), and whether the limits reject the window shifted
+    by one row (its dq). Returns (ok, max err, rejects)."""
+    rows = g.shape[1]
+    s0 = _shifted(q.shape[1], r0, rows)
+    if dtype == torch.float32:
+        want, terms = k3_exact(q[:, r0:r0 + rows], kv, TEMPERATURE, g)
+        res = [k3_agreement(a, w, m) for a, w, m in zip(got, want, terms)]
+        shifted, _ = k3_exact(q[:, s0:s0 + rows], kv, TEMPERATURE, g)
+        rej = not k3_agreement(got[0], shifted[0], terms[0])[0]
+        return all(r[0] for r in res), max(r[1] for r in res), rej
+    want = k_coattn.attend_bwd_plain(q, kv, TEMPERATURE, g, r0)
+    shifted = k_coattn.attend_bwd_plain(q, kv, TEMPERATURE, g, s0)
+    res = [agreement(a, w, dtype, BWD_TOL) for a, w in zip(got, want)]
+    rej = not agreement(got[0], shifted[0], dtype, BWD_TOL)[0]
+    return all(r[0] for r in res), max(r[1] for r in res), rej
+
+
+def mesh_window_cases(dev, gen) -> list:
+    """K1 (B=8), K2 and K3 (B=16) on row windows at P in MESH_P, C=512, fp32
+    and bf16: each window against its plain version (K3: fp32 against
+    float64), against the rows of the full launch (bitwise predicted for K1
+    and K2), a window shifted by one row rejected by the limits, K3's
+    partial dkv over each partition summed against the whole frame's
+    reference and the full launch's dkv, and the device ms of the P/2 and
+    P/4 launches beside the full one."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for p in MESH_P:
+            q = _rows(gen, KERNEL_B, p, KERNEL_C).to(dev, dtype)
+            kv = _rows(gen, KERNEL_B, p, KERNEL_C).to(dev, dtype)
+            clip = _rows(gen, TRAIN_B, 2, p, KERNEL_C).to(dev, dtype)
+            f1, f2 = clip[:, 0], clip[:, 1]
+            g = torch.randn(TRAIN_B, p, KERNEL_C, generator=gen).to(dev, dtype)
+            with torch.no_grad():
+                full1 = k_coattn.attend_window(q, kv, TEMPERATURE, 0, p)
+                full2 = k_coattn.attend_pair_window(f1, f2, TEMPERATURE, 0, p)
+            full3 = k_coattn.attend_bwd(f1, f2, TEMPERATURE, g)
+            rec = {"phase": "mesh", "what": "windows", "dtype": str(dtype)[6:], "P": p,
+                   "C": KERNEL_C, "B": {"K1": KERNEL_B, "K2": TRAIN_B, "K3": TRAIN_B},
+                   "windows": {}}
+            ok = True
+            for r0, rows in mesh_windows(p):
+                s0 = _shifted(p, r0, rows)
+                with torch.no_grad():
+                    o1 = k_coattn.attend_window(q, kv, TEMPERATURE, r0, rows)
+                    o2 = k_coattn.attend_pair_window(f1, f2, TEMPERATURE, r0, rows)
+                w1 = k_coattn.attend_plain(q, kv, TEMPERATURE, r0, rows)
+                w2 = (k_coattn.attend_plain(f1, f2, TEMPERATURE, r0, rows),
+                      k_coattn.attend_plain(f2, f1, TEMPERATURE, r0, rows))
+                torch.cuda.synchronize()
+                a1 = agreement(o1, w1, dtype)
+                a2 = [agreement(x, w, dtype) for x, w in zip(o2, w2)]
+                rej = (not agreement(o1, k_coattn.attend_plain(q, kv, TEMPERATURE, s0,
+                                                               rows), dtype)[0]
+                       and not agreement(o2[0], k_coattn.attend_plain(
+                           f1, f2, TEMPERATURE, s0, rows), dtype)[0])
+                eq1 = torch.equal(o1, full1[:, r0:r0 + rows])
+                eq2 = all(torch.equal(x, f[:, r0:r0 + rows]) for x, f in zip(o2, full2))
+                rec["windows"][f"{r0}+{rows}"] = {
+                    "K1_max_abs_err": a1[1], "K2_max_abs_err": max(a[1] for a in a2),
+                    "K1_equal_to_full_rows": eq1, "K2_equal_to_full_rows": eq2,
+                    "shift_by_one_rejected": rej}
+                ok = ok and a1[0] and all(a[0] for a in a2) and rej
+            if dtype == torch.float32:
+                want3, terms3 = k3_exact(f1, f2, TEMPERATURE, g)
+            else:
+                want3 = k_coattn.attend_bwd_plain(f1, f2, TEMPERATURE, g)
+            for partition in mesh_partitions(p):
+                parts = []
+                total, worst, rej_all, dq_eq = None, 0.0, True, True
+                for r0, rows in partition:
+                    gw = g[:, r0:r0 + rows].contiguous()
+                    got = k_coattn.attend_bwd(f1, f2, TEMPERATURE, gw, row0=r0)
+                    w_ok, err, rej = _k3_window_held(got, f1, f2, gw, r0, dtype)
+                    ok = ok and w_ok and rej
+                    worst, rej_all = max(worst, err), rej_all and rej
+                    dq_eq = dq_eq and torch.equal(got[0], full3[0][:, r0:r0 + rows])
+                    part = got[1].float()
+                    total = part if total is None else total + part
+                    parts.append(got[1])
+                if dtype == torch.float32:
+                    sum_ok, sum_err, _, _ = k3_agreement(total, want3[1], terms3[1])
+                else:
+                    sum_ok, sum_err, _ = agreement(total, want3[1], dtype, BWD_TOL,
+                                                   terms=parts)
+                ok = ok and sum_ok
+                rec["windows"]["K3 " + ",".join(f"{a}+{b}" for a, b in partition)] = {
+                    "K3_max_abs_err": worst, "shift_by_one_rejected": rej_all,
+                    "K3_dq_equal_to_full_rows": dq_eq,
+                    "dkv_sum_max_abs_err": sum_err, "dkv_sum_within_limits": sum_ok,
+                    "dkv_sum_vs_full_launch_max_abs_diff":
+                        (total - full3[1].float()).abs().max().item()}
+            iters = 20 if p >= 1024 else 50
+            rec["ms"] = {}
+            for label, rows in (("full", p), ("half", p // 2), ("quarter", p // 4)):
+                gw = g[:, :rows].contiguous()
+                with torch.no_grad():
+                    rec["ms"][label] = {
+                        "K1": device_ms(lambda: k_coattn.attend_window(
+                            q, kv, TEMPERATURE, 0, rows), iters),
+                        "K2": device_ms(lambda: k_coattn.attend_pair_window(
+                            f1, f2, TEMPERATURE, 0, rows), iters // 2),
+                        "K3": device_ms(lambda: k_coattn.attend_bwd(
+                            f1, f2, TEMPERATURE, gw, row0=0), max(iters // 4, 3))}
+            rec["ok"] = ok
+            emit(rec)
+            if not ok:
+                raise AssertionError(f"a row window disagrees: {rec}")
+            cases.append(rec)
+    return cases
+
+
+def _mesh_group_of_one(cfg, weights, batch, evals, dev) -> dict:
+    """A NCCL group of one with tp_internals on a (1, 1) mesh: the train
+    step through DDP and eval_clip against the plain ones, bitwise, with
+    the same launches."""
+    from dcnet_tpu_torch.parallel import mesh
+
+    tp = cfg.replace(tp_internals=True)
+    images, ids = evals["images"], evals["ids"]
+
+    def eval_once(c):
+        from dcnet_tpu_torch.models.dcnet import DCNet
+        model = DCNet(c, backbone_defs=_defs(), device=dev)
+        model.load_state_dict(weights)
+        kernels.reset_launches()
+        out = model.eval_clip(images, ids)
+        torch.cuda.synchronize()
+        return [o.detach() for o in out.outbox], dict(kernels.LAUNCHES)
+
+    plain = _dp_step(cfg, weights, batch, dev, slice(None), ddp=False)
+    plain_eval = eval_once(cfg)
+    mesh.init_distributed(dev)
+    try:
+        mesh.make_mesh(1, 1)
+        one = _dp_step(tp, weights, batch, dev, slice(None), ddp=True)
+        one_eval = eval_once(tp)
+        backend = torch.distributed.get_backend()
+    finally:
+        mesh.shutdown()
+    rec = {"backend": backend, "mesh": [1, 1], "tp_internals": True,
+           "step_metrics_equal": one[0] == plain[0],
+           "step_tensors_differing": sum(not torch.equal(a, want[k])
+                                         for got, want in ((one[1], plain[1]),
+                                                           (one[2], plain[2]))
+                                         for k, a in got.items()),
+           "eval_equal": all(torch.equal(a, b) for a, b in zip(one_eval[0], plain_eval[0])),
+           "step_launches": one[3], "eval_launches": one_eval[1]}
+    if not (rec["step_metrics_equal"] and rec["step_tensors_differing"] == 0
+            and rec["eval_equal"] and not launches_differ(one[3], plain[3])
+            and not launches_differ(one_eval[1], plain_eval[1])
+            and one[3]["coattn_pair"] == 3 and one[3]["coattn_attend_bwd"] == 6
+            and one_eval[1]["coattn_attend"] == 12):
+        raise AssertionError(f"tp_internals in a group of one differs from the plain "
+                             f"path: {rec}")
+    return rec
+
+
+def _mesh_serve(eng, ids, frames, ticks: int, start: int = 0, state=None, save=None,
+                m=None):
+    """Ticks start..ticks-1 of the engine (the state saved before MESH_SAVE
+    to `save`): (state, [(fused, raw, score) on the host] per tick,
+    launches of the run)."""
+    from dcnet_tpu_torch.serving import engine as pengine
+    state = eng.init_state(ids) if state is None else state
+    outs = []
+    kernels.reset_launches()
+    for t in range(start, ticks):
+        if t == MESH_SAVE and save:
+            pengine.save_stream_state(save, state, mesh=m)
+        state, fused, raw, score = eng.step(state, frames[t])
+        outs.append([x.float().cpu() for x in (fused, raw, score)])
+    torch.cuda.synchronize()
+    return state, outs, dict(kernels.LAUNCHES)
+
+
+def _mesh_pace(model, ids, frames, m=None) -> dict:
+    """s/tick of the serving cell's bf16 multiref engine (120 streams;
+    with a mesh this rank's share of them)."""
+    from dcnet_tpu_torch.serving.engine import GroundingEngine
+    eng = GroundingEngine(model, SERVE_STREAMS, mesh=m)
+    state = eng.init_state(ids)
+    for t in range(MESH_PACE_WARMUP):
+        state = eng.step(state, frames[t % len(frames)])[0]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for t in range(MESH_PACE_TICKS):
+        state = eng.step(state, frames[t % len(frames)])[0]
+    torch.cuda.synchronize()
+    return {"streams": SERVE_STREAMS, "local_streams": eng.shard.stop - eng.shard.start,
+            "s_per_tick": (time.perf_counter() - t0) / MESH_PACE_TICKS,
+            "ticks": MESH_PACE_TICKS, "launches": dict(kernels.LAUNCHES)}
+
+
+def _mesh_inputs(cfg) -> dict:
+    """The two-rank work's seeded inputs: streams and phrases of the fp32
+    engine and of the bf16 multiref cell."""
+    rng = np.random.RandomState(31)
+    return {"frames": torch.from_numpy(rng.rand(MESH_TICKS, MESH_STREAMS, cfg.image_size,
+                                                cfg.image_size, 3).astype(np.float32)),
+            "ids": _phrases(rng, cfg, MESH_STREAMS),
+            "pace_frames": torch.from_numpy(rng.rand(2, SERVE_STREAMS, cfg.image_size,
+                                                     cfg.image_size, 3).astype(np.float32)),
+            "pace_ids": _phrases(rng, cfg, SERVE_STREAMS)}
+
+
+def _mesh_pair_work(inputs, dev, work: str) -> dict:
+    """One rank's work in the two-rank mesh phase (this process joined to
+    the gloo group of 2): the (data 1, model 2) fp32 k=2 train step with
+    tp_internals and an eval_clip under it; the (data 2, model 1) engine at
+    MESH_STREAMS fp32 streams, its state saved before MESH_SAVE; the bf16
+    multiref cell's ticks at 120 streams."""
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.parallel import mesh
+    from dcnet_tpu_torch.serving.engine import GroundingEngine, cast_params_for_serving
+
+    cfg, weights, batch = inputs["cfg"], inputs["weights"], inputs["batch"]
+    mesh.make_mesh(1, 2)
+    tp = cfg.replace(tp_internals=True)
+    step = _dp_step(tp, weights, batch, dev, slice(None), ddp=True)
+    model = DCNet(tp, backbone_defs=_defs(), device=dev)
+    model.load_state_dict(weights)
+    kernels.reset_launches()
+    out = model.eval_clip(inputs["evals"]["images"], inputs["evals"]["ids"])
+    torch.cuda.synchronize()
+    res = {"step_metrics": step[0], "step_stats": {k: v.cpu() for k, v in step[2].items()},
+           "step_launches": step[3], "eval_launches": dict(kernels.LAUNCHES),
+           "eval": [o.detach().cpu() for o in out.outbox], "grads": step[1]}
+    mesh.clear_mesh()
+    m = mesh.make_mesh(2, 1)     # no model axis: the engine runs unsharded rows
+    eng = GroundingEngine(model, MESH_STREAMS, topk=3, fuse_window=3, mesh=m,
+                          donate_state=False)
+    _, res["engine"], res["engine_launches"] = _mesh_serve(
+        eng, inputs["ids"], inputs["frames"], MESH_TICKS,
+        save=os.path.join(work, "mesh_state.npz"), m=m)
+    bf = DCNet(serving_config(compute_dtype="bfloat16", coattn_multiref=True),
+               backbone_defs=_defs(), device=dev)
+    bf.load_state_dict(weights)
+    cast_params_for_serving(bf)
+    res["pace"] = _mesh_pace(bf, inputs["pace_ids"], inputs["pace_frames"], m)
+    return res
+
+
+def _mesh_rank(i: int, init: str, work: str) -> None:
+    """Rank i + 1 of the two-rank mesh phase (spawned, on the same card)."""
+    import torch.distributed as dist
+    from dcnet_tpu_torch.parallel import mesh
+
+    rank = i + 1
+    inputs = torch.load(os.path.join(work, "mesh_inputs.pt"), weights_only=False)
+    dev = torch.device(inputs["device"])
+    torch.cuda.set_device(dev)
+    _dp_flags()
+    correspondence._sample_negatives_excluding = _deterministic_negatives
+    dist.init_process_group("gloo", init_method=init, world_size=DDP_RANKS, rank=rank)
+    try:
+        res = _mesh_pair_work(inputs, dev, work)
+        del res["grads"]       # rank 0's, which DDP and the model group make equal
+        torch.save(res, os.path.join(work, f"mesh_rank{rank}.pt"))
+    finally:
+        mesh.shutdown()
+
+
+def _outs_close(got: list, want: list) -> tuple:
+    """(within MESH_TOL at every tick, the largest difference)."""
+    ok, worst = True, 0.0
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            ok = ok and x.shape == y.shape and bool(torch.allclose(x, y, **MESH_TOL))
+            worst = max(worst, (x - y).abs().max().item())
+    return ok and len(got) == len(want), worst
+
+
+def _mesh_two_ranks(cfg, weights, batch, evals, dev, work: str) -> dict:
+    """Two processes on the one card joined by gloo over CUDA tensors: the
+    (data 1, model 2) TP step held against the one-process step by
+    train_parity's rule (each module's gradient within max(1e-3, 2 d), d
+    the distance between two fp32 evaluations of the one-process step; the
+    JAX data-parallel limits on the metrics; running statistics within
+    DP_STATS_RTOL and equal on both ranks), K2 3 and K3 6 on windows on
+    each rank, eval_clip under it (K1 12 on windows) against the
+    one-process eval_clip; the (data 2, model 1) engine against the
+    one-process engine within MESH_TOL every tick, the pair's state file
+    resumed in one process; the bf16 multiref cell's s/tick per rank beside
+    the one-process engine's (two processes on one card measure no
+    scaling)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.parallel import mesh
+    from dcnet_tpu_torch.serving import engine as pengine
+
+    cfg = cfg.replace(jemb_dropout=0.0, input_dropout=0.0)
+    inputs = {"cfg": cfg, "weights": weights, "batch": batch, "evals": evals,
+              "device": str(dev), **_mesh_inputs(cfg)}
+    torch.save(inputs, os.path.join(work, "mesh_inputs.pt"))
+    init = "file://" + os.path.join(work, "mesh_store")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_mesh_rank, args=(init, work), nprocs=DDP_RANKS - 1,
+                             join=False, start_method="spawn")
+    try:
+        # the one-process references while the second process starts
+        one = _dp_step(cfg, weights, batch, dev, slice(None), ddp=False)
+        summed = _dp_step(cfg, weights, batch, dev, slice(None), False, "summed")
+        model = DCNet(cfg, backbone_defs=_defs(), device=dev)
+        model.load_state_dict(weights)
+        one_eval = [o.detach().cpu() for o in model.eval_clip(
+            evals["images"], evals["ids"]).outbox]
+        plain = pengine.GroundingEngine(model, MESH_STREAMS, topk=3, fuse_window=3,
+                                        donate_state=False)
+        _, want, _ = _mesh_serve(plain, inputs["ids"], inputs["frames"], MESH_TICKS)
+        bf = DCNet(serving_config(compute_dtype="bfloat16", coattn_multiref=True),
+                   backbone_defs=_defs(), device=dev)
+        bf.load_state_dict(weights)
+        pengine.cast_params_for_serving(bf)
+        one_pace = _mesh_pace(bf, inputs["pace_ids"], inputs["pace_frames"])
+        dist.init_process_group("gloo", init_method=init, world_size=DDP_RANKS, rank=0)
+        try:
+            mine = _mesh_pair_work(inputs, dev, work)
+        finally:
+            mesh.shutdown()
+    except BaseException:
+        for proc in ctx.processes:  # they would wait on rank 0's collectives
+            proc.terminate()
+        raise
+    while not ctx.join():
+        pass
+    ranks = [mine] + [torch.load(os.path.join(work, f"mesh_rank{r}.pt"), weights_only=False)
+                      for r in range(1, DDP_RANKS)]
+    state = pengine.load_stream_state(os.path.join(work, "mesh_state.npz"), dev)
+    _, resumed, _ = _mesh_serve(plain, inputs["ids"], inputs["frames"], MESH_TICKS,
+                                start=MESH_SAVE, state=state)
+    noise = _module_distances(summed[1], one[1])
+    limit = {k: max(DP_GRAD_FLOOR, 2 * d) for k, d in noise.items()}
+    dist_m = _module_distances(mine["grads"], one[1])
+    step = {
+        "mesh": [1, 2], "metrics": [r["step_metrics"] for r in ranks],
+        "one_process_metrics": one[0],
+        "within_jax_limits": all(_dp_within(r["step_metrics"], one[0]) for r in ranks),
+        "grad_rel_l2": dist_m, "limits": limit,
+        "modules_beyond_limit": sorted(k for k, d in dist_m.items() if d > limit[k]),
+        "stats_equal_on_every_rank": all(
+            torch.equal(r["step_stats"][k], v) for r in ranks[1:]
+            for k, v in ranks[0]["step_stats"].items()),
+        "stats_excess_over_rtol": max(
+            ((v.double() - one[2][k].cpu().double()).abs()
+             - DP_STATS_RTOL * one[2][k].cpu().double().abs()).max().item()
+            for k, v in ranks[0]["step_stats"].items()),
+        "launches_per_rank": [r["step_launches"] for r in ranks]}
+    eval_err = max((a - b).abs().max().item() for r in ranks
+                   for a, b in zip(r["eval"], one_eval))
+    eng = [_outs_close(r["engine"], want) for r in ranks]
+    res_ok, res_err = _outs_close(resumed, want[MESH_SAVE:])
+    rec = {"ranks": DDP_RANKS, "backend": "gloo (CUDA tensors, one card)",
+           "train_step": step,
+           "eval_clip": {"clips": MESH_EVAL_CLIPS, "max_abs_diff": eval_err,
+                         "launches_per_rank": [r["eval_launches"] for r in ranks]},
+           "engine": {"streams": MESH_STREAMS, "ticks": MESH_TICKS, "mesh": [2, 1],
+                      "within_tol": [e[0] for e in eng], "max_abs_diff": [e[1] for e in eng],
+                      "tol": MESH_TOL, "launches_per_rank": [r["engine_launches"]
+                                                             for r in ranks],
+                      "resumed_in_one_process": {"within_tol": res_ok,
+                                                 "max_abs_diff": res_err}},
+           "pace_bf16_multiref": {"one_process": one_pace,
+                                  "per_rank": [r["pace"] for r in ranks],
+                                  "note": "two processes share one card: no scaling is "
+                                          "measured"},
+           "seconds": time.perf_counter() - t0}
+    windows = all(r["step_launches"]["coattn_pair"] == 3
+                  and r["step_launches"]["coattn_attend_bwd"] == 6
+                  and r["eval_launches"]["coattn_attend"] == 12 for r in ranks)
+    if not (step["within_jax_limits"] and not step["modules_beyond_limit"]
+            and step["stats_equal_on_every_rank"]
+            and step["stats_excess_over_rtol"] <= DP_STATS_ATOL and windows
+            and eval_err <= 1e-3 and all(e[0] for e in eng) and res_ok):
+        raise AssertionError(f"the two-rank mesh misses the one-process runs: {rec}")
+    return rec
+
+
+def phase_mesh(dev) -> dict:
+    """The 2-D (data, model) mesh on one card: K1, K2 and K3 on row windows
+    (`mesh_window_cases`); a NCCL group of one with tp_internals, bitwise
+    the plain step and eval_clip (`_mesh_group_of_one`); two gloo ranks on
+    the card (`_mesh_two_ranks`); `dryrun_multichip(4)` on the card (4
+    gloo ranks, a 2 x 2 mesh, the mini model at 64 px). Two or more cards
+    (NCCL across cards) cannot run on a one-card machine: the phase says
+    so."""
+    import shutil
+    import tempfile
+    from dcnet_tpu_torch.dryrun import dryrun_multichip
+    from dcnet_tpu_torch.train.loop import flatten_clip_batch, to_device
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(14)
+    windows = mesh_window_cases(dev, gen)
+    t_windows = time.perf_counter() - t0
+    cfg = full_width_config()
+    model, _, setup_s = seeded_model(cfg, dev)
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    batch = to_device(flatten_clip_batch(synthetic_clips(
+        np.random.RandomState(9), DDP_CLIPS, 2, cfg.image_size, cfg.query_len)), dev)
+    clips = to_device(flatten_clip_batch(synthetic_clips(
+        np.random.RandomState(10), MESH_EVAL_CLIPS, 5, cfg.image_size, cfg.query_len)),
+        dev)
+    evals = {"images": clips["images"], "ids": clips["word_ids"][::5]}
+    real_neg = correspondence._sample_negatives_excluding
+    before = _dp_flags()
+    work = tempfile.mkdtemp(prefix="dcnet_mesh_")
+    try:
+        correspondence._sample_negatives_excluding = _deterministic_negatives
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        one = _mesh_group_of_one(cfg, weights, batch, evals, dev)
+        t1 = time.perf_counter()
+        two = _mesh_two_ranks(cfg, weights, batch, evals, dev, work)
+        t2 = time.perf_counter()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        correspondence._sample_negatives_excluding = real_neg
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = before
+        shutil.rmtree(work, ignore_errors=True)
+    kernels.reset_launches()
+    lines = dryrun_multichip(4, device="cuda")
+    t3 = time.perf_counter()
+    if len(lines) != 3 or not all(x.endswith(" ok") for x in lines):
+        raise AssertionError(f"dryrun_multichip(4) on the card: {lines}")
+    # rank 0's launches on the mesh paths: the TP step and eval_clip, the
+    # mesh engine's ticks and the multiref cell's timed ticks
+    launches = {k: two["train_step"]["launches_per_rank"][0][k]
+                + two["eval_clip"]["launches_per_rank"][0][k]
+                + two["engine"]["launches_per_rank"][0][k]
+                + two["pace_bf16_multiref"]["per_rank"][0]["launches"][k]
+                for k in kernels.LAUNCHES}
+    rec = {"phase": "mesh", "setup_s": setup_s, "group_of_one": one, "two_ranks": two,
+           "dryrun_multichip_4": lines, "launches": launches,
+           "seconds": {"windows": t_windows, "group_of_one": t1 - t0 - t_windows - setup_s,
+                       "two_ranks": t2 - t1, "dryrun": t3 - t2},
+           "cards": torch.cuda.device_count(),
+           "not_run": "two or more cards (NCCL across cards): this machine has one; the "
+                      "ranks ran on the one card over gloo, and on the CPU in "
+                      "tests/test_torch_mesh.py",
+           "kind": torch.cuda.get_device_name(dev), "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    return {"launches": launches, "windows": windows, **rec}
+
+
 KERNELS = (  # name, path it runs on, source, the TPU kernel it replaces
     ("coattn_attend", "eval", "dcnet_tpu_torch/csrc/coattn.cu",
      "dcnet_tpu/ops/pallas/coattn.py:52 (_attend; body _attend_kernel :40)"),
@@ -4841,6 +5338,7 @@ def main(argv=None) -> int:
     exported = timed("export", phase_export, dev)["variants"]
     serve_cli = timed("serve_cli", phase_serve_cli, dev)["launches"]
     ddp = timed("ddp", phase_ddp, dev)["launches"]
+    mesh = timed("mesh", phase_mesh, dev)["launches"]
     emit({"phase": "seconds", **seconds})
     if PROFILE_FAILURES:
         raise AssertionError(f"profiles that lost kernels in every trace: {PROFILE_FAILURES}")
@@ -4867,9 +5365,12 @@ def main(argv=None) -> int:
             and runtime["quantized"]["coattn_ring"] and all(
                 runtime["quantized"][k] for k in ("conv_s8", "conv_s8_halo", "conv_s8_quant"))
             and serve_cli["coattn_attend"] and serve_cli["conv_s8"]
-            and ddp["coattn_pair"] and ddp["coattn_attend_bwd"]):
+            and ddp["coattn_pair"] and ddp["coattn_attend_bwd"]
+            and all(mesh[k] for k in ("coattn_attend", "coattn_pair", "coattn_attend_bwd",
+                                      "coattn_ring"))):
         raise AssertionError(f"a kernel never launched on the exported runtime, the serve "
-                             f"CLI or the DDP path: {runtime}, {serve_cli}, {ddp}")
+                             f"CLI, the DDP or the mesh paths: {runtime}, {serve_cli}, "
+                             f"{ddp}, {mesh}")
     emit(kernels_line(cases, launches, by_path={
         "coattn_attend": {"eval": eval_launches["coattn_attend"],
                           "bert_eval": bert["eval_launches"]["coattn_attend"],
@@ -4877,15 +5378,17 @@ def main(argv=None) -> int:
                           "cli": cli_launches["coattn_attend"],
                           "int8_serving_k1": serving_int8["k1"]["coattn_attend"],
                           "export_runtime_k1": runtime["k1"]["coattn_attend"],
-                          "serve_cli": serve_cli["coattn_attend"]},
+                          "serve_cli": serve_cli["coattn_attend"],
+                          "mesh": mesh["coattn_attend"]},
         **{name: {"train": train_launches[name],
                   "bert_train": bert["train_launches"][name],
-                  "train_cli": train_cli[name], "ddp": ddp[name]}
+                  "train_cli": train_cli[name], "ddp": ddp[name], "mesh": mesh[name]}
            for name in ("coattn_pair", "coattn_attend_bwd")},
         "coattn_ring": {"serving": serving_launches["coattn_ring"],
                         "int8_serving_multiref": serving_int8["multiref"]["coattn_ring"],
                         "export_runtime": runtime["float"]["coattn_ring"],
-                        "export_runtime_quantized": runtime["quantized"]["coattn_ring"]},
+                        "export_runtime_quantized": runtime["quantized"]["coattn_ring"],
+                        "mesh": mesh["coattn_ring"]},
         **{name: {"int8_eval": int8_launches[name],
                   **{f"int8_serving_{k}": v[name] for k, v in serving_int8.items()},
                   "int8_cli": cli_launches[name],

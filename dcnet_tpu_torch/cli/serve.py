@@ -22,8 +22,10 @@ JAX package. `--resume` takes the weights of a checkpoint directory of
 resumes the stream state from an `.npz` (either package's) and continues at
 the tick it stopped at (the streams' frame count), and checkpoints it every
 `--state_every` ticks off the serving loop (`_AsyncStateWriter`) and once
-at exit. The engine serves one card: the engine's device mesh (a stream
-shard per process) is not carried (ROADMAP queue A, item 12).
+at exit. As the JAX serve CLI, it runs one engine without a mesh:
+`--devices` and `--multihost` (parsed with the other CLIs' flags) are
+logged and change nothing. The engine's mesh (`GroundingEngine(mesh=...)`,
+a stream shard per process) is a library option.
 
 Example (data-free, on the CPU):
     DCNET_PLATFORM=cpu python -m dcnet_tpu_torch.cli.serve --synthetic \\
@@ -33,6 +35,7 @@ Example (data-free, on the CPU):
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 import time
@@ -40,7 +43,6 @@ import time
 import numpy as np
 import torch
 
-from dcnet_tpu_torch import not_ported
 from dcnet_tpu_torch.cli.common import (
     base_parser, build_model, cli_device, config_from_args, restore_weights,
     setup_logging, splice_backbone_weights)
@@ -175,13 +177,14 @@ def main(argv=None):
     """Serve; returns the final state (None after --export_bundle)."""
     args = parser().parse_args(argv)
     args.test = True
-    if args.multihost or args.devices > 1:
-        raise not_ported("serving over more than one process or card (the "
-                         "engine's device mesh)", "ROADMAP queue A, item 12")
     if args.savename == "default":
         args.savename = f"serve_{args.n_streams}streams"
     device = cli_device()
     setup_logging(args.savename, test=True)
+    if args.multihost or args.devices > 1:
+        logging.getLogger(__name__).info(
+            "--devices %d%s: one engine on one device, no mesh, as the JAX serve CLI "
+            "runs", args.devices, " --multihost" if args.multihost else "")
 
     if args.frames_root:
         from dcnet_tpu_torch.data.corpus import Corpus

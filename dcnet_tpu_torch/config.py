@@ -102,7 +102,7 @@ class DCNetConfig:
     coattn_int8_logits: bool = False  # int8 QK logits, static scale 1/127
     trunk_quant: str = "off"          # trunk convs: off | calib | int8 (PTQ)
     remat_backbone: bool = False      # recompute the backbone in the backward
-    tp_internals: bool = False        # not ported yet (ROADMAP queue A, 12)
+    tp_internals: bool = False        # co-attention rows over the mesh's model group
 
     def __post_init__(self):
         # the reference constants 30/10/5 assume 64 patches on the coarsest

@@ -54,11 +54,12 @@ __host__ __device__ inline size_t smem_bytes(int C) {
   return sizeof(float) * ((size_t)(kRows + 2 * kTile) * pitch(C) + kWarps * 4 * 32 * 4);
 }
 
-// The block's whole computation for rows row0..row0+31 of the (P, C) frame
+// The block's whole computation for rows row0..row0+31 of the (Pq, C) frame
 // qb against every row of the (P, C) frame kvb (row stride C), written to the
-// (P, C) frame ob.
+// (Pq, C) frame ob. Pq < P is a row window of a larger q frame (qb at its
+// first row); K4 passes Pq = P.
 __device__ __forceinline__ void attend_rows(const float* qb, const float* kvb,
-                                            float* ob, int row0, int P, int C,
+                                            float* ob, int row0, int Pq, int P, int C,
                                             float temperature,
                                             unsigned char* smem) {
   const int ld = pitch(C);
@@ -71,7 +72,7 @@ __device__ __forceinline__ void attend_rows(const float* qb, const float* kvb,
   const int c0 = 8 * ch.first;
   const int tiles = (P + kTile - 1) / kTile;
 
-  load_rows_async(q_s, ld, qb, row0, kRows, P, C, kThreads);
+  load_rows_async(q_s, ld, qb, row0, kRows, Pq, C, kThreads);
   load_rows_async(kv_s, ld, kvb, 0, kTile, P, C, kThreads);
   cp_async_commit();
 
@@ -191,17 +192,17 @@ __device__ __forceinline__ void attend_rows(const float* qb, const float* kvb,
     }
   }
 
-  // each row divided by its sum once; rows past P are not stored
+  // each row divided by its sum once; rows past Pq are not stored
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int r = row0 + 16 * rg + lane / 4;
   float* dst = ob + (long long)r * C + c0 + 2 * (lane & 3);
 #pragma unroll
   for (int i = 0; i < kMaxOwn; ++i) {
     if (i < ch.count) {
-      if (r < P) {
+      if (r < Pq) {
         *reinterpret_cast<float2*>(dst + 8 * i) = make_float2(o[i][0] * inv0, o[i][1] * inv0);
       }
-      if (r + 8 < P) {
+      if (r + 8 < Pq) {
         *reinterpret_cast<float2*>(dst + 8 * C + 8 * i) =
             make_float2(o[i][2] * inv1, o[i][3] * inv1);
       }

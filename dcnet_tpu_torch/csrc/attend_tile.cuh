@@ -223,11 +223,13 @@ __device__ inline void store_rows(OutT* ob, const float* o_s, const float* l_s,
   }
 }
 
-// The block's whole computation for rows row0..row0+kBlockM-1 of the (P, C)
-// frames q and kv (row stride C), written to the (P, C) frame `ob`.
+// The block's whole computation for rows row0..row0+kBlockM-1 of the
+// (Pq, C) frame q against the (P, C) frame kv (row stride C), written to
+// the (Pq, C) frame `ob`. Pq < P is a row window of a larger q frame (qb at
+// its first row); K4 passes Pq = P.
 template <typename T, typename OutT>
 __device__ void attend_rows(const T* qb, const T* kvb, OutT* ob, int row0,
-                            int P, int C, float t, unsigned char* smem) {
+                            int Pq, int P, int C, float t, unsigned char* smem) {
   constexpr int BN = Tile<T>::kBlockN;
   const Layout L = layout<T>(C);
   T* q_s = reinterpret_cast<T*>(smem + L.off_q);
@@ -238,7 +240,7 @@ __device__ void attend_rows(const T* qb, const T* kvb, OutT* ob, int row0,
   float* m_s = reinterpret_cast<float*>(smem + L.off_m);
   float* l_s = reinterpret_cast<float*>(smem + L.off_l);
 
-  load_rows(q_s, L.ldq, qb, row0, kBlockM, P, C);
+  load_rows(q_s, L.ldq, qb, row0, kBlockM, Pq, C);
   init_rows(o_s, m_s, l_s, L, C);
   for (int n0 = 0; n0 < P; n0 += BN) {
     __syncthreads();  // the last tile's readers of kv_s and p_s are done
@@ -253,7 +255,7 @@ __device__ void attend_rows(const T* qb, const T* kvb, OutT* ob, int row0,
     tile_accumulate(p_s, kv_s, o_s, L, C);
   }
   __syncthreads();
-  store_rows(ob, o_s, l_s, L, row0, P, C);
+  store_rows(ob, o_s, l_s, L, row0, Pq, C);
 }
 
 }  // namespace dcnet

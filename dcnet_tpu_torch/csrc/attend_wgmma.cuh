@@ -22,8 +22,8 @@
 //   exp(s - m) to bf16 and add P kv[:, own channels] into their own 64 x C/2
 //   fp32 accumulator in registers (wgmma m64n(C/2)k16, A = P from
 //   registers). Each row is divided by its sum once, at the end.
-// - Ragged P: TMA zero-fills rows past P, logit columns past P are -inf,
-//   rows past P are not stored.
+// - Ragged P and row windows: TMA zero-fills rows past P, logit columns
+//   past the kv frame's P are -inf, rows past the q window are not stored.
 #pragma once
 
 #include <cuda.h>
@@ -248,10 +248,13 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// The block's whole computation for rows row0..row0+63 of the q frame
-// against every row of the kv frame (both (P, C) bf16 frames of their
-// maps), written to the (P, C) frame `ob` (row stride C). 384 threads;
-// `temperature` scales the logits.
+// The block's whole computation for rows row0..row0+63 of a row window of
+// the q frame (its rows qoff..qoff+Pq-1) against every row of the kv frame
+// (P rows; both bf16 frames of their maps), written to the (Pq, C) frame
+// `ob` (row stride C). 384 threads; `temperature` scales the logits. The q
+// box is read at row qoff + row0: rows past the window (another rank's, or
+// TMA's zero fill past the frame) are computed and never stored. K4 passes
+// qoff = 0, Pq = P.
 //
 // Accumulator layout of wgmma m64nN (fp32): thread t of a warpgroup holds
 // rows r = 16 (t / 32) + (t % 32) / 4 and r + 8; for each 8-column group
@@ -262,8 +265,8 @@ __device__ __forceinline__ float quad_sum(float v) {
 template <int C, int Rank>
 __device__ __forceinline__ void attend_rows(const CUtensorMap* map_q, Frame fq,
                                             const CUtensorMap* map_kv, Frame fkv,
-                                            bf16* ob, int row0, int P,
-                                            float temperature,
+                                            bf16* ob, int row0, int qoff, int Pq,
+                                            int P, float temperature,
                                             unsigned char* smem_raw) {
   static_assert(C % 128 == 0 && C <= 512, "the wgmma block takes C % 128 == 0, C <= 512");
   constexpr uint32_t kTileBytes = C * kRows * 2;
@@ -297,7 +300,7 @@ __device__ __forceinline__ void attend_rows(const CUtensorMap* map_q, Frame fq,
     if (tid == 256) {
       mbar_expect_tx(q_full, kTileBytes);
       for (int j = 0; j < kBoxes; ++j) {
-        load_box<Rank>(q_s + j * kBoxBytes, map_q, q_full, j * kBox, row0, fq);
+        load_box<Rank>(q_s + j * kBoxBytes, map_q, q_full, j * kBox, qoff + row0, fq);
       }
       for (int it = 0; it < tiles; ++it) {
         const int s = it % kStages;
@@ -423,17 +426,17 @@ __device__ __forceinline__ void attend_rows(const CUtensorMap* map_q, Frame fq,
       mbar_arrive(bars + 8u * (1 + kStages + s));  // this stage may be refilled
     }
 
-    // each row divided by its sum once; rows past P are not stored
+    // each row divided by its sum once; rows past the window are not stored
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
     const int r = row0 + 16 * (t / 32) + lane / 4;
     bf16* dst = ob + (long long)r * C + w * NW + (lane & 3) * 2;
 #pragma unroll
     for (int n8 = 0; n8 < NW / 8; ++n8) {
-      if (r < P) {
+      if (r < Pq) {
         *reinterpret_cast<uint32_t*>(dst + n8 * 8) =
             pack_bf16(o[4 * n8] * inv0, o[4 * n8 + 1] * inv0);
       }
-      if (r + 8 < P) {
+      if (r + 8 < Pq) {
         *reinterpret_cast<uint32_t*>(dst + 8 * C + n8 * 8) =
             pack_bf16(o[4 * n8 + 2] * inv1, o[4 * n8 + 3] * inv1);
       }

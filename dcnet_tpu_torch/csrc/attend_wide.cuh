@@ -176,8 +176,8 @@ __device__ __forceinline__ void stage_chunk(Acc* dst, const T* src, int row0, in
 // chunks are done) and leaves the chunks in shared memory.
 template <int kPairs, typename T, typename Acc>
 __device__ __forceinline__ void tile_dots(Acc (&out)[kPairs][4], const T* const (&a)[kPairs],
-                                          int ra, const T* const (&b)[kPairs], int rb,
-                                          int P, int C, Acc* a_s, Acc* b_s) {
+                                          int ra, int Pa, const T* const (&b)[kPairs], int rb,
+                                          int Pb, int C, Acc* a_s, Acc* b_s) {
   const int r = dot_row(), cq = dot_col();
 #pragma unroll
   for (int i = 0; i < kPairs; ++i) {
@@ -188,8 +188,8 @@ __device__ __forceinline__ void tile_dots(Acc (&out)[kPairs][4], const T* const 
     __syncthreads();
 #pragma unroll
     for (int i = 0; i < kPairs; ++i) {
-      stage_chunk(a_s + i * kRows * kPitch, a[i], ra, k0, P, C);
-      stage_chunk(b_s + i * kTile * kPitch, b[i], rb, k0, P, C);
+      stage_chunk(a_s + i * kRows * kPitch, a[i], ra, k0, Pa, C);
+      stage_chunk(b_s + i * kTile * kPitch, b[i], rb, k0, Pb, C);
     }
     __syncthreads();
 #pragma unroll
@@ -260,9 +260,10 @@ __device__ __forceinline__ void store_rows(OutT* ob, const float (&acc)[8][NC / 
   }
 }
 
-// The block's whole computation: rows row0..row0+31 of the (P, C) frame qb
+// The block's whole computation: rows row0..row0+31 of the (Pq, C) frame qb
 // against every row of the (P, C) frame kvb, output channels ch0..ch0+NC,
-// written to the (P, C) frame ob. `t` scales the logits (T, or T/127^2 for
+// written to the (Pq, C) frame ob (Pq < P: a row window of a larger q
+// frame, qb at its first row; K4 passes Pq = P). `t` scales the logits (T, or T/127^2 for
 // int8 rings). Two sweeps over the kv tiles, as the TPU body normalises
 // whole rows before it rounds the weights: the first takes each row's max
 // m and sum l = sum exp(s - m); the second recomputes the logits and adds
@@ -272,7 +273,7 @@ __device__ __forceinline__ void store_rows(OutT* ob, const float (&acc)[8][NC / 
 // kv are large, moves the output past a bf16 step).
 template <int NC, typename T, typename OutT>
 __device__ void attend_rows(const T* qb, const T* kvb, OutT* ob, int row0, int ch0,
-                            int P, int C, float t, unsigned char* smem) {
+                            int Pq, int P, int C, float t, unsigned char* smem) {
   using Acc = typename AccOf<T>::type;
   const Layout L = layout<T>(NC, 1);
   Acc* a_s = reinterpret_cast<Acc*>(smem + L.a);
@@ -286,7 +287,7 @@ __device__ void attend_rows(const T* qb, const T* kvb, OutT* ob, int row0, int c
 
   float m = -INFINITY, l = 0.f;  // the same in the row's 8 lanes
   for (int n0 = 0; n0 < P; n0 += kTile) {
-    tile_dots<1>(s, qa, row0, kva, n0, P, C, a_s, b_s);
+    tile_dots<1>(s, qa, row0, Pq, kva, n0, P, C, a_s, b_s);
     float v[4], mx = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -309,7 +310,7 @@ __device__ void attend_rows(const T* qb, const T* kvb, OutT* ob, int row0, int c
     for (int k = 0; k < NC / 64; ++k) acc[i][k] = 0.f;
   }
   for (int n0 = 0; n0 < P; n0 += kTile) {
-    tile_dots<1>(s, qa, row0, kva, n0, P, C, a_s, b_s);  // syncs: the last PV is done
+    tile_dots<1>(s, qa, row0, Pq, kva, n0, P, C, a_s, b_s);  // syncs: the last PV is done
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float w = n0 + cq + 8 * j < P ? expf(to_float(s[0][j]) * t - m) * inv : 0.f;
@@ -319,7 +320,7 @@ __device__ void attend_rows(const T* qb, const T* kvb, OutT* ob, int row0, int c
     __syncthreads();
     pv_accumulate<NC>(acc, w_s, v_s);
   }
-  store_rows<NC>(ob, acc, 1.f, row0, ch0, P, C);
+  store_rows<NC>(ob, acc, 1.f, row0, ch0, Pq, C);
 }
 
 }  // namespace wide

@@ -81,6 +81,19 @@
 //
 // K2 runs each block with the direction on grid.z; the wgmma block swaps
 // its two tensor maps there.
+//
+// Row windows (the tensor-parallel co-attention, ops/coattention.py's
+// tp_shard): a launch computes the query rows row0..row0+rows-1 of each
+// frame against every row of the other frame, any rows >= 1 at any
+// offset. The pointer blocks take q at its window's first row with Pq =
+// rows for the q loads and the stores and the kv frame's P for the kv
+// tiles and the column mask; the wgmma block reads the q box at row0 + its
+// rows in the frame's own map and stores only the window's rows (rows past
+// it, another rank's or TMA's zero fill, are computed and dropped). The
+// grid spans the window's rows; K2's second direction moves its q (the
+// first frame's partner) by the same row0. The window's rows are
+// computed exactly as the whole frame's launch computes them (each row's
+// softmax is its own), so a window equals those rows of the full launch.
 #include "blocks.cuh"
 
 namespace {
@@ -89,8 +102,8 @@ using namespace dcnet;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-attend_kernel(const T* q, const T* kv, T* out, T* out2, int P, int C,
-              long long q_bstride, long long kv_bstride, float t) {
+attend_kernel(const T* q, const T* kv, T* out, T* out2, int P, int C, int row0,
+              int rows, long long q_bstride, long long kv_bstride, float t) {
   extern __shared__ __align__(128) unsigned char smem[];
   if (blockIdx.z == 1) {  // the pair's second direction: attend(kv, q)
     const T* tmp = q;
@@ -102,15 +115,15 @@ attend_kernel(const T* q, const T* kv, T* out, T* out2, int P, int C,
     out = out2;
   }
   const long long b = blockIdx.y;
-  attend_rows<T, T>(q + b * q_bstride, kv + b * kv_bstride, out + b * P * C,
-                    blockIdx.x * kBlockM, P, C, t, smem);
+  attend_rows<T, T>(q + b * q_bstride + (long long)row0 * C, kv + b * kv_bstride,
+                    out + b * rows * C, blockIdx.x * kBlockM, rows, P, C, t, smem);
 }
 
 // The fp32 block on the tensor cores by 3xTF32 (attend_tf32.cuh).
 __global__ void __launch_bounds__(tf32::kThreads, 1)
 attend_tf32_kernel(const float* q, const float* kv, float* out, float* out2,
-                   int P, int C, long long q_bstride, long long kv_bstride,
-                   float t) {
+                   int P, int C, int row0, int rows, long long q_bstride,
+                   long long kv_bstride, float t) {
   extern __shared__ __align__(128) unsigned char smem[];
   if (blockIdx.z == 1) {  // the pair's second direction: attend(kv, q)
     const float* tmp = q;
@@ -122,30 +135,32 @@ attend_tf32_kernel(const float* q, const float* kv, float* out, float* out2,
     out = out2;
   }
   const long long b = blockIdx.y;
-  tf32::attend_rows(q + b * q_bstride, kv + b * kv_bstride, out + b * P * C,
-                    blockIdx.x * tf32::kRows, P, C, t, smem);
+  tf32::attend_rows(q + b * q_bstride + (long long)row0 * C, kv + b * kv_bstride,
+                    out + b * rows * C, blockIdx.x * tf32::kRows, rows, P, C, t, smem);
 }
 
-// The bf16 block on wgmma + TMA; maps (C, P, B) of q and kv. z = 1 swaps
+// The bf16 block on wgmma + TMA; maps (C, P, B) of the whole q and kv
+// frames, the window's rows read at row0 + the block's rows. z = 1 swaps
 // the maps (the pair's second direction).
 template <int C>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 attend_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_kv, bf16* out,
-                    bf16* out2, int P, float t) {
+                    bf16* out2, int P, int row0, int rows, float t) {
   extern __shared__ __align__(128) unsigned char smem[];  // aligned to 1024 inside
   const bool swap = blockIdx.z == 1;
   const int b = blockIdx.y;
   wg::attend_rows<C, 3>(swap ? &map_kv : &map_q, {b, 0}, swap ? &map_q : &map_kv,
-                        {b, 0}, (swap ? out2 : out) + (long long)b * P * C,
-                        blockIdx.x * wg::kRows, P, t, smem);
+                        {b, 0}, (swap ? out2 : out) + (long long)b * rows * C,
+                        blockIdx.x * wg::kRows, row0, rows, P, t, smem);
 }
 
 // The general block (attend_wide.cuh): grid.z = direction x output chunk.
 template <typename T, int NC>
 __global__ void __launch_bounds__(wide::kThreads, 1)
-attend_wide_kernel(const T* q, const T* kv, T* out, T* out2, int P, int C,
-                   long long q_bstride, long long kv_bstride, float t, int nch) {
+attend_wide_kernel(const T* q, const T* kv, T* out, T* out2, int P, int C, int row0,
+                   int rows, long long q_bstride, long long kv_bstride, float t,
+                   int nch) {
   extern __shared__ __align__(128) unsigned char smem[];
   if (blockIdx.z >= nch) {  // the pair's second direction: attend(kv, q)
     const T* tmp = q;
@@ -157,68 +172,68 @@ attend_wide_kernel(const T* q, const T* kv, T* out, T* out2, int P, int C,
     out = out2;
   }
   const long long b = blockIdx.y;
-  wide::attend_rows<NC, T, T>(q + b * q_bstride, kv + b * kv_bstride, out + b * P * C,
-                              blockIdx.x * wide::kRows, (blockIdx.z % nch) * NC, P,
-                              C, t, smem);
+  wide::attend_rows<NC, T, T>(q + b * q_bstride + (long long)row0 * C, kv + b * kv_bstride,
+                              out + b * rows * C, blockIdx.x * wide::kRows,
+                              (blockIdx.z % nch) * NC, rows, P, C, t, smem);
 }
 
 template <typename T, int NC>
 int launch_wide_nc(const void* q, const void* kv, void* out, void* out2, int B,
-                   int P, int C, long long q_bstride, long long kv_bstride,
-                   float t, cudaStream_t stream) {
+                   int P, int C, int row0, int rows, long long q_bstride,
+                   long long kv_bstride, float t, cudaStream_t stream) {
   const size_t bytes = wide::layout<T>(NC, 1).total;
   const int err = prepare_smem(attend_wide_kernel<T, NC>, bytes);
   if (err != 0) return err;
   const int nch = wide::chunks(C);
-  const dim3 grid((P + wide::kRows - 1) / wide::kRows, B, (out2 ? 2 : 1) * nch);
+  const dim3 grid((rows + wide::kRows - 1) / wide::kRows, B, (out2 ? 2 : 1) * nch);
   attend_wide_kernel<T, NC><<<grid, wide::kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv), static_cast<T*>(out),
-      static_cast<T*>(out2), P, C, q_bstride, kv_bstride, t, nch);
+      static_cast<T*>(out2), P, C, row0, rows, q_bstride, kv_bstride, t, nch);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_wide(const void* q, const void* kv, void* out, void* out2, int B, int P,
-                int C, long long q_bstride, long long kv_bstride, float t,
-                cudaStream_t s) {
+                int C, int row0, int rows, long long q_bstride, long long kv_bstride,
+                float t, cudaStream_t s) {
   return wide::with_chunk(C, [&](auto nc) {
-    return launch_wide_nc<T, decltype(nc)::value>(q, kv, out, out2, B, P, C, q_bstride,
-                                                  kv_bstride, t, s);
+    return launch_wide_nc<T, decltype(nc)::value>(q, kv, out, out2, B, P, C, row0, rows,
+                                                  q_bstride, kv_bstride, t, s);
   });
 }
 
 template <typename T>
 int launch(const void* q, const void* kv, void* out, void* out2, int B, int P,
-           int C, long long q_bstride, long long kv_bstride, float t,
-           cudaStream_t stream) {
+           int C, int row0, int rows, long long q_bstride, long long kv_bstride,
+           float t, cudaStream_t stream) {
   const Layout L = layout<T>(C);
   const int err = prepare_smem(attend_kernel<T>, L.total);
   if (err != 0) return err;
-  const dim3 grid((P + kBlockM - 1) / kBlockM, B, out2 ? 2 : 1);
+  const dim3 grid((rows + kBlockM - 1) / kBlockM, B, out2 ? 2 : 1);
   attend_kernel<T><<<grid, kThreads, L.total, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv), static_cast<T*>(out),
-      static_cast<T*>(out2), P, C, q_bstride, kv_bstride, t);
+      static_cast<T*>(out2), P, C, row0, rows, q_bstride, kv_bstride, t);
   return (int)cudaGetLastError();
 }
 
 int launch_tf32(const void* q, const void* kv, void* out, void* out2, int B,
-                int P, int C, long long q_bstride, long long kv_bstride,
-                float t, cudaStream_t stream) {
+                int P, int C, int row0, int rows, long long q_bstride,
+                long long kv_bstride, float t, cudaStream_t stream) {
   const size_t bytes = tf32::smem_bytes(C);
   const int err = prepare_smem(attend_tf32_kernel, bytes);
   if (err != 0) return err;
-  const dim3 grid((P + tf32::kRows - 1) / tf32::kRows, B, out2 ? 2 : 1);
+  const dim3 grid((rows + tf32::kRows - 1) / tf32::kRows, B, out2 ? 2 : 1);
   attend_tf32_kernel<<<grid, tf32::kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(kv),
-      static_cast<float*>(out), static_cast<float*>(out2), P, C, q_bstride,
-      kv_bstride, t);
+      static_cast<float*>(out), static_cast<float*>(out2), P, C, row0, rows,
+      q_bstride, kv_bstride, t);
   return (int)cudaGetLastError();
 }
 
 template <int C>
 int launch_wgmma(const void* q, const void* kv, void* out, void* out2, int B,
-                 int P, long long q_bstride, long long kv_bstride, float t,
-                 cudaStream_t stream) {
+                 int P, int row0, int rows, long long q_bstride, long long kv_bstride,
+                 float t, cudaStream_t stream) {
   CUtensorMap maps[2];
   const void* bases[2] = {q, kv};
   const long long bstrides[2] = {q_bstride, kv_bstride};
@@ -231,20 +246,21 @@ int launch_wgmma(const void* q, const void* kv, void* out, void* out2, int B,
   const size_t bytes = wg::smem_bytes(C);
   const int err = prepare_smem(attend_wgmma_kernel<C>, bytes);
   if (err != 0) return err;
-  const dim3 grid((P + wg::kRows - 1) / wg::kRows, B, out2 ? 2 : 1);
+  const dim3 grid((rows + wg::kRows - 1) / wg::kRows, B, out2 ? 2 : 1);
   attend_wgmma_kernel<C><<<grid, wg::kThreads, bytes, stream>>>(
-      maps[0], maps[1], static_cast<bf16*>(out), static_cast<bf16*>(out2), P, t);
+      maps[0], maps[1], static_cast<bf16*>(out), static_cast<bf16*>(out2), P, row0,
+      rows, t);
   return (int)cudaGetLastError();
 }
 
 int launch_wgmma_c(const void* q, const void* kv, void* out, void* out2, int B,
-                   int P, int C, long long q_bstride, long long kv_bstride,
-                   float t, cudaStream_t s) {
+                   int P, int C, int row0, int rows, long long q_bstride,
+                   long long kv_bstride, float t, cudaStream_t s) {
   switch (C) {
-    case 128: return launch_wgmma<128>(q, kv, out, out2, B, P, q_bstride, kv_bstride, t, s);
-    case 256: return launch_wgmma<256>(q, kv, out, out2, B, P, q_bstride, kv_bstride, t, s);
-    case 384: return launch_wgmma<384>(q, kv, out, out2, B, P, q_bstride, kv_bstride, t, s);
-    case 512: return launch_wgmma<512>(q, kv, out, out2, B, P, q_bstride, kv_bstride, t, s);
+    case 128: return launch_wgmma<128>(q, kv, out, out2, B, P, row0, rows, q_bstride, kv_bstride, t, s);
+    case 256: return launch_wgmma<256>(q, kv, out, out2, B, P, row0, rows, q_bstride, kv_bstride, t, s);
+    case 384: return launch_wgmma<384>(q, kv, out, out2, B, P, row0, rows, q_bstride, kv_bstride, t, s);
+    case 512: return launch_wgmma<512>(q, kv, out, out2, B, P, row0, rows, q_bstride, kv_bstride, t, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -260,25 +276,34 @@ extern "C" {
 // entry point applies the same rule to its rings.
 int dcnet_coattn_block(int dtype, int C) { return choose_block(dtype, C); }
 
-// Strides are in elements; rows of q and kv are contiguous (row stride C).
-// With out2 null this is K1 (out = attend(q, kv)); otherwise K2 (out =
-// attend(q, kv), out2 = attend(kv, q)). Returns a cudaError_t code, 0 on
-// success.
+// q and kv are (B, P, C) frames; strides are in elements; rows of q and kv
+// are contiguous (row stride C). The launch computes the row window
+// row0..row0+rows-1 (any rows >= 1 at any offset, row0 + rows <= P): with
+// out2 null this is K1 (out = attend(q[:, window], kv)); otherwise K2 (out =
+// attend(q[:, window], kv), out2 = attend(kv[:, window], q)). out and out2
+// are (B, rows, C) and contiguous; row0 = 0, rows = P is the whole frame.
+// Returns a cudaError_t code, 0 on success.
 int dcnet_coattn_attend(const void* q, const void* kv, void* out, void* out2,
-                        int B, int P, int C, long long q_bstride,
-                        long long kv_bstride, float t, int dtype,
-                        void* stream) {
-  if (B <= 0 || P <= 0 || C <= 0 || B > 65535 || dtype < 0 || dtype > 1) {
+                        int B, int P, int C, int row0, int rows,
+                        long long q_bstride, long long kv_bstride, float t,
+                        int dtype, void* stream) {
+  if (B <= 0 || P <= 0 || C <= 0 || B > 65535 || dtype < 0 || dtype > 1 ||
+      row0 < 0 || rows < 1 || row0 > P - rows) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int r0 = row0, n = rows;
   switch (choose_block(dtype, C)) {
-    case kBlockWgmma: return launch_wgmma_c(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
-    case kBlockTf32: return launch_tf32(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
-    case kBlockTile: return launch<bf16>(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
+    case kBlockWgmma:
+      return launch_wgmma_c(q, kv, out, out2, B, P, C, r0, n, q_bstride, kv_bstride, t, s);
+    case kBlockTf32:
+      return launch_tf32(q, kv, out, out2, B, P, C, r0, n, q_bstride, kv_bstride, t, s);
+    case kBlockTile:
+      return launch<bf16>(q, kv, out, out2, B, P, C, r0, n, q_bstride, kv_bstride, t, s);
     case kBlockWide:
-      return dtype == 0 ? launch_wide<float>(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s)
-                        : launch_wide<bf16>(q, kv, out, out2, B, P, C, q_bstride, kv_bstride, t, s);
+      return dtype == 0
+                 ? launch_wide<float>(q, kv, out, out2, B, P, C, r0, n, q_bstride, kv_bstride, t, s)
+                 : launch_wide<bf16>(q, kv, out, out2, B, P, C, r0, n, q_bstride, kv_bstride, t, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -62,6 +62,13 @@
 // past P are masked (zero rows in, W = 0, no store), so ragged P (169 at
 // 416 px) works.
 //
+// Row windows (the tensor-parallel co-attention): the entry point takes a
+// window row0..row0+rows-1 of q with its (B, rows, C) upstream gradient and
+// returns the window's dq and its partial dkv over all P kv rows; the dq
+// pass owns the window's rows (grid over rows), the dkv pass streams only
+// the window's q tiles (grid over the P kv rows); L and D are (B, rows).
+// The ranks' partial dkv sum to the whole frame's.
+//
 // Widths the passes above do not take (C % 16 != 0 or C > 512; no
 // configuration of the repository runs one) take K3's general pass, chosen
 // by shape in the entry point, never as a fallback: the same two passes on
@@ -274,8 +281,8 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
               const T* __restrict__ g, T* __restrict__ dq,
-              float* __restrict__ lse, float* __restrict__ dd, int P, int C,
-              long long q_bstride, long long kv_bstride, long long g_bstride,
+              float* __restrict__ lse, float* __restrict__ dd, int Pq, int P,
+              int C, long long q_bstride, long long kv_bstride, long long g_bstride,
               float t) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ld = pitch<T>(C);
@@ -295,8 +302,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const T* qw = q_s + 16 * rg * ld + c0;
   const T* gw = g_s + 16 * rg * ld + c0;
 
-  load_rows_async(q_s, ld, q + (long long)b * q_bstride, row0, kOwn, P, C, kThreads);
-  load_rows_async(g_s, ld, g + (long long)b * g_bstride, row0, kOwn, P, C, kThreads);
+  load_rows_async(q_s, ld, q + (long long)b * q_bstride, row0, kOwn, Pq, C, kThreads);
+  load_rows_async(g_s, ld, g + (long long)b * g_bstride, row0, kOwn, Pq, C, kThreads);
 
   // Two sweeps over the kv tiles; `body(it, kv tile)` runs between the
   // tile's arrival and the next tile's copy.
@@ -359,13 +366,13 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const float dd0 = a0 / l0, dd1 = a1 / l1;
   const int r = row0 + 16 * rg + lane / 4;
   if (warp < 2 && (lane & 3) == 0) {  // channel group 0 writes L and D
-    if (r < P) {
-      lse[(long long)b * P + r] = lse0;
-      dd[(long long)b * P + r] = dd0;
+    if (r < Pq) {
+      lse[(long long)b * Pq + r] = lse0;
+      dd[(long long)b * Pq + r] = dd0;
     }
-    if (r + 8 < P) {
-      lse[(long long)b * P + r + 8] = lse1;
-      dd[(long long)b * P + r + 8] = dd1;
+    if (r + 8 < Pq) {
+      lse[(long long)b * Pq + r + 8] = lse1;
+      dd[(long long)b * Pq + r + 8] = dd1;
     }
   }
 
@@ -388,7 +395,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     }
     accumulate(acc, s, kvt + c0, ld, ch.count);
   });
-  store_rows(dq + (long long)b * P * C, acc, t, row0, P, C, c0, ch.count);
+  store_rows(dq + (long long)b * Pq * C, acc, t, row0, Pq, C, c0, ch.count);
 }
 
 template <typename T>
@@ -396,7 +403,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                const T* __restrict__ g, T* __restrict__ dkv,
                const float* __restrict__ lse, const float* __restrict__ dd,
-               int P, int C, long long q_bstride, long long kv_bstride,
+               int Pq, int P, int C, long long q_bstride, long long kv_bstride,
                long long g_bstride, float t) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ld = pitch<T>(C);
@@ -412,9 +419,9 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   const int c0 = 8 * ch.first;
   const T* qb = q + (long long)b * q_bstride;
   const T* gb = g + (long long)b * g_bstride;
-  const float* lseb = lse + (long long)b * P;
-  const float* ddb = dd + (long long)b * P;
-  const int tiles = (P + kStream - 1) / kStream;
+  const float* lseb = lse + (long long)b * Pq;
+  const float* ddb = dd + (long long)b * Pq;
+  const int tiles = (Pq + kStream - 1) / kStream;  // the window's q tiles only
   const float scale = t * kLog2e;
   const T* kw = kv_s + 16 * rg * ld + c0;
 
@@ -423,11 +430,11 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   auto fetch = [&](int it) {
     T* st = st_s + (it & 1) * 2 * kStream * ld;
     const int r0 = it * kStream;
-    load_rows_async(st, ld, qb, r0, kStream, P, C, kThreads);
-    load_rows_async(st + kStream * ld, ld, gb, r0, kStream, P, C, kThreads);
+    load_rows_async(st, ld, qb, r0, kStream, Pq, C, kThreads);
+    load_rows_async(st + kStream * ld, ld, gb, r0, kStream, Pq, C, kThreads);
     if (threadIdx.x < 2 * kStream) {
       const int i = threadIdx.x % kStream, which = threadIdx.x / kStream;
-      const bool ok = r0 + i < P;
+      const bool ok = r0 + i < Pq;
       ld_s[(it & 1) * 2 * kStream + which * kStream + i] =
           ok ? (which ? ddb : lseb)[r0 + i] : 0.f;
     }
@@ -458,7 +465,7 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int rr = rr0 + 8 * n + (j & 1);
-        const float w = it * kStream + rr < P ? exp2f(s[n][j] * scale - l_t[rr]) : 0.f;
+        const float w = it * kStream + rr < Pq ? exp2f(s[n][j] * scale - l_t[rr]) : 0.f;
         s[n][j] = w;                                  // W^T
         dw[n][j] = t * w * (dw[n][j] - d_t[rr]);      // T dS^T
       }
@@ -479,8 +486,8 @@ template <typename T, int NC>
 __global__ void __launch_bounds__(wide::kThreads, 1)
 bwd_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                    const T* __restrict__ g, T* __restrict__ dq,
-                   float* __restrict__ lse, float* __restrict__ dd, int P, int C,
-                   long long q_bstride, long long kv_bstride, long long g_bstride,
+                   float* __restrict__ lse, float* __restrict__ dd, int Pq, int P,
+                   int C, long long q_bstride, long long kv_bstride, long long g_bstride,
                    float t) {
   extern __shared__ __align__(128) unsigned char smem[];
   const wide::Layout L = wide::layout<T>(NC, 2);
@@ -498,7 +505,7 @@ bwd_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 
   float m = -INFINITY, l = 0.f, a = 0.f;  // the same in the row's 8 lanes
   for (int n0 = 0; n0 < P; n0 += wide::kTile) {
-    wide::tile_dots<2>(sd, lhs, row0, rhs, n0, P, C, a_s, b_s);
+    wide::tile_dots<2>(sd, lhs, row0, Pq, rhs, n0, P, C, a_s, b_s);
     float v[4], mx = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -519,9 +526,9 @@ bwd_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     m = mn;
   }
   const float lse_r = m + logf(l), dd_r = a / l;
-  if (blockIdx.z == 0 && cq == 0 && row0 + r < P) {
-    lse[b * P + row0 + r] = lse_r;
-    dd[b * P + row0 + r] = dd_r;
+  if (blockIdx.z == 0 && cq == 0 && row0 + r < Pq) {
+    lse[b * Pq + row0 + r] = lse_r;
+    dd[b * Pq + row0 + r] = dd_r;
   }
 
   float acc[8][NC / 64];
@@ -531,7 +538,7 @@ bwd_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     for (int k = 0; k < NC / 64; ++k) acc[i][k] = 0.f;
   }
   for (int n0 = 0; n0 < P; n0 += wide::kTile) {
-    wide::tile_dots<2>(sd, lhs, row0, rhs, n0, P, C, a_s, b_s);
+    wide::tile_dots<2>(sd, lhs, row0, Pq, rhs, n0, P, C, a_s, b_s);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float w = n0 + cq + 8 * j < P ? expf(sd[0][j] * t - lse_r) : 0.f;
@@ -541,7 +548,7 @@ bwd_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     __syncthreads();
     wide::pv_accumulate<NC>(acc, w_s, v_s);
   }
-  wide::store_rows<NC>(dq + b * P * C, acc, t, row0, ch0, P, C);
+  wide::store_rows<NC>(dq + b * Pq * C, acc, t, row0, ch0, Pq, C);
 }
 
 // dkv pass: owned kv rows col0.. against every q and g tile with their L
@@ -552,7 +559,7 @@ __global__ void __launch_bounds__(wide::kThreads, 1)
 bwd_wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                     const T* __restrict__ g, T* __restrict__ dkv,
                     const float* __restrict__ lse, const float* __restrict__ dd,
-                    int P, int C, long long q_bstride, long long kv_bstride,
+                    int Pq, int P, int C, long long q_bstride, long long kv_bstride,
                     long long g_bstride, float t) {
   extern __shared__ __align__(128) unsigned char smem[];
   const wide::Layout L = wide::layout<T>(NC, 2);
@@ -576,23 +583,23 @@ bwd_wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 #pragma unroll
     for (int k = 0; k < NC / 64; ++k) acc[i][k] = 0.f;
   }
-  for (int n0 = 0; n0 < P; n0 += wide::kTile) {
+  for (int n0 = 0; n0 < Pq; n0 += wide::kTile) {  // the window's q tiles only
     // L and D of the tile's rows (the last tile's readers passed the
     // __syncthreads before its products; tile_dots' syncs publish these)
     if (threadIdx.x < 2 * wide::kTile) {
       const int i = threadIdx.x % wide::kTile, which = threadIdx.x / wide::kTile;
-      cols[threadIdx.x] = n0 + i < P ? (which ? dd : lse)[b * P + n0 + i] : 0.f;
+      cols[threadIdx.x] = n0 + i < Pq ? (which ? dd : lse)[b * Pq + n0 + i] : 0.f;
     }
-    wide::tile_dots<2>(sd, lhs, col0, rhs, n0, P, C, a_s, b_s);
+    wide::tile_dots<2>(sd, lhs, col0, P, rhs, n0, Pq, C, a_s, b_s);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = cq + 8 * j;
-      const float w = n0 + c < P ? expf(sd[0][j] * t - cols[c]) : 0.f;
+      const float w = n0 + c < Pq ? expf(sd[0][j] * t - cols[c]) : 0.f;
       w_s[r * wide::kPitch + c] = t * w * (sd[1][j] - cols[wide::kTile + c]);
       w_s[(wide::kRows + r) * wide::kPitch + c] = w;
     }
-    wide::stage_pv<NC>(v_s, qb, n0, ch0, P, C);
-    wide::stage_pv<NC>(v_s + wide::kTile * NC, gb, n0, ch0, P, C);
+    wide::stage_pv<NC>(v_s, qb, n0, ch0, Pq, C);
+    wide::stage_pv<NC>(v_s + wide::kTile * NC, gb, n0, ch0, Pq, C);
     __syncthreads();
     wide::pv_accumulate<NC>(acc, w_s, v_s);
     wide::pv_accumulate<NC>(acc, w_s + wide::kRows * wide::kPitch, v_s + wide::kTile * NC);
@@ -602,58 +609,59 @@ bwd_wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kv,
 
 template <typename T, int NC>
 int launch_wide_nc(const void* q, const void* kv, const void* g, void* dq, void* dkv,
-                   float* lse, float* dd, int B, int P, int C, long long q_bstride,
-                   long long kv_bstride, long long g_bstride, float t,
-                   cudaStream_t stream) {
+                   float* lse, float* dd, int B, int Pq, int P, int C,
+                   long long q_bstride, long long kv_bstride, long long g_bstride,
+                   float t, cudaStream_t stream) {
   const size_t bytes = wide::layout<T>(NC, 2).total;
   int err = dcnet::prepare_smem(bwd_wide_dq_kernel<T, NC>, bytes);
   if (err == 0) err = dcnet::prepare_smem(bwd_wide_dkv_kernel<T, NC>, bytes);
   if (err != 0) return err;
-  const dim3 grid((P + wide::kRows - 1) / wide::kRows, B, wide::chunks(C));
-  bwd_wide_dq_kernel<T, NC><<<grid, wide::kThreads, bytes, stream>>>(
+  const dim3 grid_q((Pq + wide::kRows - 1) / wide::kRows, B, wide::chunks(C));
+  bwd_wide_dq_kernel<T, NC><<<grid_q, wide::kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv), static_cast<const T*>(g),
-      static_cast<T*>(dq), lse, dd, P, C, q_bstride, kv_bstride, g_bstride, t);
+      static_cast<T*>(dq), lse, dd, Pq, P, C, q_bstride, kv_bstride, g_bstride, t);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  bwd_wide_dkv_kernel<T, NC><<<grid, wide::kThreads, bytes, stream>>>(
+  const dim3 grid_kv((P + wide::kRows - 1) / wide::kRows, B, wide::chunks(C));
+  bwd_wide_dkv_kernel<T, NC><<<grid_kv, wide::kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv), static_cast<const T*>(g),
-      static_cast<T*>(dkv), lse, dd, P, C, q_bstride, kv_bstride, g_bstride, t);
+      static_cast<T*>(dkv), lse, dd, Pq, P, C, q_bstride, kv_bstride, g_bstride, t);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_wide(const void* q, const void* kv, const void* g, void* dq, void* dkv,
-                float* lse, float* dd, int B, int P, int C, long long q_bstride,
+                float* lse, float* dd, int B, int Pq, int P, int C, long long q_bstride,
                 long long kv_bstride, long long g_bstride, float t, cudaStream_t s) {
   return wide::with_chunk(C, [&](auto nc) {
-    return launch_wide_nc<T, decltype(nc)::value>(q, kv, g, dq, dkv, lse, dd, B, P, C,
-                                                  q_bstride, kv_bstride, g_bstride, t, s);
+    return launch_wide_nc<T, decltype(nc)::value>(q, kv, g, dq, dkv, lse, dd, B, Pq, P,
+                                                  C, q_bstride, kv_bstride, g_bstride, t,
+                                                  s);
   });
 }
 
 template <typename T>
 int launch(const void* q, const void* kv, const void* g, void* dq, void* dkv,
-           float* lse, float* dd, int B, int P, int C, long long q_bstride,
+           float* lse, float* dd, int B, int Pq, int P, int C, long long q_bstride,
            long long kv_bstride, long long g_bstride, float t,
            cudaStream_t stream) {
   if (!tf32_takes(C)) {
-    return launch_wide<T>(q, kv, g, dq, dkv, lse, dd, B, P, C, q_bstride, kv_bstride,
+    return launch_wide<T>(q, kv, g, dq, dkv, lse, dd, B, Pq, P, C, q_bstride, kv_bstride,
                           g_bstride, t, stream);
   }
   const size_t bytes = smem_bytes<T>(C);
   int perr = dcnet::prepare_smem(bwd_dq_kernel<T>, bytes);
   if (perr == 0) perr = dcnet::prepare_smem(bwd_dkv_kernel<T>, bytes);
   if (perr != 0) return perr;
-  const dim3 grid((P + kOwn - 1) / kOwn, B);
-  bwd_dq_kernel<T><<<grid, kThreads, bytes, stream>>>(
+  bwd_dq_kernel<T><<<dim3((Pq + kOwn - 1) / kOwn, B), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv),
-      static_cast<const T*>(g), static_cast<T*>(dq), lse, dd, P, C,
+      static_cast<const T*>(g), static_cast<T*>(dq), lse, dd, Pq, P, C,
       q_bstride, kv_bstride, g_bstride, t);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dkv_kernel<T><<<grid, kThreads, bytes, stream>>>(
+  bwd_dkv_kernel<T><<<dim3((P + kOwn - 1) / kOwn, B), kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kv),
-      static_cast<const T*>(g), static_cast<T*>(dkv), lse, dd, P, C,
+      static_cast<const T*>(g), static_cast<T*>(dkv), lse, dd, Pq, P, C,
       q_bstride, kv_bstride, g_bstride, t);
   return (int)cudaGetLastError();
 }
@@ -668,27 +676,34 @@ int dcnet_coattn_bwd_block(int C) {
   return C < 1 ? -1 : tf32_takes(C) ? 2 : 3;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. q, kv, g: (B, P, C) with contiguous rows
-// and the given batch strides (elements); dq, dkv: contiguous (B, P, C) in
-// the same dtype; lse, dd: fp32 (B, P) scratch. Returns a cudaError_t code,
-// 0 on success.
+// dtype: 0 = float32, 1 = bfloat16. The backward of the row window
+// row0..row0+rows-1 of attend(q, kv) (any rows >= 1 at any offset, row0 +
+// rows <= P; row0 = 0, rows = P is the whole frame): q, kv: (B, P, C)
+// frames, g: the window's (B, rows, C) upstream gradient, all with
+// contiguous rows and the given batch strides (elements); dq: the window's
+// contiguous (B, rows, C); dkv: contiguous (B, P, C), the window's share of
+// the kv gradient (the windows' dkv sum to the whole frame's); lse, dd:
+// fp32 (B, rows) scratch. Returns a cudaError_t code, 0 on success.
 int dcnet_coattn_attend_bwd(const void* q, const void* kv, const void* g,
                             void* dq, void* dkv, void* lse, void* dd, int B,
-                            int P, int C, long long q_bstride,
+                            int P, int C, int row0, int rows, long long q_bstride,
                             long long kv_bstride, long long g_bstride, float t,
                             int dtype, void* stream) {
-  if (B <= 0 || P <= 0 || C <= 0 || B > 65535) {
+  if (B <= 0 || P <= 0 || C <= 0 || B > 65535 || row0 < 0 || rows < 1 ||
+      row0 > P - rows) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   float* d = static_cast<float*>(dd);
   if (dtype == 0) {
-    return launch<float>(q, kv, g, dq, dkv, l, d, B, P, C, q_bstride,
+    const float* qw = static_cast<const float*>(q) + (long long)row0 * C;
+    return launch<float>(qw, kv, g, dq, dkv, l, d, B, rows, P, C, q_bstride,
                          kv_bstride, g_bstride, t, s);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, kv, g, dq, dkv, l, d, B, P, C, q_bstride,
+    const __nv_bfloat16* qw = static_cast<const __nv_bfloat16*>(q) + (long long)row0 * C;
+    return launch<__nv_bfloat16>(qw, kv, g, dq, dkv, l, d, B, rows, P, C, q_bstride,
                                  kv_bstride, g_bstride, t, s);
   }
   return (int)cudaErrorInvalidValue;

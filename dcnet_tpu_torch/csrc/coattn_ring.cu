@@ -113,9 +113,9 @@ ring_kernel(const T* ring, T* out, int S, int center_t, int slot, int tiles,
                              s_stride);
   T* ob = out + (f.b * (S - 1) + f.r) * (long long)P * C;
   if constexpr (std::is_same<T, float>::value) {
-    tf32::attend_rows(f.q, f.kv, ob, tile * kBlockM, P, C, t, smem);
+    tf32::attend_rows(f.q, f.kv, ob, tile * kBlockM, P, P, C, t, smem);
   } else {
-    attend_rows<T, T>(f.q, f.kv, ob, tile * kBlockM, P, C, t, smem);
+    attend_rows<T, T>(f.q, f.kv, ob, tile * kBlockM, P, P, C, t, smem);
   }
 }
 
@@ -131,7 +131,7 @@ ring_wide_kernel(const T* ring, OutT* out, int S, int center_t, int slot, int ti
   const Frames<T> f = frames(ring, rest / nch, S, center_t, slot, b_stride, s_stride);
   OutT* ob = out + (f.b * (S - 1) + f.r) * (long long)P * C;
   wide::attend_rows<NC, T, OutT>(f.q, f.kv, ob, tile * wide::kRows,
-                                 (rest % nch) * NC, P, C, t, smem);
+                                 (rest % nch) * NC, P, P, C, t, smem);
 }
 
 // The bf16 wgmma + TMA block over a ring: one 4-D map (C, P, S, B); each
@@ -150,7 +150,7 @@ ring_wgmma_kernel(const __grid_constant__ CUtensorMap map, bf16* out, int S,
   wg::attend_rows<C, 4>(&map, {(slot + 1 + center_t) % S, b}, &map,
                         {(slot + 1 + ref_t) % S, b},
                         out + ((long long)b * n_ref + r) * P * C, tile * wg::kRows,
-                        P, t, smem);
+                        0, P, P, t, smem);
 }
 
 // The int8 wgmma s8 + TMA block over an int8 ring: one 4-D map (C, P, S, B)

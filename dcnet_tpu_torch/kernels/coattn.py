@@ -32,6 +32,15 @@ and K3 backward, and `coattention_fused` is K2 forward and two K3
 backward, combined as df1 = dq1 + dkv2 and df2 = dkv1 + dq2, the sum taken
 in the input dtype. Without gradients `coattention_one` calls the op
 directly.
+
+Row windows. K1, K2 and K3 also run on a window of query rows, rows
+row0..row0+rows-1 of a (B, P, C) frame against all P rows of the other
+(`attend_window`, `attend_pair_window`, `attend_bwd(..., row0=)`): the
+tensor-parallel co-attention (`ops.coattention`'s `tp_shard`) gives each
+rank of the model group one window. A window's output rows are the whole
+launch's rows; K3 on a window gives the window's dq and its share of dkv
+(the windows' shares sum to the whole frame's dkv). The plain versions
+take the same windows.
 """
 
 from __future__ import annotations
@@ -84,11 +93,24 @@ def _acc(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def attend_plain(q: torch.Tensor, kv: torch.Tensor,
-                 temperature: float) -> torch.Tensor:
+def window(p: int, row0: int = 0, rows=None) -> Tuple[int, int]:
+    """(row0, rows) of a row window of a P-row frame, checked: rows >= 1
+    (None: to the end), 0 <= row0, row0 + rows <= P."""
+    rows = p - row0 if rows is None else rows
+    if not (row0 >= 0 and rows >= 1 and row0 + rows <= p):
+        raise ValueError(f"row window {row0}..{row0}+{rows} does not lie in a "
+                         f"frame of {p} rows")
+    return row0, rows
+
+
+def attend_plain(q: torch.Tensor, kv: torch.Tensor, temperature: float,
+                 row0: int = 0, rows=None) -> torch.Tensor:
     """The plain version, with the TPU kernel's dtype rules: fp32 logits and
     softmax, weights rounded to bf16 before the PV product when kv is bf16,
-    fp32 accumulation, output in q's dtype. q, kv: (B, P, C)."""
+    fp32 accumulation, output in q's dtype. q, kv: (B, P, C); the query
+    rows row0..row0+rows-1 (default all) -> (B, rows, C)."""
+    row0, rows = window(q.shape[1], row0, rows)
+    q = q[:, row0:row0 + rows]
     kvf = kv.to(_acc(kv.dtype))
     logits = torch.matmul(q.to(kvf.dtype), kvf.transpose(1, 2)) * temperature
     w = torch.softmax(logits, dim=-1)
@@ -98,13 +120,18 @@ def attend_plain(q: torch.Tensor, kv: torch.Tensor,
 
 
 def attend_bwd_plain(q: torch.Tensor, kv: torch.Tensor, temperature: float,
-                     g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                     g: torch.Tensor, row0: int = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of K3, the body of the TPU kernel on full rows:
     everything in fp32 with the unrounded softmax W (not the autograd of
     `attend_plain`, whose W is rounded to bf16 for bf16 inputs),
         dW = g kvᵀ, dS = W (dW - rowsum(dW W)),
         dq = T dS kv, dkv = T dSᵀ q + Wᵀ g,
-    each cast to its input's dtype. q, kv, g: (B, P, C)."""
+    each cast to its input's dtype. q, kv: (B, P, C); g: (B, rows, C), the
+    gradient of the query rows row0..row0+rows-1 (default all): dq is the
+    window's (B, rows, C), dkv the window's share (B, P, C)."""
+    row0, rows = window(q.shape[1], row0, g.shape[1])
+    q = q[:, row0:row0 + rows]
     acc = _acc(q.dtype)
     qf, kvf, gf = q.to(acc), kv.to(acc), g.to(acc)
     w = torch.softmax(torch.matmul(qf, kvf.transpose(1, 2)) * temperature, dim=-1)
@@ -185,10 +212,9 @@ def ring_attend_plain(ring: torch.Tensor, temperature: float, center_t: int,
 def _lib() -> ctypes.CDLL:
     lib = build.load("coattn")
     if not getattr(lib, "_dcnet_bound", False):
-        lib.dcnet_coattn_attend.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.dcnet_coattn_attend.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.dcnet_coattn_attend.restype = ctypes.c_int
         lib.dcnet_coattn_block.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.dcnet_coattn_block.restype = ctypes.c_int
@@ -202,7 +228,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("coattn_bwd")
     if not getattr(lib, "_dcnet_bound", False):
         lib.dcnet_coattn_attend_bwd.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
             + [ctypes.c_longlong] * 3
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.dcnet_coattn_attend_bwd.restype = ctypes.c_int
@@ -228,12 +254,13 @@ def _ring_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(body: str, **xs: torch.Tensor) -> None:
+def _check(body: str, rows=None, **xs: torch.Tensor) -> None:
     """The kernels' input rules: one CUDA device, float32 or bfloat16 (all
-    the same), one (B, P, C) shape, C >= 1, B <= 65535, rows contiguous
-    (row stride C), any batch stride (a frame sliced out of a clip); rows
-    16-byte aligned for every block but the general one (`body` "wide"),
-    whose loads are one element wide."""
+    the same), one (B, P, C) shape (K3's g: (B, `rows`, C), its window's
+    rows), C >= 1, B <= 65535, rows contiguous (row stride C), any batch
+    stride (a frame sliced out of a clip); rows 16-byte aligned for every
+    block but the general one (`body` "wide"), whose loads are one element
+    wide."""
     (n0, x0), *_ = xs.items()
     if any(x.device.type != "cuda" or x.device != x0.device for x in xs.values()):
         raise ValueError(f"coattention kernel needs {', '.join(xs)} on one "
@@ -243,7 +270,10 @@ def _check(body: str, **xs: torch.Tensor) -> None:
         raise TypeError(f"coattention kernel takes float32 or bfloat16 (all "
                         f"the same), got "
                         f"{', '.join(str(x.dtype) for x in xs.values())}")
-    if x0.dim() != 3 or any(x.shape != x0.shape for x in xs.values()):
+    want = tuple(x0.shape)
+    if x0.dim() != 3 or any(
+            tuple(x.shape) != (want if n != "g" or rows is None else
+                               (want[0], rows, want[2])) for n, x in xs.items()):
         raise ValueError(f"coattention kernel needs {', '.join(xs)} of one "
                          f"(B, P, C) shape, got "
                          f"{', '.join(str(tuple(x.shape)) for x in xs.values())}")
@@ -272,24 +302,27 @@ def _on_cpu(*xs: torch.Tensor) -> bool:
 
 
 def _launch_attend(q: torch.Tensor, kv: torch.Tensor, temperature: float,
-                   pair: bool):
+                   pair: bool, row0: int = 0, rows=None):
     """One launch of csrc/coattn.cu: K1 (out = attend(q, kv)) or, with
-    `pair`, K2 (also out2 = attend(kv, q)). Counts nothing."""
+    `pair`, K2 (also out2 = attend(kv, q)), on the query rows
+    row0..row0+rows-1 (default all) of each direction -> (B, rows, C).
+    Counts nothing."""
     _check(attend_body(q.dtype, q.shape[-1]), q=q, kv=kv)
     lib = _lib()
     b, p, c = q.shape
-    out = torch.empty((b, p, c), dtype=q.dtype, device=q.device)
+    row0, rows = window(p, row0, rows)
+    out = torch.empty((b, rows, c), dtype=q.dtype, device=q.device)
     out2 = torch.empty_like(out) if pair else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dcnet_coattn_attend(
             q.data_ptr(), kv.data_ptr(), out.data_ptr(),
-            out2.data_ptr() if pair else None, b, p, c, q.stride(0),
+            out2.data_ptr() if pair else None, b, p, c, row0, rows, q.stride(0),
             kv.stride(0), float(temperature), _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"coattention {'pair ' if pair else ''}kernel launch failed "
-            f"(B={b}, P={p}, C={c}, {q.dtype}): "
+            f"(B={b}, P={p}, C={c}, rows {row0}..{row0}+{rows}, {q.dtype}): "
             f"{lib.dcnet_coattn_error_string(err).decode()}")
     return (out, out2) if pair else out
 
@@ -301,32 +334,62 @@ def _rows_contiguous(x: torch.Tensor) -> torch.Tensor:
 
 
 def attend_bwd(q: torch.Tensor, kv: torch.Tensor, temperature: float,
-               g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               g: torch.Tensor, row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: (dq, dkv) of attend(q, kv) for the upstream gradient g, each in
-    its input's dtype. CPU tensors take `attend_bwd_plain`; CUDA tensors
-    launch the kernel (two grids, one count) or raise."""
+    its input's dtype. g of (B, rows, C) is the gradient of the query rows
+    row0..row0+rows-1 (all of them by default): dq is then the window's
+    (B, rows, C) and dkv its share (B, P, C). CPU tensors take
+    `attend_bwd_plain`; CUDA tensors launch the kernel (two grids, one
+    count) or raise."""
     if _on_cpu(q, kv, g):
-        return attend_bwd_plain(q, kv, temperature, g)
-    _check(attend_bwd_body(q.shape[-1]), q=q, kv=kv, g=g)
+        return attend_bwd_plain(q, kv, temperature, g, row0)
     b, p, c = q.shape
+    row0, rows = window(p, row0, g.shape[1])
+    _check(attend_bwd_body(c), rows=rows, q=q, kv=kv, g=g)
     lib = _bwd_lib()
-    dq = torch.empty((b, p, c), dtype=q.dtype, device=q.device)
-    dkv = torch.empty_like(dq)
-    lse = torch.empty((b, p), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, rows, c), dtype=q.dtype, device=q.device)
+    dkv = torch.empty((b, p, c), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, rows), dtype=torch.float32, device=q.device)
     dd = torch.empty_like(lse)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dcnet_coattn_attend_bwd(
             q.data_ptr(), kv.data_ptr(), g.data_ptr(), dq.data_ptr(),
-            dkv.data_ptr(), lse.data_ptr(), dd.data_ptr(), b, p, c,
+            dkv.data_ptr(), lse.data_ptr(), dd.data_ptr(), b, p, c, row0, rows,
             q.stride(0), kv.stride(0), g.stride(0), float(temperature),
             _DTYPE_CODE[q.dtype], stream)
     if err != 0:
         raise RuntimeError(
             f"coattention backward kernel launch failed (B={b}, P={p}, C={c}, "
-            f"{q.dtype}): {lib.dcnet_coattn_bwd_error_string(err).decode()}")
+            f"rows {row0}..{row0}+{rows}, {q.dtype}): "
+            f"{lib.dcnet_coattn_bwd_error_string(err).decode()}")
     kernels.LAUNCHES["coattn_attend_bwd"] += 1
     return dq, dkv
+
+
+def attend_window(q: torch.Tensor, kv: torch.Tensor, temperature: float,
+                  row0: int, rows: int) -> torch.Tensor:
+    """K1 on the query rows row0..row0+rows-1 of q against all of kv, (B, P,
+    C) -> (B, rows, C). CPU tensors take `attend_plain`; CUDA tensors launch
+    the kernel (one count of `coattn_attend`) or raise."""
+    if _on_cpu(q, kv):
+        return attend_plain(q, kv, temperature, row0, rows)
+    out = _launch_attend(q, kv, temperature, False, row0, rows)
+    kernels.LAUNCHES["coattn_attend"] += 1
+    return out
+
+
+def attend_pair_window(f1: torch.Tensor, f2: torch.Tensor, temperature: float,
+                       row0: int, rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 on a row window: (attend(f1[:, window], f2), attend(f2[:, window],
+    f1)), each (B, rows, C). CPU tensors take the plain versions; CUDA
+    tensors launch the kernel (one count of `coattn_pair`) or raise."""
+    if _on_cpu(f1, f2):
+        return (attend_plain(f1, f2, temperature, row0, rows),
+                attend_plain(f2, f1, temperature, row0, rows))
+    out = _launch_attend(f1, f2, temperature, True, row0, rows)
+    kernels.LAUNCHES["coattn_pair"] += 1
+    return out
 
 
 class _AttendOne(torch.autograd.Function):

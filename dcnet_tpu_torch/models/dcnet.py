@@ -32,6 +32,12 @@ The language encoder is the BiLSTM (`cfg.use_lstm`) or the frozen BERT
 cross-modal branch reads BERT's projected `embedded` where the BiLSTM's
 halved context goes. `cfg.remat_backbone` recomputes the backbone in the
 backward (`torch.utils.checkpoint`), its BatchNorm statistics moved once.
+`cfg.tp_internals` on a mesh with a model axis (`parallel.mesh`) splits the
+co-attention's query rows over the model group (`ops.coattention`'s
+`tp_shard`: K1 / K2 / K3 on row windows) in the train forward and the
+per-reference eval path, float and int8 logits, as the JAX package
+annotates them; the ring (K4) and batched-references paths stay whole, as
+there.
 """
 
 from __future__ import annotations
@@ -44,7 +50,6 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dcnet_tpu_torch import DeviceLike, resolve_device, resolve_dtype
-from dcnet_tpu_torch import not_ported as _not_ported
 from dcnet_tpu_torch.config import DCNetConfig
 from dcnet_tpu_torch.kernels.coattn import (
     coattention_center_fused, coattention_pair_fused, coattention_ring_fused,
@@ -58,10 +63,11 @@ from dcnet_tpu_torch.models.heads import (
     l2_normalize, running_stats_frozen, tile_language)
 from dcnet_tpu_torch.models.lstm import BiLSTMEncoder
 from dcnet_tpu_torch.ops.coattention import (
-    coattention_center, coattention_center_batched)
+    coattention_center, coattention_center_batched, coattention_pair)
 from dcnet_tpu_torch.ops.coords import generate_coord
 from dcnet_tpu_torch.ops.correspondence import (
     ContrastiveSamples, crossmodal_pairs, interframe_pairs)
+from dcnet_tpu_torch.parallel import mesh
 
 
 class TrainOutputs(NamedTuple):
@@ -95,10 +101,6 @@ class DCNet(nn.Module):
         super().__init__()
         if cfg.trunk_quant not in ("off", "calib", "int8"):
             raise ValueError(f"trunk_quant is off, calib or int8, not {cfg.trunk_quant!r}")
-        if cfg.tp_internals:
-            raise _not_ported("tp_internals (tensor-parallel co-attention and "
-                              "location Gram)", "ROADMAP queue A, item 12, the part "
-                              "still open")
         device = resolve_device(device)
         self.cfg = cfg
         self.dtype = resolve_dtype(cfg.compute_dtype)
@@ -160,6 +162,25 @@ class DCNet(nn.Module):
         images = torch.as_tensor(images, device=self.device)
         return self.map_features(self.visumodel(images, self.dtype))
 
+    def _tp(self) -> bool:
+        """cfg.tp_internals on a mesh whose model axis has more than one
+        rank: the co-attention's query rows split over the model group."""
+        return self.cfg.tp_internals and mesh.model_group() is not None
+
+    def _coattn(self, f1: torch.Tensor, f2: torch.Tensor):
+        """Both directions: K2, or its row windows under `_tp`."""
+        t = self.cfg.coattn_temperature
+        if self._tp():
+            return coattention_pair(f1, f2, t, tp_shard=True)
+        return coattention_pair_fused(f1, f2, t)
+
+    def _coattn_center(self, f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
+        """The center direction: K1, or its row windows under `_tp`."""
+        t = self.cfg.coattn_temperature
+        if self._tp():
+            return coattention_center(f1, f2, t, tp_shard=True)
+        return coattention_center_fused(f1, f2, t)
+
     def _language(self, word_ids: torch.Tensor, train: bool = False):
         raw_flang, context, embedded = self.textmodel(word_ids, train=train)
         return (l2_normalize(self.mapping_lang(raw_flang, train=train)),
@@ -213,11 +234,11 @@ class DCNet(nn.Module):
                     int8_logits=cfg.coattn_int8_logits)
             elif cfg.coattn_int8_logits:
                 atts = [coattention_center(cen, self._dequantize(ring[:, j]),
-                                           cfg.coattn_temperature, int8_logits=True)
+                                           cfg.coattn_temperature,
+                                           tp_shard=cfg.tp_internals, int8_logits=True)
                         for j in ref_slots]
             else:
-                atts = [coattention_center_fused(cen, self._dequantize(ring[:, j]),
-                                                 cfg.coattn_temperature)
+                atts = [self._coattn_center(cen, self._dequantize(ring[:, j]))
                         for j in ref_slots]
             conv = self.corr_conv[i][0]
             if cfg.split_corr_conv:  # center half of the 1x1 contraction once
@@ -330,7 +351,6 @@ class DCNet(nn.Module):
         word_ids = torch.as_tensor(word_ids, device=self.device)
         bk = images.shape[0]
         b = bk // k_frames
-        t = cfg.coattn_temperature
         fvisu = self.map_features(self._backbone(images, train), train)
 
         corr_feat = []
@@ -341,7 +361,7 @@ class DCNet(nn.Module):
                 input1[0], input2[0], cfg.interframe_top_k,
                 cfg.interframe_neg_n, generator)
             for i in range(3):
-                a1, a2 = coattention_pair_fused(input1[i], input2[i], t)
+                a1, a2 = self._coattn(input1[i], input2[i])
                 c1 = torch.cat([input1[i], a1], dim=-1)     # (B, h, w, 2C)
                 c2 = torch.cat([input2[i], a2], dim=-1)
                 both = torch.stack([c1, c2], dim=1).reshape(bk, *c1.shape[1:])
@@ -355,7 +375,7 @@ class DCNet(nn.Module):
                 fvisu[0], ring_next(fvisu[0]), cfg.interframe_top_k,
                 cfg.interframe_neg_n, generator)
             for i in range(3):
-                att = coattention_center_fused(fvisu[i], ring_next(fvisu[i]), t)
+                att = self._coattn_center(fvisu[i], ring_next(fvisu[i]))
                 cf = self.corr_conv[i][0](torch.cat([fvisu[i], att], dim=-1),
                                           train=train)
                 corr_feat.append(l2_normalize(cf))

@@ -24,9 +24,22 @@ them intact), and the rotating slot is a host integer carried in the state,
 so a tick reads no device scalar. `quantize()` switches the per-frame
 backbone to the int8 path (`ops/quant.py`, kernel K6; `int8_chain` keeps
 sole-consumer activations in int8) and, by default, the trunk convs to
-static-scale int8. The device mesh (a stream shard per process) and XLA
-compiler options are not carried (ROADMAP). `serving/export.py` exports the
-step as a `torch.export` program that serves without this module.
+static-scale int8. XLA compiler options are not carried.
+`serving/export.py` exports the step as a `torch.export` program that
+serves without this module.
+
+The engine's mesh (`mesh=parallel.mesh.make_mesh(...)`): the streams are
+sharded over the mesh's `data` axis, as the JAX engine places them with
+`batch_sharding(mesh)`. Each of the W data ranks owns streams
+[r N / W, (r + 1) N / W) (N % W != 0 raises, as a JAX `data` sharding
+does) and keeps their rings and caches; `init_state`, `update_queries` and
+`step` take the global arrays and `step` returns the global outputs on
+every rank (all-gathered over the data group). The ranks of one model
+group hold the same streams (and split their co-attention rows under
+`cfg.tp_internals`). `save_stream_state(..., mesh=)` writes one global
+file from the shards (rank 0 writes what the data group gathered) and
+`load_stream_state(..., mesh=)` gives each rank its streams of one, so a
+state moves between a one-process and an N-process engine both ways.
 """
 
 from __future__ import annotations
@@ -36,11 +49,13 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from dcnet_tpu_torch import DeviceLike, resolve_device
+from dcnet_tpu_torch import DeviceLike, not_ported, resolve_device
 from dcnet_tpu_torch.eval.temporal import build_frame_cache
-from dcnet_tpu_torch.models.dcnet import DCNet, _not_ported
+from dcnet_tpu_torch.models.dcnet import DCNet
 from dcnet_tpu_torch.ops.decode import decode_best
+from dcnet_tpu_torch.parallel import mesh as pmesh
 from dcnet_tpu_torch.serving.state import StreamState
 
 __all__ = ["GroundingEngine", "StreamState", "cast_params_for_serving",
@@ -56,15 +71,14 @@ class GroundingEngine:
                  donate_state: bool = True, rotate_rings: bool = True,
                  int8_rings: bool = False, int8_chain: bool = False,
                  compiler_options=None):
-        if mesh is not None:
-            raise _not_ported("the engine's device mesh (a stream shard per process)",
-                              "ROADMAP queue A, item 12, the part still open")
         if compiler_options:
-            raise _not_ported("compiler_options (XLA/TPU compiler flags)",
-                              "XLA options have no PyTorch counterpart")
+            raise not_ported("compiler_options (XLA/TPU compiler flags)",
+                             "XLA options have no PyTorch counterpart")
         self.model = model
         self.cfg = model.cfg
-        self.n_streams = n_streams
+        self.mesh = mesh
+        self.n_streams = n_streams   # every rank's streams: the global arrays
+        self.shard = _stream_shard(n_streams, mesh)
         self.n_frame = n_frame
         self.topk = topk
         self.fuse_window = fuse_window
@@ -132,8 +146,9 @@ class GroundingEngine:
         encoder runs once here and its features are cached in the state.
         The rings start as zeros in the ring dtype, the slot at
         n_frame - 1, so the first step writes slot 0."""
-        cfg, n, dev = self.cfg, self.n_streams, self.device
-        word_ids = torch.as_tensor(word_ids, device=dev)
+        cfg, dev = self.cfg, self.device
+        word_ids = torch.as_tensor(word_ids, device=dev)[self.shard]
+        n = word_ids.shape[0]
         rings = tuple(
             torch.zeros((n, self.n_frame, g, g, cfg.emb_size),
                         dtype=self.ring_dtype, device=dev)
@@ -158,16 +173,18 @@ class GroundingEngine:
         stream's phrase changed (None = all). The encoder runs only on the
         changed streams, and their top-k caches and frame counts go to zero
         (their history grounded another phrase). Returns a new state; the
-        input state is left as it was."""
-        changed = (np.arange(self.n_streams) if mask is None
-                   else np.nonzero(np.asarray(mask))[0])
+        input state is left as it was. On a mesh each rank takes its
+        streams' rows of both."""
+        n = self.shard.stop - self.shard.start
+        changed = (np.arange(n) if mask is None
+                   else np.nonzero(np.asarray(mask)[self.shard])[0])
         if changed.size == 0:
             return state
         dev = self.device
         idx = torch.as_tensor(changed, device=dev)
-        changed_ids = torch.as_tensor(word_ids, device=dev)[idx]
+        changed_ids = torch.as_tensor(word_ids, device=dev)[self.shard][idx]
         lang_new = self.model.encode_language(changed_ids)
-        keep = torch.ones((self.n_streams,), device=dev).index_fill(0, idx, 0.0)
+        keep = torch.ones((n,), device=dev).index_fill(0, idx, 0.0)
         # cast the mask, not the cache: the cache keeps its dtype
         keep_f = keep.to(state.cache_feats.dtype)
         return state._replace(
@@ -187,9 +204,11 @@ class GroundingEngine:
         (state, fused_boxes (N, 4), raw_boxes (N, 4), scores (N,)).
         Predictions are valid once frames_seen >= n_frame. With
         `donate_state` (the default) the step writes the new frame into the
-        input state's rings: always continue from the returned state."""
+        input state's rings: always continue from the returned state. On a
+        mesh, frames are every stream's and the outputs too (this rank's
+        streams ticked, the rest all-gathered); the state is this rank's."""
         model, cfg = self.model, self.cfg
-        frames = torch.as_tensor(frames, device=self.device)
+        frames = torch.as_tensor(frames, device=self.device)[self.shard]
 
         # 1. the backbone, only on the new frames (int8 after quantize())
         new_feats = self._extract(frames)
@@ -234,7 +253,8 @@ class GroundingEngine:
             feat_rings=rings, cache_boxes=cache_boxes,
             cache_scores=cache_scores, cache_feats=cache_feats,
             frames_seen=frames_seen, slot=new_slot)
-        return new_state, fused_box, raw_box, raw_score
+        return (new_state, _gather_streams(fused_box, self.mesh),
+                _gather_streams(raw_box, self.mesh), _gather_streams(raw_score, self.mesh))
 
     def _fuse(self, boxes: torch.Tensor, scores: torch.Tensor,
               feats: torch.Tensor, seen: torch.Tensor) -> torch.Tensor:
@@ -257,6 +277,27 @@ class GroundingEngine:
         fused = torch.sum(w * valid[:, None, :] * picked, dim=2)  # (N, K)
         best = torch.argmax(fused, dim=1)
         return boxes[torch.arange(n, device=boxes.device), c, best]
+
+
+def _stream_shard(n_streams: int, mesh) -> slice:
+    """This rank's streams: [r N / W, (r + 1) N / W) of the mesh's W data
+    ranks (all of them without a mesh)."""
+    w, r = (1, 0) if mesh is None else (mesh.n_data, mesh.data_rank)
+    if n_streams % w:
+        raise ValueError(f"{n_streams} streams do not shard over the mesh's {w} "
+                         f"data ranks")
+    per = n_streams // w
+    return slice(r * per, (r + 1) * per)
+
+
+def _gather_streams(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every data rank's rows of x (its streams), concatenated in rank
+    order: the global array, on every rank."""
+    if mesh is None or mesh.n_data == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(mesh.n_data)]
+    dist.all_gather(parts, x.contiguous(), group=mesh.data_group)
+    return torch.cat(parts, dim=0)
 
 
 @torch.no_grad()
@@ -283,10 +324,20 @@ def _dtype_name(x: torch.Tensor) -> np.str_:
     return np.str_(str(x.dtype).replace("torch.", ""))
 
 
-def save_stream_state(path: str, state: StreamState) -> None:
+def save_stream_state(path: str, state: StreamState, mesh=None) -> None:
     """Persist all stream rings and caches to one .npz, with the keys and
     dtype records of the JAX package's `save_stream_state`, so a state
-    saved by either package resumes in the other."""
+    saved by either package resumes in the other. A mesh engine's state
+    (`mesh`: every rank calls) is gathered over the data group and written
+    once, by rank 0, as the global state."""
+    if mesh is not None:
+        state = state._replace(**{
+            k: (tuple(_gather_streams(x, mesh) for x in v) if isinstance(v, tuple)
+                else _gather_streams(v, mesh))
+            for k, v in state._asdict().items() if k != "slot"})
+        if pmesh.world()[1] != 0:
+            pmesh.barrier()
+            return
     flat = {}
     for name in ("feat_rings", "language"):
         for i, x in enumerate(getattr(state, name)):
@@ -299,18 +350,22 @@ def save_stream_state(path: str, state: StreamState) -> None:
     flat["cache_feats_dtype"] = _dtype_name(state.cache_feats)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **flat)
+    if mesh is not None:
+        pmesh.barrier()    # the file is whole before any rank reads it
 
 
-def load_stream_state(path: str, device: DeviceLike = None) -> StreamState:
+def load_stream_state(path: str, device: DeviceLike = None, mesh=None) -> StreamState:
     """A state written by either package's `save_stream_state`, on `device`
     (the card by default). A file without a slot (the shift layout's)
-    resumes with the newest frame in the last slot."""
+    resumes with the newest frame in the last slot. With a mesh engine's
+    `mesh`, this rank's streams of the global state."""
     dev = resolve_device(device)
     data = np.load(path)
+    shard = _stream_shard(data["frames_seen"].shape[0], mesh)
 
     def restore(key: str) -> torch.Tensor:
         dkey = key.replace("/", "_dtype/", 1) if "/" in key else key + "_dtype"
-        x = torch.from_numpy(np.array(data[key])).to(dev)
+        x = torch.from_numpy(np.array(data[key])[shard]).to(dev)
         if dkey in data.files:
             x = x.to(getattr(torch, str(data[dkey])))
         return x

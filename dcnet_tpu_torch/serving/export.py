@@ -97,6 +97,9 @@ def export_engine(engine, out_dir: str, warmup_frames: Optional[torch.Tensor] = 
     before the trace reads them. Returns the meta."""
     if not engine.rotate_rings:
         raise ValueError("the bundle serves rotating rings (rotate_rings=True)")
+    if engine.mesh is not None:
+        raise ValueError("the bundle serves one process's engine: export an engine "
+                         "without a mesh")
     cfg, n, dev = engine.cfg, engine.n_streams, engine.device
     model = engine.model
     os.makedirs(out_dir, exist_ok=True)

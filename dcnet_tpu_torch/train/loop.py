@@ -96,7 +96,7 @@ def train_epoch(state: TrainState, batches: Iterable[Mapping[str, object]],
 def validate(model, batches: Iterable[Mapping[str, object]],
              max_steps: Optional[int] = None) -> Dict[str, float]:
     """`eval_step` over the batches; returns acc50, acc_center and miou
-    (under data parallelism over every rank's batches)."""
+    (under data parallelism over every data rank's batches)."""
     meters = {k: AverageMeter() for k in ("acc50", "acc_center", "miou")}
     for i, batch in enumerate(batches):
         if max_steps is not None and i >= max_steps:
@@ -106,10 +106,10 @@ def validate(model, batches: Iterable[Mapping[str, object]],
         for k, v in eval_step(model, batch).items():
             meters[k].update(float(v), n)
     result = {k: m.avg for k, m in meters.items()}
-    if mesh.world()[0] > 1:
+    if mesh.data_world()[0] > 1:
         sums = torch.tensor([[m.sum, m.count] for m in meters.values()],
                             dtype=torch.float64, device=model.device)
-        torch.distributed.all_reduce(sums)
+        torch.distributed.all_reduce(sums, group=mesh.data_group())
         result = {k: float(s / max(c, 1)) for k, (s, c) in zip(meters, sums.tolist())}
     log.info("%f,%f,%f", result["acc50"], result["miou"], result["acc_center"])
     return result

@@ -66,7 +66,8 @@ def make_optimizer(cfg: DCNetConfig, model: nn.Module) -> torch.optim.Optimizer:
 class TrainState:
     """The model, its optimizer, the poly schedule and the step count;
     under data parallelism `ddp` is the model wrapped by
-    `parallel.mesh.wrap_ddp`, which the train step's forward runs through."""
+    `parallel.mesh.wrap_ddp` (over the mesh's data group), which the train
+    step's forward runs through."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer

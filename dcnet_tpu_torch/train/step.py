@@ -1,7 +1,9 @@
 """The train and eval steps: the port of `dcnet_tpu/train/step.py`.
 
 One train step is forward (`DCNet.forward(train=True)`, through
-DistributedDataParallel under data parallelism), the five-loss sum,
+DistributedDataParallel over the data axis under data parallelism, and
+with `cfg.tp_internals` on a mesh's model axis the co-attention's rows
+split over the model group), the five-loss sum,
 backward, an optimizer and schedule step, and the train metrics of the
 forward's outputs; the eval step is the eval-mode forward of the same
 clips, the argmax decode and acc@0.5 / center accuracy / mIoU.
@@ -67,7 +69,7 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     parameters keep this step's gradients until the next step. With
     `state.ddp` (`parallel.mesh.wrap_ddp` of the model) the forward runs
     through it: the batch is this rank's shard, the gradients are averaged
-    over the ranks and the metrics are this rank's."""
+    over the data ranks and the metrics are this rank's."""
     model = state.model
     cfg = model.cfg
     images, word_ids, bbox = _inputs(model, batch)

@@ -45,6 +45,16 @@ WARP_LEVELS, WARP_SHARE = 1, 1e-4
 SHAPES = [(64, 64, 3), (97, 131, 3), (256, 200, 3), (45, 70, 3)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread in this file's processes: the suite runs files in
+    parallel workers, where per-op thread pools oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _warp_close(got, want):
     d = np.abs(got.astype(np.int64) - want.astype(np.int64))
     assert d.max() <= WARP_LEVELS and (d > 0).mean() <= WARP_SHARE, (d.max(), (d > 0).mean())

@@ -55,6 +55,16 @@ MINI = dict(hidden_size=128, num_layers=4, num_heads=4, intermediate_size=512,
 GEOMETRIES = {"tiny": TINY, "mini": MINI}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread in this file's processes: the suite runs files in
+    parallel workers, where per-op thread pools oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _ids(vocab, seed=0, b=3, l=12):
     rng = np.random.RandomState(seed)
     ids = rng.randint(1, vocab, (b, l)).astype(np.int32)

@@ -22,6 +22,16 @@ from dcnet_tpu_torch.kernels import coattn, locgram
 T = 10.0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread in this file's processes: the suite runs files in
+    parallel workers, where per-op thread pools oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _k3_inputs(seed, b=2, p=64, c=32):
     gen = torch.Generator().manual_seed(seed)
     return (chip_smoke._rows(gen, b, p, c), chip_smoke._rows(gen, b, p, c),

@@ -51,6 +51,16 @@ ROWS = 10
 ACC_TOL, MIOU_TOL = 1e-6, 2e-3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread in this file's processes: the suite runs files in
+    parallel workers, where per-op thread pools oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _limited(build):
     def build_dataset(*args, **kwargs):
         ds, corpus = build(*args, **kwargs)

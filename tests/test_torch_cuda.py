@@ -197,6 +197,46 @@ def test_bwd_kernel_narrow_widths(card, dtype, c):
             assert _rel(a, w) <= REL_TOL[dt]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [24, 80, 512])
+def test_row_windows_equal_the_full_launch_rows(card, dtype, c):
+    """K1, K2 and K3 on row windows (the tensor-parallel co-attention's),
+    on every block a width takes (C=24 the general one, 80 the WMMA / the
+    fp32 block, 512 wgmma / 3xTF32): each window's rows are the full
+    launch's rows, bitwise, K3's dq too; K3's partial dkv over a partition
+    sum to the full launch's within its limits; a window past the frame
+    raises."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(c)
+    p = 100
+    q, kv = (_rows(gen, 3, p, c).to(card, dt) for _ in range(2))
+    g = torch.randn(3, p, c, generator=gen).to(card, dt)
+    with torch.no_grad():
+        full1 = coattn.attend_window(q, kv, 10.0, 0, p)
+        full2 = coattn.attend_pair_window(q, kv, 10.0, 0, p)
+    dq_full, dkv_full = coattn.attend_bwd(q, kv, 10.0, g)
+    total = torch.zeros_like(dkv_full, dtype=torch.float32)
+    size = torch.zeros_like(total)     # the partials' magnitudes
+    for r0, rows in ((0, 37), (37, 1), (38, 62)):
+        with torch.no_grad():
+            o1 = coattn.attend_window(q, kv, 10.0, r0, rows)
+            o2 = coattn.attend_pair_window(q, kv, 10.0, r0, rows)
+        assert torch.equal(o1, full1[:, r0:r0 + rows])
+        assert all(torch.equal(a, b[:, r0:r0 + rows]) for a, b in zip(o2, full2))
+        dq, dkv = coattn.attend_bwd(q, kv, 10.0, g[:, r0:r0 + rows].contiguous(), row0=r0)
+        torch.testing.assert_close(dq, dq_full[:, r0:r0 + rows], rtol=0, atol=0)
+        total += dkv.float()
+        size += dkv.float().abs()
+    # each partial and the full dkv round once to the dtype: the limit adds
+    # a rounding step of every partial (bf16 2^-7, fp32 1e-5 of its size)
+    tol = BWD_TOL[dt]
+    step = 2 ** -7 if dt == torch.bfloat16 else 1e-5
+    limit = tol["atol"] + tol["rtol"] * dkv_full.float().abs() + step * size
+    assert bool(((total - dkv_full.float()).abs() <= limit).all())
+    with pytest.raises(ValueError, match="does not lie"):
+        coattn.attend_window(q, kv, 10.0, 90, 11)
+
+
 def test_bwd_kernel_takes_strided_inputs(card):
     """Frames sliced out of a clip and a gradient sliced out of a concat
     (rows not contiguous: the autograd function copies it) give what their

@@ -23,6 +23,16 @@ from dcnet_tpu_torch.ops.target import build_target
 from dcnet_tpu_torch.train.step import neg_sim_scores, pred_box_at_target
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread in this file's processes: the suite runs files in
+    parallel workers, where per-op thread pools oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bboxes(rng, n, size):
     x1 = rng.rand(n) * size * 0.6
     y1 = rng.rand(n) * size * 0.6

@@ -41,6 +41,16 @@ from tests.test_torch_slice import randomize_jax_variables
 RTOL, ATOL = 1e-5, 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread in this file's processes: the suite runs files in
+    parallel workers, where per-op thread pools oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _init(module, *args, seed=0, **kw):
     variables = module.init(jax.random.PRNGKey(seed), *args, **kw)
     return randomize_jax_variables(jax.device_get(variables), seed)

@@ -56,6 +56,16 @@ from tests.test_torch_slice import SMALL, clip_inputs, jax_model, port_model
 _DN = ("NHWC", "HWIO", "NHWC")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread in this file's processes: the suite runs files in
+    parallel workers, where per-op thread pools oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _port_qparams(jq):
     """JAX qparams in the port's layout ((Co, k, k, Ci) int8 on the CPU)."""
     return {i: {"w": torch.from_numpy(np.ascontiguousarray(

@@ -59,6 +59,16 @@ FP32 = [m for m in MODES if MODES[m][2] == "float32"]
 FP32_OF = {"bf16_multiref": "multiref", "bf16_k1_int8": "k1_int8"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread in this file's processes: the suite runs files in
+    parallel workers, where per-op thread pools oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def setup():
     _, _, variables = jax_model()

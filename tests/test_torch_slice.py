@@ -30,6 +30,16 @@ SMALL = dict(image_size=64, corpus_size=50, emb_size=64, lstm_hidden=64,
              word_embedding_size=64)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread in this file's processes: the suite runs files in
+    parallel workers, where per-op thread pools oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def randomize_jax_variables(variables, seed=0):
     """Randomise BN statistics, BN scales and every bias of a flax init, so
     the conversion of each leaf kind is exercised."""
@@ -232,14 +242,27 @@ def test_unported_options_raise(option):
 @pytest.mark.parametrize("option", [
     "int8_chain", "quantize", "mesh", "compiler_options"])
 def test_unported_engine_options_raise(option):
-    """The engine's device mesh and XLA compiler options are not carried;
-    its int8 backbone (`int8_chain`, `quantize()`) is ported and serves."""
+    """XLA compiler options are not carried; the int8 backbone
+    (`int8_chain`, `quantize()`) is ported and serves, and so is the
+    engine's mesh: on a mesh of one process it serves every stream, as the
+    plain engine does (two processes: tests/test_torch_mesh.py)."""
+    from dcnet_tpu_torch.parallel import mesh
     from dcnet_tpu_torch.serving.engine import GroundingEngine
     model = DCNet(DCNetConfig(**SMALL), backbone_defs=mini_backbone_defs(),
                   device="cpu")
     kw = {"int8_chain": dict(int8_chain=True), "quantize": {},
-          "mesh": dict(mesh=object()),
+          "mesh": dict(mesh=mesh.Mesh(n_data=1, n_model=1, data_rank=0)),
           "compiler_options": dict(compiler_options={"opt": "1"})}[option]
+    if option == "mesh":
+        rng = np.random.RandomState(1)
+        frames = rng.rand(2, 64, 64, 3).astype(np.float32)
+        ids = torch.ones((2, 20), dtype=torch.long)
+        outs = []
+        for eng in (GroundingEngine(model, n_streams=2, **kw),
+                    GroundingEngine(model, n_streams=2)):
+            outs.append(eng.step(eng.init_state(ids), frames)[1:])
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+        return
     if option in ("int8_chain", "quantize"):
         rng = np.random.RandomState(0)
         eng = GroundingEngine(model, n_streams=2, **kw).quantize(
@@ -248,7 +271,6 @@ def test_unported_engine_options_raise(option):
         state, fused, raw, score = eng.step(state, rng.rand(2, 64, 64, 3).astype(np.float32))
         assert torch.isfinite(fused).all() and eng.qparams is not None
         return
-    match = {"mesh": "device mesh.*item 12, the part still open",
-             "compiler_options": "XLA options have no PyTorch counterpart"}[option]
+    match = {"compiler_options": "XLA options have no PyTorch counterpart"}[option]
     with pytest.raises(NotImplementedError, match=match):
         GroundingEngine(model, n_streams=2, **kw)

@@ -50,6 +50,16 @@ from tests.test_torch_slice import SMALL, port_model, randomize_jax_variables
 TRAIN = dict(SMALL, jemb_dropout=0.0, input_dropout=0.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread in this file's processes: the suite runs files in
+    parallel workers, where per-op thread pools oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _batch(k, seed=5, clips=2):
     """k-frame clips flattened to (clips*k, ...), a phrase per frame, as the
     JAX package's train tests draw them (frames sharing a phrase would give

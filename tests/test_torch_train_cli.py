@@ -25,6 +25,16 @@ SMALL = ["--synthetic", "--mini", "--size", "64", "--batch_size", "2",
 ENCODERS = {"lstm": ["--lstm"], "bert": ["--bert_model", "bert-mini"]}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread in this file's processes: the suite runs files in
+    parallel workers, where per-op thread pools oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _run(main, argv):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):

@@ -17,6 +17,16 @@ from dcnet_tpu_torch.weights import (
 from tests.test_torch_slice import SMALL, jax_model
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread in this file's processes: the suite runs files in
+    parallel workers, where per-op thread pools oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module", params=[False, True], ids=["full", "light"])
 def exported(request):
     light = request.param
