@@ -3,18 +3,24 @@
     python3 chip_smoke.py                 # every phase (needs one CUDA card)
     python3 chip_smoke.py --profile DIR   # and torch.profiler tables of
                                           # eval_clip, train_step and a
-                                          # serving tick
+                                          # serving tick, each holding
+                                          # K1-K6's launches by kernel
+                                          # name against the counters
     python3 chip_smoke.py --cli-pace      # device and build phases, then
                                           # only the eval CLI's pace over
-                                          # longer splits (phase_cli_pace)
+                                          # longer splits, numpy and the
+                                          # C++ host loader (phase_cli_pace)
     python3 chip_smoke.py --only export,serve_cli
                                           # device and build phases, then
                                           # only the named phases
 
 Phases, each printing JSON lines, any failure exiting non-zero:
   1. device  -- the card (nvidia-smi name and power limit), torch/CUDA
-     versions, the image decoders installed (cv2, PIL, torchvision); TF32
-     is switched off for matmuls and cuDNN convolutions.
+     versions, the image decoders installed (cv2, PIL, torchvision), the C++
+     host loader's build (g++ at first use: its formats, the jpeglib.h and
+     opencv4 headers found, ldconfig's jpeg / opencv libraries, g++'s
+     version, the build's seconds); TF32 is switched off for matmuls and
+     cuDNN convolutions.
   2. build   -- compiles every kernel from `dcnet_tpu_torch/csrc/` with nvcc,
      one process per source, all started together; prints ptxas's register
      and spill lines (and the spill bytes per library), and the counts of
@@ -136,6 +142,21 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      mIoU 2e-3) and each within mIoU 0.03 / acc 0.11 of float. Wall time
      and clips/s per run (set-up dominates at 16 windows), and the host
      data path's time alone.
+  7b. native -- the C++ host loader (`dcnet_tpu_torch.native`, built from
+     the checkout's `native/host_loader.cc`): `decode_letterbox_batch` at
+     256 px bitwise the numpy path (`read_image` -> `letterbox` ->
+     `normalize_image`) on seeded .npy frames of 320x480, 720x1280, 13x999
+     and a gray 240x320, the geometry equal, and on the same frames as .jpg
+     against the cv2 path within 2/255 where JPEG is compiled in;
+     `decode_batch_rgb` against `read_image`; ms a frame at 320x480 and
+     720x1280 (numpy serially, the core on 1 thread and on min(16,
+     cpu_count)); the cli phase's full-width fp32 standard eval (--cache)
+     and --stream_eval over its 16 windows, --post_process, and the tiny
+     lock's over 10 rows, with the core required (use_native=True),
+     against the same runs under DCNET_NO_NATIVE: the printed lines equal,
+     the full-width caches within the cli phase's limits (and whether
+     bitwise), the lock's mIoU > 0.05, K1 12 a call, the core's calls
+     above 0 (and 0 without it).
   8. train_cli -- cli/train.py in-process on the card at full width
      (Darknet-53 from a seeded `.weights` file, 256 px, emb 512) under a
      temporary directory, over a synthetic train split in .npy frames
@@ -223,12 +244,13 @@ except ImportError as e:  # run outside a checkout of the repository
     sys.exit(f"chip_smoke: cannot import dcnet_tpu_torch ({e}); run it from "
              f"the root of a checkout")
 
-from dcnet_tpu_torch import kernels
+from dcnet_tpu_torch import kernels, native
 from dcnet_tpu_torch.kernels import build
 from dcnet_tpu_torch.kernels import coattn as k_coattn
 from dcnet_tpu_torch.kernels import conv_s8 as k_conv
 from dcnet_tpu_torch.kernels import locgram as k_locgram
 from dcnet_tpu_torch.ops import correspondence
+from dcnet_tpu_torch.utils import profiling
 
 # H100 SXM data-sheet peaks (dense), the card's memory rate. Each product
 # is counted at the card's fastest route that keeps the TPU body's
@@ -439,6 +461,33 @@ def _decoders() -> dict:
     return found
 
 
+def _run_text(cmd) -> str:
+    """A probe command's output (stdout and stderr), or why it did not run."""
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=60,
+                             shell=isinstance(cmd, str))
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"did not run: {e}"
+    return (out.stdout + out.stderr).strip()
+
+
+def native_probe() -> dict:
+    """What the C++ host loader builds with here: the headers it looks for,
+    the libraries ldconfig knows, g++'s version, and the formats, reason and
+    seconds of its build (the first use, in this process)."""
+    t0 = time.perf_counter()
+    formats = native.formats()
+    build_s = time.perf_counter() - t0
+    return {"formats": list(formats), "unavailable_reason": native.unavailable_reason(),
+            "build_s": build_s, "missing": dict(native._get().missing),
+            "headers": {h: os.path.exists(h) for h in (
+                "/usr/include/jpeglib.h", "/usr/include/opencv4",
+                "/usr/local/include/jpeglib.h", "/usr/local/include/opencv4")},
+            "ldconfig": _run_text("ldconfig -p | grep -E 'jpeg|opencv'").splitlines()[:40],
+            "gxx": _run_text(["g++", "--version"]).splitlines()[:1],
+            "compiler": native.compiler()}
+
+
 def phase_device(dev) -> dict:
     smi = nvidia_smi()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -449,7 +498,7 @@ def phase_device(dev) -> dict:
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "python": sys.version.split()[0],
             "tf32": "off for matmuls and cuDNN convolutions (all phases)",
-            "decoders": _decoders()}
+            "decoders": _decoders(), "host_loader": native_probe()}
     emit(info)
     return info
 
@@ -3372,106 +3421,20 @@ def phase_serving_int8(dev, profile_dir=None) -> dict:
     return rec
 
 
-# K6's kernels by the name a profile gives them (a fragment of it), and the
-# key of `kernels.LAUNCHES` that counts each one's launches
-K6_KERNEL_NAMES = {"conv_tma_kernel": "conv_s8", "conv_halo_kernel": "conv_s8_halo",
-                   "conv_s8_kernel": "conv_s8_gather", "quant_pass_kernel": "conv_s8_quant"}
-
-
-def k6_profile_counts(rows, counted: dict) -> dict:
-    """K6's launches and device ms in a profile by kernel name (`rows`:
-    (device us, name, calls) of every kernel), beside what the wrappers
-    counted over the same call (`counted`: the `K6_KERNEL_NAMES` keys of
-    `kernels.LAUNCHES`); `agree` says whether every count matches."""
-    launches = dict.fromkeys(counted, 0)
-    ms = dict.fromkeys(counted, 0.0)
-    for us, name, calls in rows:
-        for frag, key in K6_KERNEL_NAMES.items():
-            if frag in name:
-                launches[key] += calls
-                ms[key] += us / 1e3
-    return {"by_kernel_name": launches, "ms_by_kernel_name": ms, "counted": counted,
-            "agree": launches == counted}
-
-
-PROFILE_ATTEMPTS = 3    # traces of a call before a lossy profile fails the run
 PROFILE_FAILURES = []   # the profiles that failed (`main` fails on any)
 
 
-def _trace_call(fn) -> tuple:
-    """One torch.profiler trace of fn (after one traced and dropped): the
-    kept call's key averages and table, its host wall ms and the K6
-    launches the wrappers counted in it (`K6_KERNEL_NAMES`' keys)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    torch.cuda.synchronize()
-    traced = {}
-
-    def ready(p) -> None:   # the kept call's events, before the cycle clears them
-        traced["events"] = p.key_averages()
-        traced["table"] = traced["events"].table(sort_by="self_cuda_time_total", row_limit=60)
-
-    # one call traced and dropped first: without it the trace lost the first
-    # kernels of the call (up to 4 of K6's, the first layer among them)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1), on_trace_ready=ready) as prof:
-        fn()
-        torch.cuda.synchronize()
-        prof.step()
-        # a marker kernel opens the kept window: with the dropped call alone
-        # one tick's trace still lost its first kernel (the first layer)
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        before = dict(kernels.LAUNCHES)
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-        prof.step()
-    counted = {key: kernels.LAUNCHES[key] - before[key] for key in K6_KERNEL_NAMES.values()}
-    return traced["events"], traced["table"], wall_ms, counted
-
-
 def profile_call(fn, out_dir, tag) -> dict:
-    """torch.profiler over one call of fn (`_trace_call`): device time by
-    kernel (top entries), summed kernel time, the host wall time of the
-    call and their ratio (the device's busy share), and K6's launches by
-    kernel name held against the wrappers' counts (`k6_profile_counts`).
-    A trace with no device time or a count that differs is discarded and
-    the call traced again (the trace loses a few of a call's first kernels
-    now and then: 2 of 49 profiles on an H100); after PROFILE_ATTEMPTS
-    such traces it fails and is listed in PROFILE_FAILURES. The full table
-    goes to `out_dir`."""
-    lost = []
-    for _ in range(PROFILE_ATTEMPTS):
-        events, table, wall_ms, counted = _trace_call(fn)
-        rows = []  # kernels only: operator rows would count their kernels twice, and
-        # the schedule's step annotation spans the call
-        for e in events:
-            if e.device_type == torch.autograd.DeviceType.CUDA and \
-                    e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep"):
-                rows.append((e.self_device_time_total, e.key, e.count))
-        rows.sort(reverse=True)
-        total_ms = sum(r[0] for r in rows) / 1e3
-        k6 = k6_profile_counts(rows, counted)
-        if total_ms and k6["agree"]:
-            break
-        lost.append({"kernels": len(rows), "device_ms": total_ms,
-                     "by_kernel_name": k6["by_kernel_name"], "counted": counted})
-    else:
+    """`utils.profiling.profile_call`: one call of fn traced, its device
+    time by kernel and busy share, and every hand-written kernel's launches
+    by name (K1-K6, `profiling.KERNEL_GROUPS`) held against
+    `kernels.LAUNCHES`; a call whose every trace lost kernels is listed in
+    PROFILE_FAILURES and raises."""
+    try:
+        return profiling.profile_call(fn, out_dir, tag)
+    except profiling.LostTrace:
         PROFILE_FAILURES.append(tag)
-        raise AssertionError(f"profile {tag}: every trace lost kernels or device time: "
-                             f"{lost}")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
-        f.write(table)
-        f.write("\n\nevery kernel: device ms, calls, name\n")
-        for us, key, n in rows:
-            f.write(f"{us / 1e3:10.4f} {n:6d} {key}\n")
-    return {"wall_ms": wall_ms, "device_ms": total_ms,
-            "device_busy_share": total_ms / wall_ms if wall_ms else None,
-            "k6": k6, "traces_discarded": lost,
-            "top": [{"name": k[:80], "ms": us / 1e3, "calls": n}
-                    for us, k, n in rows[:12]]}
+        raise
 
 
 # --- phase 7: the eval CLIs ---------------------------------------------------
@@ -3486,10 +3449,11 @@ CACHE_TOL = dict(rtol=1e-4, atol=1e-5)   # cache scores, card against CPU
 CACHE_BOX_ATOL = 1e-3                    # cache boxes, px
 
 
-def _cli_output(main, argv, rows=None, platform=None) -> tuple:
+def _cli_output(main, argv, rows=None, platform=None, use_native=None) -> tuple:
     """Run a CLI `main` in-process: (stdout text, wall seconds). `rows`
     keeps the first rows of the split (the JAX package's lock tests patch
-    `build_dataset` the same way); `platform` sets DCNET_PLATFORM."""
+    `build_dataset` the same way); `platform` sets DCNET_PLATFORM;
+    `use_native` sets the datasets' (True: the C++ host loader required)."""
     import contextlib
     import io
     from dcnet_tpu_torch.cli import common, eval_single, test as cli_test
@@ -3499,12 +3463,14 @@ def _cli_output(main, argv, rows=None, platform=None) -> tuple:
     def limited(*a, **k):
         ds, corpus = build(*a, **k)
         ds.chunks = ds.chunks[:rows]
+        if use_native is not None:
+            ds.use_native = use_native
         return ds, corpus
 
     saved_env = os.environ.get("DCNET_PLATFORM")
     mods = (common, cli_test, eval_single)
     try:
-        if rows is not None:
+        if rows is not None or use_native is not None:
             for m in mods:
                 m.build_dataset = limited
         if platform is not None:
@@ -3838,14 +3804,241 @@ def phase_cli(dev) -> dict:
     return rec
 
 
+# --- the C++ host loader -------------------------------------------------------
+
+NATIVE_SHAPES = ((320, 480), (720, 1280), (13, 999))  # + a gray frame, 240x320
+NATIVE_TIMED = ((320, 480), (720, 1280))
+NATIVE_TIMED_FRAMES, NATIVE_TIMED_PASSES = 16, 3
+# JPEG: the host loader's libjpeg against cv2's (tests/test_native.py's limit)
+NATIVE_JPEG_TOL = 2.0 / 255.0 / 0.224
+
+
+def _native_frames(work: str, rng) -> tuple:
+    """Seeded frames as .npy (the shapes and a gray frame) and, where cv2
+    is installed, the same as .jpg: (npy paths, jpg paths)."""
+    npy, jpg = [], []
+    frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in NATIVE_SHAPES]
+    frames.append(rng.integers(0, 256, (240, 320), dtype=np.uint8))
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    for i, img in enumerate(frames):
+        npy.append(os.path.join(work, f"f{i}.npy"))
+        np.save(npy[-1], img)
+        if cv2 is not None:
+            jpg.append(os.path.join(work, f"f{i}.jpg"))
+            cv2.imwrite(jpg[-1], img if img.ndim == 2 else img[..., ::-1])
+    return npy, jpg
+
+
+def native_held(paths: list, exact: bool) -> dict:
+    """`native.decode_letterbox_batch` at 256 against `read_image` ->
+    `letterbox` -> `normalize_image` on the same files: bitwise (`exact`)
+    or within NATIVE_JPEG_TOL, the geometry equal; `decode_batch_rgb`
+    against `read_image` (bitwise where `exact`), a missing file None."""
+    from dcnet_tpu_torch.data import transforms as T
+    from dcnet_tpu_torch.data.vid import read_image
+    images, ratios, dws, dhs, ok = native.decode_letterbox_batch(
+        paths, 256, T.IMAGENET_MEAN, T.IMAGENET_STD)
+    worst, geometry = 0.0, True
+    for i, p in enumerate(paths):
+        boxed, ratio, dw, dh = T.letterbox(read_image(p), 256)
+        worst = max(worst, float(np.abs(images[i] - T.normalize_image(boxed)).max()))
+        geometry &= (ratios[i], dws[i], dhs[i]) == (ratio, dw, dh)
+    rgb = native.decode_batch_rgb(paths + [paths[0] + ".missing"])
+    rgb_err = max(int(np.abs(a.astype(int) - read_image(p)).max())
+                  for a, p in zip(rgb, paths))
+    held = bool(ok.all()) and geometry and rgb[-1] is None and (
+        worst == 0.0 and rgb_err == 0 if exact else worst <= NATIVE_JPEG_TOL)
+    rec = {"frames": [list(np.load(p).shape) if p.endswith(".npy") else os.path.basename(p)
+                      for p in paths],
+           "max_abs_err": worst, "rgb_max_abs_err": rgb_err, "geometry_equal": geometry,
+           "limit": 0.0 if exact else NATIVE_JPEG_TOL, "held": held}
+    if not held:
+        raise AssertionError(f"the host loader against the numpy path: {rec}")
+    return rec
+
+
+def native_frame_ms(work: str, rng) -> dict:
+    """ms a frame of read + letterbox + normalize at NATIVE_TIMED's shapes:
+    the numpy path serially, the core in one call on 1 thread and on
+    min(n, cpu_count) threads; the best of NATIVE_TIMED_PASSES passes."""
+    from dcnet_tpu_torch.data import transforms as T
+    from dcnet_tpu_torch.data.vid import read_image
+    out = {}
+    for h, w in NATIVE_TIMED:
+        paths = []
+        for i in range(NATIVE_TIMED_FRAMES):
+            paths.append(os.path.join(work, f"t{h}x{w}_{i}.npy"))
+            np.save(paths[-1], rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        runs = {"numpy_serial": lambda: [T.normalize_image(T.letterbox(read_image(p), 256)[0])
+                                         for p in paths],
+                "core_1_thread": lambda: native.decode_letterbox_batch(
+                    paths, 256, T.IMAGENET_MEAN, T.IMAGENET_STD, num_threads=1),
+                "core_threads": lambda: native.decode_letterbox_batch(
+                    paths, 256, T.IMAGENET_MEAN, T.IMAGENET_STD)}
+        rec = {}
+        for name, fn in runs.items():
+            best = float("inf")
+            for _ in range(NATIVE_TIMED_PASSES):
+                t0 = time.perf_counter()
+                fn()
+                best = min(best, time.perf_counter() - t0)
+            rec[f"{name}_ms"] = 1e3 * best / len(paths)
+        rec["threads"] = min(len(paths), os.cpu_count() or 1)
+        out[f"{h}x{w}"] = rec
+    return out
+
+
+def phase_native(dev) -> dict:
+    """The C++ host loader (`dcnet_tpu_torch.native`, see the module doc):
+    built from the checkout, held against the numpy path, timed, and the
+    full-width eval CLIs on it against the same CLIs without it."""
+    import shutil
+    import tempfile
+    from dcnet_tpu_torch.cli import test as cli_test
+    from dcnet_tpu_torch.data.synthetic import generate_synthetic_vid
+    from dcnet_tpu_torch.models.darknet import random_darknet_weights_file
+
+    if not native.available():
+        raise AssertionError(f"the host loader did not build: {native.unavailable_reason()}")
+    work = tempfile.mkdtemp(prefix="dcnet_native_")
+    cwd = os.getcwd()
+    os.chdir(work)  # setup_logging writes ./logs
+    try:
+        rng = np.random.default_rng(15)
+        npy, jpg = _native_frames(work, rng)
+        held = {"npy": native_held(npy, exact=True)}
+        if "jpeg" in native.formats() and jpg:
+            held["jpg"] = native_held(jpg, exact=False)
+        else:
+            held["jpg"] = {"held": None, "why": "not run: " + (
+                "cv2 is not installed" if not jpg else native.missing(jpg[0]))}
+        frame_ms = native_frame_ms(work, rng)
+
+        root = os.path.join(work, "full")
+        generate_synthetic_vid(os.path.join(root, "synthetic"), "test",
+                               num_videos=CLI_VIDEOS, frames_per_video=CLI_FRAMES,
+                               seed=13, frame_format="npy")
+        darknet = os.path.join(work, "backbone_seed0.weights")
+        random_darknet_weights_file(_defs(), darknet, seed=0)
+        full = ["--synthetic", "--lstm"] + CLI_WIDTH + ["--num_frame_k", str(CLI_K),
+                "--batch_size", "8", "--seed", "13", "--split_root", root,
+                "--backbone_weights", darknet, "--savename", "native", "--post_process"]
+        lock_root = os.path.join(work, "lock")
+        generate_synthetic_vid(os.path.join(lock_root, "synthetic"), "test",
+                               num_videos=32, frames_per_video=8, seed=13,
+                               frame_format="npy")
+        lock = ["--synthetic", "--lstm", "--mini", "--size", "64", "--emb_size", "256",
+                "--lstm_hidden", "256", "--num_frame_k", str(CLI_K), "--batch_size", "4",
+                "--seed", "13", "--split_root", lock_root, "--savename", "lock",
+                "--resume", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                         "tests", "locks", "converge32tiny.npz")]
+        runs, checks = {}, {}
+        kernels.reset_launches()
+        with _K1PerCall() as k1:
+            for model, argv, rows in (("full", full, None), ("lock", lock, LOCK_ROWS)):
+                for mode, extra, method in (("standard", [], "eval_clip"),
+                                            ("stream", ["--stream_eval"], "eval_features")):
+                    for core in (True, False):
+                        name = f"{model}_{mode}_{'core' if core else 'numpy'}"
+                        cache = (["--cache", "--cache_dir", os.path.join(work, name)]
+                                 if model == "full" and mode == "standard" else [])
+                        native.reset_calls()
+                        saved = os.environ.pop("DCNET_NO_NATIVE", None)
+                        if not core:
+                            os.environ["DCNET_NO_NATIVE"] = "1"
+                        try:
+                            text, s = _cli_output(cli_test.main, argv + extra + cache, rows=rows,
+                                                  use_native=True if core else None)
+                        finally:
+                            os.environ.pop("DCNET_NO_NATIVE", None)
+                            if saved is not None:
+                                os.environ["DCNET_NO_NATIVE"] = saved
+                        calls = k1.take()
+                        _expect_per_call(calls, method, f"{name} eval")
+                        runs[name] = {"output": text.strip().splitlines(), "wall_s": s,
+                                      "core_calls": dict(native.CALLS),
+                                      f"k1_per_{method}": calls[method]}
+                        if (sum(native.CALLS.values()) > 0) != core:
+                            raise AssertionError(f"{name}: host loader calls {native.CALLS}")
+                    got = runs[f"{model}_{mode}_numpy"]["output"]
+                    want = runs[f"{model}_{mode}_core"]["output"]
+                    if got != want or not all(np.isfinite(cli_metrics("\n".join(want)))):
+                        raise AssertionError(f"{model} {mode} eval: {want} on the core, "
+                                             f"{got} without")
+                    checks[f"{model}_{mode}_core_equals_numpy"] = {"printed": want}
+            launches = dict(kernels.LAUNCHES)
+        if not cli_metrics("\n".join(runs["lock_standard_core"]["output"]))[1] > 0.05:
+            raise AssertionError(f"the lock grounds nothing: {runs['lock_standard_core']}")
+        caches = [os.path.join(work, f"full_standard_{m}", "native", "cache.npz")
+                  for m in ("core", "numpy")]
+        cache_rec = _cache_held(*caches)
+        with np.load(caches[0], allow_pickle=True) as a, np.load(caches[1], allow_pickle=True) as b:
+            cache_rec["bitwise"] = all(np.array_equal(a[k], b[k]) for k in a.files)
+        checks["full_cache_core_against_numpy"] = cache_rec
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    rec = {"phase": "native", "formats": list(native.formats()), "held": held,
+           "ms_per_frame": frame_ms, "cpu_count": os.cpu_count(),
+           "cli": {"model": "full: as the cli phase (Darknet-53 + BiLSTM, 256 px, "
+                            "emb/hidden 512, 5-frame windows, batch 8, fp32); lock: "
+                            "tests/locks/converge32tiny.npz (mini defs, 64 px)",
+                   "data": f"full: {CLI_VIDEOS} videos x {CLI_FRAMES} .npy frames of "
+                           "320x480 (seed 13), the cli phase's split; lock: the first "
+                           f"{LOCK_ROWS} rows of data/synthetic32's test split in .npy",
+                   "runs": runs, "checks": checks},
+           "launches": launches, "kind": torch.cuda.get_device_name(dev),
+           "nvidia_smi": nvidia_smi()}
+    emit(rec)
+    return rec
+
+
 # --- --cli-pace: the CLI's pace over longer splits ----------------------------
 
-PACE_SPLITS = (  # frame height, width, videos; 20 frames a video, 16 windows
-    (320, 480, 24),     # the synthetic generator's frames: 384 windows
-    (720, 1280, 8),     # a 720p frame, as most of ImageNet VID's: 128 windows
+PACE_SPLITS = (  # frame height, width, videos; 20 frames a video, 15 windows
+    (320, 480, 24),     # the synthetic generator's frames: 360 windows
+    (720, 1280, 8),     # a 720p frame, as most of ImageNet VID's: 120 windows
 )
 PACE_FRAMES, PACE_WORKERS = 20, 8
+# (run, flags, the decode pool the CLI does not use, the datasets' use_native):
+# the numpy runs (serial, --workers threads, worker processes, the stream
+# eval), then the same CLI on the C++ host loader
+PACE_MODES = (("serial", ["--workers", "0"], None, False),
+              ("workers", ["--workers", str(PACE_WORKERS)], None, False),
+              ("processes", ["--workers", str(PACE_WORKERS)], "_process_batches", False),
+              ("stream", ["--stream_eval"], None, False),
+              ("core_serial", ["--workers", "0"], "_recorded_batches", True),
+              ("core_workers", ["--workers", str(PACE_WORKERS)], None, True),
+              ("core_stream", ["--stream_eval"], None, True),
+              # the same loop without decoding: core_serial's batches replayed from
+              # host memory (collate done; the pinned copy and H2D still paid) and
+              # from the card (the loop's own host work and the model alone)
+              ("replay_host", ["--workers", "0"], "_replayed_batches", None),
+              ("replay_card", ["--workers", "0"], "_replayed_batches", None))
 _PACE_DS = None
+_PACE_BATCHES: list = []   # core_serial's batches, replayed by the replay runs
+
+
+def _recorded_batches(*a, **k):
+    """`data.vid.batch_iterator`, keeping each batch in _PACE_BATCHES."""
+    from dcnet_tpu_torch.data.vid import batch_iterator
+    _PACE_BATCHES.clear()
+    for batch in batch_iterator(*a, **k):
+        _PACE_BATCHES.append(batch)
+        yield batch
+
+
+def _replayed_batches(*_, **__):
+    return iter(_PACE_BATCHES)
+
+
+def _on_card(batch: dict, dev) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            if isinstance(v, np.ndarray) and v.dtype != object else v
+            for k, v in batch.items()}
 
 
 def _pace_worker_init(dataset) -> None:
@@ -3922,18 +4115,23 @@ class _EvalLoop:
 def phase_cli_pace(dev) -> dict:
     """The full-width standard and stream evals of cli/test.py over longer
     synthetic splits (PACE_SPLITS, .npy frames), fp32 and bf16; the
-    standard eval's frames decoded serially (--workers 0), by the CLI's
-    --workers threads and by worker processes (`_process_batches`). Per
-    run: the wall time (set-up included), the eval loop's time and clips/s,
-    the card's busy time in the loop (torch.profiler) and its share of the
-    loop; per split the serial read + letterbox + normalize time of one
-    frame. Every decode of a split must print the same metrics."""
+    standard eval's frames decoded in numpy serially (--workers 0), by the
+    CLI's --workers threads and by worker processes (`_process_batches`),
+    then on the C++ host loader (serially and in the threads; and the
+    stream eval on it, a video a call), then the serial loop replaying
+    the host loader's batches from host memory and from the card (no
+    decode: what the loop costs without it). Per run: the wall time (set-up
+    included), the eval loop's time and clips/s, the card's busy time in
+    the loop (torch.profiler) and its share of the loop, the host loader's
+    calls; per split the read + letterbox + normalize time of one frame,
+    numpy serially and the core on 1 and on min(40, cpu_count) threads.
+    Every decode of a split must print the same metrics."""
     import shutil
     import tempfile
     from dcnet_tpu_torch.cli import test as cli_test
     from dcnet_tpu_torch.data import transforms as T
     from dcnet_tpu_torch.data.synthetic import generate_synthetic_vid
-    from dcnet_tpu_torch.data.vid import read_image
+    from dcnet_tpu_torch.data.vid import get_chunks, load_index, read_image
     from dcnet_tpu_torch.models.darknet import random_darknet_weights_file
 
     work = tempfile.mkdtemp(prefix="dcnet_pace_")
@@ -3945,53 +4143,73 @@ def phase_cli_pace(dev) -> dict:
         random_darknet_weights_file(_defs(), darknet, seed=0)
         for h, w, videos in PACE_SPLITS:
             root = os.path.join(work, f"{h}x{w}")
-            generate_synthetic_vid(os.path.join(root, "synthetic"), "test",
-                                   num_videos=videos, frames_per_video=PACE_FRAMES,
-                                   height=h, width=w, seed=13, frame_format="npy")
+            index = generate_synthetic_vid(os.path.join(root, "synthetic"), "test",
+                                           num_videos=videos, frames_per_video=PACE_FRAMES,
+                                           height=h, width=w, seed=13, frame_format="npy")
             frames_dir = os.path.join(root, "synthetic", "frames")
-            names = sorted(os.listdir(frames_dir))[:40]
+            names = [os.path.join(frames_dir, n) for n in sorted(os.listdir(frames_dir))[:40]]
             t0 = time.perf_counter()
             for name in names:
-                T.normalize_image(T.letterbox(read_image(os.path.join(frames_dir, name)),
-                                              256)[0])
+                T.normalize_image(T.letterbox(read_image(name), 256)[0])
             frame_ms = 1e3 * (time.perf_counter() - t0) / len(names)
-            windows = videos * (PACE_FRAMES - CLI_K + 1)
+            core_ms = {}
+            for threads in (1, 0):
+                t0 = time.perf_counter()
+                native.decode_letterbox_batch(names, 256, T.IMAGENET_MEAN, T.IMAGENET_STD,
+                                              num_threads=threads)
+                core_ms[f"threads_{threads or min(len(names), os.cpu_count())}"] = \
+                    1e3 * (time.perf_counter() - t0) / len(names)
+            windows = len(get_chunks(load_index(index), "test", CLI_K))
             argv = ["--synthetic", "--lstm"] + CLI_WIDTH + [
                 "--num_frame_k", str(CLI_K), "--batch_size", "8", "--seed", "13",
                 "--split_root", root, "--backbone_weights", darknet, "--savename", "pace"]
             runs = {}
             for dt in ("fp32", "bf16"):
                 dtf = ["--bf16"] if dt == "bf16" else []
-                modes = (("serial", ["--workers", "0"], None),
-                         ("workers", ["--workers", str(PACE_WORKERS)], None),
-                         ("processes", ["--workers", str(PACE_WORKERS)], _process_batches),
-                         ("stream", ["--stream_eval"], None))
-                for mode, extra, batches in modes:
+                for mode, extra, batches, core in PACE_MODES:
                     saved = cli_test.batch_iterator
                     if batches is not None:
-                        cli_test.batch_iterator = batches
+                        cli_test.batch_iterator = globals()[batches]
+                    if mode == "replay_host":
+                        host_batches = list(_PACE_BATCHES)
+                    if mode == "replay_card":   # moved before the loop's clock starts
+                        _PACE_BATCHES[:] = [_on_card(b, dev) for b in host_batches]
+                        torch.cuda.synchronize()
+                    native.reset_calls()
                     try:
                         with _EvalLoop(cli_test) as loop:
-                            text, wall = _cli_output(cli_test.main, argv + dtf + extra)
+                            text, wall = _cli_output(cli_test.main, argv + dtf + extra,
+                                                     use_native=core)
                             loop_s, busy_s = loop.finish()
                     finally:
                         cli_test.batch_iterator = saved
+                    calls = sum(native.CALLS.values())
+                    if (calls > 0) != bool(core):
+                        raise AssertionError(f"{h}x{w} {dt} {mode}: host loader calls "
+                                             f"{native.CALLS}")
                     metrics = cli_metrics(text)
                     runs[f"{dt}_{mode}"] = {
                         "metrics": metrics, "wall_s": wall, "eval_s": loop_s,
                         "clips_per_s": windows / loop_s, "device_busy_s": busy_s,
-                        "device_busy_share": busy_s / loop_s}
+                        "device_busy_share": busy_s / loop_s, "host_loader_calls": calls}
                     emit({"phase": "cli_pace", "frames": f"{h}x{w}", "run": f"{dt}_{mode}",
                           **runs[f"{dt}_{mode}"]})
+                _PACE_BATCHES.clear()
                 want = runs[f"{dt}_serial"]["metrics"]
-                for mode in ("workers", "processes"):
+                for mode in ("workers", "processes", "core_serial", "core_workers",
+                             "replay_host", "replay_card"):
                     if runs[f"{dt}_{mode}"]["metrics"] != want:
                         raise AssertionError(f"{h}x{w} {dt}: {mode} decode printed "
                                              f"{runs[f'{dt}_{mode}']['metrics']}, serial {want}")
+                if runs[f"{dt}_core_stream"]["metrics"] != runs[f"{dt}_stream"]["metrics"]:
+                    raise AssertionError(f"{h}x{w} {dt}: the stream eval on the core printed "
+                                         f"{runs[f'{dt}_core_stream']['metrics']}, without "
+                                         f"{runs[f'{dt}_stream']['metrics']}")
                 _close(runs[f"{dt}_stream"]["metrics"], want, f"{h}x{w} {dt} stream")
             splits.append({"frames": f"{h}x{w}", "videos": videos,
                            "frames_per_video": PACE_FRAMES, "windows": windows,
-                           "letterbox_ms_per_frame": frame_ms, "runs": runs})
+                           "letterbox_ms_per_frame": frame_ms,
+                           "host_loader_ms_per_frame": core_ms, "runs": runs})
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
@@ -5334,6 +5552,7 @@ def main(argv=None) -> int:
     serving_launches = timed("serving", phase_serving, dev, **prof)["launches"]
     serving_int8 = timed("serving_int8", phase_serving_int8, dev, **prof)["launches"]
     cli_launches = timed("cli", phase_cli, dev)["launches"]
+    native_launches = timed("native", phase_native, dev)["launches"]
     train_cli = timed("train_cli", phase_train_cli, dev)["launches"]
     exported = timed("export", phase_export, dev)["variants"]
     serve_cli = timed("serve_cli", phase_serve_cli, dev)["launches"]
@@ -5342,8 +5561,9 @@ def main(argv=None) -> int:
     emit({"phase": "seconds", **seconds})
     if PROFILE_FAILURES:
         raise AssertionError(f"profiles that lost kernels in every trace: {PROFILE_FAILURES}")
-    if not cli_launches["coattn_attend"]:
-        raise AssertionError(f"K1 never launched on the CLI path: {cli_launches}")
+    if not (cli_launches["coattn_attend"] and native_launches["coattn_attend"]):
+        raise AssertionError(f"K1 never launched on the CLI paths: {cli_launches}, "
+                             f"{native_launches}")
     on_paths = {"coattn_attend": eval_launches["coattn_attend"],
                 "coattn_pair": train_launches["coattn_pair"],
                 "coattn_attend_bwd": train_launches["coattn_attend_bwd"],
@@ -5376,6 +5596,7 @@ def main(argv=None) -> int:
                           "bert_eval": bert["eval_launches"]["coattn_attend"],
                           "int8_eval": int8_launches["coattn_attend"],
                           "cli": cli_launches["coattn_attend"],
+                          "cli_host_loader": native_launches["coattn_attend"],
                           "int8_serving_k1": serving_int8["k1"]["coattn_attend"],
                           "export_runtime_k1": runtime["k1"]["coattn_attend"],
                           "serve_cli": serve_cli["coattn_attend"],

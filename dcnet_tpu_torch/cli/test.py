@@ -15,6 +15,10 @@ or read from `--quant_params` (written there when the file is missing);
 `eval_clip` of the first clip. `--coattn_batch_refs` and `--coattn_int8`
 select the batched-reference and int8-logit co-attention (einsums, no K1).
 Prints `acc,miou` and, with `--post_process`, `post_process: acc,miou`.
+Frames go through the C++ host loader (`dcnet_tpu_torch.native`) where it
+builds and reads them (`DCNET_NO_NATIVE=1` keeps the numpy path; the
+pixels are the same): a clip in one call, and in the stream eval a
+video's frames in one call.
 Without `--lstm` the model reads phrases through the frozen BERT encoder
 (`--bert_model`). `--resume` takes the weights of a checkpoint directory
 of `cli.train` (its latest epoch), a reference `.pth.tar` or a lock `.npz`.
@@ -41,8 +45,7 @@ from dcnet_tpu_torch.cli.common import (
     base_parser, build_dataset, build_model, check_ported, cli_device,
     config_from_args, restore_weights, setup_logging, splice_backbone_weights,
     start_processes)
-from dcnet_tpu_torch.data.vid import batch_iterator, prefetch_to_device
-from dcnet_tpu_torch.data import transforms as T
+from dcnet_tpu_torch.data.vid import batch_iterator, letterbox_frames, prefetch_to_device
 from dcnet_tpu_torch.eval.metrics import AverageMeter
 from dcnet_tpu_torch.eval.temporal import FrameCache, build_frame_cache, fuse_per_video
 from dcnet_tpu_torch.ops.boxes import bbox_iou
@@ -284,8 +287,8 @@ def _calibration_frames(ds, n: int) -> np.ndarray:
                 break
         if len(seen) >= n:
             break
-    return np.stack([T.normalize_image(T.letterbox(ds._read_image(p), ds.imsize)[0])
-                     .astype(np.float32) for p in seen])
+    return letterbox_frames([os.path.join(ds.image_root, p) for p in seen], ds.imsize,
+                            ds.use_native)[0]
 
 
 def _quantize(args, ds, model, k: int):
@@ -342,12 +345,11 @@ def _stream_eval(args, ds, cfg, model):
         # rows are consecutive windows: the first window's frames, then the
         # last frame of each later window
         paths = list(rows[0][0]) + [r[0][-1] for r in rows[1:]]
-        imgs, metas = [], []
-        for p in paths:  # decode once per frame
-            img, ratio, dw, dh = T.letterbox(ds._read_image(p), ds.imsize)
-            imgs.append(T.normalize_image(img).astype(np.float32))
-            metas.append((ratio, dw, dh))
-        frames = torch.from_numpy(np.stack(imgs))
+        # decode once per frame: the video's frames in one host loader call
+        frames, ratios, dws, dhs = letterbox_frames(
+            [os.path.join(ds.image_root, p) for p in paths], ds.imsize, ds.use_native)
+        metas = list(zip(ratios, dws, dhs))
+        frames = torch.from_numpy(frames)
         parts = [extract(frames[s:s + fb].to(dev))
                  for s in range(0, frames.shape[0], fb)]
         feats = [torch.cat([p[i] for p in parts]) for i in range(3)]

@@ -53,11 +53,12 @@ from dcnet_tpu_torch.train.checkpoint import (
 from dcnet_tpu_torch.train.loop import flatten_clip_batch, to_device, train_epoch, validate
 from dcnet_tpu_torch.train.state import TrainState, create_train_state
 from dcnet_tpu_torch.train.step import train_step
+from dcnet_tpu_torch.utils.profiling import device_trace
 
 
 def _profile(args, state: TrainState, train_ds, cfg, device) -> None:
-    """A torch.profiler trace of 3 train steps on the first batch, written
-    to `args.profile_dir` by rank 0 (every rank takes the steps on its rows
+    """A torch.profiler trace (`utils.profiling.device_trace`) of 3 train
+    steps on the first batch, written to `args.profile_dir` by rank 0 (every rank takes the steps on its rows
     of the batch: they run collectives); the model and optimizer are put
     back after."""
     saved = (copy.deepcopy(state.model.state_dict()),
@@ -66,22 +67,16 @@ def _profile(args, state: TrainState, train_ds, cfg, device) -> None:
     batch = next(iter(batch_iterator(train_ds, cfg.batch_size, shuffle=True,
                                      seed=cfg.seed, **mesh.batch_slice_args())))
     batch = to_device(flatten_clip_batch(batch), device)
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(args.profile_dir, exist_ok=True)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    with torch.profiler.profile(activities=acts) as prof:
+    writes = mesh.world()[1] == 0
+    with device_trace(args.profile_dir if writes else None, device, "train_steps.json"):
         for _ in range(3):
             train_step(state, batch, gen)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
     state.model.load_state_dict(saved[0])
     state.optimizer.load_state_dict(saved[1])
     state.schedule.load_state_dict(saved[2])
     state.step = saved[3]
-    if mesh.world()[1] == 0:
-        prof.export_chrome_trace(os.path.join(args.profile_dir, "train_steps.json"))
+    if writes:
         print(f"=> wrote a trace of 3 train steps to {args.profile_dir}")
 
 

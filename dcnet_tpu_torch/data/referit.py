@@ -6,8 +6,9 @@ RefCOCO-family boxes (unc, unc+, gref) arrive as xywh and are converted to
 xyxy. Index: the reference's `{dataset}_{split}.pth` torch pickle or a JSON
 list with the same per-entry tuples. `augment=True` flips, jitters,
 letterboxes and warps as the JAX package does, from a stream seeded by
-(seed, epoch, index). The C++ host loader (ROADMAP queue A, item 13)
-raises.
+(seed, epoch, index). `use_native` takes the C++ host loader as
+`VIDDataset` does (`native.use_core`): its fused letterbox for an
+untransformed image, its decode for an augmented one.
 """
 
 from __future__ import annotations
@@ -17,11 +18,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from dcnet_tpu_torch import not_ported
 from dcnet_tpu_torch.data import transforms as T
 from dcnet_tpu_torch.data.corpus import Corpus
 from dcnet_tpu_torch.data.vid import (
-    item_rng, letterbox_box, load_index, read_image, tokenize)
+    decode_frames, item_rng, letterbox_box, letterbox_frames, load_index, move_box,
+    tokenize)
 
 _XYWH_DATASETS = {"unc", "unc+", "gref"}
 
@@ -36,9 +37,7 @@ class ReferItDataset:
     ):
         if corpus is None and bert_tokenizer is None:
             raise ValueError("ReferItDataset needs a corpus or a BERT tokenizer")
-        if use_native:
-            raise not_ported("the C++ host loader (use_native=True)",
-                             "ROADMAP queue A, item 13")
+        self.use_native = use_native
         self.entries = load_index(index_path)
         self.dataset = dataset
         self.imsize = imsize
@@ -75,19 +74,24 @@ class ReferItDataset:
         img_file, bbox, phrase = self._unpack(self.entries[idx])
         phrase = phrase.lower()
         ori_phrase = phrase
-        img = read_image(os.path.join(self.image_root, img_file))
+        full = [os.path.join(self.image_root, img_file)]
         if self.augment:
+            img = decode_frames(full, self.use_native)[0]
             rng = item_rng(self.seed, self._epoch, idx)
             if rng.random() > 0.5:
                 img, bbox, phrase = T.horizontal_flip(img, bbox, phrase)
             img = T.hsv_jitter(img, rng, legacy_hsv=self.legacy_hsv)
-        img, ratio, dw, dh = letterbox_box(img, bbox, self.imsize)
-        if self.augment:
+            img, ratio, dw, dh = letterbox_box(img, bbox, self.imsize)
             img, bbox, _, _ = T.random_affine(img, bbox, rng)
+            images = T.normalize_image(img)[None].astype(np.float32)
+        else:
+            images, (ratio,), (dw,), (dh,) = letterbox_frames(full, self.imsize,
+                                                              self.use_native)
+            move_box(bbox, ratio, dw, dh)
         word_ids, word_mask = tokenize(phrase, self.query_len, self.corpus,
                                        self.bert_tokenizer)
         out = {
-            "images": T.normalize_image(img)[None].astype(np.float32),  # (1,H,W,3)
+            "images": images,                                   # (1,H,W,3)
             "word_ids": word_ids[None].astype(np.int32),
             "word_mask": word_mask[None].astype(np.int32),
             "bbox": bbox[None].astype(np.float32),

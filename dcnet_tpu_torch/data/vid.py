@@ -14,8 +14,10 @@
 Frames are read by their extension (`read_image`): `.npy` with numpy, any
 other image file through cv2, which raises a `RuntimeError` naming cv2
 where it is not installed. The augmentations are numpy copies of cv2's
-arithmetic (`data/transforms.py`). The C++ host loader (ROADMAP queue A,
-item 13) is not ported and raises.
+arithmetic (`data/transforms.py`). `use_native` takes the C++ host loader
+(`dcnet_tpu_torch.native`, its rule in `native.use_core`): untransformed
+clips through its fused decode + letterbox + normalize of every frame in
+one call, augmented ones through its parallel decode, with equal pixels.
 
 Index formats: the reference's torch-pickled `VID_video_level_{split}.pth`
 or a JSON file with the same nesting:
@@ -33,7 +35,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from dcnet_tpu_torch import not_ported
+from dcnet_tpu_torch import native
 from dcnet_tpu_torch.data import transforms as T
 from dcnet_tpu_torch.data.bert_tokenize import encode_phrase
 from dcnet_tpu_torch.data.corpus import Corpus
@@ -113,13 +115,50 @@ def tokenize(phrase: str, query_len: int, corpus: Optional[Corpus],
     return encode_phrase(bert_tokenizer, phrase, query_len)
 
 
+def move_box(bbox: np.ndarray, ratio: float, dw: float, dh: float) -> None:
+    """Move an xyxy box into its letterboxed frame, in place."""
+    bbox[[0, 2]] = bbox[[0, 2]] * ratio + dw
+    bbox[[1, 3]] = bbox[[1, 3]] * ratio + dh
+
+
 def letterbox_box(img: np.ndarray, bbox: np.ndarray, imsize: int):
     """Letterbox one frame and move its xyxy box with it, in place:
     returns (img, ratio, dw, dh)."""
     img, ratio, dw, dh = T.letterbox(img, imsize)
-    bbox[[0, 2]] = bbox[[0, 2]] * ratio + dw
-    bbox[[1, 3]] = bbox[[1, 3]] * ratio + dh
+    move_box(bbox, ratio, dw, dh)
     return img, ratio, dw, dh
+
+
+def decode_frames(paths: List[str], use_native: Optional[bool]) -> List[np.ndarray]:
+    """uint8 RGB frames: through the host loader's parallel decode where
+    `native.use_core` takes it, else `read_image` one by one."""
+    if not native.use_core(use_native, paths):
+        return [read_image(p) for p in paths]
+    imgs = native.decode_batch_rgb(paths)
+    for p, img in zip(paths, imgs):
+        if img is None:
+            raise native.decode_failed(p)
+    return imgs
+
+
+def letterbox_frames(paths: List[str], imsize: int, use_native: Optional[bool]):
+    """Letterboxed, normalized frames (n, imsize, imsize, 3) float32 and
+    their (ratios, dws, dhs): one host loader call where `native.use_core`
+    takes it, else read_image -> letterbox -> normalize_image frame by
+    frame. The two give equal arrays and geometry."""
+    if native.use_core(use_native, paths):
+        images, ratios, dws, dhs, ok = native.decode_letterbox_batch(
+            paths, imsize, T.IMAGENET_MEAN, T.IMAGENET_STD)
+        if not ok.all():
+            raise native.decode_failed(paths[int(np.argmin(ok))])
+        return images, [float(r) for r in ratios], [float(w) for w in dws], \
+            [float(h) for h in dhs]
+    imgs, ratios, dws, dhs = [], [], [], []
+    for p in paths:
+        img, ratio, dw, dh = T.letterbox(read_image(p), imsize)
+        imgs.append(T.normalize_image(img))
+        ratios.append(ratio); dws.append(dw); dhs.append(dh)
+    return np.stack(imgs).astype(np.float32), ratios, dws, dhs
 
 
 class VIDDataset:
@@ -139,9 +178,7 @@ class VIDDataset:
     ):
         if corpus is None and bert_tokenizer is None:
             raise ValueError("VIDDataset needs a corpus or a BERT tokenizer")
-        if use_native:
-            raise not_ported("the C++ host loader (use_native=True)",
-                             "ROADMAP queue A, item 13")
+        self.use_native = use_native
         self.augment = (split == "train") if augment is None else augment
         self.legacy_hsv = legacy_hsv
         self.imsize = imsize
@@ -177,26 +214,29 @@ class VIDDataset:
         bboxs = [b.copy() for b in bboxs]
         phrases = [p.lower() for p in phrases]
         ori_phrases = list(phrases)
-        imgs = [self._read_image(p) for p in paths]
-        ratios, dws, dhs = [], [], []
+        full = [os.path.join(self.image_root, p) for p in paths]
         if self.augment:
+            imgs = decode_frames(full, self.use_native)
             rng = item_rng(self.seed, self._epoch, idx)
             if rng.random() > 0.5:  # one flip for the clip
                 for i in range(self.k):
                     imgs[i], bboxs[i], phrases[i] = T.horizontal_flip(
                         imgs[i], bboxs[i], phrases[i])
-        for i in range(self.k):  # (train: per-frame HSV jitter first)
-            if self.augment:
+            ratios, dws, dhs = [], [], []
+            for i in range(self.k):  # per-frame HSV jitter, letterbox, then affine
                 imgs[i] = T.hsv_jitter(imgs[i], rng, legacy_hsv=self.legacy_hsv)
-            imgs[i], ratio, dw, dh = letterbox_box(imgs[i], bboxs[i], self.imsize)
-            ratios.append(ratio); dws.append(dw); dhs.append(dh)
-        if self.augment:
+                imgs[i], ratio, dw, dh = letterbox_box(imgs[i], bboxs[i], self.imsize)
+                ratios.append(ratio); dws.append(dw); dhs.append(dh)
             for i in range(self.k):
                 imgs[i], bboxs[i], _, _ = T.random_affine(imgs[i], bboxs[i], rng)
+            images = np.stack([T.normalize_image(im) for im in imgs]).astype(np.float32)
+        else:
+            images, ratios, dws, dhs = letterbox_frames(full, self.imsize, self.use_native)
+            for i in range(self.k):
+                move_box(bboxs[i], ratios[i], dws[i], dhs[i])
         ids_masks = [self._tokenize(p) for p in phrases]
         out = {
-            "images": np.stack([T.normalize_image(im) for im in imgs]
-                               ).astype(np.float32),         # (k, H, W, 3)
+            "images": images,                                # (k, H, W, 3)
             "word_ids": np.stack([im[0] for im in ids_masks]).astype(np.int32),
             "word_mask": np.stack([im[1] for im in ids_masks]).astype(np.int32),
             "bbox": np.stack(bboxs).astype(np.float32),

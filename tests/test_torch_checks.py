@@ -353,27 +353,37 @@ def test_launches_differ_holds_k6_routes_together():
 
 def test_k6_profile_counts_hold_kernel_names_against_the_counters():
     """K6's launches found by kernel name in a profile equal the wrappers'
-    counts only when no launch is lost or misnamed."""
+    counts only when no launch is lost or misnamed (`profiling.profile_counts`,
+    which holds K1-K5 the same way: tests/test_torch_profiling.py)."""
+    from dcnet_tpu_torch import kernels
+    from dcnet_tpu_torch.utils import profiling
     rows = [(900.0, "void (anonymous namespace)::halo::conv_halo_kernel<float, 32>("
                     "CUtensorMap, Geo, Epilogue)", 2),
             (500.0, "void (anonymous namespace)::conv_tma_kernel<128>(...)", 3),
             (40.0, "void quant_pass_kernel<__nv_bfloat16>(...)", 3),
             (70.0, "void ampere_sgemm_128x64_nn", 1)]
-    counted = {"conv_s8": 3, "conv_s8_halo": 2, "conv_s8_gather": 0, "conv_s8_quant": 3}
-    res = chip_smoke.k6_profile_counts(rows, counted)
-    assert res["agree"] and res["by_kernel_name"] == counted
+    counted = dict.fromkeys(kernels.LAUNCHES, 0)
+    counted.update(conv_s8=3, conv_s8_halo=2, conv_s8_gather=0, conv_s8_quant=3)
+    res = profiling.profile_counts(rows, counted)
+    assert res["agree"]
+    assert {k: res["by_kernel_name"][k] for k in kernels.CONV_S8_KEYS.values()} == \
+        {"conv_s8": 3, "conv_s8_halo": 2, "conv_s8_gather": 0}
+    assert res["by_kernel_name"]["conv_s8_quant"] == 3
     assert res["ms_by_kernel_name"]["conv_s8_halo"] == 0.9
-    assert not chip_smoke.k6_profile_counts(rows[1:], counted)["agree"]   # lost halo launches
-    assert not chip_smoke.k6_profile_counts(rows, dict(counted, conv_s8_gather=1))["agree"]
+    assert not profiling.profile_counts(rows[1:], counted)["agree"]   # lost halo launches
+    assert not profiling.profile_counts(rows, dict(counted, conv_s8_gather=1))["agree"]
 
 
 def test_profile_call_discards_lossy_traces_and_fails_when_all_are(monkeypatch, tmp_path):
-    """A trace whose K6 launches by kernel name differ from the wrappers'
+    """A trace whose launches by kernel name differ from the wrappers'
     counts is discarded and the call traced again; a call whose every
     trace is lossy raises and is listed for `main` to fail on."""
     from types import SimpleNamespace
+    from dcnet_tpu_torch import kernels
+    from dcnet_tpu_torch.utils import profiling
     cuda = torch.autograd.DeviceType.CUDA
-    counted = {"conv_s8": 1, "conv_s8_halo": 2, "conv_s8_gather": 0, "conv_s8_quant": 0}
+    counted = dict.fromkeys(kernels.LAUNCHES, 0)
+    counted.update(conv_s8=1, conv_s8_halo=2)
 
     def trace(halo_calls):
         events = [SimpleNamespace(device_type=cuda, self_device_time_total=300.0,
@@ -383,12 +393,12 @@ def test_profile_call_discards_lossy_traces_and_fails_when_all_are(monkeypatch, 
         return events, "table", 1.0, counted
 
     traces = iter([trace(1), trace(2)])
-    monkeypatch.setattr(chip_smoke, "_trace_call", lambda fn: next(traces))
+    monkeypatch.setattr(profiling, "trace_call", lambda fn: next(traces))
     monkeypatch.setattr(chip_smoke, "PROFILE_FAILURES", [])
     res = chip_smoke.profile_call(None, str(tmp_path), "ok_on_retry")
-    assert res["k6"]["agree"] and len(res["traces_discarded"]) == 1
+    assert res["launches"]["agree"] and len(res["traces_discarded"]) == 1
     assert res["device_ms"] == 0.5 and (tmp_path / "profile_ok_on_retry.txt").exists()
-    monkeypatch.setattr(chip_smoke, "_trace_call", lambda fn: trace(1))
+    monkeypatch.setattr(profiling, "trace_call", lambda fn: trace(1))
     with pytest.raises(AssertionError, match="every trace lost kernels"):
         chip_smoke.profile_call(None, str(tmp_path), "lossy")
     assert chip_smoke.PROFILE_FAILURES == ["lossy"]

@@ -35,7 +35,7 @@ from dcnet_tpu_torch.data import synthetic as psynthetic
 from dcnet_tpu_torch.data import transforms as T
 from dcnet_tpu_torch.data.referit import ReferItDataset
 from dcnet_tpu_torch.data.vid import (
-    VIDDataset, batch_iterator, prefetch_to_device, read_image)
+    VIDDataset, batch_iterator, load_index, prefetch_to_device, read_image)
 from dcnet_tpu_torch.eval import metrics as pmetrics
 from dcnet_tpu_torch.eval import ref_cache as pref_cache
 from dcnet_tpu_torch.eval.temporal import FrameCache
@@ -264,18 +264,27 @@ def test_read_image_names_the_missing_decoder(tmp_path, monkeypatch):
 @pytest.mark.parametrize("kwargs,item", [
     (dict(augment=True), "11"), (dict(use_native=True), "13"),
     (dict(bert_tokenizer=object()), "10")])
-def test_unported_dataset_options_raise(synthetic32, kwargs, item):
-    """The C++ host loader (item 13) raises; the augmentations (item 11)
-    and the BERT tokenizer (item 10) are ported (held against the JAX
-    package in tests/test_torch_augment.py): the datasets build and give
-    an item."""
+def test_unported_dataset_options_raise(synthetic32, tmp_path, kwargs, item):
+    """Every option of the datasets is ported now: the C++ host loader
+    (item 13; held against the JAX core in tests/test_torch_native.py), the
+    augmentations (item 11) and the BERT tokenizer (item 10; held against
+    the JAX package in tests/test_torch_augment.py): the datasets build and
+    give an item, and the host loader's item equals the numpy path's."""
     index = os.path.join(synthetic32, "VID_video_level_test.json")
     corpus = psynthetic.build_synthetic_corpus()
     if item == "13":
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            VIDDataset(index, corpus, split="test", **kwargs)
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            ReferItDataset(index, corpus, **kwargs)
+        kw = dict(split="test", image_root=synthetic32, imsize=64, testmode=True)
+        got = VIDDataset(index, corpus, **kwargs, **kw)[0]
+        want = VIDDataset(index, corpus, use_native=False, **kw)[0]
+        for key in ("images", "bbox", "ratio", "dw", "dh", "word_ids"):
+            assert np.array_equal(got[key], want[key]), key
+        entries = str(tmp_path / "referit.json")
+        with open(entries, "w") as f:
+            json.dump([[row[0], row[1], row[2]] for row in load_index(index)[0][:2]], f)
+        kw = dict(image_root=synthetic32, imsize=64)
+        got = ReferItDataset(entries, corpus, **kwargs, **kw)[1]
+        want = ReferItDataset(entries, corpus, use_native=False, **kw)[1]
+        assert all(np.array_equal(got[k], want[k]) for k in ("images", "bbox"))
         return
     if item == "10":
         from dcnet_tpu_torch.data.bert_tokenize import get_bert_tokenizer

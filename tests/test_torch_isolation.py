@@ -41,7 +41,8 @@ def test_importing_the_port_loads_no_jax():
             "dcnet_tpu_torch.models.bert", "dcnet_tpu_torch.data.bert_tokenize",
             "dcnet_tpu_torch.data.grain_pipeline", "dcnet_tpu_torch.losses_extra",
             "dcnet_tpu_torch.train.checkpoint", "dcnet_tpu_torch.dryrun",
-            "dcnet_tpu_torch.parallel.mesh"} <= set(mods)
+            "dcnet_tpu_torch.parallel.mesh", "dcnet_tpu_torch.native",
+            "dcnet_tpu_torch.utils.profiling", "dcnet_tpu_torch.ops.yolo_detect"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -52,9 +53,11 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_importing_the_cli_data_and_eval_modules_loads_no_cv2():
-    """cv2 is imported only where a frame is decoded or drawn."""
+    """cv2 is imported only where a frame is decoded or drawn (the host
+    loader and the profiling module import none either)."""
     mods = [m for m in _port_modules()
-            if m.split(".")[1:2] in (["cli"], ["data"], ["eval"])]
+            if m.split(".")[1:2] in (["cli"], ["data"], ["eval"], ["native"], ["utils"])]
+    assert "dcnet_tpu_torch.native" in mods and "dcnet_tpu_torch.utils.profiling" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cv2', 'jax', 'dcnet_tpu'))\n"
