@@ -5,7 +5,9 @@ streams, each with its own referring phrase, one engine step per frame tick
 (the backbone on each new frame, co-attention off the feature rings through
 kernel K1, or K4 with `coattn_multiref`), per-stream temporal fusion inside
 the step, an optional int8 backbone and trunk (`--quant`, kernel K6) and
-the exported bundle (`--export_bundle`, `serving/export.py`).
+the exported bundle (`--export_bundle`, `serving/export.py`). At exit it
+prints the mean host ms of each span of `engine.step` over the ticks it
+served (`utils.profiling.stage_table`).
 
 Modes:
   --synthetic          N procedural streams (`data.synthetic`, frames
@@ -51,6 +53,7 @@ from dcnet_tpu_torch.data.vid import read_image
 from dcnet_tpu_torch.serving.engine import (
     GroundingEngine, StreamState, cast_params_for_serving, load_stream_state,
     save_stream_state)
+from dcnet_tpu_torch.utils.profiling import stage_table
 
 _FRAME_EXTS = (".jpg", ".jpeg", ".png", ".npy")
 
@@ -256,6 +259,7 @@ def main(argv=None):
     if writer is not None:
         writer.finish(state)
     print(f"served {served} predictions over {n} streams")
+    print(stage_table("engine.step"))
     return state
 
 

@@ -12,7 +12,9 @@ Each epoch reseeds the negative sampling (`seed + 100 + epoch`) and the
 dropout streams (`seed + 200 + epoch`) and shuffles by `seed + epoch`, so a
 resumed run equals the uninterrupted one. SIGTERM / SIGUSR1 end the epoch
 early, checkpoint it and exit. `--profile_dir` writes a torch.profiler
-trace of 3 steps (the state is put back afterwards).
+trace of 3 steps (the state is put back afterwards) and prints its
+summary (`utils.profiling.summarize_trace`), with the device and idle
+time under each of the train step's spans.
 
 Data parallelism (`parallel.mesh`): `--devices N` runs N processes, one a
 card (0: every card; on the CPU one process), this one rank 0 and the
@@ -53,7 +55,7 @@ from dcnet_tpu_torch.train.checkpoint import (
 from dcnet_tpu_torch.train.loop import flatten_clip_batch, to_device, train_epoch, validate
 from dcnet_tpu_torch.train.state import TrainState, create_train_state
 from dcnet_tpu_torch.train.step import train_step
-from dcnet_tpu_torch.utils.profiling import device_trace
+from dcnet_tpu_torch.utils.profiling import device_trace, summarize_trace
 
 
 def _profile(args, state: TrainState, train_ds, cfg, device) -> None:
@@ -78,6 +80,7 @@ def _profile(args, state: TrainState, train_ds, cfg, device) -> None:
     state.step = saved[3]
     if writes:
         print(f"=> wrote a trace of 3 train steps to {args.profile_dir}")
+        print(summarize_trace(args.profile_dir))
 
 
 def main(argv=None) -> TrainState:

@@ -68,6 +68,7 @@ from dcnet_tpu_torch.ops.coords import generate_coord
 from dcnet_tpu_torch.ops.correspondence import (
     ContrastiveSamples, crossmodal_pairs, interframe_pairs)
 from dcnet_tpu_torch.parallel import mesh
+from dcnet_tpu_torch.utils.profiling import on_device, trace_annotation
 
 
 class TrainOutputs(NamedTuple):
@@ -155,11 +156,12 @@ class DCNet(nn.Module):
         return [l2_normalize(self.mapping_visu[i](raw[i], train=train))
                 for i in range(3)]
 
+    @trace_annotation("dcnet.extract")
     @torch.no_grad()
     def extract_features(self, images) -> List[torch.Tensor]:
         """Backbone + mapping: NHWC images (N, H, W, 3) -> per scale
         (N, g, g, C) mapped, l2-normalised features."""
-        images = torch.as_tensor(images, device=self.device)
+        images = on_device(images, self.device)
         return self.map_features(self.visumodel(images, self.dtype))
 
     def _tp(self) -> bool:
@@ -181,6 +183,7 @@ class DCNet(nn.Module):
             return coattention_center(f1, f2, t, tp_shard=True)
         return coattention_center_fused(f1, f2, t)
 
+    @trace_annotation("dcnet.language")
     def _language(self, word_ids: torch.Tensor, train: bool = False):
         raw_flang, context, embedded = self.textmodel(word_ids, train=train)
         return (l2_normalize(self.mapping_lang(raw_flang, train=train)),
@@ -200,6 +203,7 @@ class DCNet(nn.Module):
             return x
         return x.to(self.dtype) * torch.tensor(1.0 / 127.0, dtype=self.dtype)
 
+    @trace_annotation("dcnet.corr")
     @torch.no_grad()
     def corr_features(self, per_frame: Sequence[torch.Tensor],
                       center: Optional[int] = None,
@@ -257,6 +261,7 @@ class DCNet(nn.Module):
                 corr_feat.append(l2_normalize(cfs).mean(dim=1))
         return corr_feat
 
+    @trace_annotation("dcnet.trunk")
     def _trunk(self, corr_feat: Sequence[torch.Tensor], flang: torch.Tensor,
                context: torch.Tensor, embedded: torch.Tensor,
                word_ids: torch.Tensor, train: bool = False):
@@ -425,7 +430,7 @@ class DCNet(nn.Module):
         oldest) lives in physical slot (newest_slot + 1 + j) mod n_frame. A
         host integer, so reading the ring syncs nothing. None = physical
         order is temporal order (offline eval)."""
-        word_ids = torch.as_tensor(word_ids, device=self.device)
+        word_ids = on_device(word_ids, self.device)
         corr_feat = self.corr_features(per_frame, center=center,
                                        newest_slot=newest_slot)
         if language is None:
@@ -437,6 +442,7 @@ class DCNet(nn.Module):
                            loc_score=loc_score, corr_feat=corr_feat,
                            only_obj=only_obj)
 
+    @trace_annotation("dcnet.eval_clip")
     @torch.no_grad()
     def eval_clip(self, images, word_ids, n_frame: int = 5) -> EvalOutputs:
         """images: NHWC (B*n_frame, H, W, 3), clips frame-contiguous;

@@ -31,6 +31,7 @@ from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 from dcnet_tpu_torch.models.heads import dropout
+from dcnet_tpu_torch.utils.profiling import count_sync
 
 
 class BiLSTMEncoder(nn.Module):
@@ -65,6 +66,9 @@ class BiLSTMEncoder(nn.Module):
         if not train:
             context = self.unpacked(emb, lengths)
         else:
+            # three waits on the card: the lengths to the host, and the
+            # packing's sort order to the card and (unpacking) back
+            count_sync(word_ids.device, 3)
             packed = pack_padded_sequence(emb, lengths.cpu(), batch_first=True,
                                           enforce_sorted=False)
             out, _ = self.rnn(packed)

@@ -15,6 +15,7 @@ import torch
 
 from dcnet_tpu_torch.config import DCNetConfig
 from dcnet_tpu_torch.ops.boxes import xywh2xyxy
+from dcnet_tpu_torch.utils.profiling import trace_annotation
 
 
 class DecodedBoxes(NamedTuple):
@@ -86,6 +87,7 @@ def decode_indices(outbox: Sequence[torch.Tensor], flat_idx: torch.Tensor,
     return DecodedBoxes(boxes, score, best_n, scale, gi_out, gj_out)
 
 
+@trace_annotation("decode.best")
 def decode_best(outbox: Sequence[torch.Tensor], cfg: DCNetConfig) -> DecodedBoxes:
     """Argmax decode (the validate/test path)."""
     idx = torch.argmax(flatten_conf(outbox), dim=1)[:, None]

@@ -28,6 +28,7 @@ import torch
 from dcnet_tpu_torch.kernels.conv_s8 import conv_s8
 from dcnet_tpu_torch.models.darknet import LayerDef, _max_pool_nhwc, upsample2
 from dcnet_tpu_torch.models.heads import conv_nhwc, leaky_relu
+from dcnet_tpu_torch.utils.profiling import on_device, trace_annotation
 from dcnet_tpu_torch.weights import trunk_scale_keys
 
 _EPS = 1e-5  # backbone BN epsilon
@@ -267,13 +268,14 @@ def quantize_model_backbone(model, calib_images, calib_batch: int = 8) -> Dict:
 
 
 @torch.no_grad()
+@trace_annotation("dcnet.extract")
 def quant_extract_features(model, qparams: Dict, images,
                            int8_chain: bool = False) -> List[torch.Tensor]:
     """`DCNet.extract_features` with the int8 backbone: the quantized conv
     stack (activations in the model's compute dtype, or int8 on
     sole-consumer chains) and the model's mapping head (float, or int8
     with cfg.trunk_quant)."""
-    images = torch.as_tensor(images, device=model.device)
+    images = on_device(images, model.device)
     raw = backbone_apply_int8(model_layer_defs(model), qparams, images,
                               act_dtype=model.dtype, int8_chain=int8_chain)
     return model.map_features(raw)

@@ -16,6 +16,7 @@ import torch
 
 from dcnet_tpu_torch.config import DCNetConfig
 from dcnet_tpu_torch.ops.boxes import wh_iou
+from dcnet_tpu_torch.utils.profiling import count_sync
 
 
 class CompactTarget(NamedTuple):
@@ -34,6 +35,7 @@ class CompactTarget(NamedTuple):
 def build_target(bbox_xyxy: torch.Tensor, cfg: DCNetConfig) -> CompactTarget:
     """bbox_xyxy: (B, 4) ground-truth boxes in letterboxed pixels."""
     dev = bbox_xyxy.device
+    count_sync(dev, 4)   # the four tables below, copied from the host
     box = bbox_xyxy.float()
     size = float(cfg.image_size)
     cx = (box[:, 0] + box[:, 2]) / (2.0 * size)

@@ -57,6 +57,7 @@ from dcnet_tpu_torch.models.dcnet import DCNet
 from dcnet_tpu_torch.ops.decode import decode_best
 from dcnet_tpu_torch.parallel import mesh as pmesh
 from dcnet_tpu_torch.serving.state import StreamState
+from dcnet_tpu_torch.utils.profiling import on_device, trace_annotation
 
 __all__ = ["GroundingEngine", "StreamState", "cast_params_for_serving",
            "load_stream_state", "save_stream_state"]
@@ -197,6 +198,7 @@ class GroundingEngine:
             cache_feats=state.cache_feats * keep_f[:, None, None, None],
             frames_seen=state.frames_seen * keep.to(state.frames_seen.dtype))
 
+    @trace_annotation("engine.step")
     @torch.no_grad()
     def step(self, state: StreamState, frames
              ) -> Tuple[StreamState, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -208,53 +210,58 @@ class GroundingEngine:
         mesh, frames are every stream's and the outputs too (this rank's
         streams ticked, the rest all-gathered); the state is this rank's."""
         model, cfg = self.model, self.cfg
-        frames = torch.as_tensor(frames, device=self.device)[self.shard]
+        frames = on_device(frames, self.device)[self.shard]
 
         # 1. the backbone, only on the new frames (int8 after quantize())
         new_feats = self._extract(frames)
-        if self.int8_rings:
-            new_feats = [torch.clamp(torch.round(f.float() * 127.0), -127, 127
-                                     ).to(torch.int8) for f in new_feats]
         # 2. ring update: rotate mode writes one slot in place; shift mode
         #    rebuilds the whole ring (the A/B baseline)
-        if self.rotate_rings:
-            new_slot = (state.slot + 1) % self.n_frame
-            rings = (state.feat_rings if self.donate_state
-                     else tuple(r.clone() for r in state.feat_rings))
-            for ring, f in zip(rings, new_feats):
-                # narrow + copy_ keeps a symbolic slot symbolic under
-                # torch.export (an indexed store would specialise on it)
-                ring.narrow(1, new_slot, 1).copy_(f[:, None])
-        else:
-            new_slot = state.slot
-            rings = tuple(torch.cat([r[:, 1:], f[:, None].to(r.dtype)], dim=1)
-                          for r, f in zip(state.feat_rings, new_feats))
+        with trace_annotation("engine.ring"):
+            if self.int8_rings:
+                new_feats = [torch.clamp(torch.round(f.float() * 127.0), -127, 127
+                                         ).to(torch.int8) for f in new_feats]
+            if self.rotate_rings:
+                new_slot = (state.slot + 1) % self.n_frame
+                rings = (state.feat_rings if self.donate_state
+                         else tuple(r.clone() for r in state.feat_rings))
+                for ring, f in zip(rings, new_feats):
+                    # narrow + copy_ keeps a symbolic slot symbolic under
+                    # torch.export (an indexed store would specialise on it)
+                    ring.narrow(1, new_slot, 1).copy_(f[:, None])
+            else:
+                new_slot = state.slot
+                rings = tuple(torch.cat([r[:, 1:], f[:, None].to(r.dtype)], dim=1)
+                              for r, f in zip(state.feat_rings, new_feats))
 
         # 3. center-frame grounding off the rings and the cached phrase
         out = model.eval_features(
             rings, state.word_ids, language=state.language,
             newest_slot=new_slot if self.rotate_rings else None)
-        dec = decode_best(out.outbox, cfg)
-        raw_box, raw_score = dec.boxes[:, 0], dec.score[:, 0]
+        with trace_annotation("engine.decode"):
+            dec = decode_best(out.outbox, cfg)
+            raw_box, raw_score = dec.boxes[:, 0], dec.score[:, 0]
 
         # 4. per-stream top-k cache: drop the oldest entry, append this tick
-        now = build_frame_cache(out.outbox, out.corr_feat, self.topk, cfg)
-        cache_boxes = torch.cat([state.cache_boxes[:, 1:], now.boxes[:, None]], 1)
-        cache_scores = torch.cat([state.cache_scores[:, 1:],
-                                  now.scores[:, None]], 1)
-        cache_feats = torch.cat(
-            [state.cache_feats[:, 1:],
-             now.feats[:, None].to(state.cache_feats.dtype)], 1)
-        frames_seen = state.frames_seen + 1
+        with trace_annotation("engine.cache"):
+            now = build_frame_cache(out.outbox, out.corr_feat, self.topk, cfg)
+            cache_boxes = torch.cat([state.cache_boxes[:, 1:], now.boxes[:, None]], 1)
+            cache_scores = torch.cat([state.cache_scores[:, 1:],
+                                      now.scores[:, None]], 1)
+            cache_feats = torch.cat(
+                [state.cache_feats[:, 1:],
+                 now.feats[:, None].to(state.cache_feats.dtype)], 1)
+            frames_seen = state.frames_seen + 1
 
-        fused_box = self._fuse(cache_boxes, cache_scores, cache_feats,
-                               frames_seen)
-        new_state = state._replace(
-            feat_rings=rings, cache_boxes=cache_boxes,
-            cache_scores=cache_scores, cache_feats=cache_feats,
-            frames_seen=frames_seen, slot=new_slot)
-        return (new_state, _gather_streams(fused_box, self.mesh),
-                _gather_streams(raw_box, self.mesh), _gather_streams(raw_score, self.mesh))
+        with trace_annotation("engine.fuse"):
+            fused_box = self._fuse(cache_boxes, cache_scores, cache_feats,
+                                   frames_seen)
+            new_state = state._replace(
+                feat_rings=rings, cache_boxes=cache_boxes,
+                cache_scores=cache_scores, cache_feats=cache_feats,
+                frames_seen=frames_seen, slot=new_slot)
+            return (new_state, _gather_streams(fused_box, self.mesh),
+                    _gather_streams(raw_box, self.mesh),
+                    _gather_streams(raw_score, self.mesh))
 
     def _fuse(self, boxes: torch.Tensor, scores: torch.Tensor,
               feats: torch.Tensor, seen: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,7 @@ from dcnet_tpu_torch.ops.decode import decode_best, flatten_conf, flatten_scores
 from dcnet_tpu_torch.ops.target import CompactTarget, build_target
 from dcnet_tpu_torch.parallel.mesh import global_flip
 from dcnet_tpu_torch.train.state import TrainState
+from dcnet_tpu_torch.utils.profiling import count_sync, on_device, trace_annotation
 
 
 def neg_sim_scores(corr_feat: Sequence[torch.Tensor],
@@ -40,6 +41,7 @@ def pred_box_at_target(outbox: Sequence[torch.Tensor], tgt: CompactTarget,
     the train-time accuracy probe."""
     picked = gather_pred_at_target(outbox, tgt, cfg)
     dev = picked.device
+    count_sync(dev, 3)   # the three tables below, copied from the host
     grid = torch.tensor(cfg.grids, dtype=torch.float32, device=dev)[tgt.best_scale]
     stride = torch.tensor(cfg.strides, dtype=torch.float32, device=dev)[tgt.best_scale]
     anchors = torch.tensor(cfg.anchors_full, dtype=torch.float32,
@@ -55,12 +57,12 @@ def pred_box_at_target(outbox: Sequence[torch.Tensor], tgt: CompactTarget,
 
 def _inputs(model, batch: Mapping[str, torch.Tensor]):
     dev = model.device
-    bbox = torch.as_tensor(batch["bbox"], device=dev).float()
-    return (torch.as_tensor(batch["images"], device=dev),
-            torch.as_tensor(batch["word_ids"], device=dev),
+    bbox = on_device(batch["bbox"], dev).float()
+    return (on_device(batch["images"], dev), on_device(batch["word_ids"], dev),
             torch.clamp(bbox, 0, model.cfg.image_size - 1))
 
 
+@trace_annotation("train.step")
 def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                generator: Optional[torch.Generator] = None
                ) -> Dict[str, torch.Tensor]:
@@ -69,27 +71,34 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     parameters keep this step's gradients until the next step. With
     `state.ddp` (`parallel.mesh.wrap_ddp` of the model) the forward runs
     through it: the batch is this rank's shard, the gradients are averaged
-    over the data ranks and the metrics are this rank's."""
+    over the data ranks and the metrics are this rank's. Spans: the
+    forward with the target and the losses, the backward (after the
+    gradients of the last step are dropped), the optimizer and schedule
+    step, each with the card's time where the model is on one."""
     model = state.model
     cfg = model.cfg
+    dev = model.device
     images, word_ids, bbox = _inputs(model, batch)
     forward = state.ddp if state.ddp is not None else model
-    out = forward(images, word_ids, train=True, generator=generator)
-    tgt = build_target(bbox, cfg)
-    lb = total_loss(out.outbox, flatten_scores(out.sim_score),
-                    neg_sim_scores(out.corr_feat, out.flang_attn),
-                    flatten_scores(out.loc_score), out.interframe,
-                    out.crossmodal, tgt, cfg)
-    state.optimizer.zero_grad(set_to_none=True)
-    lb.total.backward()
-    for prm in model.parameters():
-        # a parameter outside the loss's graph (feature_map only smooths the
-        # map the top-k indices are read from) gets a zero gradient, as in
-        # JAX, so weight decay still moves it as optax moves it
-        if prm.requires_grad and prm.grad is None:
-            prm.grad = torch.zeros_like(prm)
-    state.optimizer.step()
-    state.schedule.step()
+    with trace_annotation("train.forward", dev):
+        out = forward(images, word_ids, train=True, generator=generator)
+        tgt = build_target(bbox, cfg)
+        lb = total_loss(out.outbox, flatten_scores(out.sim_score),
+                        neg_sim_scores(out.corr_feat, out.flang_attn),
+                        flatten_scores(out.loc_score), out.interframe,
+                        out.crossmodal, tgt, cfg)
+    with trace_annotation("train.backward", dev):
+        state.optimizer.zero_grad(set_to_none=True)
+        lb.total.backward()
+    with trace_annotation("train.optimizer", dev):
+        for prm in model.parameters():
+            # a parameter outside the loss's graph (feature_map only smooths the
+            # map the top-k indices are read from) gets a zero gradient, as in
+            # JAX, so weight decay still moves it as optax moves it
+            if prm.requires_grad and prm.grad is None:
+                prm.grad = torch.zeros_like(prm)
+        state.optimizer.step()
+        state.schedule.step()
     state.step += 1
 
     with torch.no_grad():

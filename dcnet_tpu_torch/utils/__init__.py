@@ -1,2 +1,2 @@
 from dcnet_tpu_torch.utils.profiling import (  # noqa: F401
-    StepTimer, annotate, device_trace, summarize_trace, trace_annotation)
+    COUNTERS, SPANS, device_trace, record_spans, stage_ms, summarize_trace, trace_annotation)

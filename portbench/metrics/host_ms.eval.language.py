@@ -1,0 +1,9 @@
+"""Mean host ms of `dcnet.language` an eval call (BERT), from the program's spans."""
+
+from portbench import readers as R
+from portbench import spans as S
+
+
+def read(r):
+    return (S.stage_ms(r, ("dcnet.eval_clip", "decode.best"), ("dcnet.language",))
+            if R.loop_is(r, "eval") else None)

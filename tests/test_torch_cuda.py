@@ -1,8 +1,10 @@
 """The CUDA kernels on the card (K1, the pair K2, the backward K3, the ring
 kernel K4, the location Gram K5 and the int8 convolution K6), against their
 plain PyTorch versions,
-the launches of one train step and of serving ticks, and train-mode
-BatchNorm's card branch against its CPU branch.
+the launches of one train step and of serving ticks, the host's waits on
+the card in a train step, a tick and an eval call against the program's
+`host_syncs` counter, and train-mode BatchNorm's card branch against its
+CPU branch.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -665,6 +667,85 @@ def test_serving_tick_launches(card, multiref):
     assert kernels.LAUNCHES["coattn_ring"] == (18 if multiref else 0)
     assert kernels.LAUNCHES["coattn_attend"] == (0 if multiref else 72)
     assert all(torch.isfinite(x).all() for x in (fused, raw, score))
+
+
+def _syncs(fn):
+    """fn() under `torch.cuda.set_sync_debug_mode("warn")`: its result and
+    the synchronising calls it made, each as the innermost three Python
+    frames (`file:line`) that led to it."""
+    import traceback
+    import warnings
+
+    found = []
+
+    def seen(message, *args, **kwargs):
+        if "called a synchronizing CUDA operation" in str(message):
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if not f.filename.endswith("warnings.py")]
+            found.append(" <- ".join(f"{f.filename.split('/site-packages/')[-1]}:{f.lineno}"
+                                     for f in stack[-3:][::-1]))
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = seen
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, found
+
+
+@pytest.mark.parametrize("path", ["train", "tick", "eval"])
+def test_host_syncs_count_every_wait_on_the_card(card, path):
+    """The synchronising calls of one train step, one served tick and one
+    `eval_clip` with its decode (each after a first, warming call), against
+    the `host_syncs` their root spans counted: equal in the step, none in
+    the tick and the eval call."""
+    from dcnet_tpu_torch.config import DCNetConfig
+    from dcnet_tpu_torch.models.darknet import mini_backbone_defs
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.ops.decode import decode_best
+    from dcnet_tpu_torch.serving.engine import GroundingEngine
+    from dcnet_tpu_torch.train.state import create_train_state
+    from dcnet_tpu_torch.train.step import train_step
+    from dcnet_tpu_torch.utils import profiling
+    from dcnet_tpu_torch.weights import seeded_init_
+
+    cfg = DCNetConfig(image_size=64, corpus_size=50, emb_size=64, lstm_hidden=64,
+                      word_embedding_size=64, coattn_multiref=path == "tick")
+    model = seeded_init_(DCNet(cfg, backbone_defs=mini_backbone_defs(), device=card), seed=0)
+    gen = torch.Generator().manual_seed(6)
+    ids = torch.randint(1, 50, (4, 20), generator=gen).to(card)
+    if path == "train":
+        state = create_train_state(model, cfg)
+        batch = {"images": torch.rand(4, 64, 64, 3, generator=gen).to(card), "word_ids": ids,
+                 "bbox": torch.tensor([[4.0, 6.0, 40.0, 50.0]] * 4).to(card)}
+        roots = ("train.step",)
+
+        def call():
+            return train_step(state, batch)
+    elif path == "tick":
+        eng = GroundingEngine(model, n_streams=4, int8_rings=True)
+        box = {"state": eng.init_state(ids)}
+        frames = torch.rand(4, 64, 64, 3, generator=gen).to(card)
+        roots = ("engine.step",)
+
+        def call():
+            box["state"], *out = eng.step(box["state"], frames)
+            return out
+    else:
+        images = torch.rand(20, 64, 64, 3, generator=gen).to(card)
+        roots = ("dcnet.eval_clip", "decode.best")
+
+        def call():
+            return decode_best(model.eval_clip(images, ids).outbox, cfg)
+    call()
+    _, syncs = _syncs(call)
+    counted = sum(profiling.root_calls(r, 1)[0].counts["host_syncs"] for r in roots)
+    assert len(syncs) == counted, "\n".join(syncs)
+    assert counted == (10 if path == "train" else 0), "\n".join(syncs)
 
 
 _BLOCK_CODE = {"block": 0, "wgmma": 1, "tf32x3": 2, "wide": 3, "wgmma_s8": 4}
