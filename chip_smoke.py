@@ -2914,7 +2914,9 @@ def phase_train_cli(dev) -> dict:
 SERVE_TICKS = 12                  # the fusion window (5) is full from tick 4
 SWAP_TICK = 6                     # update_queries on a third of the streams
 PARITY_STREAMS, PARITY_TICKS = 4, 6
-WARMUP_TICKS, TIMED_CHAINS, CHAIN_TICKS = 3, 3, 10
+# warm-up: each of the 5 ring slots' eager tick and its CUDA graph's capture,
+# so the timed ticks replay (serving/engine.py)
+WARMUP_TICKS, TIMED_CHAINS, CHAIN_TICKS = 10, 3, 10
 # card vs CPU at 4 streams, fp32, TF32 off: raw and fused boxes (pixels) and
 # scores elementwise within rtol 1e-3 / atol 1e-3
 SERVE_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -3265,9 +3267,10 @@ def phase_serving_int8(dev, profile_dir=None) -> dict:
     no int8 chain), then 12 ticks at 120 streams in each mode (multiref
     with int8 rings, multiref with float rings, the K1 path), launches per
     tick checked (K6: the live backbone convs + the no-split trunk's),
-    every K6 call of each mode's last tick held against its plain version
-    (`HeldK6`), each mode timed as the serving phase times its ticks; 4
-    fp32 streams on the card against the same quantized engine on the CPU
+    every K6 call of each mode's last eager tick held against its plain
+    version (`HeldK6`; tick n_frame - 1: each ring slot's first tick runs
+    eagerly, its second captures the slot's CUDA graph, the rest replay),
+    each mode timed as the serving phase times its ticks; 4 fp32 streams on the card against the same quantized engine on the CPU
     per tick: with the int8 backbone alone boxes and scores within
     SERVE_TOL; with the trunk PTQ too the raw predictions by
     `serve_cells_held` and the trunk convs bitwise on the card's own
@@ -3311,8 +3314,8 @@ def phase_serving_int8(dev, profile_dir=None) -> dict:
         kernels.reset_launches()
         held, marks = HeldK6(), []
 
-        def frames_held(t):  # hold the K6 calls of the last tick
-            held.active = t == SERVE_TICKS - 1
+        def frames_held(t):  # hold the K6 calls of the last eager tick
+            held.active = t == eng.n_frame - 1
             marks.append(held.quant_passes)
             return frames_at(t)
 
@@ -3320,10 +3323,14 @@ def phase_serving_int8(dev, profile_dir=None) -> dict:
             state, per_tick, outs = _serve(eng, ids, SERVE_TICKS, frames_held)
         held_on_path[name] = held.summary(f"quantized serving, {name}", need=K6_PATH_ROUTES)
         # each tick's quantize passes as its plans asked for them (a padded
-        # weight is kept from its first tick on); the last tick's recorded
+        # weight is kept from its first tick on); a replayed tick calls no
+        # wrapper: its passes are those its slot's capture planned
         marks.append(held.quant_passes)
+        passes = [marks[t + 1] - marks[t] for t in range(SERVE_TICKS)]
         for t, got in enumerate(per_tick):
-            want[name]["conv_s8_quant"] = marks[t + 1] - marks[t]
+            if t >= 2 * eng.n_frame:
+                passes[t] = passes[t - eng.n_frame]
+            want[name]["conv_s8_quant"] = passes[t]
             _expect_launches([got], want[name], f"quantized serving, {name}, tick {t}")
         _finite(outs, f"quantized serving, {name}")
         launches[name] = dict(kernels.LAUNCHES)

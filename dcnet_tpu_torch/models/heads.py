@@ -257,8 +257,7 @@ class ConvBNReLU(nn.Module):
                 raise RuntimeError("the int8 trunk's constants are made by a call "
                                    "before the trace (export_engine's warm-up tick)")
             return self._int8_cache[2]
-        srcs = (self.conv.weight, bn.weight, bn.bias, bn.running_mean,
-                bn.running_var, self.act_max)
+        srcs = self.int8_sources()
         stamp = None if any(t.is_inference() for t in srcs) else \
             tuple((t.data_ptr(), t._version) for t in srcs)
         cache = self._int8_cache
@@ -283,6 +282,12 @@ class ConvBNReLU(nn.Module):
             wq = consts["wq"]
             consts[c_s] = (wq[..., :c_s].contiguous(), wq[..., c_s:].contiguous())
         return consts
+
+    def int8_sources(self) -> Tuple[torch.Tensor, ...]:
+        """What the int8 mode's constants are made from (`_int8_consts`)."""
+        bn = self.bn
+        return (self.conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                self.act_max)
 
     @torch.no_grad()
     def _int8(self, x):

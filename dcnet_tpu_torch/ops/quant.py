@@ -308,6 +308,12 @@ def trunk_scales(model) -> Dict[str, np.ndarray]:
             for k, m in _trunk_convs(model).items()}
 
 
+def trunk_sources(model) -> Tuple[torch.Tensor, ...]:
+    """What the trunk convs' cached int8 constants are made from
+    (`ConvBNReLU.int8_sources`), every conv's in turn."""
+    return tuple(t for m in _trunk_convs(model).values() for t in m.int8_sources())
+
+
 @torch.no_grad()
 def set_trunk_scales(model, scales: Dict[str, Any]):
     """Load `trunk_scales` (or the JAX package's flattened 'quant'

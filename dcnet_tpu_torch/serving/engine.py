@@ -21,7 +21,14 @@ in the offline pipeline.
 What stands in for JAX: buffer donation becomes in-place ring writes
 (`donate_state=True` may overwrite the input state's rings; False leaves
 them intact), and the rotating slot is a host integer carried in the state,
-so a tick reads no device scalar. `quantize()` switches the per-frame
+so a tick reads no device scalar. In place of `jax.jit`'s one dispatch, a
+tick on a card replays a CUDA graph where the engine can observe that one
+is sound (`_graphable`: a CUDA model, no mesh, rotating rings, donated
+state, no `torch.export` trace): one graph per ring slot, captured on the
+slot's second tick over state buffers the engine owns (`_TickGraphs`), so
+the card and not the host's dispatch sets the tick. Its outputs and state
+are bitwise those of the eager tick (`_tick`), which every other engine
+runs. `quantize()` switches the per-frame
 backbone to the int8 path (`ops/quant.py`, kernel K6; `int8_chain` keeps
 sole-consumer activations in int8) and, by default, the trunk convs to
 static-scale int8. XLA compiler options are not carried.
@@ -51,13 +58,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dcnet_tpu_torch import DeviceLike, not_ported, resolve_device
+from dcnet_tpu_torch import DeviceLike, kernels, not_ported, resolve_device
 from dcnet_tpu_torch.eval.temporal import build_frame_cache
 from dcnet_tpu_torch.models.dcnet import DCNet
 from dcnet_tpu_torch.ops.decode import decode_best
 from dcnet_tpu_torch.parallel import mesh as pmesh
 from dcnet_tpu_torch.serving.state import StreamState
-from dcnet_tpu_torch.utils.profiling import on_device, trace_annotation
+from dcnet_tpu_torch.utils.profiling import COUNTERS, on_device, trace_annotation
 
 __all__ = ["GroundingEngine", "StreamState", "cast_params_for_serving",
            "load_stream_state", "save_stream_state"]
@@ -93,6 +100,8 @@ class GroundingEngine:
         self.ring_dtype = torch.int8 if int8_rings else model.dtype
         self.qparams = None       # the int8 backbone, after quantize()
         self.trunk_scales = None  # the trunk convs' calibrated abs-max
+        self._graphs: Optional[_TickGraphs] = None  # the replayed ticks' buffers and graphs
+        self._trunk_srcs: Optional[Tuple[torch.Tensor, ...]] = None  # `_trunk_version`'s
 
     @property
     def device(self) -> torch.device:
@@ -111,6 +120,7 @@ class GroundingEngine:
         trunk mode is switched in place. Call after
         `cast_params_for_serving`. Returns the engine."""
         from dcnet_tpu_torch.ops import quant as Q
+        self._graphs = None   # the graphs hold the float tick
         model = self.model
         frames = torch.as_tensor(calib_frames, device=self.device)
         self.qparams = Q.quantize_model_backbone(model, frames)
@@ -206,9 +216,69 @@ class GroundingEngine:
         (state, fused_boxes (N, 4), raw_boxes (N, 4), scores (N,)).
         Predictions are valid once frames_seen >= n_frame. With
         `donate_state` (the default) the step writes the new frame into the
-        input state's rings: always continue from the returned state. On a
+        input state's rings, and on a card every tensor of the input state
+        may be overwritten: always continue from the returned state. On a
         mesh, frames are every stream's and the outputs too (this rank's
-        streams ticked, the rest all-gathered); the state is this rank's."""
+        streams ticked, the rest all-gathered); the state is this rank's.
+
+        Where `_graphable` holds, the tick replays its ring slot's CUDA
+        graph (the spans `engine.copy_in`, `engine.replay`; the model's
+        stage spans only on a slot's first, eager tick and on its capture);
+        elsewhere it runs `_tick`. The graphs are captured anew where the
+        frames, the state's shapes, `qparams`, `int8_chain`, the model's
+        trunk mode or, in int8 mode, what the trunk's constants are made
+        from (`set_trunk_scales`, a weight load) change."""
+        if not self._graphable():
+            return self._tick(state, frames)
+        return self._replayed_tick(state, on_device(frames, self.device))
+
+    def _graphable(self) -> bool:
+        """Whether a tick may replay a CUDA graph: a CUDA model, no mesh
+        (its all-gathers and row windows stay eager), rotating rings (the
+        shift baseline rebuilds the rings), donated state (the graph writes
+        in place), and neither a `torch.export` / compile trace nor a
+        capture of the caller's running."""
+        return (self.device.type == "cuda" and self.mesh is None and self.rotate_rings
+                and self.donate_state and not torch.compiler.is_compiling()
+                and not torch.cuda.is_current_stream_capturing())
+
+    def _replayed_tick(self, state: StreamState, frames: torch.Tensor
+                       ) -> Tuple[StreamState, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The tick through the graph of its ring slot. The state and the
+        frames are copied into the engine's buffers where they are not
+        those already; a slot's first tick runs `_tick` eagerly on them (a
+        warm-up: cuDNN plans, cached tables, kernel plans and library loads
+        happen outside any capture), its second captures its graph, and
+        every tick from then on replays it. The outputs are cloned out of
+        the graphs' memory; the returned state holds the buffers."""
+        graphs = self._graphs
+        sig = _signature(self, state, frames)
+        if graphs is None or graphs.sig != sig:
+            graphs = self._graphs = _TickGraphs(sig, state, frames, self.qparams)
+        with trace_annotation("engine.copy_in"):
+            graphs.copy_in(state, frames)
+        slot = (state.slot + 1) % self.n_frame
+        entry = graphs.slots.get(slot)
+        if entry is None:
+            outs = graphs.warm_up(self._tick, state.slot)
+            graphs.slots[slot] = ()
+            return (graphs.state(slot), *(o.clone() for o in outs))
+        if not entry:
+            entry = graphs.slots[slot] = graphs.capture(self._tick, state.slot)
+            COUNTERS["graph_captures"] += 1
+        graph, outs, launches = entry
+        with trace_annotation("engine.replay"):
+            graph.replay()
+            for k, v in launches.items():
+                kernels.LAUNCHES[k] += v
+            COUNTERS["graph_replays"] += 1
+            return (graphs.state(slot), *(o.clone() for o in outs))
+
+    @torch.no_grad()
+    def _tick(self, state: StreamState, frames
+              ) -> Tuple[StreamState, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One tick, eagerly: `step`'s contract. `serving/export.py` traces
+        it."""
         model, cfg = self.model, self.cfg
         frames = on_device(frames, self.device)[self.shard]
 
@@ -284,6 +354,115 @@ class GroundingEngine:
         fused = torch.sum(w * valid[:, None, :] * picked, dim=2)  # (N, K)
         best = torch.argmax(fused, dim=1)
         return boxes[torch.arange(n, device=boxes.device), c, best]
+
+
+_STATE_FIELDS = ("cache_boxes", "cache_scores", "cache_feats", "frames_seen", "word_ids")
+
+
+def _state_tensors(state: StreamState) -> Tuple[torch.Tensor, ...]:
+    """Every tensor of a state, rings first, the language last."""
+    return (*state.feat_rings, *(getattr(state, k) for k in _STATE_FIELDS),
+            *state.language)
+
+
+def _signature(engine: GroundingEngine, state: StreamState, frames: torch.Tensor) -> tuple:
+    """What a tick's graphs are captured for: the shape, dtype and device
+    of the frames and of every state tensor (N among them), and what the
+    tick runs besides: the engine's int8 backbone (by identity; the graphs
+    keep it alive, so its id is not reused), its int8 chain, the model's
+    trunk mode (which another engine's `quantize()` may switch on a shared
+    model) and `_trunk_version`."""
+    return (id(engine.qparams), engine.int8_chain, engine.model.cfg.trunk_quant,
+            _trunk_version(engine), len(state.feat_rings), len(state.language)) + tuple(
+        (tuple(t.shape), t.dtype, t.device) for t in (*_state_tensors(state), frames))
+
+
+def _trunk_version(engine: GroundingEngine) -> int:
+    """In int8 trunk mode, the summed version counters of what the trunk's
+    cached constants are made from (0 otherwise): an in-place change, such
+    as `set_trunk_scales` or a weight load, makes the eager tick remake
+    them, while a graph would replay the ones its capture read. Inference
+    tensors keep no counter; the trunk then remakes its constants on every
+    call, inside the graph too."""
+    if engine.model.cfg.trunk_quant != "int8":
+        return 0
+    if engine._trunk_srcs is None:
+        from dcnet_tpu_torch.ops import quant as Q
+        engine._trunk_srcs = tuple(t for t in Q.trunk_sources(engine.model)
+                                   if not t.is_inference())
+    return sum(t._version for t in engine._trunk_srcs)
+
+
+class _TickGraphs:
+    """The replayed ticks of one signature (`_signature`; `qparams` is the
+    int8 backbone it names, kept alive): the frames buffer and one buffer
+    for each state tensor, allocated outside any graph's pool (their
+    addresses never move), a side stream to warm up and capture on (CUDA
+    graphs are not captured on the default stream), and per ring slot
+    (`slots`, keyed by the slot the tick writes) `()` once its eager tick
+    ran, then its graph, the graph's outputs and the kernel launches its
+    capture counted. The graphs share one memory pool: a replay's outputs
+    are cloned before the next replay."""
+
+    def __init__(self, sig: tuple, state: StreamState, frames: torch.Tensor, qparams):
+        self.sig, self.qparams = sig, qparams
+        self.n_rings = len(state.feat_rings)
+        self.frames = torch.empty_like(frames, memory_format=torch.contiguous_format)
+        self.bufs = tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                          for t in _state_tensors(state))
+        self.side = torch.cuda.Stream(frames.device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.slots: dict = {}
+
+    def copy_in(self, state: StreamState, frames: torch.Tensor) -> None:
+        """The frames, and each state tensor that is not its buffer, into
+        the buffers (device copies on the current stream)."""
+        self.frames.copy_(frames)
+        self.store(state)
+
+    def store(self, state: StreamState) -> None:
+        """Each tensor of `state` that is not its buffer, into the buffer."""
+        for buf, t in zip(self.bufs, _state_tensors(state)):
+            if t is not buf:
+                buf.copy_(t)
+
+    def state(self, slot: int) -> StreamState:
+        """The state the buffers hold, its newest frame in `slot`."""
+        r = self.n_rings
+        rest = dict(zip(_STATE_FIELDS, self.bufs[r:r + len(_STATE_FIELDS)]))
+        return StreamState(feat_rings=self.bufs[:r], slot=slot,
+                           language=self.bufs[r + len(_STATE_FIELDS):], **rest)
+
+    def run(self, tick, slot: int) -> Tuple[torch.Tensor, ...]:
+        """`tick` on the buffers (the state's newest frame in `slot`), its
+        new state written back into them; returns its three outputs."""
+        new, *outs = tick(self.state(slot), self.frames)
+        self.store(new)
+        return tuple(outs)
+
+    def warm_up(self, tick, slot: int) -> Tuple[torch.Tensor, ...]:
+        """`run(tick, slot)` eagerly on the side stream, where the capture
+        will run (what a first call sets up per stream, such as cuBLAS's
+        workspace, then exists before the capture), ordered after the
+        current stream's work and before its later work."""
+        cur = torch.cuda.current_stream(self.frames.device)
+        self.side.wait_stream(cur)
+        with torch.cuda.stream(self.side):
+            outs = self.run(tick, slot)
+        cur.wait_stream(self.side)
+        return outs
+
+    def capture(self, tick, slot: int):
+        """The graph of `run(tick, slot)`, captured on the side stream into
+        the shared pool: (graph, its outputs, the launches it holds). The
+        capture's own count of launches is taken back: a replay adds it."""
+        before = dict(kernels.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.side):
+            outs = self.run(tick, slot)
+        launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+        kernels.LAUNCHES.update(before)
+        return graph, outs, launches
 
 
 def _stream_shard(n_streams: int, mesh) -> slice:

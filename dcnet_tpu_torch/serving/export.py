@@ -2,9 +2,10 @@
 `torch.export` programs, served without the model code. The port of
 `dcnet_tpu/serving/export.py`.
 
-`export_engine` traces the engine's `step` (rotating rings, the slot a
-dynamic integer input, the rings written in place as the engine writes
-them with `donate_state`) and `encode_language` (the BiLSTM or the BERT
+`export_engine` traces the engine's eager tick (`GroundingEngine._tick`,
+never its CUDA graphs: rotating rings, the slot a dynamic integer input,
+the rings written in place as the engine writes them with
+`donate_state`) and `encode_language` (the BiLSTM or the BERT
 encoder) with `torch.export`, and writes them with `torch.export.save`
 beside a `meta.json` that has the JAX bundle's keys. The hand-written
 kernels are registered operators (`dcnet::attend`, `dcnet::ring`,
@@ -52,8 +53,8 @@ _PREFIX = "model."  # the programs' parameters sit under the model's names
 
 
 class _Tick(nn.Module):
-    """The engine's step over flat arguments, for `torch.export`: the
-    rings are written in place, the slot is the state's (an integer)."""
+    """The engine's eager tick over flat arguments, for `torch.export`:
+    the rings are written in place, the slot is the state's (an integer)."""
 
     def __init__(self, engine):
         super().__init__()
@@ -64,7 +65,7 @@ class _Tick(nn.Module):
                 word_ids, language, frames, slot: int):
         state = StreamState(tuple(rings), cache_boxes, cache_scores, cache_feats,
                             frames_seen, word_ids, tuple(language), slot)
-        new, fused, raw, score = self.engine.step(state, frames)
+        new, fused, raw, score = self.engine._tick(state, frames)
         return (new.cache_boxes, new.cache_scores, new.cache_feats, new.frames_seen,
                 fused, raw, score)
 
@@ -111,7 +112,7 @@ def export_engine(engine, out_dir: str, warmup_frames: Optional[torch.Tensor] = 
     try:
         with torch.no_grad():
             state = engine.init_state(ids)
-            engine.step(state, frames)                 # fills the int8 constants
+            engine._tick(state, frames)                # fills the int8 constants
             state = engine.init_state(ids)
             lang = torch.export.export(_Language(model).eval(), (ids,), strict=False)
             args = (list(state.feat_rings), state.cache_boxes, state.cache_scores,

@@ -13,7 +13,10 @@
   `torch.compile`) a span does nothing. `record_spans(False)` stops the
   recording; `stage_ms`, `root_calls` and `stage_table` read the ring.
 - `COUNTERS["host_syncs"]`: the host's waits on the card, counted where
-  the program makes them (`count_sync`).
+  the program makes them (`count_sync`); `COUNTERS["graph_replays"]` and
+  `COUNTERS["graph_captures"]`: the served ticks that replayed a CUDA graph,
+  and the graphs captured (`serving/engine.py`, which adds a graph's
+  captured kernel launches to `kernels.LAUNCHES` at each replay).
 - `device_trace(log_dir)`: torch.profiler over a block, CPU plus CUDA on a
   card, writing a Chrome trace into `log_dir` (`cli/train.py --profile_dir`).
 - `summarize_trace(logdir)`: the newest Chrome trace under `logdir` as a
@@ -53,7 +56,7 @@ from dcnet_tpu_torch import DeviceLike, kernels
 
 SPAN_RING = 65536
 SPANS: Deque["trace_annotation"] = collections.deque(maxlen=SPAN_RING)
-COUNTERS: Dict[str, int] = {"host_syncs": 0}
+COUNTERS: Dict[str, int] = {"host_syncs": 0, "graph_replays": 0, "graph_captures": 0}
 # a program span's name: <layer>.<stage>, lower case (PyTorch's own
 # annotations, such as `Optimizer.step#RMSprop.step` or `ProfilerStep#2`,
 # are not)
@@ -105,7 +108,9 @@ class trace_annotation:
     On exit the span itself is appended to `SPANS` as its record: `name`,
     `parent` (the innermost span open around it in this thread, or None),
     `root` (the outermost; a root span is its own), `t0` / `t1` in
-    `time.perf_counter_ns()`, `profiled` (a torch.profiler session was
+    `time.perf_counter_ns()` (read first on entry, by a decorated function
+    before it makes its span, and last before the record is appended),
+    `profiled` (a torch.profiler session was
     recording at its start), `counts` (root spans only: the change of every
     `COUNTERS` and `kernels.LAUNCHES` key over the call) and `events` (a
     CUDA event pair on the current stream where `device` is a card, none
@@ -122,6 +127,9 @@ class trace_annotation:
         self.profiled = self._on = False
 
     def __enter__(self) -> "trace_annotation":
+        # the readings bracket the span's own bookkeeping, so that a root
+        # span covers all but a few us of its caller's reading of the call
+        t0 = time.perf_counter_ns()
         if not _recording or torch.compiler.is_compiling():
             return self
         stack = _OPEN.stack
@@ -142,13 +150,12 @@ class trace_annotation:
             self.events[0].record(torch.cuda.current_stream(dev))
         stack.append(self)
         self._on = True
-        self.t0 = time.perf_counter_ns()
+        self.t0 = t0
         return self
 
     def __exit__(self, *exc) -> bool:
         if not self._on:
             return False
-        self.t1 = time.perf_counter_ns()
         self._on = False
         if self.events is not None:
             self.events[1].record(torch.cuda.current_stream(self.device))
@@ -161,6 +168,7 @@ class trace_annotation:
         if self._mirror is not None:
             self._mirror.__exit__(*exc)
             self._mirror = None
+        self.t1 = time.perf_counter_ns()
         SPANS.append(self)
         return False
 
@@ -169,7 +177,9 @@ class trace_annotation:
 
         @functools.wraps(fn)
         def spanned(*args, **kwargs):
-            with trace_annotation(name, device):
+            t0 = time.perf_counter_ns()    # before the span object is made
+            with trace_annotation(name, device) as span:
+                span.t0 = t0
                 return fn(*args, **kwargs)
         return spanned
 

@@ -697,12 +697,15 @@ def _syncs(fn):
     return out, found
 
 
-@pytest.mark.parametrize("path", ["train", "tick", "eval"])
+@pytest.mark.parametrize("path", ["train", "tick", "tick_eager", "eval"])
 def test_host_syncs_count_every_wait_on_the_card(card, path):
     """The synchronising calls of one train step, one served tick and one
-    `eval_clip` with its decode (each after a first, warming call), against
-    the `host_syncs` their root spans counted: equal in the step, none in
-    the tick and the eval call."""
+    `eval_clip` with its decode (each after a first, warming call; the
+    graphed tick after its slot's warm-up and capture, so a replay; the
+    eager tick on an engine with `donate_state=False`), against the
+    `host_syncs` their root spans counted: equal in the step, none in the
+    ticks and the eval call. A replayed tick's spans are `engine.copy_in`
+    and `engine.replay` alone."""
     from dcnet_tpu_torch.config import DCNetConfig
     from dcnet_tpu_torch.models.darknet import mini_backbone_defs
     from dcnet_tpu_torch.models.dcnet import DCNet
@@ -726,14 +729,20 @@ def test_host_syncs_count_every_wait_on_the_card(card, path):
 
         def call():
             return train_step(state, batch)
-    elif path == "tick":
-        eng = GroundingEngine(model, n_streams=4, int8_rings=True)
+    elif path in ("tick", "tick_eager"):
+        eng = GroundingEngine(model, n_streams=4, int8_rings=True,
+                              donate_state=path == "tick")
         box = {"state": eng.init_state(ids)}
         frames = torch.rand(4, 64, 64, 3, generator=gen).to(card)
         roots = ("engine.step",)
 
         def call():
+            # each call writes the same ring slot: the graphed engine's
+            # first call warms the slot up, its second captures the slot's
+            # graph, its third replays it
+            slot = box["state"].slot
             box["state"], *out = eng.step(box["state"], frames)
+            box["state"] = box["state"]._replace(slot=slot)
             return out
     else:
         images = torch.rand(20, 64, 64, 3, generator=gen).to(card)
@@ -742,10 +751,161 @@ def test_host_syncs_count_every_wait_on_the_card(card, path):
         def call():
             return decode_best(model.eval_clip(images, ids).outbox, cfg)
     call()
+    if path == "tick":
+        call()
     _, syncs = _syncs(call)
     counted = sum(profiling.root_calls(r, 1)[0].counts["host_syncs"] for r in roots)
     assert len(syncs) == counted, "\n".join(syncs)
     assert counted == (10 if path == "train" else 0), "\n".join(syncs)
+    if path.startswith("tick"):
+        root = profiling.root_calls("engine.step", 1)[0]
+        replayed = path == "tick"
+        assert root.counts["graph_replays"] == replayed
+        assert root.counts["graph_captures"] == 0
+        assert (eng._graphs is not None) == replayed
+        if replayed:   # no host stage runs in a replayed tick
+            assert [s.name for s in sorted((s for s in profiling.SPANS if s.root is root),
+                                           key=lambda s: s.t0)] == [
+                "engine.step", "engine.copy_in", "engine.replay"]
+
+
+def _serving_model(card, **over):
+    """A mini bf16 model on the card, multiref, cast as for serving."""
+    from dcnet_tpu_torch.config import DCNetConfig
+    from dcnet_tpu_torch.models.darknet import mini_backbone_defs
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.serving.engine import cast_params_for_serving
+    from dcnet_tpu_torch.weights import seeded_init_
+
+    cfg = DCNetConfig(image_size=64, corpus_size=50, emb_size=64, lstm_hidden=64,
+                      word_embedding_size=64, coattn_multiref=True,
+                      compute_dtype="bfloat16", **over)
+    model = seeded_init_(DCNet(cfg, backbone_defs=mini_backbone_defs(), device=card), seed=0)
+    return cast_params_for_serving(model)
+
+
+def _state_equal(a, b) -> bool:
+    from dcnet_tpu_torch.serving.engine import _state_tensors
+    return a.slot == b.slot and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(_state_tensors(a), _state_tensors(b), strict=True))
+
+
+GRAPH_TICKS = 12
+
+
+@pytest.mark.parametrize("int8_rings", [False, True], ids=["float_rings", "int8_rings"])
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_graphed_ticks_equal_the_eager_engine_bitwise(card, quantized, int8_rings, tmp_path):
+    """12 ticks of the default engine, which replays a CUDA graph per ring
+    slot (every slot replayed at least once), against an eager engine
+    (`donate_state=False`) on the same model, bf16 or after `quantize()`:
+    outputs and state bitwise each tick, through an `update_queries` on
+    half the streams before tick 7 and a saved and reloaded state before
+    tick 9; the same kernel launches each tick; n_frame captures and
+    ticks - n_frame replays (a capturing tick replays too)."""
+    import numpy as np
+
+    from dcnet_tpu_torch.serving.engine import (GroundingEngine, load_stream_state,
+                                                save_stream_state)
+    from dcnet_tpu_torch.utils.profiling import COUNTERS
+
+    model = _serving_model(card)
+    n = 6
+    gen = torch.Generator().manual_seed(13)
+    ids = torch.randint(1, 50, (n, 20), generator=gen)
+    ids_b = torch.randint(1, 50, (n, 20), generator=gen)
+    frames = torch.rand(GRAPH_TICKS, n, 64, 64, 3, generator=gen).to(card)
+    engines = {"graphed": GroundingEngine(model, n, int8_rings=int8_rings),
+               "eager": GroundingEngine(model, n, int8_rings=int8_rings, donate_state=False)}
+    if quantized:
+        engines["graphed"].quantize(torch.rand(8, 64, 64, 3, generator=gen).to(card), ids[:1])
+        engines["eager"].qparams = engines["graphed"].qparams
+    states = {k: e.init_state(ids) for k, e in engines.items()}
+    before = dict(COUNTERS)
+    for t in range(GRAPH_TICKS):
+        if t == 7:
+            mask = np.arange(n) % 2 == 0
+            states = {k: e.update_queries(states[k], ids_b, mask=mask)
+                      for k, e in engines.items()}
+        if t == 9:
+            save_stream_state(str(tmp_path / "state.npz"), states["graphed"])
+            states["graphed"] = load_stream_state(str(tmp_path / "state.npz"), card)
+        outs, launches = {}, {}
+        for k, e in engines.items():
+            b = dict(kernels.LAUNCHES)
+            states[k], *outs[k] = e.step(states[k], frames[t])
+            launches[k] = {key: kernels.LAUNCHES[key] - b[key] for key in b}
+        assert launches["graphed"] == launches["eager"], f"tick {t}"
+        assert launches["graphed"]["coattn_ring"] == 3
+        if quantized:
+            assert kernels.conv_s8_launches(launches["graphed"]) > 0
+        assert all(torch.equal(a, b) for a, b in zip(outs["graphed"], outs["eager"])), t
+        assert _state_equal(states["graphed"], states["eager"]), f"tick {t}"
+    n_frame = engines["graphed"].n_frame
+    assert COUNTERS["graph_captures"] - before["graph_captures"] == n_frame
+    assert COUNTERS["graph_replays"] - before["graph_replays"] == GRAPH_TICKS - n_frame
+    assert engines["eager"]._graphs is None
+
+
+def test_new_trunk_scales_drop_the_graphs(card):
+    """After `quantize()`, every slot captured and replayed, new int8 trunk
+    scales loaded in place (`set_trunk_scales`) on the shared model: the
+    graphed engine ticks eagerly again, bitwise the eager engine's on the
+    new scales, rather than replay the constants its captures read."""
+    from dcnet_tpu_torch.ops import quant as Q
+    from dcnet_tpu_torch.serving.engine import GroundingEngine
+    from dcnet_tpu_torch.utils.profiling import COUNTERS
+
+    model = _serving_model(card)
+    n, reload = 6, 10
+    gen = torch.Generator().manual_seed(19)
+    ids = torch.randint(1, 50, (n, 20), generator=gen)
+    frames = torch.rand(GRAPH_TICKS, n, 64, 64, 3, generator=gen).to(card)
+    engines = {"graphed": GroundingEngine(model, n),
+               "eager": GroundingEngine(model, n, donate_state=False)}
+    engines["graphed"].quantize(torch.rand(8, 64, 64, 3, generator=gen).to(card), ids[:1])
+    engines["eager"].qparams = engines["graphed"].qparams
+    states = {k: e.init_state(ids) for k, e in engines.items()}
+    before = dict(COUNTERS)
+    for t in range(GRAPH_TICKS):
+        if t == reload:
+            Q.set_trunk_scales(model, {k: v * 1.5 for k, v in Q.trunk_scales(model).items()})
+        outs = {}
+        for k, e in engines.items():
+            states[k], *outs[k] = e.step(states[k], frames[t])
+        assert all(torch.equal(a, b) for a, b in zip(outs["graphed"], outs["eager"])), t
+        assert _state_equal(states["graphed"], states["eager"]), f"tick {t}"
+    n_frame = engines["graphed"].n_frame
+    assert COUNTERS["graph_captures"] - before["graph_captures"] == n_frame
+    assert COUNTERS["graph_replays"] - before["graph_replays"] == reload - n_frame
+
+
+def test_exported_tick_equals_the_graphed_engine_bitwise(card, tmp_path):
+    """The exported tick (`export_engine`, which traces the eager tick),
+    served by `ServingRuntime` from the live engine's first state, against
+    the live engine replaying its graphs: outputs bitwise over 12 ticks."""
+    from dcnet_tpu_torch.serving.engine import GroundingEngine
+    from dcnet_tpu_torch.serving.export import ServingRuntime, export_engine
+    from dcnet_tpu_torch.utils.profiling import COUNTERS
+
+    n = 6
+    gen = torch.Generator().manual_seed(17)
+    ids = torch.randint(1, 50, (n, 20), generator=gen)
+    frames = torch.rand(GRAPH_TICKS, n, 64, 64, 3, generator=gen).to(card)
+    eng = GroundingEngine(_serving_model(card), n, int8_rings=True)
+    export_engine(eng, str(tmp_path))
+    rt = ServingRuntime(str(tmp_path), device=card)
+    live = eng.init_state(ids)
+    served = live._replace(**{k: (tuple(x.clone() for x in v) if isinstance(v, tuple)
+                                  else v.clone())
+                              for k, v in live._asdict().items() if k != "slot"})
+    replays = COUNTERS["graph_replays"]
+    for t in range(GRAPH_TICKS):
+        live, *got = eng.step(live, frames[t])
+        served, *want = rt.step(served, frames[t])
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), f"tick {t}"
+    assert COUNTERS["graph_replays"] - replays == GRAPH_TICKS - eng.n_frame
 
 
 _BLOCK_CODE = {"block": 0, "wgmma": 1, "tf32x3": 2, "wide": 3, "wgmma_s8": 4}

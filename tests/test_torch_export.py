@@ -241,7 +241,14 @@ def bundles(tmp_path_factory):
     # a float engine, int8 rings on K4
     eng = GroundingEngine(_model(3, coattn_multiref=True), n_streams=N, topk=TOPK,
                           fuse_window=WINDOW, int8_rings=True)
-    meta = export.export_engine(eng, str(work / "float_multiref"))
+    called = {"step": 0, "_tick": 0}
+    with pytest.MonkeyPatch.context() as mp:
+        for name in called:
+            real_fn = getattr(GroundingEngine, name)
+            mp.setattr(GroundingEngine, name,
+                       lambda self, *a, _n=name, _f=real_fn: called.update(
+                           {_n: called[_n] + 1}) or _f(self, *a))
+        meta = export.export_engine(eng, str(work / "float_multiref"))
     live = {"float_multiref": _live(eng, frames, ids)}
     other = GroundingEngine(_model(4, coattn_multiref=True), n_streams=N, topk=TOPK,
                             fuse_window=WINDOW, int8_rings=True)
@@ -274,7 +281,7 @@ def bundles(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr[-3000:]
     served = dict(np.load(str(work / "served.npz")))
     report = json.loads(proc.stdout.splitlines()[-1])
-    return dict(live=live, served=served, modules=report["modules"],
+    return dict(live=live, served=served, modules=report["modules"], export_calls=called,
                 graphs=report["graphs"], work=work,
                 metas={"float_multiref": meta, "quant_k1": made["meta"]})
 
@@ -286,6 +293,13 @@ def test_runtime_serves_like_the_live_engine(bundles, name):
             np.testing.assert_allclose(bundles["served"][f"{name}/{k}/{t}"], w, **TOL,
                                        err_msg=f"{name} {k} tick {t}")
     assert int(bundles["served"][f"{name}/slot"]) == (TICKS - 1) % 5
+
+
+def test_export_traces_the_eager_tick(bundles):
+    """`export_engine` calls the engine's eager `_tick` (the warm-up and the
+    trace), never `step`, which may replay CUDA graphs."""
+    calls = bundles["export_calls"]
+    assert calls["step"] == 0 and calls["_tick"] >= 2, calls
 
 
 def test_runtime_imports_no_model_code(bundles):

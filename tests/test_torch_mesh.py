@@ -62,9 +62,11 @@ from dcnet_tpu_torch.models.dcnet import DCNet
 from dcnet_tpu_torch.ops.coattention import coattention_center, coattention_pair
 from dcnet_tpu_torch.parallel import mesh
 from dcnet_tpu_torch.serving import engine as pengine
+from dcnet_tpu_torch.utils.profiling import COUNTERS
 from dcnet_tpu_torch.weights import seeded_init_
 from tests.test_torch_parallel import (
     CPU, GRAD_ABS, GRAD_REL, TRAIN, _batch, _grads_close, _negatives, _step)
+from tests.test_torch_serving import _graphable_on_a_card
 
 RANKS = 2
 TOL = dict(rtol=1e-5, atol=1e-6)   # tests/test_torch_coattn.py, test_torch_train_kernels.py
@@ -200,10 +202,16 @@ def _engines(rank: int, out: str) -> dict:
     m = mesh.make_mesh(2, 1)
     mesh.barrier()
     eng = pengine.GroundingEngine(model, STREAMS, topk=3, fuse_window=3, mesh=m)
+    replays = COUNTERS["graph_replays"]
     _, got = _serve(eng, save=os.path.join(out, "pair.npz"), m=m)
     resumed = pengine.load_stream_state(os.path.join(out, "one.npz"), CPU, mesh=m)
     _, from_one = _serve(eng, state=resumed, start=SAVE_AT)
-    res = {"want": want, "mesh": got, "pair_from_one": from_one}
+    res = {"want": want, "mesh": got, "pair_from_one": from_one,
+           "graphs": {"replays": COUNTERS["graph_replays"] - replays,
+                      "kept": eng._graphs is not None,
+                      "mesh": _graphable_on_a_card(eng),
+                      "no_mesh": _graphable_on_a_card(pengine.GroundingEngine(
+                          model, STREAMS, topk=3, fuse_window=3))}}
     if rank == 0:
         state = pengine.load_stream_state(os.path.join(out, "pair.npz"), CPU)
         _, res["one_from_pair"] = _serve(plain, state=state, start=SAVE_AT)
@@ -302,6 +310,15 @@ def test_mesh_engine_matches_the_one_process_engine(ranks):
             for x, y in zip(a, b):
                 assert x.shape[0] == STREAMS
                 np.testing.assert_allclose(x, y, **ENGINE_TOL, err_msg=f"tick {t}")
+
+
+def test_mesh_engine_keeps_the_eager_tick(ranks):
+    """A mesh engine (its all-gathers, its streams' shards) never replays a
+    CUDA graph, on a card as here; the same engine without a mesh would."""
+    _, got = ranks
+    for r in got:
+        assert r["engine"]["graphs"] == {"replays": 0, "kept": False, "mesh": False,
+                                         "no_mesh": True}
 
 
 def test_stream_state_moves_between_one_and_two_processes(ranks):

@@ -319,6 +319,92 @@ def test_donated_state_is_written_in_place(setup, runs):
     assert t0.feat_rings[0].abs().sum() == 0 and t1.feat_rings[0].abs().sum() > 0
 
 
+def _graphable_on_a_card(eng) -> bool:
+    """`eng._graphable()` as the engine would answer on a card."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(engine.GroundingEngine, "device", torch.device("cuda"))
+        mp.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+        return eng._graphable()
+
+
+# name -> (engine keywords, whether a tick on a card replays a graph)
+GRAPH_CASES = {"default": (dict(), True),
+               "donate_state_false": (dict(donate_state=False), False),
+               "shift_rings": (dict(rotate_rings=False), False)}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_tick_replays_a_graph_only_where_one_is_sound(setup, case):
+    """On a card only the engine with rotating rings and donated state
+    replays CUDA graphs; on the CPU every engine ticks eagerly: no graph
+    kept, no replay counted, each tick bitwise the eager tick's."""
+    from dcnet_tpu_torch.utils.profiling import COUNTERS
+
+    _, frames, ids, _ = setup
+    kw, on_card = GRAPH_CASES[case]
+    eng = port_engine_for("multiref", setup[0], **kw)
+    twin = engine.GroundingEngine(eng.model, n_streams=N, n_frame=5, topk=TOPK,
+                                  fuse_window=WINDOW, **kw)
+    assert _graphable_on_a_card(eng) is on_card
+    before = dict(COUNTERS)
+    s_eng, s_twin = eng.init_state(ids), twin.init_state(ids)
+    for t in range(TICKS):
+        s_eng, *got = eng.step(s_eng, frames[t])
+        s_twin, *want = twin._tick(s_twin, frames[t])
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), f"tick {t}"
+        assert s_eng.slot == s_twin.slot
+    assert eng._graphs is None
+    assert COUNTERS["graph_replays"] == before["graph_replays"]
+    assert COUNTERS["graph_captures"] == before["graph_captures"]
+
+
+@pytest.mark.parametrize("trace", ["compiling", "capturing"])
+def test_no_graph_under_a_trace_or_a_capture(setup, trace, monkeypatch):
+    """Under a `torch.export` / compile trace, or inside a capture of the
+    caller's, even the default engine on a card ticks eagerly."""
+    eng = port_engine_for("multiref", setup[0])
+    monkeypatch.setattr(engine.GroundingEngine, "device", torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: trace == "capturing")
+    monkeypatch.setattr(torch.compiler, "is_compiling", lambda: trace == "compiling")
+    assert not eng._graphable()
+
+
+@pytest.mark.parametrize("change", ["qparams", "int8_chain", "trunk_mode", "trunk_scales",
+                                    "frames_dtype", "streams"])
+def test_a_changed_tick_misses_the_graphs_signature(setup, change, monkeypatch):
+    """The graphs are kept for one signature: the same tick on a new state
+    and new frames keeps it; a new int8 backbone, int8 chain, trunk mode of
+    the (shared) model, int8 trunk scales, frames' dtype or number of
+    streams misses it, so the engine captures anew rather than replay the
+    old tick."""
+    from dcnet_tpu_torch.ops import quant as Q
+
+    _, frames, ids, _ = setup
+    eng = port_engine_for("multiref", setup[0])
+    if change == "trunk_scales":
+        monkeypatch.setattr(eng.model, "cfg", eng.model.cfg.replace(trunk_quant="int8"))
+    state, fr = eng.init_state(ids), torch.from_numpy(frames[0])
+    sig = engine._signature(eng, state, fr)
+    assert engine._signature(eng, eng.init_state(ids), fr.clone()) == sig
+    if change == "qparams":
+        eng.qparams = {}
+    elif change == "int8_chain":
+        eng.int8_chain = True
+    elif change == "trunk_mode":
+        monkeypatch.setattr(eng.model, "cfg", eng.model.cfg.replace(trunk_quant="int8"))
+    elif change == "trunk_scales":
+        scales = Q.trunk_scales(eng.model)
+        Q.set_trunk_scales(eng.model, {k: v + 1 for k, v in scales.items()})
+        assert engine._signature(eng, state, fr) != sig
+        Q.set_trunk_scales(eng.model, scales)      # the values back: still a new version
+    elif change == "frames_dtype":
+        fr = fr.double()
+    else:
+        state = eng.init_state(ids[:-1])
+    assert engine._signature(eng, state, fr) != sig
+
+
 def test_fusion_ties_take_the_first_candidate(runs):
     """Before the center cache entry is filled (ticks 0 and 1) every
     candidate's fused score ties and the first candidate of the empty
