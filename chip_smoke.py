@@ -68,7 +68,13 @@ Phases, each printing JSON lines, any failure exiting non-zero:
      timed in bf16 out beside the plain version (at the headline shape),
      torch._int_mm (1x1) and cuDNN's bf16 convolution of the shape (a
      point of reference). The int8 and serving_int8 phases hold K6 again
-     at the path's own shapes and modes (`HeldK6`).
+     at the path's own shapes and modes (`HeldK6`). Then K7 (the eval
+     conv epilogue, no TPU kernel) at the served tick's maps (120 frames):
+     every distinct BatchNorm epilogue of the YOLOv3 backbone in bf16 bit
+     for bit against the unfused ops, the trunk's 512-channel maps, fp32
+     within `K7_FP32_ULPS`; timed beside the unfused ops, and summed over
+     one tick's 72 epilogues (`python3 chip_smoke.py --only bn_act` runs
+     this part alone).
   4. slice   -- the full-width 256 px model (YOLOv3 backbone from a seeded
      Darknet `.weights` file, the rest from a seeded torch.Generator)
      answers batches of 5-frame clips through eval_clip -> decode_best; the
@@ -245,6 +251,7 @@ except ImportError as e:  # run outside a checkout of the repository
              f"the root of a checkout")
 
 from dcnet_tpu_torch import kernels, native
+from dcnet_tpu_torch.kernels import bn_act as k_bn_act
 from dcnet_tpu_torch.kernels import build
 from dcnet_tpu_torch.kernels import coattn as k_coattn
 from dcnet_tpu_torch.kernels import conv_s8 as k_conv
@@ -503,7 +510,7 @@ def phase_device(dev) -> dict:
     return info
 
 
-K15_SOURCES = ("coattn", "coattn_bwd", "coattn_ring", "locgram")
+K15_SOURCES = ("coattn", "coattn_bwd", "coattn_ring", "locgram", "bn_act")
 K6_SOURCES = k_conv.ALL_SOURCES
 # TF32_MMA: tensor-core instructions with a TF32 operand (HMMA.1688.F32.TF32
 # of mma.sync, or HGMMA ... TF32); IGMMA and UTMALDG: K6's main route (wgmma
@@ -581,6 +588,7 @@ def phase_build() -> concurrent.futures.Future:
     k_coattn._bwd_lib()
     k_coattn._ring_lib()
     k_locgram._lib()
+    k_bn_act._lib()
     seconds = time.perf_counter() - t0
     _print_build_lines(K15_SOURCES)
     counted = [n for n in K15_SOURCES if n in SASS_COUNTED]
@@ -1616,8 +1624,125 @@ class HeldK6:
                 "quant_passes": self.quant_passes, "bitwise_equal": True}
 
 
+# K7 against the unfused ops at the served tick's maps (SERVE_STREAMS frames
+# at 256 px): each distinct BatchNorm epilogue of the float YOLOv3 backbone
+# (`bn_act_epilogues`: 72 convs, 23 with the shortcut after them folded) in
+# bf16, bit for bit; then the trunk's 512-channel maps (side, C, act,
+# residual) with every activation, and fp32 at three maps (the fp32 eval
+# path's), within K7_FP32_ULPS units in the last place of fp32 at the
+# magnitude of each output's sums (`bn_act_ulps`). On a 4-D fp32 map
+# PyTorch's BatchNorm is cuDNN's, fma(y, a, b - mean a) with a = w / sqrt(var
+# + eps), whose roundings differ from K7's fma(w (y - mean), 1 / sqrt(var +
+# eps), b): each of the five or so is at most a unit or two of the output's
+# sums. The H100 reads at most 5 units over 63M elements (3-4 on the card
+# tests' maps); the limit rejects the same output rounded through bf16
+# (about 2^16 units, checked per case).
+K7_TRUNK = ((32, 512, "leaky", False), (16, 512, "relu", False), (8, 512, None, True))
+K7_FP32 = ((64, 128, "leaky", True), (32, 512, "relu", False), (8, 1024, None, True))
+K7_FP32_ULPS = 8.0
+
+
+def bn_act_epilogues(defs, size: int) -> list:
+    """(side, C, act, residual) of each BatchNorm epilogue of the float
+    backbone's eval forward (`DarknetBackbone.forward`, every conv) on
+    size x size images, in layer order: act "leaky" or None, residual
+    where the shortcut after the conv folds into it."""
+    from dcnet_tpu_torch.models.darknet import _folded_shortcuts, _referenced_outputs
+    from dcnet_tpu_torch.ops.quant import conv_shapes
+    fold = _folded_shortcuts(defs, _referenced_outputs(defs))
+    return [((side + 2 * pad - k) // stride + 1, co,
+             "leaky" if defs[i].activation == "leaky" else None, i in fold)
+            for i, k, stride, pad, _, co, side in conv_shapes(defs, size)
+            if defs[i].batch_normalize]
+
+
+def bn_act_ulps(got, want, y, params, eps, residual=None) -> torch.Tensor:
+    """|got - want| of a BatchNorm epilogue in units in the last place of
+    got's dtype at the magnitude of the sums that made want: want, the
+    affine's terms y a, mean a and the bias (a = weight / sqrt(var + eps))
+    and the residual. A sum that cancels keeps the rounding error of its
+    terms."""
+    mean, var, weight, bias = (p.float() for p in params)
+    a = weight * torch.rsqrt(var + eps)
+    mag = torch.maximum(want.float().abs(), (y.float() * a).abs())
+    mag = torch.maximum(mag, torch.maximum(bias.abs(), (mean * a).abs()))
+    if residual is not None:
+        mag = torch.maximum(mag, residual.float().abs())
+    bits = 7 if got.dtype == torch.bfloat16 else 23
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126))) - bits)
+    return (got.float() - want.float()).abs() / ulp
+
+
+def kernel_cases_k7(dev) -> list:
+    """K7 at the tick's maps against `bn_act_plain` (the unfused ops) on
+    the same card, timed against them; the headline case (the first
+    conv's 256 x 256 x 32) carries the sums over one bf16 tick's 72
+    epilogues under "tick"."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tick = bn_act_epilogues(_defs(), 256)
+    per_tick = {e: tick.count(e) for e in tick}
+    todo = ([(torch.bfloat16, e, n) for e, n in per_tick.items()]
+            + [(torch.bfloat16, e, 0) for e in K7_TRUNK]
+            + [(torch.float32, e, 0) for e in K7_FP32])
+    cases = []
+    for dtype, (side, c, act, res), n in todo:
+        b = SERVE_STREAMS
+        params = ((0.5 * torch.randn(c, device=dev, generator=gen)),
+                  torch.rand(c, device=dev, generator=gen) + 0.25,
+                  1 + 0.2 * torch.randn(c, device=dev, generator=gen),
+                  0.3 * torch.randn(c, device=dev, generator=gen))
+        y = (2 * torch.randn((b, side, side, c), device=dev, generator=gen)).to(dtype)
+        r = torch.randn(y.shape, device=dev, generator=gen).to(dtype) if res else None
+        with torch.no_grad():
+            got = k_bn_act.bn_act(y, *params, 1e-5, act, r)
+            want = k_bn_act.bn_act_plain(y, *params, 1e-5, act, r)
+            ulps = bn_act_ulps(got, want, y, params, 1e-5, r)
+            rec = {"phase": "kernel", "name": "bn_act",
+                   "dtype": str(dtype).replace("torch.", ""), "B": b, "P": side * side,
+                   "side": side, "C": c, "act": act, "residual": res, "per_tick": n,
+                   "bitwise_equal": torch.equal(got, want),
+                   "differ_share": (got != want).float().mean().item(),
+                   "max_abs_err": (got.float() - want.float()).abs().max().item(),
+                   "max_ulps": ulps.max().item(),
+                   "limit_ulps": 0.0 if dtype == torch.bfloat16 else K7_FP32_ULPS,
+                   "limits_reject_bf16": None}
+            if dtype == torch.bfloat16:
+                rec["ok"] = rec["bitwise_equal"]
+            else:
+                rec["limits_reject_bf16"] = bn_act_ulps(
+                    got.to(torch.bfloat16).float(), want, y, params, 1e-5,
+                    r).max().item() > K7_FP32_ULPS
+                rec["ok"] = rec["max_ulps"] <= K7_FP32_ULPS and rec["limits_reject_bf16"]
+            del got, want, ulps
+            iters = 20
+            rec.update(timer="device", ms=device_ms(
+                lambda: k_bn_act.bn_act(y, *params, 1e-5, act, r), iters),
+                plain_ms=device_ms(
+                    lambda: k_bn_act.bn_act_plain(y, *params, 1e-5, act, r), iters),
+                library_ms=None, body=None, bound_by="bytes",
+                bound_ms=1e3 * y.numel() * y.element_size() * (3 if res else 2)
+                / PEAK_BYTES)
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"bn_act disagrees with the unfused ops: {rec}")
+        cases.append(rec)
+        del y, r
+    head = next(c for c in cases if _headline("bn_act", c))
+    head["tick"] = {"frames": SERVE_STREAMS, "epilogues": len(tick),
+                    "folded": sum(e[3] for e in tick),
+                    **{k: sum(c["per_tick"] * c[k] for c in cases)
+                       for k in ("ms", "plain_ms", "bound_ms")}}
+    emit({"phase": "kernel", "name": "bn_act_tick", **head["tick"]})
+    return cases
+
+
+def phase_bn_act(dev) -> dict:
+    """K7's part of the kernel phase alone (`--only bn_act`)."""
+    return {"cases": kernel_cases_k7(dev)}
+
+
 def phase_kernel(dev, k6_build: concurrent.futures.Future):
-    """K1-K6 against their plain versions on the card (K6 once its
+    """K1-K7 against their plain versions on the card (K6 once its
     background build is done, `finish_k6_build`); returns the case records
     and the launches of the kernels that run on no path, those of the
     kernel phase's checked calls: K5's (one a case) and PR 9's gather
@@ -1635,6 +1760,7 @@ def phase_kernel(dev, k6_build: concurrent.futures.Future):
     k5_cases, k5_launches = kernel_cases_k5(dev, gen)
     finish_k6_build(k6_build)
     cases += kernel_cases_k6(dev, gen)
+    cases += kernel_cases_k7(dev)
     kernels.reset_launches()  # the comparison launches above do not count
     off_path = {"loc_gram": k5_launches,
                 "conv_s8_gather": sum(c["launches"] for c in cases
@@ -1878,6 +2004,19 @@ def trunk_k6_per_call(cfg, references: int = 4) -> int:
     else:
         corr = 2 if (cfg.coattn_batch_refs or cfg.coattn_multiref) else 1 + references
     return 3 + 3 * corr + 3 * (1 if cfg.light else 4)
+
+
+def bn_act_per_call(cfg, references: int = 4, defs=None) -> int:
+    """K7 launches of a float eval call (an eval_clip, a served tick, an
+    eval-mode forward): one per BatchNorm conv of the float backbone (of
+    `defs`, YOLOv3's by default), which runs every conv, each folding the
+    shortcut after it; mapping_visu 3; corr_conv per scale 1 with stacked
+    references under the split (coattn_batch_refs or coattn_multiref),
+    else one per reference; the fcn's ConvBNReLUs 4 (light 1) per scale."""
+    convs = sum(ld.batch_normalize for ld in (defs or _defs())
+                if ld.type in ("convolutional", "yoloconvolutional"))
+    stacked = cfg.split_corr_conv and (cfg.coattn_batch_refs or cfg.coattn_multiref)
+    return convs + 3 + 3 * (1 if stacked else references) + 3 * (1 if cfg.light else 4)
 
 
 def backbone_k6_per_call() -> int:
@@ -2565,9 +2704,9 @@ def phase_bert(dev, lstm_eval: dict, lstm_train: dict) -> dict:
             raise AssertionError("BERT eval_clip outputs not finite")
     torch.cuda.synchronize()
     eval_launches = dict(kernels.LAUNCHES)
-    if launches_differ(eval_launches, {"coattn_attend": 36}):
+    if launches_differ(eval_launches, {"coattn_attend": 36, "bn_act": 3 * bn_act_per_call(cfg)}):
         raise AssertionError(f"BERT eval_clip launches {eval_launches}, expected K1 12 "
-                             f"a call (36)")
+                             f"a call (36), K7 {bn_act_per_call(cfg)} a call")
 
     # --- card against CPU in fp32 --------------------------------------------
     images, ids = request(2)
@@ -2808,7 +2947,9 @@ def phase_train_cli(dev) -> dict:
                 base + flags + ["--nb_epoch", "2", "--savename", f"{enc}_full"],
                 profile=enc == "lstm")
             want = {"coattn_pair": 3 * (calls["train_step"] + calls["eval_step"]),
-                    "coattn_attend_bwd": 6 * calls["train_step"]}
+                    "coattn_attend_bwd": 6 * calls["train_step"],
+                    "bn_act": bn_act_per_call(full_width_config(), references=1)
+                    * calls["eval_step"]}
             if calls["train_step"] != 2 * TCLI_STEPS or launches_differ(launches, want):
                 raise AssertionError(f"cli.train {enc}: {calls} steps, launches {launches}, "
                                      f"expected {want}")
@@ -3100,7 +3241,8 @@ def phase_serving(dev, profile_dir=None) -> dict:
                                    frames_at, swap=(SWAP_TICK, swap_ids, swap_mask))
     main_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    _expect_launches(per_tick, {"coattn_ring": 3}, "serving, multiref")
+    k7 = bn_act_per_call(cfg)
+    _expect_launches(per_tick, {"coattn_ring": 3, "bn_act": k7}, "serving, multiref")
     _finite(outs, "serving, multiref")
     seen = state.frames_seen.cpu().numpy()
     if not ((seen == np.where(swap_mask, SERVE_TICKS - SWAP_TICK, SERVE_TICKS)).all()
@@ -3112,7 +3254,8 @@ def phase_serving(dev, profile_dir=None) -> dict:
     # --- the default K1 path and int8 rings ---------------------------------
     kernels.reset_launches()
     state, per_tick, outs = _serve(GroundingEngine(k1_model, n), ids, 6, frames_at)
-    _expect_launches(per_tick, {"coattn_attend": 12}, "serving, default K1 path")
+    _expect_launches(per_tick, {"coattn_attend": 12, "bn_act": k7},
+                     "serving, default K1 path")
     _finite(outs, "serving, default K1 path")
     k1_on_data = {"streams": n, "slot": state.slot, **check_k1_on_frames(
         state.feat_rings, cfg.coattn_temperature, state.slot)}
@@ -3120,7 +3263,8 @@ def phase_serving(dev, profile_dir=None) -> dict:
     kernels.reset_launches()
     state, per_tick, outs = _serve(GroundingEngine(model, n, int8_rings=True), ids,
                                    6, frames_at)
-    _expect_launches(per_tick, {"coattn_ring": 3}, "serving, multiref int8 rings")
+    _expect_launches(per_tick, {"coattn_ring": 3, "bn_act": k7},
+                     "serving, multiref int8 rings")
     _finite(outs, "serving, multiref int8 rings")
     if state.feat_rings[0].dtype != torch.int8:
         raise AssertionError("int8_rings engine wrote non-int8 rings")
@@ -4533,6 +4677,8 @@ def phase_serve_cli(dev) -> dict:
                 if quant:
                     want["k6_convs"] = backbone_k6_per_call() + trunk_k6_per_call(
                         serving_config())
+                else:
+                    want["bn_act"] = bn_act_per_call(serving_config())
                 for t, got in enumerate(card["launches"]):
                     if launches_differ({**got, "conv_s8_quant": 0}, want):
                         raise AssertionError(f"serve CLI {name}: tick {t} launched {got}")
@@ -5443,6 +5589,9 @@ KERNELS = (  # name, path it runs on, source, the TPU kernel it replaces
      "none: no TPU kernel; the JAX package's quantize step is XLA's "
      "clip(round(x * inv), -127, 127).astype(int8), dcnet_tpu/ops/quant.py:229 "
      "and dcnet_tpu/models/heads.py:121-132"),
+    ("bn_act", "serving", "dcnet_tpu_torch/csrc/bn_act.cu",
+     "none: no TPU kernel; XLA fuses the eval BatchNorm, the leaky ReLU and the "
+     "shortcut add into the conv, dcnet_tpu/models/darknet.py and dcnet_tpu/models/heads.py"),
 )
 
 
@@ -5458,6 +5607,9 @@ def _headline(name: str, case: dict) -> bool:
     if name in ("conv_s8_halo", "conv_s8_gather"):
         return (case["k"], case["stride"], case["Ci"], case["Co"], case["side"]) == \
             K6_HALO_HEADLINE
+    if name == "bn_act":
+        return (case["dtype"], case["side"], case["C"], case["per_tick"] > 0) == \
+            ("bfloat16", 256, 32, True)
     if name in ("conv_s8", "conv_s8_quant"):
         return (case["group"] == "backbone" and (case["k"], case["stride"], 1, case["Ci"],
                                                  case["Co"], case["side"]) == K6_HEADLINE)
@@ -5493,6 +5645,7 @@ def kernels_line(cases: list, launches: dict, by_path=None) -> dict:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "bodies": sorted({c["body"] for c in mine if c.get("body")}),
+            **({"tick": head["tick"]} if "tick" in head else {}),
             "cases": [{k: c.get(k) for k in (
                 ("group", "k", "stride", "Ci", "Co", "side", "plan", "max_abs_err", "ms",
                  "int32_ms", "gather_ms", "gather_int32_ms", "plain_ms", "library_ms",
@@ -5502,6 +5655,10 @@ def kernels_line(cases: list, launches: dict, by_path=None) -> dict:
                 else ("group", "k", "stride", "Ci", "Co", "side", "cp", "max_abs_err", "ms",
                       "plain_ms", "bound_ms", f"at_{K6_TICK_FRAMES}")
                 if name == "conv_s8_quant" else
+                ("dtype", "B", "side", "C", "act", "residual", "per_tick", "bitwise_equal",
+                 "differ_share", "max_abs_err", "max_ulps", "limit_ulps",
+                 "limits_reject_bf16", "ms", "plain_ms", "bound_ms")
+                if name == "bn_act" else
                 ("dtype", "B", "P", "C", "E", "body", "max_abs_err", "rel_err", "ms",
                  "call_ms", "plain_ms", "library_ms", "rank8_route_ms", "bound_ms",
                  "bound_by", "library_backends"))}
@@ -5577,7 +5734,8 @@ def main(argv=None) -> int:
                 "coattn_ring": serving_launches["coattn_ring"],
                 "conv_s8": int8_launches["conv_s8"],
                 "conv_s8_halo": int8_launches["conv_s8_halo"],
-                "conv_s8_quant": int8_launches["conv_s8_quant"]}
+                "conv_s8_quant": int8_launches["conv_s8_quant"],
+                "bn_act": serving_launches["bn_act"]}
     if not all(on_paths.values()):
         raise AssertionError(f"a kernel of the paths never launched: {on_paths}")
     if not all(off_path.values()):
@@ -5622,7 +5780,9 @@ def main(argv=None) -> int:
                   "int8_cli": cli_launches[name],
                   "export_runtime_quantized": runtime["quantized"][name],
                   "serve_cli": serve_cli[name]}
-           for name in ("conv_s8", "conv_s8_halo", "conv_s8_quant")}}))
+           for name in ("conv_s8", "conv_s8_halo", "conv_s8_quant")},
+        "bn_act": {"serving": serving_launches["bn_act"], "eval": eval_launches["bn_act"],
+                   "bert_eval": bert["eval_launches"]["bn_act"]}}))
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})

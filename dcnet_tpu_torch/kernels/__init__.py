@@ -11,14 +11,17 @@ ring at one scale), `loc_gram` K5 (no path runs it), K6 (the int8
 convolution, one count a convolution) under the key of the route that
 launched it (`CONV_S8_KEYS`, by `kernels.conv_s8.conv_plan`'s route names:
 `conv_s8` the TMA route, `conv_s8_halo` the halo route, `conv_s8_gather`
-the gather route; `conv_s8_launches` sums them) and `conv_s8_quant` K6's
+the gather route; `conv_s8_launches` sums them), `conv_s8_quant` K6's
 quantize pass (one count a pass: a float x on the TMA route, and each
-operand whose channels it pads).
+operand whose channels it pads) and `bn_act` K7 (the eval-mode epilogue of
+a float convolution: BatchNorm, activation and shortcut add, one count a
+launch).
 
 Importing the package registers the kernels that a serving tick reaches
 as operators (`torch.library.custom_op`, namespace `dcnet`):
 `dcnet::attend` (K1), `dcnet::ring` (K4), `dcnet::conv_s8` (K6, its route
-picked inside) and `dcnet::conv_s8_quant` (K6's quantize pass). A program
+picked inside), `dcnet::conv_s8_quant` (K6's quantize pass) and
+`dcnet::bn_act` (K7). A program
 saved by `torch.export` that calls them loads once this package is
 imported. Each counts its launches in its real implementation only.
 """
@@ -28,7 +31,7 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {"coattn_attend": 0, "coattn_pair": 0,
                             "coattn_attend_bwd": 0, "coattn_ring": 0,
                             "loc_gram": 0, "conv_s8": 0, "conv_s8_halo": 0,
-                            "conv_s8_gather": 0, "conv_s8_quant": 0}
+                            "conv_s8_gather": 0, "conv_s8_quant": 0, "bn_act": 0}
 CONV_S8_KEYS: Dict[str, str] = {"tma": "conv_s8", "halo": "conv_s8_halo",
                                 "gather": "conv_s8_gather"}
 
@@ -45,4 +48,4 @@ def reset_launches() -> None:
 
 
 # the operator library (imported last: the modules read LAUNCHES)
-from dcnet_tpu_torch.kernels import coattn, conv_s8  # noqa: E402,F401
+from dcnet_tpu_torch.kernels import bn_act, coattn, conv_s8  # noqa: E402,F401

@@ -10,7 +10,10 @@ reader writes straight into the port's state_dict (Darknet already stores
 kernels as (out, in, kh, kw)).
 
 Activations are NHWC tensors; each convolution runs on the channels-last
-NCHW view of them (`heads.conv_nhwc`), so no layout copy is made.
+NCHW view of them (`heads.conv_nhwc`), so no layout copy is made. In eval
+each BatchNorm conv's epilogue (BatchNorm on the running statistics, leaky
+ReLU and, where a shortcut adds to the conv's output alone, the add) is
+one pass, `heads.bn_eval_act` (kernel K7 on the card).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dcnet_tpu_torch.models.heads import batch_norm, conv_nhwc, leaky_relu
+from dcnet_tpu_torch.models.heads import bn_eval_act, bn_train, conv_nhwc, leaky_relu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,6 +213,20 @@ def _referenced_outputs(defs: Sequence[LayerDef]) -> set:
     return keep
 
 
+def _folded_shortcuts(defs: Sequence[LayerDef], keep: set) -> Dict[int, int]:
+    """conv layer -> the layer its shortcut adds, for each BatchNorm conv
+    that a shortcut follows at once and whose own output nothing else
+    reads (not in `keep`): the eval path adds the shortcut in the conv's
+    epilogue, and the shortcut layer takes the sum as it is."""
+    fold = {}
+    for i, ld in enumerate(defs[1:], start=1):
+        conv = defs[i - 1]
+        if ld.type == "shortcut" and conv.type in ("convolutional", "yoloconvolutional") \
+                and conv.batch_normalize and i - 1 not in keep:
+            fold[i - 1] = ld.from_ if ld.from_ >= 0 else i + ld.from_
+    return fold
+
+
 class DarknetBackbone(nn.Module):
     """cfg-driven backbone; forward returns the 3 captured NHWC maps
     (coarsest first). `module_list[i]` holds `conv_{i}` (and `batch_norm_{i}`)
@@ -232,10 +249,13 @@ class DarknetBackbone(nn.Module):
                         ld.filters, eps=1e-5, device=device))
             self.module_list.append(m)
         self._keep = _referenced_outputs(self.layer_defs)
+        self._fold = _folded_shortcuts(self.layer_defs, self._keep)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32,
                 train: bool = False) -> List[torch.Tensor]:
-        """x: NHWC images (N, H, W, 3) -> [/32, /16, /8] NHWC maps."""
+        """x: NHWC images (N, H, W, 3) -> [/32, /16, /8] NHWC maps. In eval
+        a BatchNorm conv's BatchNorm, leaky ReLU and folded shortcut add
+        (`_folded_shortcuts`) are one `bn_eval_act`."""
         captured: List[torch.Tensor] = []
         saved: Dict[int, torch.Tensor] = {}  # only outputs read again later
         x = x.to(dtype)
@@ -245,10 +265,15 @@ class DarknetBackbone(nn.Module):
                     captured.append(x)
                 conv = self.module_list[i][0]
                 x = conv_nhwc(x, conv.weight, conv.bias, ld.stride, ld.pad)
-                if ld.batch_normalize:
-                    x = batch_norm(x, self.module_list[i][1], train)
-                if ld.activation == "leaky":
-                    x = leaky_relu(x)
+                if ld.batch_normalize and not train:
+                    x = bn_eval_act(x, self.module_list[i][1],
+                                    "leaky" if ld.activation == "leaky" else None,
+                                    saved[self._fold[i]] if i in self._fold else None)
+                else:
+                    if ld.batch_normalize:
+                        x = bn_train(x, self.module_list[i][1])
+                    if ld.activation == "leaky":
+                        x = leaky_relu(x)
             elif ld.type == "maxpool":
                 x = _max_pool_nhwc(x, ld.size, ld.stride)
             elif ld.type == "upsample":
@@ -257,8 +282,9 @@ class DarknetBackbone(nn.Module):
                 x = torch.cat([saved[s if s >= 0 else i + s]
                                for s in ld.layers], dim=-1)
             elif ld.type == "shortcut":
-                s = ld.from_
-                x = x + saved[s if s >= 0 else i + s]
+                if train or i - 1 not in self._fold:  # else the conv added it
+                    s = ld.from_
+                    x = x + saved[s if s >= 0 else i + s]
             if i in self._keep:
                 saved[i] = x
         return captured

@@ -16,7 +16,6 @@ carries the static-scale int8 modes of the JAX package's QuantConv2D
 from __future__ import annotations
 
 import contextlib
-import functools
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -24,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dcnet_tpu_torch.config import ANCHORS_PER_SCALE, BOX_ATTRS
+from dcnet_tpu_torch.kernels.bn_act import activate, bn_act, bn_act_plain, leaky_relu
 from dcnet_tpu_torch.kernels.conv_s8 import conv_s8
 from dcnet_tpu_torch.parallel import mesh
 
@@ -53,9 +53,17 @@ def bn_eval(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tenso
     """Inference BatchNorm over the last axis on the running statistics.
     The math runs in fp32 (the parameters' type) and the result is stored
     in x's dtype, in one pass: a bf16 map is read and written once."""
-    y = F.batch_norm(x.movedim(-1, 1), bn.running_mean, bn.running_var,
-                     bn.weight, bn.bias, False, 0.0, bn.eps)
-    return y.movedim(1, -1)
+    return bn_act_plain(x, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps)
+
+
+def bn_eval_act(y: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm,
+                act: Optional[str],
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`act(bn_eval(y)) [+ residual]` (`act` None, "relu" or "leaky"): one
+    pass of kernel K7 on the card (`kernels.bn_act`), the three unfused
+    ops on the CPU, each rounding as the unfused ops do."""
+    return bn_act(y, bn.running_mean, bn.running_var, bn.weight, bn.bias, bn.eps,
+                  act, residual)
 
 
 @contextlib.contextmanager
@@ -144,24 +152,6 @@ def dropout(x: torch.Tensor, p: float, train: bool) -> torch.Tensor:
     return F.dropout(x, p, training=True) if train and p > 0 else x
 
 
-@functools.lru_cache(maxsize=None)
-def _slope(dtype: torch.dtype) -> float:
-    return torch.tensor(0.1, dtype=dtype).item()
-
-
-def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    """LeakyReLU(0.1) with the slope rounded to x's dtype first, as JAX
-    applies a Python-float slope to a bf16 array (0.1 -> 0.10009765625),
-    so bf16 activations round as the JAX package's do."""
-    return F.leaky_relu(x, _slope(x.dtype))
-
-
-def _act(y: torch.Tensor, leaky: bool, relu: bool) -> torch.Tensor:
-    if leaky:
-        return leaky_relu(y)
-    return F.relu(y) if relu else y
-
-
 class ConvBNReLU(nn.Module):
     """Conv (no bias) -> BN(eps 1e-5) -> ReLU / LeakyReLU(0.1), NHWC.
 
@@ -199,7 +189,9 @@ class ConvBNReLU(nn.Module):
     def forward(self, x: Union[torch.Tensor, Tuple[torch.Tensor, Sequence[torch.Tensor]]],
                 train: bool = False) -> Union[torch.Tensor, List[torch.Tensor]]:
         """`train` normalises with batch statistics and moves the running
-        ones (`bn_train`) and runs in float; the split input is eval-only."""
+        ones (`bn_train`) and runs in float; the split input is eval-only.
+        The float eval path ends each output in `bn_eval_act`: the
+        BatchNorm and the activation in one K7 pass on the card."""
         split = isinstance(x, tuple)
         if split:
             if train:
@@ -219,13 +211,20 @@ class ConvBNReLU(nn.Module):
             y_s = F.linear(shared.to(self.dtype), w[:, :c_s])
             if isinstance(parts, torch.Tensor):  # stacked (B, R, H, W, C)
                 y = y_s[:, None] + F.linear(parts.to(self.dtype), w[:, c_s:])
-                return _act(bn_eval(y, self.bn), self.leaky, self.relu)
-            return [_act(bn_eval(y_s + F.linear(p.to(self.dtype), w[:, c_s:]),
-                             self.bn), self.leaky, self.relu)
+                return bn_eval_act(y, self.bn, self.act)
+            return [bn_eval_act(y_s + F.linear(p.to(self.dtype), w[:, c_s:]), self.bn,
+                                self.act)
                     for p in parts]
         y = conv_nhwc(x.to(self.dtype), self.conv.weight, None,
                       self.conv.stride[0], self.conv.padding[0])
-        return _act(batch_norm(y, self.bn, train), self.leaky, self.relu)
+        if train:
+            return activate(bn_train(y, self.bn), self.act)
+        return bn_eval_act(y, self.bn, self.act)
+
+    @property
+    def act(self) -> Optional[str]:
+        """The activation by name: "leaky", "relu" or None."""
+        return "leaky" if self.leaky else ("relu" if self.relu else None)
 
     @torch.no_grad()
     def _record(self, x) -> None:
@@ -273,7 +272,7 @@ class ConvBNReLU(nn.Module):
                    * bn.weight.float())
             epi = dict(scale=s_in * s_w, bias=-bn.running_mean.float(), scale2=mul,
                        bias2=bn.bias.float(),
-                       act="leaky" if self.leaky else ("relu" if self.relu else None),
+                       act=self.act,
                        out_dtype=self.dtype, in_scale=s_in)
             cache = (stamp, tuple(t.detach() for t in srcs), {"wq": wq, "epi": epi})
             self._int8_cache = None if stamp is None else cache

@@ -25,7 +25,7 @@
   then, where the trace holds program spans, the table "by span": device
   ms, idle ms and launches under each span.
 - The launch check of `chip_smoke.py --profile`: `KERNEL_GROUPS` names the
-  hand-written kernels (K1-K6) by the functions a trace shows and the keys
+  hand-written kernels (K1-K7) by the functions a trace shows and the keys
   of `kernels.LAUNCHES` that count them; `profile_counts` holds the launches
   found by name against the wrappers' counts; `trace_call` traces one call
   of a function and `profile_call` discards a trace that lost kernels.
@@ -445,6 +445,7 @@ KERNEL_GROUPS: Tuple[Tuple[str, Tuple[str, ...], Tuple[str, ...]], ...] = (
     ("conv_s8_halo", ("conv_s8_halo",), ("conv_halo_kernel",)),
     ("conv_s8_gather", ("conv_s8_gather",), ("conv_s8_kernel",)),
     ("conv_s8_quant", ("conv_s8_quant",), ("quant_pass_kernel",)),
+    ("bn_act", ("bn_act",), ("bn_act_kernel",)),
 )
 _GROUP_OF = {fn: group for group, _, fns in KERNEL_GROUPS for fn in fns}
 # a function name as a whole identifier inside a demangled signature

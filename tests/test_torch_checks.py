@@ -349,6 +349,22 @@ def test_launches_differ_holds_k6_routes_together():
     assert chip_smoke.launches_differ(dict(got, conv_s8_gather=1), want)
     assert chip_smoke.launches_differ(dict(got, coattn_ring=1), want)
     assert chip_smoke.launches_differ(got, {"conv_s8_quant": 1, "coattn_attend": 12})
+    assert chip_smoke.launches_differ(dict(got, bn_act=1), want)
+    assert not chip_smoke.launches_differ(dict(got, bn_act=99), dict(want, bn_act=99))
+
+
+def test_bn_act_per_call_counts_each_float_epilogue():
+    """K7's launches a float call: YOLOv3's 72 BatchNorm convs (its 23
+    shortcuts folded into them), mapping_visu 3, corr_conv per reference
+    or once stacked, the fcn's 4 (light 1) a scale."""
+    from dcnet_tpu_torch.models.darknet import mini_backbone_defs
+    full = chip_smoke.full_width_config()
+    assert chip_smoke.bn_act_per_call(full) == 72 + 3 + 12 + 12
+    assert chip_smoke.bn_act_per_call(full.replace(coattn_multiref=True)) == 72 + 3 + 3 + 12
+    assert chip_smoke.bn_act_per_call(chip_smoke.serving_config(coattn_multiref=True)) == 99
+    assert chip_smoke.bn_act_per_call(full, references=1) == 90
+    assert chip_smoke.bn_act_per_call(full.replace(light=True), defs=mini_backbone_defs()) \
+        == 8 + 3 + 12 + 3
 
 
 def test_k6_profile_counts_hold_kernel_names_against_the_counters():

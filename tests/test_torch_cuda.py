@@ -1,6 +1,6 @@
 """The CUDA kernels on the card (K1, the pair K2, the backward K3, the ring
-kernel K4, the location Gram K5 and the int8 convolution K6), against their
-plain PyTorch versions,
+kernel K4, the location Gram K5, the int8 convolution K6 and the eval conv
+epilogue K7), against their plain PyTorch versions,
 the launches of one train step and of serving ticks, the host's waits on
 the card in a train step, a tick and an eval call against the program's
 `host_syncs` counter, and train-mode BatchNorm's card branch against its
@@ -25,6 +25,7 @@ import torch
 
 import chip_smoke
 from dcnet_tpu_torch import kernels
+from dcnet_tpu_torch.kernels import bn_act as k7
 from dcnet_tpu_torch.kernels import coattn, conv_s8, locgram
 
 pytestmark = pytest.mark.cuda
@@ -259,7 +260,8 @@ def test_bwd_kernel_takes_strided_inputs(card):
 @pytest.mark.parametrize("k", [2, 3])
 def test_train_step_launches(card, k):
     """One train step of a mini model on the card: k=2 runs K2 once and K3
-    twice per scale; k=3 runs K1 and K3 once per scale."""
+    twice per scale; k=3 runs K1 and K3 once per scale; the training
+    forward's BatchNorms never reach K7."""
     from dcnet_tpu_torch.config import DCNetConfig
     from dcnet_tpu_torch.models.darknet import mini_backbone_defs
     from dcnet_tpu_torch.models.dcnet import DCNet
@@ -282,10 +284,10 @@ def test_train_step_launches(card, k):
     torch.cuda.synchronize()
     want = ({"coattn_attend": 0, "coattn_pair": 3, "coattn_attend_bwd": 6,
              "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0, "conv_s8_halo": 0,
-             "conv_s8_gather": 0, "conv_s8_quant": 0} if k == 2 else
+             "conv_s8_gather": 0, "conv_s8_quant": 0, "bn_act": 0} if k == 2 else
             {"coattn_attend": 3, "coattn_pair": 0, "coattn_attend_bwd": 3,
              "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0, "conv_s8_halo": 0,
-             "conv_s8_gather": 0, "conv_s8_quant": 0})
+             "conv_s8_gather": 0, "conv_s8_quant": 0, "bn_act": 0})
     assert kernels.LAUNCHES == want
     assert all(torch.isfinite(v) for v in metrics.values())
 
@@ -516,7 +518,8 @@ def _plain_launch(q, kv, t, pair):
 def test_train_step_at_any_width(card, c, monkeypatch):
     """A k=2 train step of a mini model at emb_size 24 and 1024 (K2 on the
     general block, K3's general pass), from the same weights and clips
-    (dropout 0, the same negatives). bf16: K2 once and K3 twice per scale,
+    (dropout 0, the same negatives). bf16: K2 once and K3 twice per scale
+    (no K7: the training forward's BatchNorms are the batch's),
     and the losses within rtol 1e-3 of the same card step with the
     kernels' plain versions in their place. fp32: the losses within rtol
     1e-3 of the same step on the CPU. (A bf16 step on the card and on the
@@ -560,7 +563,8 @@ def test_train_step_at_any_width(card, c, monkeypatch):
         got, launches = losses(dtype, card)
         assert launches == {"coattn_attend": 0, "coattn_pair": 3, "coattn_attend_bwd": 6,
                             "coattn_ring": 0, "loc_gram": 0, "conv_s8": 0,
-                            "conv_s8_halo": 0, "conv_s8_gather": 0, "conv_s8_quant": 0}
+                            "conv_s8_halo": 0, "conv_s8_gather": 0, "conv_s8_quant": 0,
+                            "bn_act": 0}
         want, _ = losses(dtype, *other)
         for k, w in want.items():
             assert abs(got[k] - w) <= 1e-3 * abs(w), (dtype, k, got[k], w)
@@ -645,7 +649,8 @@ def test_ring_kernel_refuses_what_it_cannot_take(card):
 @pytest.mark.parametrize("multiref", [False, True])
 def test_serving_tick_launches(card, multiref):
     """A serving tick of a mini model on the card: with coattn_multiref one
-    K4 launch per scale and no K1, without it 4 K1 launches per scale."""
+    K4 launch per scale and no K1, without it 4 K1 launches per scale; one
+    K7 launch per float conv epilogue (`chip_smoke.bn_act_per_call`)."""
     from dcnet_tpu_torch.config import DCNetConfig
     from dcnet_tpu_torch.models.darknet import mini_backbone_defs
     from dcnet_tpu_torch.models.dcnet import DCNet
@@ -666,6 +671,9 @@ def test_serving_tick_launches(card, multiref):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["coattn_ring"] == (18 if multiref else 0)
     assert kernels.LAUNCHES["coattn_attend"] == (0 if multiref else 72)
+    per_tick = chip_smoke.bn_act_per_call(cfg, defs=mini_backbone_defs())
+    assert per_tick == (26 if multiref else 35)
+    assert kernels.LAUNCHES["bn_act"] == 6 * per_tick
     assert all(torch.isfinite(x).all() for x in (fused, raw, score))
 
 
@@ -1500,3 +1508,176 @@ def test_conv_s8_quantizes_float_inputs(card, case, xdtype):
                                  for a, v in epi.items()})
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want), (list(quant), (got.cpu().float() - want.float()).abs().max())
+
+
+# --------------------------------------------------------------------------
+# K7: BatchNorm on the running statistics, activation and shortcut add
+# --------------------------------------------------------------------------
+
+# the served tick's channel counts (Darknet-53 and the trunk at emb 512),
+# then odd and narrow widths (the mini models', and widths off the vector)
+BN_ACT_WIDTHS = (32, 64, 128, 256, 512, 1024, 3, 5, 8, 24, 33, 40, 1000)
+
+
+def _bn_params(c, gen, dev):
+    return (0.5 * torch.randn(c, generator=gen)).to(dev), \
+        (torch.rand(c, generator=gen) + 0.25).to(dev), \
+        (1 + 0.2 * torch.randn(c, generator=gen)).to(dev), \
+        (0.3 * torch.randn(c, generator=gen)).to(dev)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", BN_ACT_WIDTHS)
+def test_bn_act_kernel_matches_plain_on_card(card, dtype, c):
+    """K7 against the unfused ops on the same card: every activation, with
+    and without a residual, 2-D, 4-D and 5-D maps (the stacked corr_conv's),
+    a misaligned map (the element path). bf16: at most one unit in the last
+    place on any element (`chip_smoke.bn_act_ulps`; bit for bit on PyTorch
+    2.11). fp32: within `chip_smoke.K7_FP32_ULPS` units of fp32 (a 4-D or
+    5-D map's BatchNorm is cuDNN's there, whose shift rounds once more),
+    a limit that the same output rounded through bf16 fails. The share of
+    elements that differ and the largest gap in ulps are printed."""
+    dt = getattr(torch, dtype)
+    limit = 1.0 if dt == torch.bfloat16 else chip_smoke.K7_FP32_ULPS
+    gen = torch.Generator().manual_seed(c)
+    params = _bn_params(c, gen, card)
+    differ, total, worst = 0, 0, 0.0
+    kernels.reset_launches()
+    calls = 0
+    for shape in ((4 * 9 * 11, c), (4, 9, 11, c), (2, 3, 5, 4, c), "misaligned"):
+        if shape == "misaligned":
+            buf = (2 * torch.randn(1 + 3 * 7 * c, generator=gen)).to(card, dt)
+            y = buf[1:].view(1, 3, 7, c)
+            assert y.data_ptr() % 16 != 0
+        else:
+            y = (2 * torch.randn(shape, generator=gen)).to(card, dt)
+        for act in ("leaky", "relu", None):
+            for residual in (None, torch.randn(y.shape, generator=gen).to(card, dt)):
+                with torch.no_grad():
+                    got = k7.bn_act(y, *params, 1e-5, act, residual)
+                    want = k7.bn_act_plain(y, *params, 1e-5, act, residual)
+                calls += 1
+                assert got.dtype == dt and got.shape == y.shape and got.is_contiguous()
+                ulps = chip_smoke.bn_act_ulps(got, want, y, params, 1e-5, residual)
+                assert ulps.max().item() <= limit, (shape, act, residual is not None)
+                if dt == torch.float32:
+                    rounded = got.to(torch.bfloat16).float()
+                    assert chip_smoke.bn_act_ulps(rounded, want, y, params, 1e-5,
+                                                  residual).max().item() > limit
+                worst = max(worst, ulps.max().item())
+                differ += (got != want).sum().item()
+                total += want.numel()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bn_act"] == calls
+    print(f"bn_act {dtype} C={c}: {differ} of {total} elements differ from the unfused "
+          f"ops ({differ / total:.3g}), largest gap {worst} ulps of {dtype}")
+
+
+def test_bn_act_kernel_at_tick_shapes_on_card(card):
+    """K7 at the served tick's largest maps (120 frames, bf16): the first
+    conv's 256 x 256 x 32 and a residual block's 128 x 128 x 64 with its
+    shortcut, against the unfused ops."""
+    gen = torch.Generator().manual_seed(1)
+    for (h, c), res in (((256, 32), False), ((128, 64), True)):
+        params = _bn_params(c, gen, card)
+        y = torch.randn((120, h, h, c), device=card, dtype=torch.bfloat16)
+        r = torch.randn_like(y) if res else None
+        with torch.no_grad():
+            got = k7.bn_act(y, *params, 1e-5, "leaky", r)
+            want = k7.bn_act_plain(y, *params, 1e-5, "leaky", r)
+        share = (got != want).float().mean().item()
+        assert chip_smoke.bn_act_ulps(got, want, y, params, 1e-5, r).max().item() <= 1.0
+        print(f"bn_act tick map {h}x{h}x{c} residual {res}: {share:.3g} of elements differ")
+
+
+def test_bn_act_refuses_what_the_kernel_cannot_take(card):
+    """On the card `bn_act` launches K7 or raises, never falls back to the
+    unfused ops: fp16 maps, fp16 parameters, a BatchNorm without affine
+    parameters, a residual of another dtype or shape, and a call that
+    autograd records are refused before any launch."""
+    gen = torch.Generator().manual_seed(2)
+    params = _bn_params(16, gen, card)
+    y = torch.randn((2, 3, 3, 16), generator=gen).to(card)
+    kernels.reset_launches()
+    bad = [((y.half(), *params), None), ((y, *(p.half() for p in params)), None),
+           ((y, *params[:2], None, None), None), ((y, *params), y.bfloat16()),
+           ((y, *params), y[:, :2].contiguous())]
+    for args, residual in bad:
+        with torch.no_grad(), pytest.raises(ValueError, match="takes y"):
+            k7.bn_act(*args, 1e-5, "leaky", residual)
+    with pytest.raises(ValueError, match="no backward"):
+        k7.bn_act(y.requires_grad_(), *params, 1e-5, "leaky")
+    assert kernels.LAUNCHES["bn_act"] == 0
+
+
+# fp32 eval_clip with K7 against the unfused ops on the same card: the
+# largest gap of any output over its largest magnitude. Each fp32 epilogue
+# differs from cuDNN's BatchNorm by an ulp or two, which the convs after it
+# carry on: this mini model reads 2.06e-6 on an H100 (PyTorch 2.11, the
+# backbone's maps the largest), and the limit leaves about five times that.
+# The same call with each epilogue rounded through bf16 reads 1.6e-2 and
+# must fail it.
+EVAL_CLIP_FP32_GAP = 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_eval_clip_with_bn_act_equals_the_unfused_path(card, dtype, monkeypatch):
+    """A mini model's eval_clip (its backbone, mapping, split corr_conv, and
+    fcn epilogues on K7), against the same call with every epilogue on the
+    unfused ops (`heads.bn_act` patched to `bn_act_plain`), and a residual
+    backbone (`tests/test_torch_bn_act.py`'s cfg, shortcuts folded) in eval:
+    bf16 bit for bit; fp32, where the unfused side's BatchNorm is cuDNN's,
+    within EVAL_CLIP_FP32_GAP of each output's largest magnitude, a limit
+    that the epilogues rounded through bf16 exceed. The gaps are printed."""
+    from dcnet_tpu_torch.config import DCNetConfig
+    from dcnet_tpu_torch.models import heads
+    from dcnet_tpu_torch.models.darknet import DarknetBackbone, mini_backbone_defs
+    from dcnet_tpu_torch.models.dcnet import DCNet
+    from dcnet_tpu_torch.weights import seeded_init_
+    from test_torch_bn_act import _residual_defs, _seeded_backbone
+
+    cfg = DCNetConfig(image_size=64, corpus_size=50, emb_size=64, lstm_hidden=64,
+                      word_embedding_size=64, compute_dtype=dtype)
+    model = seeded_init_(DCNet(cfg, backbone_defs=mini_backbone_defs(), device=card), seed=0)
+    bb = _seeded_backbone(_residual_defs()).to(card)
+    assert isinstance(bb, DarknetBackbone)
+    gen = torch.Generator().manual_seed(21)
+    images = torch.rand(10, 64, 64, 3, generator=gen).to(card)
+    ids = torch.randint(1, 50, (2, 20), generator=gen).to(card)
+    dt = getattr(torch, dtype)
+    # fp32 as the repository's fp32 paths run it: TF32 would round each
+    # conv's input to 10 bits and turn a unit of fp32 into a unit of TF32
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+    def run():
+        out = model.eval_clip(images, ids)
+        with torch.no_grad():
+            maps = bb(images[:4], dt)
+        return [t for name in ("outbox", "corr_feat", "sim_score")
+                for t in getattr(out, name)] + list(maps)
+
+    kernels.reset_launches()
+    got = run()
+    launches = kernels.LAUNCHES["bn_act"]
+    monkeypatch.setattr(heads, "bn_act", k7.bn_act_plain)
+    want = run()
+    torch.cuda.synchronize()
+    assert launches == chip_smoke.bn_act_per_call(cfg, defs=mini_backbone_defs()) + 9
+    assert kernels.LAUNCHES["bn_act"] == launches
+    assert all(g.dtype == w.dtype for g, w in zip(got, want))
+
+    def gap(outs):
+        return max(((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+                   for g, w in zip(outs, want) if g.is_floating_point())
+
+    if dt == torch.bfloat16:
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        print("eval_clip bfloat16: bit for bit the unfused path")
+        return
+    monkeypatch.setattr(heads, "bn_act", lambda *a: k7.bn_act(*a).to(torch.bfloat16).to(dt))
+    rounded = run()
+    print(f"eval_clip float32: largest gap to the unfused path {gap(got)} of the output's "
+          f"magnitude, {gap(rounded)} with the epilogues rounded through bf16; by output "
+          f"{[round(((g - w).abs().max()).item(), 9) for g, w in zip(got, want)]}")
+    assert gap(got) <= EVAL_CLIP_FP32_GAP < gap(rounded)
